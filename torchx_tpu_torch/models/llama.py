@@ -1,0 +1,383 @@
+"""Llama-3-family decoder in PyTorch: the dense path of
+:mod:`torchx_tpu.models.llama`.
+
+Parameters keep the JAX package's layout, so :mod:`torchx_tpu_torch.convert`
+maps one onto the other leaf by leaf: a dict of tensors with the layer
+weights stacked on a leading ``L`` axis, matrices ``[in, out]`` applied as
+``x @ W``, and no ``lm_head`` under ``tie_embeddings``. bf16 parameters and
+activations, f32 softmax, norms and cross-entropy reductions.
+
+``remat=True`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint`` per layer, the JAX ``"full"`` policy). The loss
+computes cross-entropy in sequence chunks (``loss_chunk``), each recomputed
+in the backward, so only ``[batch, chunk, vocab]`` logits ever exist, stored
+in bf16 unless ``ce_f32_logits``.
+
+Not ported yet (ROADMAP, queue 1): MoE and int8 matmuls, ring attention,
+pipeline parallelism and every mesh; the config fields that would select
+them raise ``NotImplementedError``, and so do the JAX package's MoE preset
+names (:data:`MOE_CONFIGS`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from torchx_tpu_torch.ops.attention import attention
+from torchx_tpu_torch.ops.fused import flash_attention, rms_norm_residual
+from torchx_tpu_torch.ops.norms import rms_norm
+from torchx_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+Params = dict[str, Any]
+
+# Layout of the router-health aux vector (the JAX package's names); the
+# dense model's is all zeros.
+AUX_BALANCE, AUX_ENTROPY, AUX_OVERFLOW = 0, 1, 2
+AUX_LEN = 3
+
+KERNELS = ("reference", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    ffn_dim: int = 14336
+    max_seq: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+    remat: bool = True
+    # "full" recomputes each layer in the backward; other JAX policies
+    # are not ported yet
+    remat_policy: str = "full"
+    attn_impl: str = "auto"  # auto | xla | flash (ops/attention.py)
+    use_ring_attention: bool = False
+    # cross-entropy in sequence chunks of this size; 0 disables chunking
+    loss_chunk: int = 512
+    int8_matmuls: bool = False
+    ce_f32_logits: bool = False
+    # "reference" keeps the plain ops; "cuda" routes attention and the
+    # residual-add + RMSNorm through the hand-written kernels (ops/fused.py)
+    kernels: str = "reference"
+
+    def __post_init__(self) -> None:
+        if self.kernels not in KERNELS:
+            raise ValueError(f"kernels must be one of {KERNELS}, got {self.kernels!r}")
+        if self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r} is not ported yet"
+                " (ROADMAP queue 1: remat policies); use 'full'"
+            )
+        if self.int8_matmuls:
+            raise NotImplementedError(
+                "int8 matmuls are not ported yet (ROADMAP queue 1: MoE and int8)"
+            )
+        if self.use_ring_attention:
+            raise NotImplementedError(
+                "ring attention is not ported yet (ROADMAP queue 1: multi-GPU)"
+            )
+
+    @property
+    def head_dim(self) -> int:
+        """Per-head projection width (dim / n_heads)."""
+        return self.dim // self.n_heads
+
+    def flops_per_token(self) -> float:
+        """Training FLOPs/token (fwd+bwd), 6N + attention quadratic term
+        (the JAX package's formula)."""
+        return 6 * self.param_count() + 12 * self.n_layers * self.dim * self.max_seq
+
+    def param_count(self) -> int:
+        """Exact parameter count for this shape (layers + embeddings)."""
+        d, f, v = self.dim, self.ffn_dim, self.vocab_size
+        hd = self.head_dim
+        per_layer = (
+            d * self.n_heads * hd
+            + 2 * d * self.n_kv_heads * hd
+            + self.n_heads * hd * d
+            + 3 * d * f
+            + 2 * d
+        )
+        total = self.n_layers * per_layer + v * d + d
+        if not self.tie_embeddings:
+            total += d * v
+        return total
+
+
+# -- presets ---------------------------------------------------------------
+
+
+def llama3_8b(**overrides: Any) -> LlamaConfig:
+    """Llama-3-8B (the config defaults: 32L/4096d/32h/8kv/128k vocab)."""
+    return LlamaConfig(**overrides)
+
+
+def llama3_1b(**overrides: Any) -> LlamaConfig:
+    """Llama-3.2-1B shape (tied embeddings)."""
+    defaults = dict(
+        dim=2048,
+        n_layers=16,
+        n_heads=32,
+        n_kv_heads=8,
+        ffn_dim=8192,
+        tie_embeddings=True,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+def llama_tiny(**overrides: Any) -> LlamaConfig:
+    """Test/debug config: runs on anything in milliseconds."""
+    defaults = dict(
+        vocab_size=512,
+        dim=64,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=2,
+        ffn_dim=128,
+        max_seq=128,
+        dtype=torch.float32,
+        remat=False,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+CONFIGS = {
+    "llama3_8b": llama3_8b,
+    "llama3_1b": llama3_1b,
+    "tiny": llama_tiny,
+}
+
+#: The JAX package's MoE presets (models/moe.py), not ported yet.
+MOE_CONFIGS = ("moe_tiny", "mixtral_8x7b")
+
+
+def get_config(name: str) -> LlamaConfig:
+    """The preset ``name``; the JAX package's MoE presets raise."""
+    if name in MOE_CONFIGS:
+        raise NotImplementedError(
+            f"config {name!r}: MoE is not ported yet (ROADMAP queue 1: MoE and int8)"
+        )
+    return CONFIGS[name]()
+
+
+# -- parameters ------------------------------------------------------------
+
+
+def init_params(
+    cfg: LlamaConfig,
+    generator: torch.Generator,
+    device: torch.device | str = "cpu",
+) -> Params:
+    """Scaled-normal init (N(0, 1) * in_dim**-0.5, drawn in f32 and cast to
+    ``cfg.dtype``); layer params stacked on a leading axis. Leaves require
+    grad. ``generator`` must live on ``device``."""
+    d, f = cfg.dim, cfg.ffn_dim
+    hd, h, kvh, L = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+
+    def normal(shape, in_dim):  # noqa: ANN001, ANN202
+        x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return (x * in_dim**-0.5).to(cfg.dtype)
+
+    def ones(shape):  # noqa: ANN001, ANN202
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    params: Params = {
+        "embed": normal((cfg.vocab_size, d), d),
+        "layers": {
+            "attn_norm": ones((L, d)),
+            "wq": normal((L, d, h * hd), d),
+            "wk": normal((L, d, kvh * hd), d),
+            "wv": normal((L, d, kvh * hd), d),
+            "wo": normal((L, h * hd, d), h * hd),
+            "mlp_norm": ones((L, d)),
+            "w_gate": normal((L, d, f), d),
+            "w_up": normal((L, d, f), d),
+            "w_down": normal((L, f, d), f),
+        },
+        "final_norm": ones((d,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), d)
+    for leaf in leaves(params):
+        leaf.requires_grad_(True)
+    return params
+
+
+def leaves(params: Params) -> list[torch.Tensor]:
+    """The parameter tensors in the JAX pytree's order (dict keys sorted,
+    depth first)."""
+    out = []
+    for key in sorted(params):
+        val = params[key]
+        out.extend(leaves(val) if isinstance(val, dict) else [val])
+    return out
+
+
+# -- forward ---------------------------------------------------------------
+
+
+def ffn(cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense SwiGLU. -> (down, aux)."""
+    gate = F.silu(mlp_in @ layer["w_gate"])
+    up = mlp_in @ layer["w_up"]
+    return (
+        (gate * up) @ layer["w_down"],
+        torch.zeros((AUX_LEN,), dtype=torch.float32, device=mlp_in.device),
+    )
+
+
+_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
+
+
+def _layer(
+    cfg: LlamaConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    x: torch.Tensor,  # [b, s, d]
+    *weights: torch.Tensor,  # one layer's slice, in _LAYER_KEYS order
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (x, aux)."""
+    layer = dict(zip(_LAYER_KEYS, weights))
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    attn_in = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q = (attn_in @ layer["wq"]).reshape(b, s, h, hd)
+    k = (attn_in @ layer["wk"]).reshape(b, s, kvh, hd)
+    v = (attn_in @ layer["wv"]).reshape(b, s, kvh, hd)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn_out = None
+    if cfg.kernels != "reference":
+        # None when the shape gate fails: the plain path below
+        attn_out = flash_attention(q, k, v, causal=True, kernels=cfg.kernels)
+    if attn_out is None:
+        attn_out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    attn_out = attn_out.reshape(b, s, h * hd) @ layer["wo"]
+    if cfg.kernels != "reference":
+        # fused residual-add + RMSNorm: one pass yields the mlp input and
+        # the continued stream (plain op sequence when the gate fails)
+        mlp_in, x = rms_norm_residual(
+            x, attn_out, layer["mlp_norm"], cfg.norm_eps, kernels=cfg.kernels
+        )
+    else:
+        x = x + attn_out
+        mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    down, aux = ffn(cfg, layer, mlp_in)
+    return x + down, aux
+
+
+def forward_features(
+    params: Params,
+    tokens: torch.Tensor,  # [b, s] int
+    cfg: LlamaConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (final-norm hidden states [b, s, dim], router-health aux)."""
+    x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    s = x.shape[1]
+    cos, sin = rope_frequencies(cfg.head_dim, s, cfg.rope_theta, device=x.device)
+    # one unbind per stacked leaf: the backward stacks the layer grads once
+    per_layer = [params["layers"][key].unbind(0) for key in _LAYER_KEYS]
+    auxes = []
+    for i in range(cfg.n_layers):
+        weights = [w[i] for w in per_layer]
+        if cfg.remat:
+            x, aux = checkpoint(_layer, cfg, cos, sin, x, *weights, use_reentrant=False)
+        else:
+            x, aux = _layer(cfg, cos, sin, x, *weights)
+        auxes.append(aux)
+    aux = torch.stack(auxes)
+    aux_total = torch.stack(
+        [aux[:, AUX_BALANCE].sum(), aux[:, AUX_ENTROPY].mean(), aux[:, AUX_OVERFLOW].mean()]
+    )
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
+
+
+def lm_head(params: Params, cfg: LlamaConfig) -> torch.Tensor:
+    """[dim, vocab] output projection (the embedding transposed when
+    tied)."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """-> logits [b, s, vocab] float32 (full materialization — the loss
+    never builds this tensor)."""
+    x, _ = forward_features(params, tokens, cfg)
+    return x.float() @ lm_head(params, cfg).float()
+
+
+def _token_nll(
+    x: torch.Tensor,  # [b, c, d] hidden states
+    head: torch.Tensor,  # [d, v]
+    targets: torch.Tensor,  # [b, c]
+    f32_logits: bool = False,
+) -> torch.Tensor:
+    """-> per-token negative log-likelihood [b, c] float32, as
+    ``logsumexp(logits) - logits[target]``; logits stored in the model dtype
+    unless ``f32_logits`` (f32 products and sums either way: an f32 matmul
+    of the upcast operands is exact for bf16 inputs)."""
+    logits = x.float() @ head.float() if f32_logits else x @ head
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return lse - tgt
+
+
+def _chunk_nll_sum(x_c, head, t_c, f32, m_c=None):  # noqa: ANN001, ANN202
+    nll = _token_nll(x_c, head, t_c, f32)
+    return (nll * m_c).sum() if m_c is not None else nll.sum()
+
+
+def loss_fn(params: Params, batch: dict[str, torch.Tensor], cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross-entropy loss (see :func:`loss_and_aux`)."""
+    return loss_and_aux(params, batch, cfg)[0]
+
+
+def loss_and_aux(
+    params: Params,
+    batch: dict[str, torch.Tensor],
+    cfg: LlamaConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (loss, router-health aux vector). ``batch["tokens"]`` is
+    [b, seq+1]: the model runs on ``tokens[:, :-1]``; an optional
+    ``loss_mask`` weights the targets."""
+    tokens = batch["tokens"]
+    x, aux = forward_features(params, tokens[:, :-1], cfg)
+    targets = tokens[:, 1:]
+    head = lm_head(params, cfg)
+    mask = batch.get("loss_mask")
+    m = mask[:, 1:].float() if mask is not None else None
+    f32 = cfg.ce_f32_logits
+
+    b, s = targets.shape
+    chunk = cfg.loss_chunk
+    if chunk and s % chunk == 0 and s > chunk:
+        # chunks recomputed in the backward: only [b, chunk, vocab] logits
+        # ever exist instead of [b, s, vocab]
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(s // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            args = (x[:, sl], head, targets[:, sl], f32)
+            if m is not None:
+                args += (m[:, sl],)
+            total = total + checkpoint(_chunk_nll_sum, *args, use_reentrant=False)
+        if m is None:
+            return total / (b * s), aux
+        return total / torch.clamp(m.sum(), min=1.0), aux
+
+    nll = _token_nll(x, head, targets, f32)
+    if m is not None:
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0), aux
+    return nll.mean(), aux
