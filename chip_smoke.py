@@ -8,16 +8,20 @@ Run from the root of a checkout, on a machine with one CUDA card::
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. build — compile the CUDA kernels from ``torchx_tpu_torch/csrc``.
-2. kernels — each of the five kernels of the training step against its
-   plain PyTorch version on the card: in f32 at the CPU tests' tolerances,
-   and in bf16 at the llama3_1b main-path shapes. Times (CUDA events after
-   warm-up) of the kernel, the plain version and one PyTorch library call
-   as a yardstick, and the least time the card could take (``bound_ms``).
+2. kernels — each kernel of the training step against its plain PyTorch
+   version on the card. The flash forward and dk/dv have two variants
+   (``ops.fused.flash_variant``): the CUDA-core ``simt`` kernels in f32 at
+   the CPU tests' tolerances, and both variants in bf16 at the llama3_1b
+   main-path shapes, the tensor-core ``wgmma`` ones also at head_dim 128
+   with n_rep 1 and 4, causal and full. Times (CUDA events after warm-up)
+   of every kernel, the plain version and one PyTorch library call as a
+   yardstick, and the least time the card could take (``bound_ms``).
 3. train — ``train`` on llama3_1b at full width (16 layers, dim 2048,
    32/8 heads, vocab 128256, tied), bf16, ``kernels="cuda"``, batch 4,
    seq 2048, synthetic tokens; launch counts reset just before and read just
    after, checked against n_layers x (1 + remat recompute) per step for the
-   forward kernels and n_layers for the backward ones.
+   forward kernels and n_layers for the backward ones: the bf16 step runs
+   the ``wgmma`` flash kernels and no ``simt`` one.
 4. reference — one step of the same config at 2 layers with the kernels
    and with plain PyTorch ops, losses and gradient norms compared.
 
@@ -48,12 +52,16 @@ PEAK_BYTES = 3.35e12
 
 #: Where each kernel lives in the repo, and the TPU kernel it replaces.
 KERNEL_INFO = {
-    "flash_fwd": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
-                  "torchx_tpu/ops/fused.py:87"),
+    "flash_fwd_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_fwd_wgmma.cu",
+                        "torchx_tpu/ops/fused.py:87"),
+    "flash_fwd_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
+                       "torchx_tpu/ops/fused.py:87"),
     "flash_dq": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
                  "torchx_tpu/ops/fused.py:167"),
-    "flash_dkv": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
-                  "torchx_tpu/ops/fused.py:198"),
+    "flash_dkv_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dkv_wgmma.cu",
+                        "torchx_tpu/ops/fused.py:198"),
+    "flash_dkv_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
+                       "torchx_tpu/ops/fused.py:198"),
     "norm_res_fwd": ("triton", "torchx_tpu_torch/ops/fused.py",
                      "torchx_tpu/ops/fused.py:361"),
     "rms_norm_bwd": ("triton", "torchx_tpu_torch/ops/norms.py",
@@ -114,25 +122,35 @@ def _attn_inputs(b, s, h, kvh, d, dtype, gen):  # noqa: ANN001, ANN202
     return rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d), rnd(b, s, h, d)
 
 
-def _flash_case(b, s, h, kvh, d, causal, dtype, gen):  # noqa: ANN001, ANN202
-    """Errors of the three flash kernels against their plain versions."""
+def _flash_case(b, s, h, kvh, d, causal, dtype, gen, variants, dq=True):  # noqa: ANN001, ANN202
+    """Errors (relative, absolute) of the flash kernels of the given
+    variants, and of dq, against their plain versions."""
     from torchx_tpu_torch.ops import fused
 
     q, k, v, do = _attn_inputs(b, s, h, kvh, d, dtype, gen)
     o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal)
-    o_k, lse_k = fused._flash_fwd(q, k, v, causal)
     delta = fused._flash_delta(do, o_p)
-    dq_p = fused._flash_dq_plain(q, k, v, do, lse_p, delta, causal)
-    dq_k = fused._flash_dq(q, k, v, do, lse_p, delta, causal)
-    dk_p, dv_p = fused._flash_dkv_plain(q, k, v, do, lse_p, delta, causal)
-    dk_k, dv_k = fused._flash_dkv(q, k, v, do, lse_p, delta, causal)
-    return {
-        "flash_fwd": (max(rel_err(o_k, o_p), rel_err(lse_k, lse_p)),
-                      max(max_err(o_k, o_p), max_err(lse_k, lse_p))),
-        "flash_dq": (rel_err(dq_k, dq_p), max_err(dq_k, dq_p)),
-        "flash_dkv": (max(rel_err(dk_k, dk_p), rel_err(dv_k, dv_p)),
-                      max(max_err(dk_k, dk_p), max_err(dv_k, dv_p))),
-    }
+    args = (q, k, v, do, lse_p, delta, causal)
+    dk_p, dv_p = fused._flash_dkv_plain(*args)
+    out = {}
+    for var in variants:
+        o_k, lse_k = fused._flash_fwd(q, k, v, causal, variant=var)
+        dk_k, dv_k = fused._flash_dkv(*args, variant=var)
+        out[f"flash_fwd_{var}"] = (max(rel_err(o_k, o_p), rel_err(lse_k, lse_p)),
+                                   max(max_err(o_k, o_p), max_err(lse_k, lse_p)))
+        out[f"flash_dkv_{var}"] = (max(rel_err(dk_k, dk_p), rel_err(dv_k, dv_p)),
+                                   max(max_err(dk_k, dk_p), max_err(dv_k, dv_p)))
+    if dq:
+        dq_p = fused._flash_dq_plain(*args)
+        dq_k = fused._flash_dq(*args)
+        out["flash_dq"] = (rel_err(dq_k, dq_p), max_err(dq_k, dq_p))
+    return out
+
+
+def family(name: str) -> str:
+    """A kernel's name without its variant: the key of its tolerance and
+    its bound (both variants compute the same function)."""
+    return name.removesuffix("_wgmma").removesuffix("_simt")
 
 
 def _norm_case(n, d, dtype, gen):  # noqa: ANN001, ANN202
@@ -164,9 +182,11 @@ F32_TOL = {"flash_fwd": 2e-5, "flash_dq": 5e-4, "flash_dkv": 5e-4,
            "norm_res_fwd": 1e-6, "rms_norm_bwd": 2e-5}
 #: bf16 tolerances at the main-path shapes, relative to the largest
 #: reference value. Kernel and plain version read the same bf16 values and
-#: sum in f32, so the flash kernels differ by summation order only; the
-#: norm kernels' bf16 outputs (y, dx) may differ by one bf16 rounding step
-#: (2**-8 relative) where the f32 sums round to either side.
+#: sum in f32, so the simt flash kernels differ by summation order only and
+#: the wgmma ones also by the bf16 hi + lo split of P and dS (~1e-6, where
+#: one bf16 rounding would cost ~2e-3: tests/test_torch_flash_variants.py);
+#: the norm kernels' bf16 outputs (y, dx) may differ by one bf16 rounding
+#: step (2**-8 relative) where the f32 sums round to either side.
 BF16_TOL = {"flash_fwd": 1e-3, "flash_dq": 1e-3, "flash_dkv": 1e-3,
             "norm_res_fwd": 2 ** -7, "rms_norm_bwd": 2 ** -7}
 
@@ -175,6 +195,13 @@ F32_ATTN_CASES = [  # b, s, h, kvh, d, causal
     (2, 256, 4, 2, 64, True), (1, 256, 4, 1, 64, True),
     (1, 128, 2, 1, 128, True), (1, 256, 2, 2, 256, False),
     (1, 256, 4, 2, 256, True),
+]
+#: bf16 cases of the wgmma kernels beside the main shapes: head_dim 128
+#: (llama3_8b), n_rep 1 and 4, causal and full
+BF16_WGMMA_CASES = [  # b, s, h, kvh, d, causal
+    (2, 1024, 4, 4, 128, True), (2, 1024, 8, 2, 128, True),
+    (2, 1024, 4, 4, 128, False), (2, 1024, 8, 2, 128, False),
+    (2, 1024, 8, 2, 64, False),
 ]
 
 
@@ -232,14 +259,14 @@ def phase_kernels() -> list[dict]:
 
     f32_err: dict[str, float] = {}
     for case in F32_ATTN_CASES:
-        b, s, h, kvh, d, causal = case
         for name, (rel, _) in _flash_case(
-            b, s, h, kvh, d, causal, torch.float32, gen
+            *case, torch.float32, gen, ("simt",)
         ).items():
+            tol = F32_TOL[family(name)]
             emit({"phase": "kernels", "check": name, "dtype": "float32",
-                  "shape": list(case), "err": rel, "tol": F32_TOL[name]})
-            if not rel <= F32_TOL[name]:
-                fail("kernels", f"{name} f32 {case}: err {rel} > {F32_TOL[name]}")
+                  "shape": list(case), "err": rel, "tol": tol})
+            if not rel <= tol:
+                fail("kernels", f"{name} f32 {case}: err {rel} > {tol}")
             f32_err[name] = max(f32_err.get(name, 0.0), rel)
     for name, (rel, _) in _norm_case(32, 128, torch.float32, gen).items():
         if not rel <= F32_TOL[name]:
@@ -247,12 +274,21 @@ def phase_kernels() -> list[dict]:
         f32_err[name] = rel
     torch.cuda.synchronize()
 
-    # bf16 at the main-path shapes
-    bf16 = {**_flash_case(*ATTN.values(), True, torch.bfloat16, gen),
+    # bf16: both flash variants at the main-path shapes, the wgmma ones at
+    # the other shapes they take
+    bf16 = {**_flash_case(*ATTN.values(), True, torch.bfloat16, gen, fused.FLASH_VARIANTS),
             **_norm_case(NORM["n"], NORM["d"], torch.bfloat16, gen)}
-    for name, (rel, _) in bf16.items():
-        if not rel <= BF16_TOL[name]:
-            fail("kernels", f"{name} bf16 main shapes: err {rel} > {BF16_TOL[name]}")
+    checks = [("main", name, rel) for name, (rel, _) in bf16.items()]
+    for case in BF16_WGMMA_CASES:
+        checks += [(case, name, rel) for name, (rel, _) in _flash_case(
+            *case, torch.bfloat16, gen, ("wgmma",), dq=False).items()]
+    for case, name, rel in checks:
+        tol = BF16_TOL[family(name)]
+        if case != "main":
+            emit({"phase": "kernels", "check": name, "dtype": "bfloat16",
+                  "shape": list(case), "err": rel, "tol": tol})
+        if not rel <= tol:
+            fail("kernels", f"{name} bf16 {case}: err {rel} > {tol}")
 
     # timings at the main-path shapes
     q, k, v, do = _attn_inputs(*ATTN.values(), torch.bfloat16, gen)
@@ -275,24 +311,39 @@ def phase_kernels() -> list[dict]:
     def rms_bwd():  # noqa: ANN202
         return torch.autograd.grad(rms_out, (xg, wg), r, retain_graph=True)
 
+    def sdpa_fwd():  # noqa: ANN202
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def fwd(var):  # noqa: ANN001, ANN202
+        return lambda: fused._flash_fwd(q, k, v, True, variant=var)
+
+    def dkv(var):  # noqa: ANN001, ANN202
+        return lambda: fused._flash_dkv(q, k, v, do, lse, delta, True, variant=var)
+
+    sdpa_fwd_call = "F.scaled_dot_product_attention(enable_gqa=True), forward"
+    sdpa_bwd_call = "SDPA backward: dq, dk and dv in one call"
     runs = {
-        "flash_fwd": (
-            lambda: fused._flash_fwd(q, k, v, True),
-            lambda: fused._flash_fwd_plain(q, k, v, True),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-            "F.scaled_dot_product_attention(enable_gqa=True), forward",
+        "flash_fwd_wgmma": (
+            fwd("wgmma"), lambda: fused._flash_fwd_plain(q, k, v, True),
+            sdpa_fwd, sdpa_fwd_call,
+        ),
+        "flash_fwd_simt": (
+            fwd("simt"), lambda: fused._flash_fwd_plain(q, k, v, True),
+            sdpa_fwd, sdpa_fwd_call,
         ),
         "flash_dq": (
             lambda: fused._flash_dq(q, k, v, do, lse, delta, True),
             lambda: fused._flash_dq_plain(q, k, v, do, lse, delta, True),
             sdpa_bwd,
-            "SDPA backward: dq, dk and dv in one call",
+            sdpa_bwd_call,
         ),
-        "flash_dkv": (
-            lambda: fused._flash_dkv(q, k, v, do, lse, delta, True),
-            lambda: fused._flash_dkv_plain(q, k, v, do, lse, delta, True),
-            sdpa_bwd,
-            "SDPA backward: dq, dk and dv in one call",
+        "flash_dkv_wgmma": (
+            dkv("wgmma"), lambda: fused._flash_dkv_plain(q, k, v, do, lse, delta, True),
+            sdpa_bwd, sdpa_bwd_call,
+        ),
+        "flash_dkv_simt": (
+            dkv("simt"), lambda: fused._flash_dkv_plain(q, k, v, do, lse, delta, True),
+            sdpa_bwd, sdpa_bwd_call,
         ),
         "norm_res_fwd": (
             lambda: fused._norm_res_fwd(x, r, w, EPS),
@@ -311,13 +362,16 @@ def phase_kernels() -> list[dict]:
     rows = []
     for name, (kern, plain, lib, lib_call) in runs.items():
         route, source, replaces = KERNEL_INFO[name]
-        bound_ms, bound_by, flops, nbytes = bounds[name]
+        bound_ms, bound_by, flops, nbytes = bounds[family(name)]
         ms = time_ms(kern)
         rows.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": bf16[name][1], "rel_err": bf16[name][0],
-            "tol": BF16_TOL[name], "f32_rel_err": f32_err[name],
-            "f32_tol": F32_TOL[name], "ms": ms, "plain_ms": time_ms(plain, iters=3),
+            "tol": BF16_TOL[family(name)],
+            # the wgmma kernels take bf16 only
+            "f32_rel_err": f32_err.get(name),
+            "f32_tol": F32_TOL[family(name)] if name in f32_err else None,
+            "ms": ms, "plain_ms": time_ms(plain, iters=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(lib),
             "library_call": lib_call, "flops": flops, "bytes": nbytes,
@@ -362,8 +416,10 @@ def phase_train() -> dict:
     # remat recomputes each layer's forward in the backward
     fwd = cfg.n_layers * (1 + int(cfg.remat)) * TRAIN["steps"]
     bwd = cfg.n_layers * TRAIN["steps"]
-    expected = {"flash_fwd": fwd, "norm_res_fwd": fwd,
-                "flash_dq": bwd, "flash_dkv": bwd, "rms_norm_bwd": bwd}
+    # bf16 at head_dim 64: flash_variant picks the wgmma kernels
+    expected = {"flash_fwd_wgmma": fwd, "flash_fwd_simt": 0, "norm_res_fwd": fwd,
+                "flash_dq": bwd, "flash_dkv_wgmma": bwd, "flash_dkv_simt": 0,
+                "rms_norm_bwd": bwd}
     emit({"phase": "train", "config": "llama3_1b", "n_layers": cfg.n_layers,
           "dim": cfg.dim, "heads": [cfg.n_heads, cfg.n_kv_heads],
           "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings, **TRAIN,
@@ -374,7 +430,7 @@ def phase_train() -> dict:
           "launches": counts, "expected_launches": expected})
     if counts != expected:
         fail("train", f"launch counts {counts} != expected {expected}")
-    return counts
+    return counts, expected
 
 
 def phase_reference() -> None:
@@ -418,9 +474,9 @@ def phase_reference() -> None:
 
 #: Kernel-name fragments -> the group a step's device time is booked to.
 PROFILE_GROUPS = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
     ("flash_dq", ("flash_dq_kernel",)),
-    ("flash_dkv", ("flash_dkv_kernel",)),
+    ("flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_kernel")),
     ("norm_res_fwd", ("norm_res_fwd_kernel",)),
     ("rms_norm_bwd", ("rms_norm_bwd_kernel", "dw_reduce_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -480,16 +536,19 @@ def phase_profile() -> None:
 
 def ptxas_summary(log: str) -> dict[str, str]:
     """kernel<type,head_dim> -> ptxas's spill and register lines, from the
-    ``-Xptxas -v`` build log."""
+    ``-Xptxas -v`` build log, and ptxas's warnings (such as a wgmma
+    serialised for want of registers)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function .*?\d(flash_(?:fwd|dq|dkv)_kernel)I(\w+?)Li(\d+)E", line)
+        m = re.search(r"Compiling entry function .*?\d(flash_\w+?_kernel)I(\w*?)Li(\d+)E", line)
         if m:
-            dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
+            dtype = "f32" if m.group(2) == "f" else "bf16"
             name = f"{m.group(1)}<{dtype},{m.group(3)}>"
             out[name] = ""
         elif name and ("spill" in line or "Used" in line):
             out[name] = (out[name] + "; " + line.split(":", 1)[-1].strip()).strip("; ")
+        elif re.search(r"\(C\d+\)", line):
+            out.setdefault("warnings", []).append(line.split(":", 1)[-1].strip()[:200])
     return out
 
 
@@ -534,11 +593,12 @@ def main(argv: list[str] | None = None) -> int:
     for row in kernel_rows:
         emit({"phase": "kernels", **row})
     if "train" in phases:
-        counts = phase_train()
+        counts, expected = phase_train()
         for row in kernel_rows:
             row["launches"] = counts[row["name"]]
             row["launches_per_step"] = counts[row["name"]] / TRAIN["steps"]
-        if any(row["launches"] == 0 for row in kernel_rows):
+        # the simt flash kernels are off the bf16 main path (expected 0)
+        if any(row["launches"] == 0 for row in kernel_rows if expected[row["name"]]):
             fail("train", "a kernel of the path was never launched")
     if "reference" in phases:
         phase_reference()

@@ -6,7 +6,9 @@ machine does not have, hence ``--noconftest``)::
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 f32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32
-= False``), at the CPU parity tests' tolerances.
+= False``), at the CPU parity tests' tolerances; the bf16 tensor-core
+(wgmma) flash kernels at chip_smoke.py's 1e-3, relative to the largest
+reference value.
 """
 
 import dataclasses
@@ -59,6 +61,37 @@ def test_flash_kernels_match_plain(gen, d, n_rep, causal):
         torch.testing.assert_close(a, b_, rtol=5e-4, atol=5e-4)
 
 
+def _rel(a, b):
+    """max |a - b| over max |b| (floored at 1), as chip_smoke.py's rel_err."""
+    return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_kernels_match_plain(gen, d, n_rep, causal):
+    b, s, kvh = 2, 512, 2
+    q = _randn(gen, b, s, kvh * n_rep, d, dtype=torch.bfloat16)
+    k = _randn(gen, b, s, kvh, d, dtype=torch.bfloat16)
+    v = _randn(gen, b, s, kvh, d, dtype=torch.bfloat16)
+    do = _randn(gen, *q.shape, dtype=torch.bfloat16)
+    o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal)
+    o_k, lse_k = fused._flash_fwd(q, k, v, causal, variant="wgmma")
+    assert _rel(o_k, o_p) <= 1e-3 and _rel(lse_k, lse_p) <= 1e-3
+    args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), causal)
+    for a, b_ in zip(fused._flash_dkv(*args, variant="wgmma"), fused._flash_dkv_plain(*args)):
+        assert _rel(a, b_) <= 1e-3
+
+
+def test_flash_dkv_wgmma_is_deterministic(gen):
+    q, do = (_randn(gen, 2, 1024, 8, 64, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, 2, 1024, 2, 64, dtype=torch.bfloat16) for _ in range(2))
+    o, lse = fused._flash_fwd(q, k, v, True)
+    args = (q, k, v, do, lse, fused._flash_delta(do, o), True)
+    first, second = fused._flash_dkv(*args), fused._flash_dkv(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_flash_autograd_bf16(gen):
     q = _randn(gen, 2, 512, 8, 64, dtype=torch.bfloat16).requires_grad_()
     k = _randn(gen, 2, 512, 2, 64, dtype=torch.bfloat16).requires_grad_()
@@ -67,7 +100,8 @@ def test_flash_autograd_bf16(gen):
     out = fused.flash_attention(q, k, v)
     out.float().square().sum().backward()
     counts = _build.launch_counts()
-    assert (counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"]) == (1, 1, 1)
+    assert (counts["flash_fwd_wgmma"], counts["flash_dq"], counts["flash_dkv_wgmma"]) == (1, 1, 1)
+    assert counts["flash_fwd_simt"] == counts["flash_dkv_simt"] == 0
     assert out.dtype == torch.bfloat16 and k.grad.shape == k.shape
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
@@ -115,7 +149,7 @@ def test_model_step_kernels_vs_reference(gen):
         cfg = dataclasses.replace(base, kernels=kernels, attn_impl=impl, max_seq=256)
         loss = llama.loss_fn(params, batch, cfg)
         results.append((loss, torch.autograd.grad(loss, llama.leaves(params))))
-    assert _build.launch_counts()["flash_dkv"] == base.n_layers
+    assert _build.launch_counts()["flash_dkv_simt"] == base.n_layers  # f32: simt
     torch.testing.assert_close(results[0][0], results[1][0], rtol=1e-5, atol=1e-5)
     for a, b in zip(results[0][1], results[1][1]):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)

@@ -1,0 +1,145 @@
+"""The flash kernels' variant rule and the tensor-core kernels' arithmetic,
+on the CPU.
+
+``ops.fused.flash_variant`` sends bf16 at head_dim 64 and 128 to the wgmma
+kernels (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_dkv_wgmma.cu``) and the
+rest to the CUDA-core ones. The wgmma kernels cannot run here, so their
+arithmetic is emulated in f32 PyTorch step by step: bf16 inputs, exact
+products summed in f32, the scale applied to S in f32 in base 2, the
+forward's online softmax over 128-wide kv tiles, and the probabilities P
+(forward and dk/dv) and dS (dk) split into bf16 hi + lo before the second
+product. The emulation must meet the port's plain versions within 1e-5
+relative; with one bf16 rounding in place of the split it misses the
+card's 1e-3 tolerance (chip_smoke.py ``BF16_TOL``), which is why the
+kernels issue each of those products twice.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from torchx_tpu_torch.ops import fused
+
+LOG2E = math.log2(math.e)
+#: chip_smoke.py's bf16 tolerance for the flash kernels
+BF16_TOL = 1e-3
+
+
+def _parts(x, rounding):
+    """The bf16 terms a kernel feeds the tensor cores for f32 ``x``."""
+    hi = x.bfloat16().float()
+    if rounding == "single":
+        return [hi]
+    return [hi, (x - hi).bfloat16().float()]
+
+
+def _heads(x, n_rep):
+    """[b, s, kvh, d] -> f32 [b, h, s, d], each KV head read n_rep times."""
+    return x.float().repeat_interleave(n_rep, dim=2).transpose(1, 2)
+
+
+def _emulate_fwd(q, k, v, causal, rounding, tile=128):
+    b, s, h, d = q.shape
+    n_rep = h // k.shape[2]
+    qf, kf, vf = q.float().transpose(1, 2), _heads(k, n_rep), _heads(v, n_rep)
+    scale_log2 = LOG2E / math.sqrt(d)
+    m = torch.full((b, h, s), -math.inf)
+    l = torch.zeros(b, h, s)  # noqa: E741
+    acc = torch.zeros(b, h, s, d)
+    rows = torch.arange(s)[:, None]
+    for kt in range(s // tile):
+        kv = slice(kt * tile, (kt + 1) * tile)
+        x = (qf @ kf[:, :, kv].transpose(-1, -2)) * scale_log2
+        if causal:
+            x = x.masked_fill(torch.arange(kv.start, kv.stop)[None, :] > rows, -math.inf)
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * alpha + p.sum(-1)  # noqa: E741
+        acc = acc * alpha[..., None]
+        for part in _parts(p, rounding):
+            acc = acc + part @ vf[:, :, kv]
+        m = m_new
+    lse = (m + torch.log2(l)) * math.log(2)
+    return (acc / l[..., None]).transpose(1, 2), lse
+
+
+def _emulate_dkv(q, k, v, do, lse, delta, causal, rounding):
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    n_rep = h // kvh
+    qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
+    kf, vf = _heads(k, n_rep), _heads(v, n_rep)
+    # transposed tiles [b, h, kv, q], as the kernel holds them
+    p = torch.exp2((kf @ qf.transpose(-1, -2)) * (LOG2E / math.sqrt(d))
+                   - (lse * LOG2E)[:, :, None, :])
+    if causal:
+        p = p.masked_fill(torch.arange(s)[None, :] < torch.arange(s)[:, None], 0.0)
+    ds = p * (vf @ dof.transpose(-1, -2) - delta[:, :, None, :])
+    dv = sum(part @ dof for part in _parts(p, rounding))
+    dk = sum(part @ qf for part in _parts(ds, rounding)) / math.sqrt(d)
+
+    def fold(x):  # noqa: ANN001, ANN202
+        return x.transpose(1, 2).reshape(b, s, kvh, n_rep, d).sum(dim=3)
+
+    return fold(dk), fold(dv)
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (floored at 1), as chip_smoke.py's rel_err."""
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def _case(b, s, h, kvh, d, causal, rounding):
+    """-> relative errors of the emulated o, lse, dk, dv against the port's
+    plain versions on the same bf16 inputs."""
+    rng = np.random.default_rng(0)
+
+    def rnd(*shape):  # noqa: ANN001, ANN202
+        return torch.tensor(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+
+    q, k, v, do = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d), rnd(b, s, h, d)
+    o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal)
+    o_e, lse_e = _emulate_fwd(q, k, v, causal, rounding)
+    delta = fused._flash_delta(do, o_p)
+    dk_p, dv_p = fused._flash_dkv_plain(q, k, v, do, lse_p, delta, causal)
+    dk_e, dv_e = _emulate_dkv(q, k, v, do, lse_p, delta, causal, rounding)
+    return {"o": _rel(o_e, o_p), "lse": _rel(lse_e, lse_p),
+            "dk": _rel(dk_e, dk_p), "dv": _rel(dv_e, dv_p)}
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 4, 1, 64), (2, 256, 4, 2, 128)])
+def test_hi_lo_split_meets_plain(shape):
+    """Causal GQA: the kernels' arithmetic with the hi + lo split is within
+    1e-5 of the f32 plain versions."""
+    errs = _case(*shape, causal=True, rounding="split")
+    assert max(errs.values()) <= 1e-5, errs
+
+
+def test_single_bf16_rounding_misses_tolerance():
+    """The usual design, P and dS rounded once to bf16, misses 1e-3 on dk/dv."""
+    errs = _case(1, 256, 4, 1, 64, causal=True, rounding="single")
+    assert max(errs["dk"], errs["dv"]) > BF16_TOL, errs
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_variant_rule(dtype, head_dim):
+    want = "wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128) else "simt"
+    assert fused.flash_variant(dtype, head_dim) == want
+
+
+def test_pick_variant_refuses_what_wgmma_cannot_take():
+    f32 = torch.zeros(1, 128, 2, 64)
+    bf = f32.bfloat16()
+    assert fused._pick_variant(None, (f32,)) == "simt"
+    assert fused._pick_variant(None, (bf,)) == "wgmma"
+    assert fused._pick_variant("simt", (bf,)) == "simt"
+    with pytest.raises(ValueError, match="wgmma kernels take bf16"):
+        fused._pick_variant("wgmma", (f32,))
+    with pytest.raises(ValueError, match="wgmma kernels take bf16"):
+        fused._pick_variant("wgmma", (torch.zeros(1, 128, 2, 256).bfloat16(),))
+    with pytest.raises(ValueError, match="variant must be one of"):
+        fused._pick_variant("tensor", (bf,))

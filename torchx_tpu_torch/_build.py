@@ -1,11 +1,15 @@
 """Build and load the port's hand-written kernels, and count their launches.
 
 CUDA C++ sources under ``csrc/`` are compiled on first use with ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface, loaded with
+for ``sm_90a``, one ``nvcc`` per ``.cu`` file, all started together, then
+linked into a shared library with a plain C interface, loaded with
 :mod:`ctypes` (pointers and the CUDA stream passed as ``c_void_p``). The
-library's file name carries a hash of the sources, so an edited source is
-never served by a stale build. Triton kernels compile on their first launch
-into ``TRITON_CACHE_DIR``, which points into the same build directory unless
+headers (``csrc/*.cuh``) are included by the sources; the library links
+nothing but the CUDA runtime (TMA descriptors are encoded through the CUDA
+driver's entry point, which the runtime hands out). The library's file
+name carries a hash of the sources and flags, so an edited source is never
+served by a stale build. Triton kernels compile on their first launch into
+``TRITON_CACHE_DIR``, which points into the same build directory unless
 the caller set it. A failed build raises: nothing falls back.
 
 Every kernel wrapper calls :func:`count_launch` right after its kernel was
@@ -28,14 +32,20 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
-#: nvcc flags: Hopper's arch-specific target, a plain shared library.
+#: nvcc flags of each object: Hopper's arch-specific target (wgmma needs the
+#: ``a``), position-independent code, ptxas's register and spill report.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-#: Kernel names, in the order of the training step's path.
-KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "norm_res_fwd", "rms_norm_bwd")
+#: Kernel names, in the order of the training step's path. The flash
+#: forward and dk/dv come as two variants (``ops.fused.flash_variant``):
+#: ``wgmma`` on the tensor cores, ``simt`` on the CUDA cores.
+KERNELS = (
+    "flash_fwd_wgmma", "flash_fwd_simt", "flash_dq", "flash_dkv_wgmma",
+    "flash_dkv_simt", "norm_res_fwd", "rms_norm_bwd",
+)
 
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
@@ -89,13 +99,49 @@ def _declare(lib: ctypes.CDLL) -> None:
     # tensors..., then batch, seq, heads, kv_heads, head_dim, causal, dtype,
     # then the stream
     ints = [i] * 7
-    lib.tpx_flash_fwd.argtypes = [p] * 5 + ints + [p]
-    lib.tpx_flash_dq.argtypes = [p] * 7 + ints + [p]
-    lib.tpx_flash_dkv.argtypes = [p] * 8 + ints + [p]
-    for fn in (lib.tpx_flash_fwd, lib.tpx_flash_dq, lib.tpx_flash_dkv):
+    fns = {
+        "tpx_flash_fwd": 5, "tpx_flash_fwd_wgmma": 5, "tpx_flash_dq": 7,
+        "tpx_flash_dkv": 8, "tpx_flash_dkv_wgmma": 8,
+    }
+    for name, n_tensors in fns.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * n_tensors + ints + [p]
         fn.restype = i
     lib.tpx_cuda_error_string.argtypes = [i]
     lib.tpx_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise if any fails. -> their output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out[-4000:]}"
+            )
+    return "".join(outs)
+
+
+def _compile_and_link(srcs: list[Path], so: Path, tag: str) -> tuple[float, str]:
+    """One nvcc per ``.cu`` file, all at once, then one link into ``so``.
+    -> (seconds, nvcc's output)."""
+    t0 = time.monotonic()
+    pid = os.getpid()
+    cus = [s for s in srcs if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{s.stem}-{tag}.{pid}.o" for s in cus]
+    log = _run([
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(cus, objs)
+    ])
+    tmp = so.with_suffix(f".{pid}.tmp")
+    log += _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    os.replace(tmp, so)
+    for o in objs:
+        o.unlink()
+    return time.monotonic() - t0, log
 
 
 def build() -> float:
@@ -111,25 +157,13 @@ def build() -> float:
         for s in srcs:
             digest.update(s.name.encode() + s.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
-        so = BUILD_DIR / f"libtpx_kernels-{digest.hexdigest()[:16]}.so"
+        tag = digest.hexdigest()[:16]
+        so = BUILD_DIR / f"libtpx_kernels-{tag}.so"
         seconds = 0.0
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [
-                str(s) for s in srcs if s.suffix == ".cu"
-            ]
-            t0 = time.monotonic()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.monotonic() - t0
-            build_info.update(
-                seconds=seconds, cmd=cmd, log=proc.stdout + proc.stderr
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-                )
-            os.replace(tmp, so)
+            seconds, log = _compile_and_link(srcs, so, tag)
+            build_info.update(seconds=seconds, log=log)
         build_info["library"] = str(so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)

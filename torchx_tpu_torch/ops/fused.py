@@ -2,12 +2,16 @@
 
 Port of :mod:`torchx_tpu.ops.fused`, the ``--kernels cuda`` hot path:
 
-* :func:`flash_attention` — an autograd Function over three CUDA C++
-  kernels (``csrc/flash_attn.cu``): the forward (``lse`` and O saved in
-  f32), and the standard two-kernel backward, ``delta = rowsum(dO * O)``
-  computed outside the kernels, one kernel accumulating ``dq`` over kv
-  tiles and one accumulating ``dk``/``dv`` over q tiles and over the query
-  heads that share a KV head (native GQA: KV is never repeated).
+* :func:`flash_attention` — an autograd Function over CUDA C++ kernels:
+  the forward (``lse`` and O saved in f32), and the standard two-kernel
+  backward, ``delta = rowsum(dO * O)`` computed outside the kernels, one
+  kernel accumulating ``dq`` over kv tiles and one accumulating
+  ``dk``/``dv`` over q tiles and over the query heads that share a KV head
+  (native GQA: KV is never repeated). The forward and dk/dv come in two
+  variants, chosen by the static rule :func:`flash_variant`: ``wgmma``
+  on the tensor cores (``csrc/flash_fwd_wgmma.cu``,
+  ``csrc/flash_dkv_wgmma.cu``) and ``simt`` on the CUDA cores
+  (``csrc/flash_attn.cu``, which also holds the dq kernel).
 * :func:`rms_norm_residual` — ``s = x + residual`` in the input dtype, then
   ``y = rms_norm(s) * w`` in f32, one Triton pass returning ``(y, s)``. Its
   backward runs the RMSNorm dx+dw kernel of :mod:`.norms` on ``s`` and
@@ -43,6 +47,11 @@ NEG_INF = -1e30
 #: Head dims the flash kernels tile.
 FLASH_HEAD_DIMS = (64, 128, 256)
 
+#: Head dims of the tensor-core (wgmma) flash kernels.
+WGMMA_HEAD_DIMS = (64, 128)
+
+FLASH_VARIANTS = ("wgmma", "simt")
+
 #: The port's ``--kernels`` values.
 KERNEL_MODES = ("reference", "cuda")
 
@@ -60,6 +69,22 @@ def flash_shapes_ok(s_q: int, s_k: int, head_dim: int) -> bool:
         and s_q % 128 == 0
         and s_q >= 128
     )
+
+
+def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels the flash forward and dk/dv launch on a CUDA tensor.
+
+    ``"wgmma"`` (tensor cores, TMA-fed) for bf16 at head_dim 64 and 128,
+    the llama3_1b and llama3_8b shapes, where both wgmma kernels build
+    without spills (``nvcc -Xptxas -v``, printed by chip_smoke.py's build
+    phase); ``"simt"`` (the CUDA-core kernels of ``csrc/flash_attn.cu``)
+    for f32, whose products the bf16 tensor cores cannot take, and for
+    head_dim 256, whose O or dk/dv accumulators alone would take 256
+    registers a thread. A rule on dtype and shape alone: no launch is ever
+    retried on the other variant."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def norm_shapes_ok(d: int) -> bool:
@@ -151,22 +176,45 @@ def _dims(q, k, v, causal, *more):  # noqa: ANN001, ANN202
     return [b, s, h, kvh, d, int(causal), _DTYPE_CODE[q.dtype], stream]
 
 
-def _flash_fwd(q, k, v, causal):  # noqa: ANN001, ANN202
+def _pick_variant(variant, tensors):  # noqa: ANN001, ANN202
+    """The variant to launch: ``variant`` if given (chip_smoke.py and the
+    card tests run both on the same inputs), else :func:`flash_variant`.
+    The wgmma kernels' TMA needs bf16 and 16-byte aligned tensors."""
+    q = tensors[0]
+    variant = variant or flash_variant(q.dtype, q.shape[-1])
+    if variant not in FLASH_VARIANTS:
+        raise ValueError(f"flash attention: variant must be one of {FLASH_VARIANTS}")
+    if variant == "wgmma":
+        if q.dtype != torch.bfloat16 or q.shape[-1] not in WGMMA_HEAD_DIMS:
+            raise ValueError(
+                f"flash attention: the wgmma kernels take bf16 at head_dim"
+                f" {WGMMA_HEAD_DIMS}, got {q.dtype} at {q.shape[-1]}"
+            )
+        if any(t.data_ptr() % 16 for t in tensors):
+            raise ValueError("flash attention: wgmma needs 16-byte aligned tensors")
+    return variant
+
+
+def _flash_fwd(q, k, v, causal, variant=None):  # noqa: ANN001, ANN202
     """[b, s, h, d], [b, s, kvh, d] x2 -> (o f32 [b, s, h, d], lse f32
     [b, h, s])."""
     if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, causal)
     dims = _dims(q, k, v, causal)
+    variant = _pick_variant(variant, (q, k, v))
     b, s, h = q.shape[:3]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _build.cuda_lib()
+    fn = lib.tpx_flash_fwd_wgmma if variant == "wgmma" else lib.tpx_flash_fwd
     with torch.cuda.device(q.device):
-        rc = _build.cuda_lib().tpx_flash_fwd(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), *dims,
         )
-    _build.check(rc, "flash_fwd")
-    _build.count_launch("flash_fwd")
+    name = f"flash_fwd_{variant}"
+    _build.check(rc, name)
+    _build.count_launch(name)
     return o, lse
 
 
@@ -186,22 +234,26 @@ def _flash_dq(q, k, v, do, lse, delta, causal):  # noqa: ANN001, ANN202
     return dq
 
 
-def _flash_dkv(q, k, v, do, lse, delta, causal):  # noqa: ANN001, ANN202
+def _flash_dkv(q, k, v, do, lse, delta, causal, variant=None):  # noqa: ANN001, ANN202
     """-> (dk, dv) f32 [b, s, kvh, d], summed over each KV head's query
     heads."""
     if q.device.type == "cpu":
         return _flash_dkv_plain(q, k, v, do, lse, delta, causal)
     dims = _dims(q, k, v, causal, do, lse, delta)
+    variant = _pick_variant(variant, (q, k, v, do, lse, delta))
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    lib = _build.cuda_lib()
+    fn = lib.tpx_flash_dkv_wgmma if variant == "wgmma" else lib.tpx_flash_dkv
     with torch.cuda.device(q.device):
-        rc = _build.cuda_lib().tpx_flash_dkv(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *dims,
         )
-    _build.check(rc, "flash_dkv")
-    _build.count_launch("flash_dkv")
+    name = f"flash_dkv_{variant}"
+    _build.check(rc, name)
+    _build.count_launch(name)
     return dk, dv
 
 
