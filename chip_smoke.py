@@ -9,13 +9,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. build — compile the CUDA kernels from ``torchx_tpu_torch/csrc``.
 2. kernels — each kernel of the training step against its plain PyTorch
-   version on the card. The flash forward and dk/dv have two variants
+   version on the card. The flash forward, dq and dk/dv have two variants
    (``ops.fused.flash_variant``): the CUDA-core ``simt`` kernels in f32 at
    the CPU tests' tolerances, and both variants in bf16 at the llama3_1b
    main-path shapes, the tensor-core ``wgmma`` ones also at head_dim 128
-   with n_rep 1 and 4, causal and full. Times (CUDA events after warm-up)
-   of every kernel, the plain version and one PyTorch library call as a
-   yardstick, and the least time the card could take (``bound_ms``).
+   with n_rep 1 and 4, causal and full. The wgmma dq and dk/dv and the
+   norm backward's dw must be bitwise repeatable. Times (CUDA events after
+   warm-up) of every kernel, the plain version and one PyTorch library
+   call as a yardstick, and the least time the card could take
+   (``bound_ms``).
 3. train — ``train`` on llama3_1b at full width (16 layers, dim 2048,
    32/8 heads, vocab 128256, tied), bf16, ``kernels="cuda"``, batch 4,
    seq 2048, synthetic tokens; launch counts reset just before and read just
@@ -24,6 +26,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the ``wgmma`` flash kernels and no ``simt`` one.
 4. reference — one step of the same config at 2 layers with the kernels
    and with plain PyTorch ops, losses and gradient norms compared.
+
+``--phases build,sweep`` times the RMSNorm backward kernel over its launch
+settings (``ops.norms.BWD_CONFIG``).
 
 Prints the kernels line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -43,7 +48,7 @@ import time
 PHASES = ("build", "kernels", "train", "reference")
 #: Run only when asked for (``--phases ...,profile``): where a step's
 #: device time goes, by kernel.
-EXTRA_PHASES = ("profile",)
+EXTRA_PHASES = ("profile", "sweep")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth.
@@ -56,8 +61,10 @@ KERNEL_INFO = {
                         "torchx_tpu/ops/fused.py:87"),
     "flash_fwd_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
                        "torchx_tpu/ops/fused.py:87"),
-    "flash_dq": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
-                 "torchx_tpu/ops/fused.py:167"),
+    "flash_dq_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dq_wgmma.cu",
+                       "torchx_tpu/ops/fused.py:167"),
+    "flash_dq_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
+                      "torchx_tpu/ops/fused.py:167"),
     "flash_dkv_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dkv_wgmma.cu",
                         "torchx_tpu/ops/fused.py:198"),
     "flash_dkv_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
@@ -83,14 +90,24 @@ def fail(phase: str, msg: str) -> None:
     raise SystemExit(1)
 
 
+#: Cycles of the sleep kernel that each timing starts with (~50 ms at the
+#: H100's clock): the host enqueues every timed call while the card sleeps.
+HOST_LEAD_CYCLES = 100_000_000
+
+
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:  # noqa: ANN001
-    """Mean milliseconds per call, CUDA events around ``iters`` calls."""
+    """Mean device milliseconds per call: CUDA events around ``iters``
+    calls, all enqueued behind a sleep kernel, so that the events time the
+    card and not the host's launch overhead (which exceeds a short kernel's
+    run: two Triton launches take longer to enqueue than the norm backward
+    takes to run)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_LEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -122,28 +139,27 @@ def _attn_inputs(b, s, h, kvh, d, dtype, gen):  # noqa: ANN001, ANN202
     return rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d), rnd(b, s, h, d)
 
 
-def _flash_case(b, s, h, kvh, d, causal, dtype, gen, variants, dq=True):  # noqa: ANN001, ANN202
+def _flash_case(b, s, h, kvh, d, causal, dtype, gen, variants):  # noqa: ANN001, ANN202
     """Errors (relative, absolute) of the flash kernels of the given
-    variants, and of dq, against their plain versions."""
+    variants against their plain versions."""
     from torchx_tpu_torch.ops import fused
 
     q, k, v, do = _attn_inputs(b, s, h, kvh, d, dtype, gen)
     o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal)
     delta = fused._flash_delta(do, o_p)
     args = (q, k, v, do, lse_p, delta, causal)
+    dq_p = fused._flash_dq_plain(*args)
     dk_p, dv_p = fused._flash_dkv_plain(*args)
     out = {}
     for var in variants:
         o_k, lse_k = fused._flash_fwd(q, k, v, causal, variant=var)
+        dq_k = fused._flash_dq(*args, variant=var)
         dk_k, dv_k = fused._flash_dkv(*args, variant=var)
         out[f"flash_fwd_{var}"] = (max(rel_err(o_k, o_p), rel_err(lse_k, lse_p)),
                                    max(max_err(o_k, o_p), max_err(lse_k, lse_p)))
+        out[f"flash_dq_{var}"] = (rel_err(dq_k, dq_p), max_err(dq_k, dq_p))
         out[f"flash_dkv_{var}"] = (max(rel_err(dk_k, dk_p), rel_err(dv_k, dv_p)),
                                    max(max_err(dk_k, dk_p), max_err(dv_k, dv_p)))
-    if dq:
-        dq_p = fused._flash_dq_plain(*args)
-        dq_k = fused._flash_dq(*args)
-        out["flash_dq"] = (rel_err(dq_k, dq_p), max_err(dq_k, dq_p))
     return out
 
 
@@ -244,6 +260,16 @@ def _bounds(dtype_bytes: int = 2) -> dict[str, tuple[float, str, float, float]]:
     return out
 
 
+#: SDPA's backward computes dq, dk and dv in one call: the share of its time
+#: that each backward kernel's function takes, by FLOPs of the seven products
+#: of the port's split backward (dq: Q K^T, dO V^T, dS K; dk/dv: K Q^T,
+#: V dO^T, P^T dO, dS^T Q)
+LIBRARY_SHARE = {
+    "flash_dq": (3 / 7, "dq: 3 of the split backward's 7 products, by FLOPs"),
+    "flash_dkv": (4 / 7, "dk, dv: 4 of the split backward's 7 products, by FLOPs"),
+}
+
+
 def phase_kernels() -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -281,7 +307,7 @@ def phase_kernels() -> list[dict]:
     checks = [("main", name, rel) for name, (rel, _) in bf16.items()]
     for case in BF16_WGMMA_CASES:
         checks += [(case, name, rel) for name, (rel, _) in _flash_case(
-            *case, torch.bfloat16, gen, ("wgmma",), dq=False).items()]
+            *case, torch.bfloat16, gen, ("wgmma",)).items()]
     for case, name, rel in checks:
         tol = BF16_TOL[family(name)]
         if case != "main":
@@ -317,8 +343,20 @@ def phase_kernels() -> list[dict]:
     def fwd(var):  # noqa: ANN001, ANN202
         return lambda: fused._flash_fwd(q, k, v, True, variant=var)
 
+    def dq(var):  # noqa: ANN001, ANN202
+        return lambda: fused._flash_dq(q, k, v, do, lse, delta, True, variant=var)
+
     def dkv(var):  # noqa: ANN001, ANN202
         return lambda: fused._flash_dkv(q, k, v, do, lse, delta, True, variant=var)
+
+    # the wgmma backward kernels and the norm backward's dw own their sums
+    # (no atomics): two calls must agree bitwise
+    repeat = {"flash_dq_wgmma": lambda: (dq("wgmma")(),), "flash_dkv_wgmma": dkv("wgmma"),
+              "rms_norm_bwd": lambda: norms._bwd(x, r, w, EPS)}
+    for name, fn in repeat.items():
+        if not all(torch.equal(a, b) for a, b in zip(fn(), fn())):
+            fail("kernels", f"{name}: two calls differ")
+    emit({"phase": "kernels", "check": "bitwise repeatable", "kernels": list(repeat)})
 
     sdpa_fwd_call = "F.scaled_dot_product_attention(enable_gqa=True), forward"
     sdpa_bwd_call = "SDPA backward: dq, dk and dv in one call"
@@ -331,11 +369,13 @@ def phase_kernels() -> list[dict]:
             fwd("simt"), lambda: fused._flash_fwd_plain(q, k, v, True),
             sdpa_fwd, sdpa_fwd_call,
         ),
-        "flash_dq": (
-            lambda: fused._flash_dq(q, k, v, do, lse, delta, True),
-            lambda: fused._flash_dq_plain(q, k, v, do, lse, delta, True),
-            sdpa_bwd,
-            sdpa_bwd_call,
+        "flash_dq_wgmma": (
+            dq("wgmma"), lambda: fused._flash_dq_plain(q, k, v, do, lse, delta, True),
+            sdpa_bwd, sdpa_bwd_call,
+        ),
+        "flash_dq_simt": (
+            dq("simt"), lambda: fused._flash_dq_plain(q, k, v, do, lse, delta, True),
+            sdpa_bwd, sdpa_bwd_call,
         ),
         "flash_dkv_wgmma": (
             dkv("wgmma"), lambda: fused._flash_dkv_plain(q, k, v, do, lse, delta, True),
@@ -364,6 +404,8 @@ def phase_kernels() -> list[dict]:
         route, source, replaces = KERNEL_INFO[name]
         bound_ms, bound_by, flops, nbytes = bounds[family(name)]
         ms = time_ms(kern)
+        library_ms = time_ms(lib)
+        share, share_of = LIBRARY_SHARE.get(family(name), (None, None))
         rows.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": bf16[name][1], "rel_err": bf16[name][0],
@@ -373,8 +415,9 @@ def phase_kernels() -> list[dict]:
             "f32_tol": F32_TOL[family(name)] if name in f32_err else None,
             "ms": ms, "plain_ms": time_ms(plain, iters=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(lib),
-            "library_call": lib_call, "flops": flops, "bytes": nbytes,
+            "library_ms": library_ms, "library_call": lib_call,
+            "library_share_ms": share and share * library_ms, "library_share": share_of,
+            "flops": flops, "bytes": nbytes,
             "roofline_share": bound_ms / ms,
         })
     torch.cuda.synchronize()
@@ -418,8 +461,8 @@ def phase_train() -> dict:
     bwd = cfg.n_layers * TRAIN["steps"]
     # bf16 at head_dim 64: flash_variant picks the wgmma kernels
     expected = {"flash_fwd_wgmma": fwd, "flash_fwd_simt": 0, "norm_res_fwd": fwd,
-                "flash_dq": bwd, "flash_dkv_wgmma": bwd, "flash_dkv_simt": 0,
-                "rms_norm_bwd": bwd}
+                "flash_dq_wgmma": bwd, "flash_dq_simt": 0, "flash_dkv_wgmma": bwd,
+                "flash_dkv_simt": 0, "rms_norm_bwd": bwd}
     emit({"phase": "train", "config": "llama3_1b", "n_layers": cfg.n_layers,
           "dim": cfg.dim, "heads": [cfg.n_heads, cfg.n_kv_heads],
           "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings, **TRAIN,
@@ -475,7 +518,7 @@ def phase_reference() -> None:
 #: Kernel-name fragments -> the group a step's device time is booked to.
 PROFILE_GROUPS = (
     ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
-    ("flash_dq", ("flash_dq_kernel",)),
+    ("flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_kernel")),
     ("flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_kernel")),
     ("norm_res_fwd", ("norm_res_fwd_kernel",)),
     ("rms_norm_bwd", ("rms_norm_bwd_kernel", "dw_reduce_kernel")),
@@ -528,6 +571,54 @@ def phase_profile() -> None:
     emit({"phase": "profile", "step_wall_ms": wall * 1e3, "device_busy_ms": busy,
           "device_busy_share": busy / (wall * 1e3), "groups_ms": groups,
           "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top]})
+
+
+#: The RMSNorm backward's launch settings the sweep phase times (see
+#: ``ops.norms.BWD_CONFIG``): rows per block, warps, programs per SM,
+#: pipeline stages of the row loop, columns per program of the dw pass.
+#: (1, 8, 2, 1, 128) is the design the kernel had before it took row blocks.
+SWEEP = dict(rows=(1, 2, 4, 8), warps=(4, 8, 16), per_sm=(1, 2, 4), stages=(1, 2),
+             reduce_cols=(16, 32, 128))
+
+
+def phase_sweep() -> None:
+    """Time the RMSNorm backward at the main-path shape over ``SWEEP``,
+    each setting checked against the plain version first."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from torchx_tpu_torch.ops import norms
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n, dn = NORM["n"], NORM["d"]
+    x, dy = (torch.randn((n, dn), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    w = (1 + 0.1 * torch.randn((dn,), generator=gen, device="cuda")).to(torch.bfloat16)
+    dx_p, dw_p = norms._bwd_math(x, w, dy, EPS)
+    xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+    out = F.rms_norm(xg, (dn,), wg, EPS)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, (xg, wg), dy, retain_graph=True))
+    bound_ms = _bounds()["rms_norm_bwd"][0]
+    results = []
+    for cfg in itertools.product(*SWEEP.values()):
+        try:
+            dx, dw = norms._bwd(x, dy, w, EPS, config=cfg)
+            err = max(rel_err(dx, dx_p), rel_err(dw, dw_p))
+            ms = time_ms(lambda: norms._bwd(x, dy, w, EPS, config=cfg), iters=20)  # noqa: B023
+            results.append({"config": cfg, "ms": ms, "share_of_bound": bound_ms / ms,
+                            "err": err, "ok": err <= BF16_TOL["rms_norm_bwd"]})
+        except Exception as e:  # noqa: BLE001 - a setting that fails to build is a result
+            results.append({"config": cfg, "error": f"{type(e).__name__}: {e}"[:300]})
+    results.sort(key=lambda r: r.get("ms", math.inf))
+    emit({"phase": "sweep", "kernel": "rms_norm_bwd", "shape": [n, dn],
+          "config_keys": list(SWEEP), "default": norms.BWD_CONFIG,
+          "bound_ms": bound_ms, "library_ms": library_ms, "results": results})
+    if not all(r.get("ok", True) for r in results):
+        fail("sweep", "a setting disagrees with the plain version")
+
 
 # ---------------------------------------------------------------------------
 # main
@@ -604,6 +695,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_reference()
     if "profile" in phases:
         phase_profile()
+    if "sweep" in phases:
+        phase_sweep()
 
     if kernel_rows:
         print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -79,6 +79,7 @@ def test_wgmma_kernels_match_plain(gen, d, n_rep, causal):
     o_k, lse_k = fused._flash_fwd(q, k, v, causal, variant="wgmma")
     assert _rel(o_k, o_p) <= 1e-3 and _rel(lse_k, lse_p) <= 1e-3
     args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), causal)
+    assert _rel(fused._flash_dq(*args, variant="wgmma"), fused._flash_dq_plain(*args)) <= 1e-3
     for a, b_ in zip(fused._flash_dkv(*args, variant="wgmma"), fused._flash_dkv_plain(*args)):
         assert _rel(a, b_) <= 1e-3
 
@@ -92,6 +93,15 @@ def test_flash_dkv_wgmma_is_deterministic(gen):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_dq_wgmma_is_deterministic(gen, d):
+    q, do = (_randn(gen, 2, 1024, 8, d, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, 2, 1024, 2, d, dtype=torch.bfloat16) for _ in range(2))
+    o, lse = fused._flash_fwd(q, k, v, True)
+    args = (q, k, v, do, lse, fused._flash_delta(do, o), True)
+    assert torch.equal(fused._flash_dq(*args), fused._flash_dq(*args))
+
+
 def test_flash_autograd_bf16(gen):
     q = _randn(gen, 2, 512, 8, 64, dtype=torch.bfloat16).requires_grad_()
     k = _randn(gen, 2, 512, 2, 64, dtype=torch.bfloat16).requires_grad_()
@@ -100,8 +110,9 @@ def test_flash_autograd_bf16(gen):
     out = fused.flash_attention(q, k, v)
     out.float().square().sum().backward()
     counts = _build.launch_counts()
-    assert (counts["flash_fwd_wgmma"], counts["flash_dq"], counts["flash_dkv_wgmma"]) == (1, 1, 1)
-    assert counts["flash_fwd_simt"] == counts["flash_dkv_simt"] == 0
+    assert (counts["flash_fwd_wgmma"], counts["flash_dq_wgmma"], counts["flash_dkv_wgmma"]) == (
+        1, 1, 1)
+    assert counts["flash_fwd_simt"] == counts["flash_dq_simt"] == counts["flash_dkv_simt"] == 0
     assert out.dtype == torch.bfloat16 and k.grad.shape == k.shape
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
@@ -135,6 +146,20 @@ def test_dw_is_deterministic(gen):
     x, dy = _randn(gen, 4096, 256), _randn(gen, 4096, 256)
     w = torch.ones(256, device="cuda")
     assert torch.equal(norms._bwd(x, dy, w, 1e-5)[1], norms._bwd(x, dy, w, 1e-5)[1])
+
+
+@pytest.mark.parametrize("n,d", [(8192, 2048), (8190, 2048), (8192, 4096)])
+def test_rms_norm_bwd_bf16_shapes(gen, n, d):
+    """The llama3_1b rows, a ragged row count and llama3_8b's width: dx and
+    dw at test_norm_kernels_match_plain's bf16 tolerances, dw bitwise
+    repeatable."""
+    x, dy = (_randn(gen, n, d, dtype=torch.bfloat16) for _ in range(2))
+    w = (1 + 0.1 * _randn(gen, d)).to(torch.bfloat16)
+    dx_k, dw_k = norms._bwd(x, dy, w, 1e-5)
+    dx_p, dw_p = norms._bwd_math(x, w, dy, 1e-5)
+    torch.testing.assert_close(dx_k.float(), dx_p.float(), rtol=2**-7, atol=2**-7)
+    torch.testing.assert_close(dw_k, dw_p, rtol=2e-5, atol=2e-4)
+    assert torch.equal(dw_k, norms._bwd(x, dy, w, 1e-5)[1])
 
 
 def test_model_step_kernels_vs_reference(gen):

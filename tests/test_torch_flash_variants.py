@@ -2,13 +2,13 @@
 on the CPU.
 
 ``ops.fused.flash_variant`` sends bf16 at head_dim 64 and 128 to the wgmma
-kernels (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_dkv_wgmma.cu``) and the
-rest to the CUDA-core ones. The wgmma kernels cannot run here, so their
-arithmetic is emulated in f32 PyTorch step by step: bf16 inputs, exact
-products summed in f32, the scale applied to S in f32 in base 2, the
-forward's online softmax over 128-wide kv tiles, and the probabilities P
-(forward and dk/dv) and dS (dk) split into bf16 hi + lo before the second
-product. The emulation must meet the port's plain versions within 1e-5
+kernels (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_dq_wgmma.cu``,
+``csrc/flash_dkv_wgmma.cu``) and the rest to the CUDA-core ones. The wgmma
+kernels cannot run here, so their arithmetic is emulated in f32 PyTorch
+step by step: bf16 inputs, exact products summed in f32, the scale applied
+to S in f32 in base 2, the forward's online softmax over 128-wide kv
+tiles, and the probabilities P (forward and dk/dv) and dS (dq and dk)
+split into bf16 hi + lo before the second product. The emulation must meet the port's plain versions within 1e-5
 relative; with one bf16 rounding in place of the split it misses the
 card's 1e-3 tolerance (chip_smoke.py ``BF16_TOL``), which is why the
 kernels issue each of those products twice.
@@ -87,14 +87,31 @@ def _emulate_dkv(q, k, v, do, lse, delta, causal, rounding):
     return fold(dk), fold(dv)
 
 
+def _emulate_dq(q, k, v, do, lse, delta, causal, rounding):
+    d = q.shape[-1]
+    n_rep = q.shape[2] // k.shape[2]
+    qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
+    kf, vf = _heads(k, n_rep), _heads(v, n_rep)
+    # [b, h, q, kv] tiles, as the kernel holds them
+    p = torch.exp2((qf @ kf.transpose(-1, -2)) * (LOG2E / math.sqrt(d))
+                   - (lse * LOG2E)[..., None])
+    if causal:
+        s = q.shape[1]
+        p = p.masked_fill(torch.arange(s)[None, :] > torch.arange(s)[:, None], 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    # the scale multiplies dq once, in the f32 epilogue
+    dq = sum(part @ kf for part in _parts(ds, rounding)) * (1 / math.sqrt(d))
+    return dq.transpose(1, 2)
+
+
 def _rel(a, b):
     """max |a - b| over max |b| (floored at 1), as chip_smoke.py's rel_err."""
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
 def _case(b, s, h, kvh, d, causal, rounding):
-    """-> relative errors of the emulated o, lse, dk, dv against the port's
-    plain versions on the same bf16 inputs."""
+    """-> relative errors of the emulated o, lse, dq, dk, dv against the
+    port's plain versions on the same bf16 inputs."""
     rng = np.random.default_rng(0)
 
     def rnd(*shape):  # noqa: ANN001, ANN202
@@ -103,10 +120,12 @@ def _case(b, s, h, kvh, d, causal, rounding):
     q, k, v, do = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d), rnd(b, s, h, d)
     o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal)
     o_e, lse_e = _emulate_fwd(q, k, v, causal, rounding)
-    delta = fused._flash_delta(do, o_p)
-    dk_p, dv_p = fused._flash_dkv_plain(q, k, v, do, lse_p, delta, causal)
-    dk_e, dv_e = _emulate_dkv(q, k, v, do, lse_p, delta, causal, rounding)
-    return {"o": _rel(o_e, o_p), "lse": _rel(lse_e, lse_p),
+    args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), causal)
+    dq_p = fused._flash_dq_plain(*args)
+    dq_e = _emulate_dq(*args, rounding)
+    dk_p, dv_p = fused._flash_dkv_plain(*args)
+    dk_e, dv_e = _emulate_dkv(*args, rounding)
+    return {"o": _rel(o_e, o_p), "lse": _rel(lse_e, lse_p), "dq": _rel(dq_e, dq_p),
             "dk": _rel(dk_e, dk_p), "dv": _rel(dv_e, dv_p)}
 
 
@@ -122,6 +141,13 @@ def test_single_bf16_rounding_misses_tolerance():
     """The usual design, P and dS rounded once to bf16, misses 1e-3 on dk/dv."""
     errs = _case(1, 256, 4, 1, 64, causal=True, rounding="single")
     assert max(errs["dk"], errs["dv"]) > BF16_TOL, errs
+
+
+def test_single_bf16_rounding_misses_tolerance_on_dq():
+    """dS rounded once to bf16 misses 1e-3 on dq too: flash_dq_wgmma
+    splits it."""
+    errs = _case(1, 256, 4, 1, 64, causal=True, rounding="single")
+    assert errs["dq"] > BF16_TOL, errs
 
 
 @pytest.mark.parametrize("head_dim", [64, 128, 256])
@@ -143,3 +169,26 @@ def test_pick_variant_refuses_what_wgmma_cannot_take():
         fused._pick_variant("wgmma", (torch.zeros(1, 128, 2, 256).bfloat16(),))
     with pytest.raises(ValueError, match="variant must be one of"):
         fused._pick_variant("tensor", (bf,))
+
+
+@pytest.mark.parametrize("wrapper", ["_flash_fwd", "_flash_dq", "_flash_dkv"])
+def test_wrappers_pick_variant_before_launch(wrapper, monkeypatch):
+    """Each flash wrapper routes a non-CPU tensor through _pick_variant,
+    which refuses before anything launches (meta tensors: no data, no card;
+    the device checks of _dims are stubbed)."""
+    monkeypatch.setattr(fused, "_dims", lambda *a: [])
+    monkeypatch.setattr(fused._build, "cuda_lib", lambda: pytest.fail("launched"))
+    fn = getattr(fused, wrapper)
+
+    def call(q, variant):  # noqa: ANN001, ANN202
+        lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device="meta")
+        more = () if wrapper == "_flash_fwd" else (q, lse, lse)
+        return fn(q, q, q, *more, True, variant=variant)
+
+    f32 = torch.zeros(1, 128, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="wgmma kernels take bf16"):
+        call(f32, "wgmma")
+    with pytest.raises(ValueError, match="wgmma kernels take bf16"):
+        call(torch.zeros(1, 128, 2, 256, device="meta", dtype=torch.bfloat16), "wgmma")
+    with pytest.raises(ValueError, match="variant must be one of"):
+        call(f32.bfloat16(), "tensor")

@@ -40,11 +40,11 @@ NVCC_FLAGS = [
 ]
 
 #: Kernel names, in the order of the training step's path. The flash
-#: forward and dk/dv come as two variants (``ops.fused.flash_variant``):
+#: forward, dq and dk/dv come as two variants (``ops.fused.flash_variant``):
 #: ``wgmma`` on the tensor cores, ``simt`` on the CUDA cores.
 KERNELS = (
-    "flash_fwd_wgmma", "flash_fwd_simt", "flash_dq", "flash_dkv_wgmma",
-    "flash_dkv_simt", "norm_res_fwd", "rms_norm_bwd",
+    "flash_fwd_wgmma", "flash_fwd_simt", "flash_dq_wgmma", "flash_dq_simt",
+    "flash_dkv_wgmma", "flash_dkv_simt", "norm_res_fwd", "rms_norm_bwd",
 )
 
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -101,7 +101,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ints = [i] * 7
     fns = {
         "tpx_flash_fwd": 5, "tpx_flash_fwd_wgmma": 5, "tpx_flash_dq": 7,
-        "tpx_flash_dkv": 8, "tpx_flash_dkv_wgmma": 8,
+        "tpx_flash_dq_wgmma": 7, "tpx_flash_dkv": 8, "tpx_flash_dkv_wgmma": 8,
     }
     for name, n_tensors in fns.items():
         fn = getattr(lib, name)

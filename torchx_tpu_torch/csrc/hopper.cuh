@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_wgmma.cu, flash_dkv_wgmma.cu), in raw PTX:
+// (flash_fwd_wgmma.cu, flash_dq_wgmma.cu, flash_dkv_wgmma.cu), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a parity wait;

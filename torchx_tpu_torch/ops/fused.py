@@ -7,11 +7,11 @@ Port of :mod:`torchx_tpu.ops.fused`, the ``--kernels cuda`` hot path:
   backward, ``delta = rowsum(dO * O)`` computed outside the kernels, one
   kernel accumulating ``dq`` over kv tiles and one accumulating
   ``dk``/``dv`` over q tiles and over the query heads that share a KV head
-  (native GQA: KV is never repeated). The forward and dk/dv come in two
+  (native GQA: KV is never repeated). Each of the three comes in two
   variants, chosen by the static rule :func:`flash_variant`: ``wgmma``
   on the tensor cores (``csrc/flash_fwd_wgmma.cu``,
-  ``csrc/flash_dkv_wgmma.cu``) and ``simt`` on the CUDA cores
-  (``csrc/flash_attn.cu``, which also holds the dq kernel).
+  ``csrc/flash_dq_wgmma.cu``, ``csrc/flash_dkv_wgmma.cu``) and ``simt``
+  on the CUDA cores (``csrc/flash_attn.cu``).
 * :func:`rms_norm_residual` — ``s = x + residual`` in the input dtype, then
   ``y = rms_norm(s) * w`` in f32, one Triton pass returning ``(y, s)``. Its
   backward runs the RMSNorm dx+dw kernel of :mod:`.norms` on ``s`` and
@@ -72,10 +72,11 @@ def flash_shapes_ok(s_q: int, s_k: int, head_dim: int) -> bool:
 
 
 def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels the flash forward and dk/dv launch on a CUDA tensor.
+    """Which kernels the flash forward, dq and dk/dv launch on a CUDA
+    tensor.
 
     ``"wgmma"`` (tensor cores, TMA-fed) for bf16 at head_dim 64 and 128,
-    the llama3_1b and llama3_8b shapes, where both wgmma kernels build
+    the llama3_1b and llama3_8b shapes, where the three wgmma kernels build
     without spills (``nvcc -Xptxas -v``, printed by chip_smoke.py's build
     phase); ``"simt"`` (the CUDA-core kernels of ``csrc/flash_attn.cu``)
     for f32, whose products the bf16 tensor cores cannot take, and for
@@ -195,42 +196,39 @@ def _pick_variant(variant, tensors):  # noqa: ANN001, ANN202
     return variant
 
 
+def _launch(kernel, variant, inputs, outputs, causal):  # noqa: ANN001, ANN202
+    """Launch ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv") of the
+    chosen variant on CUDA tensors: inputs (q, k, v[, do, lse, delta]),
+    then the outputs, all as pointers, then the dims."""
+    dims = _dims(*inputs[:3], causal, *inputs[3:])
+    variant = _pick_variant(variant, inputs)
+    lib = _build.cuda_lib()
+    fn = getattr(lib, f"tpx_{kernel}_wgmma" if variant == "wgmma" else f"tpx_{kernel}")
+    with torch.cuda.device(inputs[0].device):
+        rc = fn(*(t.data_ptr() for t in (*inputs, *outputs)), *dims)
+    name = f"{kernel}_{variant}"
+    _build.check(rc, name)
+    _build.count_launch(name)
+
+
 def _flash_fwd(q, k, v, causal, variant=None):  # noqa: ANN001, ANN202
     """[b, s, h, d], [b, s, kvh, d] x2 -> (o f32 [b, s, h, d], lse f32
     [b, h, s])."""
     if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, causal)
-    dims = _dims(q, k, v, causal)
-    variant = _pick_variant(variant, (q, k, v))
     b, s, h = q.shape[:3]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _build.cuda_lib()
-    fn = lib.tpx_flash_fwd_wgmma if variant == "wgmma" else lib.tpx_flash_fwd
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), *dims,
-        )
-    name = f"flash_fwd_{variant}"
-    _build.check(rc, name)
-    _build.count_launch(name)
+    _launch("flash_fwd", variant, (q, k, v), (o, lse), causal)
     return o, lse
 
 
-def _flash_dq(q, k, v, do, lse, delta, causal):  # noqa: ANN001, ANN202
+def _flash_dq(q, k, v, do, lse, delta, causal, variant=None):  # noqa: ANN001, ANN202
     """-> dq f32 [b, s, h, d]."""
     if q.device.type == "cpu":
         return _flash_dq_plain(q, k, v, do, lse, delta, causal)
-    dims = _dims(q, k, v, causal, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _build.cuda_lib().tpx_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
-        )
-    _build.check(rc, "flash_dq")
-    _build.count_launch("flash_dq")
+    _launch("flash_dq", variant, (q, k, v, do, lse, delta), (dq,), causal)
     return dq
 
 
@@ -239,21 +237,9 @@ def _flash_dkv(q, k, v, do, lse, delta, causal, variant=None):  # noqa: ANN001, 
     heads."""
     if q.device.type == "cpu":
         return _flash_dkv_plain(q, k, v, do, lse, delta, causal)
-    dims = _dims(q, k, v, causal, do, lse, delta)
-    variant = _pick_variant(variant, (q, k, v, do, lse, delta))
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    lib = _build.cuda_lib()
-    fn = lib.tpx_flash_dkv_wgmma if variant == "wgmma" else lib.tpx_flash_dkv
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *dims,
-        )
-    name = f"flash_dkv_{variant}"
-    _build.check(rc, name)
-    _build.count_launch(name)
+    _launch("flash_dkv", variant, (q, k, v, do, lse, delta), (dk, dv), causal)
     return dk, dv
 
 

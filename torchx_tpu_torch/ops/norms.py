@@ -8,12 +8,18 @@ the backward: the plain autograd backward, or one Triton kernel producing
 The kernel replaces the Pallas TPU kernel ``_bwd_kernel`` (launched by
 ``_bwd_pallas``) of ``torchx_tpu/ops/norms.py``. It is bound by bytes on an
 H100: per row it reads ``x`` and ``dy`` and writes ``dx`` (about 5
-operations per byte moved), so the bound is the memory rate. Its design
-reads each row once, keeps every intermediate in registers, and writes per
-program a ``dw`` partial in f32. On the TPU the grid ran in order and
-carried ``dw`` through it; Hopper's programs run in parallel, so a second
-Triton pass sums the partials in a fixed order, which keeps ``dw``
-deterministic.
+operations per byte moved), so the bound is the memory rate, and the
+design is about keeping enough bytes in flight. Each program walks its
+share of the rows ``ROWS`` at a time as one ``[ROWS, d]`` block, so the
+loads of several rows are issued together and the two row reductions of a
+block (the mean square, and the ``dxhat . xhat`` term) share one round of
+cross-warp traffic; a few programs per SM hide each other's latency.
+Every intermediate stays in registers, and each program writes one ``dw``
+partial in f32. On the TPU the grid ran in order and carried ``dw``
+through it; Hopper's programs run in parallel, so a second Triton pass
+sums the partials in a fixed order, which keeps ``dw`` deterministic (no
+float atomics). :data:`BWD_CONFIG` holds the launch settings, chosen from
+the sweep of ``chip_smoke.py --phases build,sweep``.
 """
 
 import os
@@ -69,26 +75,27 @@ def _triton_kernels():  # noqa: ANN202
     @triton.jit
     def rms_norm_bwd_kernel(
         x_ptr, dy_ptr, w_ptr, dx_ptr, dwp_ptr, n_rows, d, rows_per_prog, eps,
-        BLOCK_D: tl.constexpr,
+        ROWS: tl.constexpr, BLOCK_D: tl.constexpr, STAGES: tl.constexpr,
     ):
         pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK_D)
         cmask = cols < d
         w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
         dw = tl.zeros([BLOCK_D], dtype=tl.float32)
-        for i in range(0, rows_per_prog):
-            row = pid * rows_per_prog + i
-            m = cmask & (row < n_rows)
-            off = row.to(tl.int64) * d + cols
+        # rows_per_prog is a multiple of ROWS: programs never overlap
+        for i in tl.range(0, rows_per_prog, ROWS, num_stages=STAGES):
+            rows = pid * rows_per_prog + i + tl.arange(0, ROWS)
+            m = (rows < n_rows)[:, None] & cmask[None, :]
+            off = rows.to(tl.int64)[:, None] * d + cols[None, :]
             x = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
             dy = tl.load(dy_ptr + off, mask=m, other=0.0).to(tl.float32)
-            rrms = tl.div_rn(1.0, tl.sqrt_rn(tl.sum(x * x, axis=0) / d + eps))
-            xhat = x * rrms
-            dxhat = dy * w
-            c = tl.sum(dxhat * xhat, axis=0) / d
-            dx = rrms * (dxhat - xhat * c)
+            rrms = tl.div_rn(1.0, tl.sqrt_rn(tl.sum(x * x, axis=1) / d + eps))
+            xhat = x * rrms[:, None]
+            dxhat = dy * w[None, :]
+            c = tl.sum(dxhat * xhat, axis=1) / d
+            dx = rrms[:, None] * (dxhat - xhat * c[:, None])
             tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=m)
-            dw += dy * xhat
+            dw += tl.sum(dy * xhat, axis=0)
         tl.store(dwp_ptr + pid.to(tl.int64) * d + cols, dw, mask=cmask)
 
     @triton.jit
@@ -122,31 +129,42 @@ def _check_rows(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
 
 
-def _bwd(x2d, dy2d, weight, eps: float):  # noqa: ANN001
+#: rms_norm_bwd's launch: rows per block, warps per program, programs per
+#: SM, software-pipeline stages of the row loop (1: none), and columns per
+#: program of the dw pass. The fastest of chip_smoke.py's sweep on an H100
+#: at [8192, 2048] bf16: 0.044 ms against 0.075 ms for the row-at-a-time
+#: design (1, 8, 2, 1, 128), whose few bytes in flight per SM and 16-program
+#: dw pass bounded it.
+BWD_CONFIG = (4, 4, 2, 2, 16)
+
+
+def _bwd(x2d, dy2d, weight, eps: float, config=BWD_CONFIG):  # noqa: ANN001
     """-> (dx [n, d] in x's dtype, dw [d] f32).
 
-    The Triton kernel on a CUDA tensor; its plain version only for a tensor
-    on the CPU."""
+    The Triton kernel on a CUDA tensor, launched with ``config`` (see
+    :data:`BWD_CONFIG`); its plain version only for a tensor on the CPU."""
     if x2d.device.type == "cpu":
         return _bwd_math(x2d, weight, dy2d, eps)
     if not x2d.is_cuda:
         raise ValueError(f"rms_norm backward: no kernel for device {x2d.device}")
     _check_rows("rms_norm backward", x2d, dy2d, weight)
     bwd_kernel, reduce_kernel = _triton_kernels()
+    rows, num_warps, per_sm, stages, reduce_cols = config
     n, d = x2d.shape
-    block_d = triton.next_power_of_2(d)
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    rows_per_prog = triton.cdiv(n, 2 * sms)
+    rows_per_prog = triton.cdiv(triton.cdiv(n, per_sm * sms), rows) * rows
     n_prog = triton.cdiv(n, rows_per_prog)
     dx = torch.empty_like(x2d)
     dw_parts = torch.empty((n_prog, d), dtype=torch.float32, device=x2d.device)
     dw = torch.empty((d,), dtype=torch.float32, device=x2d.device)
     bwd_kernel[(n_prog,)](
         x2d, dy2d, weight, dx, dw_parts, n, d, rows_per_prog, eps,
-        BLOCK_D=block_d, num_warps=max(1, min(16, block_d // 256)),
+        ROWS=rows, BLOCK_D=triton.next_power_of_2(d), STAGES=stages,
+        num_warps=num_warps,
     )
-    reduce_kernel[(triton.cdiv(d, 128),)](
-        dw_parts, dw, n_prog, d, BLOCK_P=32, BLOCK_C=128, num_warps=4
+    reduce_kernel[(triton.cdiv(d, reduce_cols),)](
+        dw_parts, dw, n_prog, d, BLOCK_P=4096 // reduce_cols, BLOCK_C=reduce_cols,
+        num_warps=4,
     )
     _build.count_launch("rms_norm_bwd")
     return dx, dw
