@@ -26,6 +26,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the ``wgmma`` flash kernels and no ``simt`` one.
 4. reference — one step of the same config at 2 layers with the kernels
    and with plain PyTorch ops, losses and gradient norms compared.
+5. serve — ``generate_server`` in-process on 127.0.0.1 (continuous engine,
+   8 slots, block size 16, the default pool) with llama3_1b at full width
+   and depth, bf16, seeded random weights: 8 concurrent ``/v1/generate``
+   requests (six greedy prompts of 32, 257, 512, 700, 1024 and 1500
+   tokens, the 1024 one sharing its first 512 tokens with the 512 one, and
+   two sampled at temperature 0.8, seed 7, on one 100-token prompt; 64 new
+   tokens each; admitted once all are queued), a seed-8 request, a greedy
+   re-send that must hit the prefix cache, then ``/healthz`` and
+   ``/metricz``. Checks: each greedy
+   token's logit within 5e-2 of its row's maximum when the prompt and
+   completion are teacher-forced through the plain forward; at 2 layers
+   in f32 the engine's greedy tokens equal the dense ``generate``'s; the
+   same-seed pair is token-identical and seed 8 differs; the re-send
+   equals its cold answer; pools and parameters on the card. Prints
+   TTFT, TPOT, the decode-step time with all 8 slots busy, tokens/s, peak
+   memory and the pool's geometry. The serving path launches none of the
+   kernels of the kernels line, which the phase checks.
 
 ``--phases build,sweep`` times the RMSNorm backward kernel over its launch
 settings (``ops.norms.BWD_CONFIG``).
@@ -45,9 +62,9 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "train", "reference")
-#: Run only when asked for (``--phases ...,profile``): where a step's
-#: device time goes, by kernel.
+PHASES = ("build", "kernels", "train", "reference", "serve")
+#: Run only when asked for (``--phases ...,profile``): where a training
+#: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
@@ -515,6 +532,271 @@ def phase_reference() -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 5: serving
+# ---------------------------------------------------------------------------
+
+#: The serve phase's traffic: (prompt length, temperature, seed) of the 8
+#: concurrent requests; the two sampled ones share one prompt.
+SERVE_REQUESTS = [(32, 0.0, 0), (100, 0.8, 7), (100, 0.8, 7), (257, 0.0, 0),
+                  (512, 0.0, 0), (700, 0.0, 0), (1024, 0.0, 0), (1500, 0.0, 0)]
+SERVE = dict(max_batch=8, block_size=16, new_tokens=64, seed=0)
+#: A greedy token's logit may lie this far below its row's maximum when
+#: the sequence is teacher-forced through the plain forward in bf16: the
+#: engine (paged attention, bucketed prefill) and the plain forward round
+#: differently, and a near-tie may go either way.
+SERVE_LOGIT_GAP = 5e-2
+#: Prompts (by index into SERVE_REQUESTS) of the exact f32 check at 2 layers.
+F32_PROMPTS = (0, 3, 5)
+
+
+def _serve_prompts(vocab: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE["seed"])
+    prompts, by_len = [], {}
+    for n, _, _ in SERVE_REQUESTS:
+        if n not in by_len:
+            by_len[n] = [int(t) for t in rng.integers(0, vocab, n)]
+        prompts.append(by_len[n])
+    # the 1024-token prompt opens with the 512-token one
+    prompts[6] = prompts[4] + prompts[6][512:]
+    return prompts
+
+
+def _post(port: int, body: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def _get(port: int, path: str) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _teacher_forced_gaps(params, cfg, prompt, completion):  # noqa: ANN001, ANN202
+    """Per generated token: (row max - the token's logit, argmax matched),
+    the sequence teacher-forced through the plain forward."""
+    import dataclasses
+
+    import torch
+
+    from torchx_tpu_torch.models import llama
+
+    plain = dataclasses.replace(cfg, kernels="reference", attn_impl="xla", remat=False)
+    seq = torch.tensor([prompt + completion[:-1]], device="cuda")
+    with torch.no_grad():
+        logits = llama.forward(params, seq, plain)[0, len(prompt) - 1:]
+    tok = torch.tensor(completion, device="cuda")
+    chosen = logits.gather(1, tok[:, None])[:, 0]
+    gaps = (logits.max(dim=1).values - chosen).tolist()
+    matched = (logits.argmax(dim=1) == tok).tolist()
+    return gaps, matched
+
+
+def _percentile(xs: list[float], q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def phase_serve() -> dict:
+    """The serving path at llama3_1b full width and depth (module
+    docstring, phase 5). -> the serve line's numbers."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.apps import generate_server
+    from torchx_tpu_torch.models import generate as gen
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t_setup = time.monotonic()
+    server = generate_server.serve(
+        "llama3_1b", port=0, device="cuda", max_batch=SERVE["max_batch"],
+        block_size=SERVE["block_size"])
+    service = server.service
+    engine = service._engine
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    cfg, params = service.cfg, service.params
+    setup_s = time.monotonic() - t_setup
+
+    # time every decode step of the engine's loop with its active slots
+    steps: list[tuple[int, float]] = []
+    decode_once = engine._decode_once
+
+    def timed_decode() -> bool:
+        active = sum(s is not None for s in engine._slots)
+        t0 = time.perf_counter()
+        worked = decode_once()
+        if worked:
+            steps.append((active, time.perf_counter() - t0))
+        return worked
+
+    engine._decode_once = timed_decode
+    # and every prefill group: (rows, bucket width, seconds to its tokens)
+    prefills: list[tuple[int, int, float]] = []
+    prefill_chunk = gen.paged_prefill_chunk
+
+    def timed_prefill(params_, tokens, *args):  # noqa: ANN001, ANN202
+        t0 = time.perf_counter()
+        first = prefill_chunk(params_, tokens, *args).cpu()
+        prefills.append((*tokens.shape, time.perf_counter() - t0))
+        return first
+
+    gen.paged_prefill_chunk = timed_prefill
+    # the measured batch arrives as one burst: admission waits until all
+    # of it is queued (otherwise the first arrival is prefilled alone)
+    gate = threading.Event()
+    gate.set()
+    admit = engine._admit
+
+    def gated_admit() -> bool:
+        gate.wait()
+        return admit()
+
+    engine._admit = gated_admit
+    try:
+        prompts = _serve_prompts(cfg.vocab_size)
+        n_new = SERVE["new_tokens"]
+        bodies = [{"tokens": [p], "max_new_tokens": n_new, "temperature": t, "seed": sd}
+                  for p, (_, t, sd) in zip(prompts, SERVE_REQUESTS)]
+        # one short request first: cuBLAS and the allocator warm up outside
+        # the measured batch
+        _post(port, {"tokens": [[1, 2, 3]], "max_new_tokens": 2})
+        steps.clear()
+        prefills.clear()
+        gate.clear()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            futures = [pool.submit(_post, port, b) for b in bodies]
+            deadline = time.monotonic() + 60
+            while engine.queue_depth < len(bodies) and time.monotonic() < deadline:
+                time.sleep(0.001)
+            gate.set()
+            replies = [f.result() for f in futures]
+        batch_s = time.monotonic() - t0
+        burst_steps, burst_prefills = list(steps), list(prefills)
+        full_steps = [dt for active, dt in burst_steps if active == SERVE["max_batch"]]
+        outs = [r["tokens"][0] for r in replies]
+        completions = [o[len(p):] for o, p in zip(outs, prompts)]
+        if any(len(c) != n_new for c in completions):
+            fail("serve", f"completion lengths {[len(c) for c in completions]} != {n_new}")
+
+        # sampled: the same-seed pair agrees, seed 8 differs
+        seed8 = _post(port, {**bodies[1], "seed": 8})["tokens"][0][len(prompts[1]):]
+        # prefix cache: a greedy re-send hits and equals its cold answer
+        # (the shortest prompt: its cold and warm prefills differ least in
+        # width, so bf16 rounding differs least)
+        hits0 = engine.stats()["prefix_cache"]["hits"]
+        resend = _post(port, bodies[0])["tokens"][0]
+        prefix = engine.stats()["prefix_cache"]
+        health_code, health = _get(port, "/healthz")
+        metric_code, metricz = _get(port, "/metricz")
+        peak = torch.cuda.max_memory_allocated()
+        pool_bytes = sum(t.numel() * t.element_size() for t in engine.pools.values())
+        on_card = all(t.is_cuda for t in list(engine.pools.values()) + llama.leaves(params))
+
+        # greedy, bf16, full depth: teacher-forced logit gaps
+        gaps, matched = [], []
+        for i, (_, temp, _) in enumerate(SERVE_REQUESTS):
+            if temp == 0:
+                g, m = _teacher_forced_gaps(params, cfg, prompts[i], completions[i])
+                gaps += g
+                matched += m
+    finally:
+        gen.paged_prefill_chunk = prefill_chunk
+        server.shutdown()
+        service.close()
+        server.server_close()
+    launches = _build.launch_counts()
+    ttft = [r["timing"]["ttft_ms"] for r in replies]
+    tpot = [(r["timing"]["total_ms"] - r["timing"]["ttft_ms"]) / (n_new - 1) for r in replies]
+    out = {
+        "phase": "serve", "config": "llama3_1b", "n_layers": cfg.n_layers, "dim": cfg.dim,
+        "dtype": "bfloat16", "engine": "continuous", "setup_s": setup_s,
+        "requests": len(replies), "new_tokens": n_new,
+        "prompt_lens": [n for n, _, _ in SERVE_REQUESTS],
+        "ttft_ms": ttft, "ttft_p50_ms": _percentile(ttft, 0.5), "ttft_max_ms": max(ttft),
+        "ttft_1500_ms": ttft[7], "tpot_ms": tpot, "tpot_p50_ms": _percentile(tpot, 0.5),
+        "tpot_max_ms": max(tpot),
+        "decode_steps": len(burst_steps), "full_steps": len(full_steps),
+        "decode_step_full_ms": 1e3 * sum(full_steps) / max(1, len(full_steps)),
+        "decode_ms_total": 1e3 * sum(dt for _, dt in burst_steps),
+        "prefills": [{"rows": r, "width": w, "ms": 1e3 * dt} for r, w, dt in burst_prefills],
+        "batch_s": batch_s, "tokens_per_s": len(replies) * n_new / batch_s,
+        "peak_memory_bytes": peak,
+        "pool": {"num_blocks": engine.num_blocks, "block_size": engine.block_size,
+                 "blocks_per_slot": engine.blocks_per_slot, "max_slots": engine.max_slots,
+                 "bytes": pool_bytes},
+        "greedy_max_logit_gap": max(gaps), "greedy_gap_tol": SERVE_LOGIT_GAP,
+        "greedy_argmax_share": sum(matched) / len(matched), "greedy_tokens": len(gaps),
+        "sampled_equal": completions[1] == completions[2],
+        "seed8_differs": seed8 != completions[1],
+        "prefix_hits": prefix["hits"] - hits0, "prefix_cache": prefix,
+        "resend_equal": resend == outs[0],
+        "healthz": health_code, "metricz": metric_code,
+        "on_card": on_card, "launches": launches,
+    }
+    emit(out)
+    if not max(gaps) <= SERVE_LOGIT_GAP:
+        fail("serve", f"greedy logit gap {max(gaps)} > {SERVE_LOGIT_GAP}")
+    if not (out["sampled_equal"] and out["seed8_differs"]):
+        fail("serve", "sampled requests: same seed differs or seed 8 agrees")
+    if not (out["resend_equal"] and out["prefix_hits"] > 0):
+        fail("serve", "the greedy re-send missed the prefix cache or changed")
+    if not on_card:
+        fail("serve", "pools or parameters are not on the card")
+    if health_code != 200 or metric_code != 200 or "tpx_serve_tokens_total" not in metricz:
+        fail("serve", f"healthz {health_code} / metricz {metric_code}: {health[:200]}")
+    if any(launches.values()):
+        fail("serve", f"the serving path launched a kernel of the kernels line: {launches}")
+    if not full_steps:
+        fail("serve", "no decode step ran with all slots busy")
+
+    # greedy, f32, 2 layers: the engine equals the dense generate exactly
+    cfg32 = llama.llama3_1b(n_layers=2, dtype=torch.float32)
+    gen32 = torch.Generator(device="cuda")
+    gen32.manual_seed(SERVE["seed"])
+    params32 = llama.init_params(cfg32, gen32, "cuda")
+    for leaf in llama.leaves(params32):
+        leaf.requires_grad_(False)
+    eng32 = ServeEngine(params32, cfg32, max_slots=SERVE["max_batch"],
+                        block_size=SERVE["block_size"]).start()
+    try:
+        reqs = [eng32.generate(prompts[i], n_new, timeout=300) for i in F32_PROMPTS]
+    finally:
+        eng32.stop()
+    exact = []
+    for i, r in zip(F32_PROMPTS, reqs):
+        dense = gen.generate(params32, torch.tensor([prompts[i]], device="cuda"), cfg32, n_new)
+        exact.append(r.tokens == dense[0].tolist())
+    emit({"phase": "serve", "check": "f32 engine equals dense generate", "n_layers": 2,
+          "prompt_lens": [SERVE_REQUESTS[i][0] for i in F32_PROMPTS], "equal": exact})
+    if not all(exact):
+        fail("serve", f"f32 engine tokens differ from the dense generate: {exact}")
+    return out
+
+
 #: Kernel-name fragments -> the group a step's device time is booked to.
 PROFILE_GROUPS = (
     ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
@@ -523,6 +805,7 @@ PROFILE_GROUPS = (
     ("norm_res_fwd", ("norm_res_fwd_kernel",)),
     ("rms_norm_bwd", ("rms_norm_bwd_kernel", "dw_reduce_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+    ("gather/scatter", ("index", "gather", "scatter")),
 )
 
 
@@ -554,6 +837,14 @@ def phase_profile() -> None:
         step(params, batch)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    emit({"phase": "profile", "path": "train step", **_device_summary(prof, wall)})
+    del params, step, batch
+    _profile_decode()
+
+
+def _device_summary(prof, wall_s: float) -> dict:  # noqa: ANN001
+    """Device time by kernel group and the top kernels of a profile, and
+    the device's busy share of ``wall_s``."""
     kernels = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -568,9 +859,51 @@ def phase_profile() -> None:
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    emit({"phase": "profile", "step_wall_ms": wall * 1e3, "device_busy_ms": busy,
-          "device_busy_share": busy / (wall * 1e3), "groups_ms": groups,
-          "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top]})
+    return {"step_wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall_s * 1e3), "groups_ms": groups,
+            "top_kernels": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top]}
+
+
+def _profile_decode() -> None:
+    """Profile one paged decode step of llama3_1b at 8 busy slots, each
+    1024 tokens deep in the engine's default pool (after two warm-up
+    steps): the host's share of an eager decode step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchx_tpu_torch.models import generate as gen
+    from torchx_tpu_torch.models import llama
+
+    cfg = llama.llama3_1b()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = llama.init_params(cfg, g, "cuda")
+    for leaf in llama.leaves(params):
+        leaf.requires_grad_(False)
+    slots, bs, depth = SERVE["max_batch"], SERVE["block_size"], 1024
+    bpr = cfg.max_seq // bs
+    pools = gen.init_kv_pools(cfg, 1 + slots * (bpr // 2), bs, "cuda")
+    tables = torch.zeros((slots, bpr), dtype=torch.int64, device="cuda")
+    per = depth // bs
+    tables[:, :per] = 1 + torch.arange(slots * per, device="cuda").view(slots, per)
+    positions = torch.full((slots,), depth - 1, dtype=torch.int64, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (slots,), generator=g, device="cuda")
+    seeds = torch.zeros((slots,), dtype=torch.int64, device="cuda")
+    temps = torch.zeros((slots,), device="cuda")
+
+    def step():  # noqa: ANN202
+        return gen.paged_decode_step(params, tokens, positions, tables, pools, cfg,
+                                     seeds, temps).cpu()
+
+    step()
+    step()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step()
+        wall = time.monotonic() - t0
+    emit({"phase": "profile", "path": "decode step", "slots": slots, "depth": depth,
+          **_device_summary(prof, wall)})
 
 
 #: The RMSNorm backward's launch settings the sweep phase times (see
@@ -693,6 +1026,8 @@ def main(argv: list[str] | None = None) -> int:
             fail("train", "a kernel of the path was never launched")
     if "reference" in phases:
         phase_reference()
+    if "serve" in phases:
+        phase_serve()
     if "profile" in phases:
         phase_profile()
     if "sweep" in phases:

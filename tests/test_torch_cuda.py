@@ -20,9 +20,12 @@ import torch
 from torchx_tpu_torch import _build
 from torchx_tpu_torch.examples import train_llama
 from torchx_tpu_torch.examples.data import TokenDataset
+from torchx_tpu_torch.models import generate as tgen
 from torchx_tpu_torch.models import llama
 from torchx_tpu_torch.ops import fused, norms
+from torchx_tpu_torch.ops import paged_attention as pa
 from torchx_tpu_torch.parallel.prefetch import device_prefetch
+from torchx_tpu_torch.serve.engine import ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -189,3 +192,129 @@ def test_device_prefetch_to_cuda(gen, tmp_path):
     for batch, want in zip(got, rows):
         assert batch.is_cuda
         assert torch.equal(batch.cpu(), torch.from_numpy(want))
+
+
+# -- serving: the paged ops, the decode step and the engine on the card ----
+
+
+def _paged_case(seed=0, dtype=torch.float32):
+    """CPU tensors: pools [9, 4, 2, 16], two slots' tables over distinct
+    blocks, new K/V rows and queries."""
+    g = torch.Generator().manual_seed(seed)
+    pool_k = torch.randn((9, 4, 2, 16), generator=g).to(dtype)
+    pool_v = torch.randn((9, 4, 2, 16), generator=g).to(dtype)
+    tables = torch.tensor([[3, 5, 1, 0], [2, 7, 0, 0]])
+    return dict(
+        pool_k=pool_k, pool_v=pool_v, tables=tables,
+        positions=torch.tensor([9, 6]), lengths=torch.tensor([10, 7]),
+        new=torch.randn((2, 2, 16), generator=g).to(dtype),
+        q=torch.randn((2, 4, 16), generator=g).to(dtype),
+        chunk_pos=torch.tensor([[6, 7, 8], [4, 5, 6]]),
+        chunk_new=torch.randn((2, 3, 2, 16), generator=g).to(dtype),
+        chunk_q=torch.randn((2, 3, 4, 16), generator=g).to(dtype),
+    )
+
+
+def _paged_ops(c):
+    k, v = c["pool_k"].clone(), c["pool_v"].clone()
+    pa.append_kv(k, c["tables"], c["positions"], c["new"])
+    pa.scatter_kv_chunk(v, c["tables"], c["chunk_pos"], c["chunk_new"])
+    pa.write_prefill(k, c["tables"][1, :2], c["chunk_new"][0].repeat(3, 1, 1)[:8])
+    return {
+        "k": k, "v": v,
+        "gather": pa.gather_kv(k, c["tables"]),
+        "attn": pa.paged_attention(c["q"], k, v, c["tables"], c["lengths"]),
+        "chunk": pa.paged_attention_chunk(c["chunk_q"], k, v, c["tables"], c["chunk_pos"]),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_ops_match_cpu(gen, dtype):
+    """The pool writes and gathers bitwise, the attention within f32 (or one
+    bf16 rounding) of the CPU results."""
+    c = _paged_case(dtype=dtype)
+    cpu = _paged_ops(c)
+    card = _paged_ops({k: t.cuda() for k, t in c.items()})
+    for name in ("k", "v", "gather"):
+        assert torch.equal(card[name].cpu(), cpu[name]), name
+    tol = 2e-5 if dtype == torch.float32 else 2**-7
+    for name in ("attn", "chunk"):
+        torch.testing.assert_close(card[name].cpu().float(), cpu[name].float(),
+                                   rtol=tol, atol=tol)
+
+
+def test_paged_index_out_of_range_raises_before_launch(gen):
+    c = {k: t.cuda() for k, t in _paged_case().items()}
+    bad = c["tables"].clone()
+    bad[0, 1] = 9  # past the pool's 9 blocks
+    with pytest.raises(IndexError, match="out of range"):
+        pa.gather_kv(c["pool_k"], bad)
+    with pytest.raises(IndexError, match="out of range"):
+        pa.append_kv(c["pool_k"], c["tables"], torch.tensor([16, 0], device="cuda"), c["new"])
+    with pytest.raises(IndexError, match="out of range"):
+        pa.write_prefill(c["pool_k"], torch.tensor([-1], device="cuda"), c["chunk_new"][0][:4])
+    # the context is healthy: no device-side assert fired
+    out = pa.gather_kv(c["pool_k"], c["tables"])
+    torch.cuda.synchronize()
+    assert out.shape == (2, 16, 2, 16)
+
+
+def test_matmul_f32_out_dtype_matches_upcast(gen):
+    """cuBLAS's f32 output of a bf16 product against the upcast f32 product
+    (both exact products, f32 sums in another order)."""
+    a = _randn(gen, 3, 64, 256, dtype=torch.bfloat16)
+    b = _randn(gen, 3, 256, 96, dtype=torch.bfloat16)
+    got = pa.matmul_f32(a, b)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, a.float() @ b.float(), rtol=1e-5, atol=1e-4)
+    got2 = pa.matmul_f32(a[0], b[0])
+    torch.testing.assert_close(got2, a[0].float() @ b[0].float(), rtol=1e-5, atol=1e-4)
+
+
+def _tiny_serving(device):
+    """The tiny f32 config and its seeded weights (made on the CPU), on
+    ``device``, not requiring grad."""
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, {
+        k: ({kk: vv.detach().to(device) for kk, vv in v.items()} if isinstance(v, dict)
+            else v.detach().to(device))
+        for k, v in params.items()
+    }
+
+
+def test_paged_decode_step_on_card_matches_cpu(gen):
+    """One decode step over 4 slots (two live, one sampled) from the same
+    pools: the same tokens, the pools' new rows within f32 tolerance."""
+    cfg = llama.llama_tiny()
+    g = torch.Generator().manual_seed(3)
+    pools = {k: torch.randn((cfg.n_layers, 8, 8, cfg.n_kv_heads, cfg.head_dim), generator=g)
+             for k in ("k", "v")}
+    args = dict(tokens=torch.tensor([5, 9, 0, 0]), positions=torch.tensor([3, 12, 0, 0]),
+                tables=torch.tensor([[1, 0], [2, 3], [0, 0], [0, 0]]),
+                seeds=torch.tensor([0, 1, 0, 0]), temps=torch.tensor([0.0, 0.8, 0.0, 0.0]))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        _, params = _tiny_serving(dev)
+        p = {k: v.clone().to(dev) for k, v in pools.items()}
+        nxt = tgen.paged_decode_step(
+            params, pools=p, cfg=cfg, **{k: v.to(dev) for k, v in args.items()})
+        outs.append((nxt.cpu(), {k: v.cpu() for k, v in p.items()}))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for k in ("k", "v"):
+        torch.testing.assert_close(outs[1][1][k], outs[0][1][k], rtol=1e-5, atol=1e-5)
+
+
+def test_engine_on_card_matches_dense(gen):
+    cfg, params = _tiny_serving("cuda")
+    assert not any(t.requires_grad for t in llama.leaves(params))
+    eng = ServeEngine(params, cfg, max_slots=4, block_size=8, max_prefill_batch=2).start()
+    try:
+        prompts = [[1, 2, 3], [7, 8], [4, 5, 6, 7, 8, 9, 10], [11]]
+        reqs = [eng.generate(p, 6, timeout=120) for p in prompts]
+    finally:
+        eng.stop()
+    assert eng.pools["k"].is_cuda
+    for p, r in zip(prompts, reqs):
+        dense = tgen.generate(params, torch.tensor([p], device="cuda"), cfg, 6)
+        assert r.tokens == dense[0].tolist()

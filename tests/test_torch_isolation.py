@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
 JAX package, no module imports them (or imports Triton at module level),
-and its entry points run on the CUDA device unless the CPU is asked for."""
+and its entry points (the trainer and the generation server) run on the
+CUDA device unless the CPU is asked for."""
 
 import ast
 import json
@@ -13,6 +14,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from torchx_tpu_torch.apps import generate_server
 from torchx_tpu_torch.examples import train_llama
 from torchx_tpu_torch.models import llama
 
@@ -54,6 +56,19 @@ def test_importing_every_module_loads_no_jax():
     assert int(proc.stdout.split()[0]) == len(list(PKG.rglob("*.py"))) - 1
 
 
+#: The serving modules, which must exist and stand alone.
+SERVING_MODULES = (
+    "ops/paged_attention.py", "models/generate.py", "obs/metrics.py", "obs/trace.py",
+    "serve/kv_pool.py", "serve/prefix_cache.py", "serve/kv_transfer.py",
+    "serve/engine.py", "serve/__init__.py", "apps/generate_server.py",
+)
+
+
+def test_serving_modules_are_present():
+    sources = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in p.parents}
+    assert set(SERVING_MODULES) <= sources
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     for path in _sources():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -79,6 +94,25 @@ class TestDevice:
             train_llama.train(llama.llama_tiny(), batch=1, seq=16, steps=1, device=None)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_llama.main(["--steps", "1"])
+
+    def test_server_without_cuda_raises(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            generate_server.GenerateService("tiny")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            generate_server.main(["--config", "tiny", "--port", "0"])
+
+    def test_server_flag_defaults_to_the_card(self, monkeypatch):
+        seen = {}
+
+        def fake_serve(config, port, *args, **kw):
+            seen.update(kw)
+            raise SystemExit(0)
+
+        monkeypatch.setattr(generate_server, "serve", fake_serve)
+        with pytest.raises(SystemExit):
+            generate_server.main(["--config", "tiny"])
+        assert seen["device"] == "cuda"
 
     def test_main_on_cpu(self, capsys):
         train_llama.main(["--config", "tiny", "--batch", "2", "--seq", "16",

@@ -56,12 +56,14 @@ def params_from_jax(
     cfg: Optional[LlamaConfig] = None,
     device: torch.device | str = "cpu",
     dtype: Optional[torch.dtype] = None,
+    requires_grad: bool = True,
 ) -> Params:
     """JAX ``init_params`` tree of numpy arrays -> the port's params.
 
     With ``cfg``, every leaf's shape and the presence of ``lm_head`` are
     checked against it. ``dtype`` (default: keep each array's) casts every
-    leaf. The returned leaves require grad."""
+    leaf. The returned leaves require grad for training; serving takes
+    ``requires_grad=False`` (the engine refuses leaves that require grad)."""
     if cfg is not None:
         want = expected_shapes(cfg)
         if set(tree) != set(want) or set(tree["layers"]) != set(want["layers"]):
@@ -80,6 +82,6 @@ def params_from_jax(
     def conv(node: Any) -> Any:
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        return _to_tensor(node, device, dtype).requires_grad_(True)
+        return _to_tensor(node, device, dtype).requires_grad_(requires_grad)
 
     return conv(tree)
