@@ -43,6 +43,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
    TTFT, TPOT, the decode-step time with all 8 slots busy, tokens/s, peak
    memory and the pool's geometry. The serving path launches none of the
    kernels of the kernels line, which the phase checks.
+6. ckpt — the trainer's checkpoint path at llama3_1b's full size, the
+   train phase's settings, fresh directories under ``$TMPDIR`` (the free
+   space is checked first), deleted at the end. A: ``train`` 3 steps with
+   ``ckpt_dir`` d, ``ckpt_every`` 2 (the JAX trainer's policy leaves one
+   forced save, step 3). B: 3 more steps on d: resumed from 3 to 6, its
+   restored state bitwise A's, the kernels' launches over A and B those of
+   6 steps. Repeatability: where A's steps equal the train phase's first
+   three bitwise, B's must equal its last three bitwise, else within 1e-3
+   relative. Drill: the trainer's module in a subprocess (2 layers), SIGTERM
+   after its second step line: exit 0 within 30 s, ``preempted``, the
+   manifest naming the saved step, ``eval_main`` rc 0. Serve:
+   ``generate_server --ckpt-dir d`` in-process, two greedy requests of 64
+   tokens equal to an engine's on B's final in-memory parameters,
+   ``/healthz`` ``ckpt_step`` 6, d's files and manifest unchanged. A copy
+   of d's newest step with one payload byte flipped: ``eval_main`` rc 1.
+   Overlap: 31 steps saving at step 16 (one periodic save), the step times
+   during the background write against the others. Prints the checkpoint's
+   bytes, the stall of each save, each write's seconds (serialization,
+   fsync, digest), the restore's verify, read and H2D seconds, SIGTERM to
+   exit and the server's load seconds.
 
 ``--phases build,sweep`` times the RMSNorm backward kernel over its launch
 settings (``ops.norms.BWD_CONFIG``).
@@ -57,12 +77,13 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "train", "reference", "serve")
+PHASES = ("build", "kernels", "train", "reference", "serve", "ckpt")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep")
@@ -457,7 +478,18 @@ REF_LOSS_RTOL = 1e-2
 REF_GRAD_NORM_RTOL = 5e-2
 
 
-def phase_train() -> dict:
+def expected_launches(cfg, steps: int) -> dict[str, int]:  # noqa: ANN001
+    """Each kernel's launches over ``steps`` training steps of ``cfg`` in
+    bf16 at head_dim 64 (``flash_variant`` picks the wgmma kernels): remat
+    recomputes each layer's forward in the backward."""
+    fwd = cfg.n_layers * (1 + int(cfg.remat)) * steps
+    bwd = cfg.n_layers * steps
+    return {"flash_fwd_wgmma": fwd, "flash_fwd_simt": 0, "norm_res_fwd": fwd,
+            "flash_dq_wgmma": bwd, "flash_dq_simt": 0, "flash_dkv_wgmma": bwd,
+            "flash_dkv_simt": 0, "rms_norm_bwd": bwd}
+
+
+def phase_train() -> tuple[dict, dict, dict]:
     import torch
 
     from torchx_tpu_torch import _build
@@ -473,13 +505,7 @@ def phase_train() -> dict:
     losses = out["losses"]
     if not all(math.isfinite(x) for x in losses):
         fail("train", f"non-finite loss: {losses}")
-    # remat recomputes each layer's forward in the backward
-    fwd = cfg.n_layers * (1 + int(cfg.remat)) * TRAIN["steps"]
-    bwd = cfg.n_layers * TRAIN["steps"]
-    # bf16 at head_dim 64: flash_variant picks the wgmma kernels
-    expected = {"flash_fwd_wgmma": fwd, "flash_fwd_simt": 0, "norm_res_fwd": fwd,
-                "flash_dq_wgmma": bwd, "flash_dq_simt": 0, "flash_dkv_wgmma": bwd,
-                "flash_dkv_simt": 0, "rms_norm_bwd": bwd}
+    expected = expected_launches(cfg, TRAIN["steps"])
     emit({"phase": "train", "config": "llama3_1b", "n_layers": cfg.n_layers,
           "dim": cfg.dim, "heads": [cfg.n_heads, cfg.n_kv_heads],
           "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings, **TRAIN,
@@ -490,7 +516,7 @@ def phase_train() -> dict:
           "launches": counts, "expected_launches": expected})
     if counts != expected:
         fail("train", f"launch counts {counts} != expected {expected}")
-    return counts, expected
+    return counts, expected, out
 
 
 def phase_reference() -> None:
@@ -797,6 +823,333 @@ def phase_serve() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: checkpoint, preempt, resume, serve and evaluate what was saved
+# ---------------------------------------------------------------------------
+
+#: A trains ``steps`` steps saving every ``every`` (the JAX trainer's policy
+#: saves none of them but the forced last one), B resumes for ``steps``
+#: more; the drill runs at llama3_1b's width with ``drill_layers`` layers
+#: and must exit within ``notice_s`` of its SIGTERM; the overlap run saves
+#: at step ``overlap_every`` and steps on to ``overlap_steps``, through the
+#: background write and past it.
+CKPT = dict(steps=3, every=2, drill_layers=2, notice_s=30.0, overlap_every=16,
+            overlap_steps=31, prompts=(24, 40), new_tokens=64)
+#: Repeatability fallback: where the first three steps are not bitwise
+#: those of the train phase, steps 4-6 are held this close, relative.
+RESUME_RTOL = 1e-3
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _listing(directory: str) -> dict[str, tuple[int, int]]:
+    """Every file under ``directory`` with its size and mtime."""
+    out = {}
+    for root, _, files in os.walk(directory):
+        for name in files:
+            p = os.path.join(root, name)
+            st = os.stat(p)
+            out[os.path.relpath(p, directory)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _manifest(directory: str) -> dict:
+    with open(os.path.join(directory, "MANIFEST.json")) as f:
+        return json.load(f)
+
+
+def _rel_diff(a: list[float], b: list[float]) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+
+def _drill(d2: str) -> dict:
+    """The trainer's module run as ``__main__`` (``runpy``, as ``python -m``
+    does) in a subprocess, with the llama3_1b preset cut to
+    ``drill_layers`` layers, and SIGTERM after its second step line."""
+    import signal
+
+    code = ("import functools, runpy\n"
+            "from torchx_tpu_torch.models import llama\n"
+            "llama.CONFIGS['llama3_1b'] = functools.partial("
+            f"llama.llama3_1b, n_layers={CKPT['drill_layers']})\n"
+            "runpy.run_module('torchx_tpu_torch.examples.train_llama',"
+            " run_name='__main__', alter_sys=True)\n")
+    cmd = [sys.executable, "-c", code, "--config", "llama3_1b", "--batch",
+           str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--steps", "1000",
+           "--kernels", "cuda", "--warmup", "1", "--log-every", "1", "--ckpt-dir", d2]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t_start = time.monotonic()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env, cwd=REPO)
+    lines = []
+    try:
+        while sum(x.startswith("step ") for x in lines) < 2:
+            line = proc.stdout.readline()
+            if not line:
+                fail("ckpt", "drill: the trainer ended before its second step:\n"
+                     + "".join(lines)[-3000:])
+            lines.append(line)
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rest, _ = proc.communicate(timeout=CKPT["notice_s"])
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail("ckpt", f"drill: no exit within {CKPT['notice_s']} s of SIGTERM")
+        exit_s = time.monotonic() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines) + rest
+    if proc.returncode != 0 or "final:" not in out:
+        fail("ckpt", f"drill: exit code {proc.returncode}:\n{out[-3000:]}")
+    final = json.loads(out.split("final:", 1)[1].splitlines()[0])
+    saved = final["final_step"]
+    notice = f"preemption notice: checkpointed step {saved}, exiting"
+    return {"exit_code": proc.returncode, "sigterm_to_exit_s": exit_s,
+            "start_to_sigterm_s": t_term - t_start, "preempted": final["preempted"],
+            "saved_step": saved, "notice_printed": notice in out,
+            "launch_to_first_step_s": final["launch_to_first_step_s"],
+            "checkpoint": final["checkpoint"]}
+
+
+def phase_ckpt(train_out: dict | None) -> dict:
+    """The trainer's checkpoint path at llama3_1b's full width and depth
+    (module docstring, phase 6). -> the summary line's numbers."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.apps import eval_main, generate_server
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.serve.engine import ServeEngine
+
+    cfg = llama.llama3_1b()
+    kw = dict(kernels="cuda", device="cuda", warmup=1, log_every=1)
+    step_bytes = 3 * cfg.param_count() * 2  # params, mu, nu in bf16
+    drill_bytes = 3 * llama.llama3_1b(n_layers=CKPT["drill_layers"]).param_count() * 2
+    # d's two steps and the flipped copy of one, beside the drill's up to two
+    need = 3 * step_bytes + 2 * drill_bytes
+    root = tempfile.mkdtemp(prefix="tpx_ckpt_smoke_")
+    try:
+        free = shutil.disk_usage(root).free
+        emit({"phase": "ckpt", "dir": root, "free_bytes": free, "need_bytes": need,
+              "step_bytes_expected": step_bytes})
+        if free < need:
+            fail("ckpt", f"{free / 1e9:.1f} GB free under {root}; the phase needs"
+                 f" {need / 1e9:.1f} GB (two llama3_1b steps of {step_bytes / 1e9:.2f} GB,"
+                 " a copy of one and the drill's)")
+        if train_out is None:  # the uninterrupted six steps to compare with
+            torch.cuda.empty_cache()
+            train_out = train(cfg, TRAIN["batch"], TRAIN["seq"], 2 * CKPT["steps"], **kw)
+        whole_losses = train_out["losses"][: 2 * CKPT["steps"]]
+        whole_norms = train_out["grad_norms"][: 2 * CKPT["steps"]]
+
+        # A, then B resuming from A's last step
+        d = os.path.join(root, "d")
+        held: dict = {}
+
+        def on_a(event, state):  # noqa: ANN001, ANN202
+            if event == "final":
+                held["a"] = state
+
+        restored: dict = {}
+
+        def on_b(event, state):  # noqa: ANN001, ANN202
+            if event == "restored":
+                a_state = held.pop("a")
+                restored["tensors"] = len(a_state)
+                restored["differ"] = [k for k in a_state if not torch.equal(state[k], a_state[k])]
+                del a_state
+            else:
+                held["b"] = {k: v for k, v in state.items() if k.startswith("params.")}
+
+        torch.cuda.empty_cache()
+        _build.reset_launches()
+        a = train(cfg, TRAIN["batch"], TRAIN["seq"], CKPT["steps"], ckpt_dir=d,
+                  ckpt_every=CKPT["every"], on_state=on_a, **kw)
+        a_manifest = _manifest(d)
+        a_listing = sorted(os.listdir(d))
+        torch.cuda.empty_cache()
+        b = train(cfg, TRAIN["batch"], TRAIN["seq"], CKPT["steps"], ckpt_dir=d,
+                  on_state=on_b, **kw)
+        counts = _build.launch_counts()
+        expected = expected_launches(cfg, 2 * CKPT["steps"])
+        a_ck, b_ck = a["checkpoint"], b["checkpoint"]
+        a_bitwise = (a["losses"] == whole_losses[: CKPT["steps"]]
+                     and a["grad_norms"] == whole_norms[: CKPT["steps"]])
+        b_vs_whole = {
+            "loss_max_rel_diff": _rel_diff(b["losses"], whole_losses[CKPT["steps"]:]),
+            "grad_norm_max_rel_diff": _rel_diff(b["grad_norms"], whole_norms[CKPT["steps"]:]),
+            "bitwise": (b["losses"] == whole_losses[CKPT["steps"]:]
+                        and b["grad_norms"] == whole_norms[CKPT["steps"]:]),
+        }
+        emit({"phase": "ckpt", "run": "A", "steps": CKPT["steps"], "every": CKPT["every"],
+              "losses": a["losses"], "grad_norms": a["grad_norms"],
+              "step_times_s": a["step_times_s"], "final_step": a["final_step"],
+              "launch_breakdown": a["launch_breakdown"],
+              "manifest_steps": sorted(a_manifest["steps"]),
+              "latest_step": a_manifest["latest_step"], "listing": a_listing,
+              "saves": a_ck["saves"], "writes": a_ck["writes"]})
+        emit({"phase": "ckpt", "run": "B", "resumed_from_step": b["resumed_from_step"],
+              "final_step": b["final_step"], "losses": b["losses"],
+              "grad_norms": b["grad_norms"], "step_times_s": b["step_times_s"],
+              "launch_breakdown": b["launch_breakdown"],
+              "restores": b_ck["restores"], "saves": b_ck["saves"], "writes": b_ck["writes"],
+              "restored_tensors": restored.get("tensors"),
+              "restored_differ": restored.get("differ"),
+              "launches": counts, "expected_launches": expected})
+        emit({"phase": "ckpt", "check": "repeatability",
+              "a_equals_train_steps_1_3": a_bitwise,
+              "a_loss_max_rel_diff": _rel_diff(a["losses"], whole_losses[: CKPT["steps"]]),
+              "a_grad_norm_max_rel_diff": _rel_diff(a["grad_norms"],
+                                                    whole_norms[: CKPT["steps"]]),
+              "b_vs_train_steps_4_6": b_vs_whole,
+              "rule": "bitwise" if a_bitwise else f"within {RESUME_RTOL} relative"})
+        if a_manifest["latest_step"] != CKPT["steps"] or sorted(a_manifest["steps"]) != [
+                str(CKPT["steps"])]:
+            fail("ckpt", f"A's manifest {a_manifest} is not its forced save of step"
+                 f" {CKPT['steps']} alone")
+        if (b["resumed_from_step"], b["final_step"]) != (CKPT["steps"], 2 * CKPT["steps"]):
+            fail("ckpt", f"B resumed from {b['resumed_from_step']} to {b['final_step']}")
+        if restored.get("differ") != [] or not restored.get("tensors"):
+            fail("ckpt", f"B's restored state differs from A's in {restored}")
+        if counts != expected:
+            fail("ckpt", f"launch counts over A and B {counts} != {expected}")
+        if a_bitwise and not b_vs_whole["bitwise"]:
+            fail("ckpt", f"steps 4-6 after the resume differ from the uninterrupted run"
+                 f" though steps 1-3 agree bitwise: {b_vs_whole}")
+        if max(b_vs_whole["loss_max_rel_diff"], b_vs_whole["grad_norm_max_rel_diff"]) > RESUME_RTOL:
+            fail("ckpt", f"steps 4-6 after the resume: {b_vs_whole} > {RESUME_RTOL}")
+
+        # the preemption drill, in a subprocess
+        d2 = os.path.join(root, "d2")
+        drill = _drill(d2)
+        d2_manifest = _manifest(d2)
+        drill["manifest_latest_step"] = d2_manifest["latest_step"]
+        drill["eval_main_rc"] = eval_main.main(
+            ["--ckpt", d2, "--out", os.path.join(root, "d2_score.json")])
+        emit({"phase": "ckpt", "run": "drill", "n_layers": CKPT["drill_layers"], **drill})
+        if not (drill["preempted"] and drill["notice_printed"]
+                and drill["manifest_latest_step"] == drill["saved_step"]
+                and str(drill["saved_step"]) in d2_manifest["steps"]
+                and drill["eval_main_rc"] == 0):
+            fail("ckpt", f"drill: {drill}")
+        shutil.rmtree(d2)
+
+        # serve what B saved, and compare with an engine on B's own params
+        listing, manifest_bytes = _listing(d), open(os.path.join(d, "MANIFEST.json"), "rb").read()
+        rng = np.random.default_rng(SERVE["seed"])
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)] for n in CKPT["prompts"]]
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        server = generate_server.serve(
+            "llama3_1b", port=0, ckpt_dir=d, device="cuda",
+            max_batch=SERVE["max_batch"], block_size=SERVE["block_size"])
+        load_s = time.monotonic() - t0
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        try:
+            code, health = _get(port, "/healthz")
+            served = [_post(port, {"tokens": [p], "max_new_tokens": CKPT["new_tokens"]})
+                      ["tokens"][0][len(p):] for p in prompts]
+            served_cfg = server.service.cfg
+        finally:
+            server.shutdown()
+            server.service.close()
+            server.server_close()
+        b_params = llama.unflatten(
+            {k.removeprefix("params."): v.detach() for k, v in held.pop("b").items()})
+        eng = ServeEngine(b_params, served_cfg, max_slots=SERVE["max_batch"],
+                          block_size=SERVE["block_size"]).start()
+        try:
+            own = [eng.generate(p, CKPT["new_tokens"], timeout=300).generated for p in prompts]
+        finally:
+            eng.stop()
+        del b_params, eng
+        ckpt_step = json.loads(health).get("ckpt_step") if code == 200 else None
+        unchanged = (_listing(d) == listing
+                     and open(os.path.join(d, "MANIFEST.json"), "rb").read() == manifest_bytes)
+        serve = {"load_s": load_s, "healthz": code, "ckpt_step": ckpt_step,
+                 "prompt_lens": list(CKPT["prompts"]), "new_tokens": CKPT["new_tokens"],
+                 "tokens_equal_own": served == own, "dir_unchanged": unchanged,
+                 "listing": sorted(listing)}
+        emit({"phase": "ckpt", "run": "serve", **serve})
+        if not (serve["tokens_equal_own"] and ckpt_step == 2 * CKPT["steps"] and unchanged):
+            fail("ckpt", f"serve from the checkpoint: {serve}")
+
+        # a copy of d (its manifest and newest step) with one payload byte flipped
+        flip = os.path.join(root, "flip")
+        os.makedirs(flip)
+        latest = str(2 * CKPT["steps"])
+        shutil.copy2(os.path.join(d, "MANIFEST.json"), flip)
+        t0 = time.monotonic()
+        shutil.copytree(os.path.join(d, latest), os.path.join(flip, latest))
+        copy_s = time.monotonic() - t0
+        payload = os.path.join(flip, latest, "state.pt")
+        with open(payload, "r+b") as f:
+            f.seek(os.path.getsize(payload) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        t0 = time.monotonic()
+        flip_rc = eval_main.main(["--ckpt", flip, "--out", os.path.join(root, "flip.json")])
+        flipped = {"eval_main_rc": flip_rc, "eval_s": time.monotonic() - t0, "copy_s": copy_s}
+        emit({"phase": "ckpt", "check": "flipped payload byte", **flipped})
+        if flip_rc != 1:
+            fail("ckpt", f"eval_main passed a checkpoint with a flipped byte (rc {flip_rc})")
+        shutil.rmtree(flip)
+        shutil.rmtree(d)
+
+        # steps overlapping a background write against the others
+        torch.cuda.empty_cache()
+        c = train(cfg, TRAIN["batch"], TRAIN["seq"], CKPT["overlap_steps"],
+                  ckpt_dir=os.path.join(root, "d3"), ckpt_every=CKPT["overlap_every"], **kw)
+        c_ck = c["checkpoint"]
+        # the first two steps pay one-off costs (builds, allocator): left out
+        pairs = list(zip(c["step_times_s"], c_ck["step_overlaps_write"]))[2:]
+        during = [t for t, o in pairs if o]
+        clear = [t for t, o in pairs if not o]
+        overlap = {"steps_during_write": len(during), "steps_clear": len(clear),
+                   "step_s_during_write": sum(during) / max(1, len(during)),
+                   "step_s_clear": sum(clear) / max(1, len(clear)),
+                   "step_s_during_write_max": max(during, default=None),
+                   "step_s_clear_max": max(clear, default=None),
+                   "saves": c_ck["saves"], "writes": c_ck["writes"]}
+        emit({"phase": "ckpt", "run": "overlap", "every": CKPT["overlap_every"],
+              "steps": CKPT["overlap_steps"], "step_times_s": c["step_times_s"],
+              "overlaps": c_ck["step_overlaps_write"], **overlap})
+        if not during or not clear:
+            fail("ckpt", f"overlap run: {len(during)} steps during a write, {len(clear)} clear")
+
+        restore = b_ck["restores"][0]
+        summary = {
+            "checkpoint_bytes": a_ck["writes"][0]["bytes"],
+            "save_stall_s": {f"{run}{s['step']}": s["wait_s"] + s["snapshot_s"]
+                             for run, ck in (("A", a_ck), ("B", b_ck), ("C", c_ck))
+                             for s in ck["saves"]},
+            **{key: [w[key] for ck in (a_ck, b_ck, c_ck) for w in ck["writes"]]
+               for key in ("write_s", "serialize_s", "fsync_s", "digest_s")},
+            "restore_s": {k: restore[k] for k in ("verify_s", "read_s", "h2d_s")},
+            "step_s_during_write": overlap["step_s_during_write"],
+            "step_s_clear": overlap["step_s_clear"],
+            "sigterm_to_exit_s": drill["sigterm_to_exit_s"],
+            "server_load_s": load_s,
+            "resume_bitwise": b_vs_whole["bitwise"],
+        }
+        emit({"phase": "ckpt", "summary": summary})
+        return summary
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 #: Kernel-name fragments -> the group a step's device time is booked to.
 PROFILE_GROUPS = (
     ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
@@ -1017,7 +1370,7 @@ def main(argv: list[str] | None = None) -> int:
     for row in kernel_rows:
         emit({"phase": "kernels", **row})
     if "train" in phases:
-        counts, expected = phase_train()
+        counts, expected, train_out = phase_train()
         for row in kernel_rows:
             row["launches"] = counts[row["name"]]
             row["launches_per_step"] = counts[row["name"]] / TRAIN["steps"]
@@ -1028,6 +1381,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_reference()
     if "serve" in phases:
         phase_serve()
+    if "ckpt" in phases:
+        phase_ckpt(train_out if "train" in phases else None)
     if "profile" in phases:
         phase_profile()
     if "sweep" in phases:

@@ -12,6 +12,7 @@ reference value.
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ from torchx_tpu_torch.models import generate as tgen
 from torchx_tpu_torch.models import llama
 from torchx_tpu_torch.ops import fused, norms
 from torchx_tpu_torch.ops import paged_attention as pa
+from torchx_tpu_torch.parallel import checkpoint as ckpt_mod
+from torchx_tpu_torch.parallel.checkpoint import Checkpointer
 from torchx_tpu_torch.parallel.prefetch import device_prefetch
 from torchx_tpu_torch.serve.engine import ServeEngine
 
@@ -318,3 +321,86 @@ def test_engine_on_card_matches_dense(gen):
     for p, r in zip(prompts, reqs):
         dense = tgen.generate(params, torch.tensor([p], device="cuda"), cfg, 6)
         assert r.tokens == dense[0].tolist()
+
+
+# -- checkpoints of CUDA state ------------------------------------------------
+
+
+def _cuda_state(gen, n=1 << 20):
+    return {
+        "params.w": _randn(gen, n, dtype=torch.bfloat16),
+        "opt.mu.w": _randn(gen, n, dtype=torch.bfloat16),
+        "params.b": _randn(gen, 64, 33),
+        "opt.count": torch.tensor(3, dtype=torch.int64),
+        "step": torch.tensor(3, dtype=torch.int64),
+    }
+
+
+def test_checkpoint_bf16_state_round_trip_bitwise(gen, tmp_path):
+    state = _cuda_state(gen)
+    ckpt = Checkpointer(str(tmp_path))
+    assert ckpt.save(3, state)
+    ckpt.close()
+    live = {k: torch.zeros_like(v) for k, v in state.items()}
+    step, out = Checkpointer(str(tmp_path)).restore_latest(into=live)
+    assert step == 3 and out is live
+    for k, v in state.items():
+        assert out[k].device == v.device and torch.equal(out[k], v), k
+
+
+def test_checkpoint_snapshot_is_fenced_before_a_kernel(gen, tmp_path, monkeypatch):
+    """A kernel launched right after save() returns updates the tensors in
+    place; the checkpoint still holds the values of the save. The card
+    sleeps before the save, so an unfenced copy would still be in flight
+    when the writer reads its buffers."""
+    gate = threading.Event()
+    real = ckpt_mod.Checkpointer._write
+
+    def held(self, step, host):
+        assert gate.wait(timeout=60)
+        real(self, step, host)
+
+    monkeypatch.setattr(ckpt_mod.Checkpointer, "_write", held)
+    state = _cuda_state(gen, n=64 << 20)
+    want = {k: v.cpu() for k, v in state.items()}
+    ckpt = Checkpointer(str(tmp_path))
+    torch.cuda._sleep(200_000_000)
+    ckpt.save(1, state)
+    state["params.w"].mul_(-1)  # the next step's in-place update
+    state["opt.mu.w"].add_(1)
+    gate.set()
+    ckpt.wait()
+    got = ckpt.restore(1)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    ckpt.close()
+
+
+def test_checkpoint_restore_lands_on_the_card(gen, tmp_path):
+    d = str(tmp_path / "ck")
+    train_llama.train(llama.llama_tiny(), 2, 16, 3, device="cuda", log_every=0, ckpt_dir=d)
+    seen = {}
+
+    def grab(event, state):
+        if event == "restored":
+            seen.update(state)
+
+    out = train_llama.train(llama.llama_tiny(), 2, 16, 2, device="cuda", log_every=0,
+                            ckpt_dir=d, on_state=grab)
+    assert out["resumed_from_step"] == 3 and out["final_step"] == 5
+    assert all(v.is_cuda for k, v in seen.items() if k not in ("opt.count", "step"))
+    assert out["checkpoint"]["restores"][0]["h2d_s"] >= 0
+
+
+def test_checkpoint_pinned_buffers_are_reused(gen, tmp_path):
+    state = _cuda_state(gen)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.prepare(state)
+    ptrs = {k: b.data_ptr() for k, b in ckpt._buffers.items()}
+    assert all(b.is_pinned() for k, b in ckpt._buffers.items() if state[k].is_cuda)
+    for step in (1, 2, 3):
+        ckpt.save(step, state)
+        assert {k: b.data_ptr() for k, b in ckpt._buffers.items()} == ptrs
+    ckpt.wait()
+    assert [w["step"] for w in ckpt.writes] == [1, 2, 3]
+    ckpt.close()

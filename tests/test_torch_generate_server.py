@@ -198,7 +198,7 @@ class TestDrain:
 
 @pytest.mark.parametrize("kw", [dict(serve_role="prefill"), dict(serve_role="decode"),
                                 dict(kv_transfer="local"), dict(int8=True),
-                                dict(ckpt_dir="/nonexistent")])
+                                dict(kv_transfer="http:http://127.0.0.1:1")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         gs.GenerateService("tiny", device="cpu", **kw)

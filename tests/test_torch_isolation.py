@@ -69,6 +69,30 @@ def test_serving_modules_are_present():
     assert set(SERVING_MODULES) <= sources
 
 
+#: The checkpoint and launcher-contract modules, which must exist and stand
+#: alone (the AST check below covers them like every source).
+CHECKPOINT_MODULES = (
+    "settings.py", "obs/sinks.py", "supervisor/__init__.py", "supervisor/gang.py",
+    "parallel/checkpoint.py", "apps/eval_main.py",
+)
+
+
+def test_checkpoint_modules_are_present():
+    sources = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in p.parents}
+    assert set(CHECKPOINT_MODULES) <= sources
+
+
+def test_eval_main_is_stdlib_only():
+    """The eval gate runs without an accelerator runtime: it imports the
+    standard library only, as the JAX package's copy does."""
+    tree = ast.parse((PKG / "apps" / "eval_main.py").read_text())
+    mods = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names}
+    mods |= {(n.module or "").split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom)}
+    assert mods <= set(sys.stdlib_module_names) | {"__future__"}, mods
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     for path in _sources():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -122,7 +146,7 @@ class TestDevice:
         assert final["kernels"] == "cuda" and len(final["losses"]) == 2
 
     def test_jax_only_flags_raise(self):
-        for flag in ("--mesh=fsdp=-1", "--int8", "--ckpt-dir"):
+        for flag in ("--mesh=fsdp=-1", "--int8", "--profile"):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 train_llama.main(["--device", "cpu", flag])
         with pytest.raises(SystemExit):

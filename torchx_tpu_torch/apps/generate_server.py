@@ -5,16 +5,21 @@ seeded random weights onto the CUDA card, and serve token-in/token-out
 generation over plain HTTP, with no framework dependencies.
 
     python -m torchx_tpu_torch.apps.generate_server \
-        --config llama3_1b [--device cuda] [--port 8000]
+        --config llama3_1b [--ckpt-dir DIR] [--device cuda] [--port 8000]
 
 Runs on the CUDA device unless ``--device cpu`` is given, and raises where
-no CUDA device is present. Not ported yet, and raising "not ported yet":
-``--serve-role prefill|decode``, ``--kv-transfer`` and ``/v1/kv`` (the
-disaggregated roles), ``--int8`` and ``--ckpt-dir``; the MoE configs raise
-too.
+no CUDA device is present. ``--ckpt-dir`` serves the parameters of the
+trainer's newest checkpoint step that verifies against its digest (only
+the ``params.*`` entries are read), through a read-only reader: a bad step
+is skipped and logged, and nothing in the directory is renamed or written,
+so a server pointed at a live training directory leaves its resume point
+alone. Not ported yet, and raising "not ported yet": ``--serve-role
+prefill|decode``, ``--kv-transfer`` and ``/v1/kv`` (the disaggregated
+roles) and ``--int8``; the MoE configs raise too.
 
 API (JSON):
-    GET  /healthz            -> {"status": "ok", "model": ..., "requests": N}
+    GET  /healthz            -> {"status": "ok", "model": ..., "requests": N,
+                                 "ckpt_step": step served or null}
                                 (503 {"status": "draining"} during SIGTERM
                                 grace)
     GET  /metricz            -> tpx_* metrics, Prometheus text format
@@ -66,14 +71,39 @@ from typing import Any, Optional
 
 import torch
 
-logger = logging.getLogger(__name__)
+from torchx_tpu_torch.settings import ENV_TPX_REPLICA_ID
 
-#: The JAX package's replica-id environment name (its ``settings``).
-ENV_TPX_REPLICA_ID = "TPX_REPLICA_ID"
+logger = logging.getLogger(__name__)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
+
+
+def _load_params(ckpt_dir: str, cfg: Any, device: torch.device) -> tuple[int, dict]:
+    """-> (step, params) of the newest trainer checkpoint step under
+    ``ckpt_dir`` that verifies: its ``params.*`` entries, memory-mapped
+    (the optimizer moments are never read), checked against ``cfg``'s
+    shapes, cast to its dtype and loaded onto ``device``. Read-only: bad
+    steps are skipped and logged, never moved."""
+    from torchx_tpu_torch.convert import expected_shapes
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.parallel.checkpoint import Checkpointer
+
+    reader = Checkpointer(ckpt_dir, read_only=True)
+    step, flat = reader.restore_latest(prefix="params.")  # logs each skipped step
+    if flat is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    named = {k.removeprefix("params."): v for k, v in flat.items()}
+    want = dict(llama.named_leaves(expected_shapes(cfg)))
+    got = {name: tuple(t.shape) for name, t in named.items()}
+    if got != want:
+        raise ValueError(
+            f"checkpoint step {step} under {ckpt_dir} holds parameters {got},"
+            f" not the config's {want}"
+        )
+    params = llama.unflatten({name: t.to(device, cfg.dtype) for name, t in named.items()})
+    return step, params
 
 
 class ServiceDraining(RuntimeError):
@@ -163,8 +193,6 @@ class GenerateService:
             raise _not_ported("--kv-transfer", "decode and serving, disaggregated roles")
         if int8:
             raise _not_ported("--int8", "MoE and int8")
-        if ckpt_dir:
-            raise _not_ported("--ckpt-dir", "checkpointing")
         from torchx_tpu_torch.examples.train_llama import resolve_device
         from torchx_tpu_torch.models import llama
 
@@ -173,12 +201,15 @@ class GenerateService:
             raise ValueError(f"unknown config {config!r}; have {sorted(llama.CONFIGS)}")
         self.cfg = llama.get_config(config)
         self.name = config
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        self.params = llama.init_params(self.cfg, gen, self.device)
+        if ckpt_dir:
+            self.ckpt_step, self.params = _load_params(ckpt_dir, self.cfg, self.device)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            self.params = llama.init_params(self.cfg, gen, self.device)
+            self.ckpt_step = None
         for leaf in llama.leaves(self.params):
             leaf.requires_grad_(False)
-        self.ckpt_step = None
         self.int8 = False
         self.requests = 0
         self.batches = 0  # device dispatches (< enqueued seqs when coalesced)
@@ -795,7 +826,11 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser = argparse.ArgumentParser(prog="generate_server", description=__doc__)
     parser.add_argument("--config", required=True, help="model config name")
     parser.add_argument("--port", type=int, default=8000)
-    parser.add_argument("--ckpt-dir", default=None, help="not ported yet")
+    parser.add_argument(
+        "--ckpt-dir", default=None,
+        help="serve the newest verified trainer checkpoint under this directory"
+        " (read-only; default: seeded random weights)",
+    )
     parser.add_argument("--int8", action="store_true", help="not ported yet")
     parser.add_argument(
         "--device",

@@ -1,4 +1,5 @@
-"""Parameters of the JAX package's Llama, as numpy arrays, to the port's.
+"""Parameters (and training state) of the JAX package's Llama, as numpy
+arrays, to the port's.
 
 Both packages keep one layout, so the conversion is leaf by leaf and
 changes no axis: layer weights stacked on a leading ``L`` axis, matrices
@@ -85,3 +86,40 @@ def params_from_jax(
         return _to_tensor(node, device, dtype).requires_grad_(requires_grad)
 
     return conv(tree)
+
+
+def _find_adam_state(node: Any) -> Any:
+    """The optax ``ScaleByAdamState`` (fields count, mu, nu) inside an
+    optimizer state of nested tuples, or None."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(
+    state: Any,
+    cfg: Optional[LlamaConfig] = None,
+    device: torch.device | str = "cpu",
+) -> dict[str, Any]:
+    """A JAX trainer's ``TrainState`` of numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port's training state:
+    ``{"params", "mu", "nu", "count", "step"}``, where ``params`` requires
+    grad, ``mu`` and ``nu`` (AdamW's moments) are trees of the params'
+    layout, and ``count`` (the optimizer's update count) and ``step`` are
+    ints. Load ``mu``, ``nu`` and ``count`` into the port's ``AdamW`` and
+    the run continues where the JAX one stopped."""
+    adam = _find_adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam moments (count, mu, nu)")
+    return {
+        "params": params_from_jax(state.params, cfg, device),
+        "mu": params_from_jax(adam.mu, cfg, device, requires_grad=False),
+        "nu": params_from_jax(adam.nu, cfg, device, requires_grad=False),
+        "count": int(np.asarray(adam.count)),
+        "step": int(np.asarray(state.step)),
+    }

@@ -7,29 +7,50 @@
 Runs on the CUDA device unless ``--device cpu`` is given, and raises where
 no CUDA device is present. Prints each step's loss, tokens/s and model
 FLOPs utilization (MFU), then a JSON summary with the launch count of each
-hand-written kernel. The JAX trainer's meshes, checkpoints, profiler,
-gradient buckets, int8 and ring attention are not ported yet (ROADMAP);
-their flags raise.
+hand-written kernel.
+
+The launcher contract of the JAX trainer: with ``--ckpt-dir`` it resumes
+from the newest checkpoint that verifies (the data stream too) and saves
+every ``--ckpt-every`` steps (:mod:`torchx_tpu_torch.parallel.checkpoint`);
+on SIGTERM (a preemption notice) it saves the current step, waits until it
+is durable and exits 0. Under the launcher's tracing (``$TPX_TRACE_ID``)
+it emits the ``launch.*`` spans, the ``job.first_step`` and
+``step.window`` heartbeats into the session's ``trace.jsonl`` and renews
+its replica's liveness lease. The JAX trainer's meshes, profiler, gradient
+buckets, int8 and ring attention are not ported yet (ROADMAP); their flags
+raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
 import math
+import os
+import threading
 import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from torchx_tpu_torch import _build
+from torchx_tpu_torch import _build, settings
 from torchx_tpu_torch.examples.data import TokenDataset
 from torchx_tpu_torch.models import llama
+from torchx_tpu_torch.obs import sinks
+from torchx_tpu_torch.obs import trace as obs_trace
 from torchx_tpu_torch.ops.fused import resolve_kernels
+from torchx_tpu_torch.parallel.checkpoint import Checkpointer
 from torchx_tpu_torch.parallel.prefetch import Prefetcher, device_prefetch
+
+_PROCESS_START = time.monotonic()
+
+# The first train() call of a process anchors launch-to-first-step to the
+# process start (import time counts); later calls time only themselves.
+_FIRST_TRAIN_PENDING = True
 
 #: Dense bf16 peak FLOP/s of one card, matched as a substring of
 #: ``torch.cuda.get_device_name()`` (NVIDIA's data sheet, SXM part).
@@ -40,8 +61,7 @@ PEAK_FLOPS = {
 #: Flags of the JAX trainer this port does not have yet.
 NOT_PORTED_FLAGS = (
     "--mesh", "--ring-attention", "--remat-policy", "--int8", "--int8-scope",
-    "--grad-bucket-mb", "--log-every", "--profile-dir", "--profile",
-    "--ckpt-dir", "--ckpt-every",
+    "--grad-bucket-mb", "--profile-dir", "--profile",
 )
 
 
@@ -182,6 +202,121 @@ def synthetic_batch(
     return {"tokens": tokens}
 
 
+def checkpoint_state(
+    params: llama.Params, optimizer: AdamW, step: int
+) -> dict[str, torch.Tensor]:
+    """The trainer's state as the flat name -> tensor dict a checkpoint
+    step holds: ``params.<path>``, ``opt.mu.<path>``, ``opt.nu.<path>``
+    (views of the live tensors, so a restore into them lands in place and
+    the optimizer's references stay valid), and ``opt.count`` and ``step``
+    (int64 scalars)."""
+    named = llama.named_leaves(params)
+    state = {f"params.{name}": p.detach() for name, p in named}
+    for (name, _), mu, nu in zip(named, optimizer.mu, optimizer.nu):
+        state[f"opt.mu.{name}"] = mu
+        state[f"opt.nu.{name}"] = nu
+    state["opt.count"] = torch.tensor(optimizer.count, dtype=torch.int64)
+    state["step"] = torch.tensor(step, dtype=torch.int64)
+    return state
+
+
+# -- launcher hooks: all no-ops unless the launcher traces this process ------
+
+
+def _traced() -> bool:
+    return bool(os.environ.get(settings.ENV_TPX_TRACE_ID))
+
+
+def _replica_id() -> int:
+    """This process's replica id in the gang: the launcher-injected
+    ``TPX_REPLICA_ID`` (the id the gang monitor expects), else 0."""
+    try:
+        return int(os.environ.get(settings.ENV_TPX_REPLICA_ID, ""))
+    except ValueError:
+        return 0
+
+
+def _renew_liveness_lease(step: Optional[int]) -> None:
+    """Best-effort per-replica liveness lease beside each heartbeat, so
+    the gang monitor tells a live replica from a stopped gang even when
+    the trace stream stalls. Lease I/O never takes training down."""
+    try:
+        from torchx_tpu_torch.supervisor.gang import renew_lease
+
+        renew_lease(_replica_id(), step=-1 if step is None else int(step))
+    except Exception:  # noqa: BLE001 - liveness is advisory
+        pass
+
+
+def _launch_span(name: str, **attrs: Any) -> contextlib.AbstractContextManager:
+    """A ``launch.*`` breakdown span under the launcher's tracing, else a
+    no-op."""
+    if not _traced():
+        return contextlib.nullcontext()
+    sinks.attach_trace_sink()
+    return obs_trace.span(name, **attrs)
+
+
+def _report_first_step(
+    first_step_s: float, resumed_step: int, breakdown: dict[str, float]
+) -> None:
+    """Join the launcher's trace with a ``job.first_step`` heartbeat
+    carrying launch-to-first-step and its stages."""
+    if not _traced():
+        return
+    sinks.attach_trace_sink()
+    obs_trace.heartbeat(
+        "job.first_step",
+        launch_to_first_step_s=round(first_step_s, 3),
+        resumed_step=resumed_step or None,
+        replica=_replica_id(),
+        **{f"stage_{k}_s": round(v, 3) for k, v in breakdown.items()},
+    )
+    _renew_liveness_lease(resumed_step)
+
+
+def _step_heartbeat(**attrs: Any) -> None:
+    """A ``step.window`` heartbeat per log line: the steady-state
+    counterpart of the ``launch.*`` spans."""
+    if not _traced():
+        return
+    sinks.attach_trace_sink()
+    obs_trace.heartbeat("step.window", replica=_replica_id(), **attrs)
+    _renew_liveness_lease(int(attrs.get("step", -1)))
+
+
+def _install_preempt_handler() -> tuple[Optional[threading.Event], Callable[[], None]]:
+    """Arm a SIGTERM preemption-grace handler (main thread only).
+
+    A preemption delivers SIGTERM with a short notice before the hard
+    kill. The handler only sets an event that the train loop polls after
+    each step; the loop then forces a save, waits until it is durable and
+    exits cleanly inside the notice. -> ``(event, restore)``, where
+    ``restore()`` reinstates the previous handler; ``(None, noop)`` off
+    the main thread."""
+    import signal
+
+    if threading.current_thread() is not threading.main_thread():
+        return None, lambda: None
+    evt = threading.Event()
+
+    def _on_sigterm(signum, frame):  # noqa: ANN001
+        evt.set()
+
+    try:
+        prev = signal.signal(signal.SIGTERM, _on_sigterm)
+    except (ValueError, OSError):  # no signal support here
+        return None, lambda: None
+
+    def _restore() -> None:
+        try:
+            signal.signal(signal.SIGTERM, prev)
+        except (ValueError, OSError):
+            pass
+
+    return evt, _restore
+
+
 def train(
     cfg: llama.LlamaConfig,
     batch: int,
@@ -195,57 +330,172 @@ def train(
     device: Optional[str | torch.device] = None,
     seed: int = 0,
     log_every: int = 1,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 0,
+    on_state: Optional[Callable[[str, dict[str, torch.Tensor]], None]] = None,
 ) -> dict[str, Any]:
-    """Train ``steps`` steps of ``cfg`` from a seeded init. -> metrics:
-    losses, step times, tokens/s and MFU over the steps after the first
-    (which pays the kernels' builds and Triton's compiles), peak device
-    memory, and each kernel's launches over the run and per step."""
-    dev = resolve_device(device)
-    cfg = dataclasses.replace(cfg, max_seq=seq, kernels=resolve_kernels(kernels))
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = llama.init_params(cfg, gen, dev)
-    optimizer = make_optimizer(llama.leaves(params), lr=lr, warmup=warmup)
+    """Train ``steps`` steps of ``cfg`` from a seeded init, or from the
+    newest checkpoint under ``ckpt_dir``. -> metrics: losses, step times,
+    tokens/s and MFU over the steps after the first (which pays the
+    kernels' builds and Triton's compiles), peak device memory, each
+    kernel's launches, and the launcher's results (``final_step``,
+    ``resumed_from_step``, ``preempted``, ``launch_to_first_step_s``).
+
+    Checkpoints follow the JAX trainer: saves every ``ckpt_every`` global
+    steps (100 when 0), but not on the first step nor on the up to three
+    warm-up steps after it, and a forced save of the last step when it is
+    not on disk yet (runs of more than one step). ``on_state(event,
+    state)``, where given, sees :func:`checkpoint_state`'s views of the
+    live state right after a restore (``"restored"``) and at the end
+    (``"final"``)."""
+    global _FIRST_TRAIN_PENDING
+    t_call = time.monotonic()
+    launch_ref = _PROCESS_START if _FIRST_TRAIN_PENDING else t_call
+    _FIRST_TRAIN_PENDING = False
+    # launch-to-first-step by stage (the launch.* spans' names)
+    breakdown: dict[str, float] = {"import": t_call - launch_ref}
+    t0 = time.monotonic()
+    with _launch_span("launch.backend_init"):
+        dev = resolve_device(device)
+        cfg = dataclasses.replace(cfg, max_seq=seq, kernels=resolve_kernels(kernels))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+    breakdown["backend_init"] = time.monotonic() - t0
+
+    ckpt, latest = None, None
+    if ckpt_dir:
+        ckpt_every = ckpt_every or 100  # ckpt_dir alone must still checkpoint
+        ckpt = Checkpointer(ckpt_dir, save_interval_steps=ckpt_every)
+        latest = ckpt.latest_step()  # a directory listing, no tensor IO
+    resumed_step = latest or 0
+
+    t0 = time.monotonic()
+    with _launch_span("launch.init_state"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = llama.init_params(cfg, gen, dev)
+        optimizer = make_optimizer(llama.leaves(params), lr=lr, warmup=warmup)
+        if ckpt is not None:  # the pinned snapshot buffers, once
+            ckpt.prepare(checkpoint_state(params, optimizer, 0))
+    breakdown["init_state"] = time.monotonic() - t0
     step_fn = make_train_step(cfg, optimizer)
-    if data_path:
-        rows = TokenDataset(data_path, seq, batch, seed=seed)
-        batches = device_prefetch(
-            ({"tokens": r} for r in rows), dev, depth=prefetch
-        )
-    else:
-        # a constant device batch through a passthrough prefetcher: one code
-        # path and an honest (about 0) data-wait account
-        data = synthetic_batch(cfg, batch, seq, seed=seed, device=dev)
-        batches = Prefetcher(itertools.repeat(data), depth=0)
+    if latest is not None:
+        t0 = time.monotonic()
+        live = checkpoint_state(params, optimizer, 0)
+        with _launch_span("launch.restore", step=latest):
+            step_r, restored = ckpt.restore_latest(into=live)
+        if restored is None:
+            # every step vanished since the listing: train from scratch
+            resumed_step = 0
+            print("no restorable checkpoint step (all quarantined); starting fresh",
+                  flush=True)
+        else:
+            resumed_step = step_r
+            optimizer.count = int(live["opt.count"])
+            breakdown["restore"] = time.monotonic() - t0
+            print(f"resumed from checkpoint step {resumed_step}", flush=True)
+            if on_state is not None:
+                on_state("restored", live)
+
+    t0 = time.monotonic()
+    with _launch_span("launch.data_setup"):
+        if data_path:
+            # the stream continues at the restored step (after a fallback
+            # past a corrupt step too: it is built after the restore)
+            rows = TokenDataset(data_path, seq, batch, seed=seed, start_step=resumed_step)
+            batches = device_prefetch(
+                ({"tokens": r} for r in rows), dev, depth=prefetch
+            )
+        else:
+            # a constant device batch through a passthrough prefetcher: one
+            # code path and an honest (about 0) data-wait account
+            data = synthetic_batch(cfg, batch, seq, seed=seed, device=dev)
+            batches = Prefetcher(itertools.repeat(data), depth=0)
+    breakdown["data_setup"] = time.monotonic() - t0
 
     counts0 = _build.launch_counts()
-    losses, grad_norms, step_times = [], [], []
+    losses, grad_norms, step_times, overlaps = [], [], [], []
     peak = device_peak_flops(dev)
     flops_per_token = cfg.flops_per_token()
+    tokens_per_step = batch * seq
+    # no periodic save on the first step nor on these warm-up steps
+    warmup_steps = min(3, max(steps - 2, 0))
+    global_step = resumed_step
+    first_step_s = None
+    window_t0, window_steps, window_wait = time.monotonic(), 0, 0.0
+    preempt_evt, restore_sigterm = _install_preempt_handler()
+    preempted = False
     try:
         for i in range(steps):
+            overlaps.append(ckpt is not None and ckpt.writing())
             t0 = time.monotonic()
-            out = step_fn(params, next(batches))
-            loss = float(out["loss"])  # waits for the step
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            step_times.append(time.monotonic() - t0)
+            with _launch_span("launch.first_step") if i == 0 else contextlib.nullcontext():
+                out = step_fn(params, next(batches))
+                loss = float(out["loss"])  # waits for the step
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            t1 = time.monotonic()
+            step_times.append(t1 - t0)
             losses.append(loss)
             grad_norms.append(float(out["grad_norm"]))
+            global_step += 1
+            window_steps += 1
+            note = ""
+            if i == 0:
+                first_step_s = t1 - launch_ref
+                breakdown["first_step"] = t1 - t0
+                _report_first_step(first_step_s, resumed_step, breakdown)
+                note = f" launch-to-first-step={first_step_s:.1f}s"
+            if ckpt is not None and i > warmup_steps and global_step % ckpt_every == 0:
+                ckpt.save(global_step, checkpoint_state(params, optimizer, global_step))
+            if preempt_evt is not None and preempt_evt.is_set():
+                preempted = True
+                if ckpt is not None:
+                    ckpt.save(global_step, checkpoint_state(params, optimizer, global_step),
+                              force=True)
+                    ckpt.wait()  # durable BEFORE the hard kill lands
+                print(f"preemption notice: checkpointed step {global_step}, exiting",
+                      flush=True)
+                break
             if log_every and (i + 1) % log_every == 0:
-                tps = batch * seq / step_times[-1]
+                tps = tokens_per_step / step_times[-1]
                 mfu = f" MFU={tps * flops_per_token / peak:.1%}" if peak else ""
-                print(f"step {i + 1} loss={loss:.4f} tokens/sec={tps:,.0f}{mfu}", flush=True)
+                print(f"step {global_step} loss={loss:.4f} tokens/sec={tps:,.0f}{mfu}{note}",
+                      flush=True)
+                now = time.monotonic()
+                window_dt = (now - window_t0) / window_steps
+                wait_per_step = (batches.data_wait_s - window_wait) / window_steps
+                window_t0, window_steps, window_wait = now, 0, batches.data_wait_s
+                _step_heartbeat(
+                    step=global_step,
+                    avg_step_s=round(window_dt, 6),
+                    data_wait_s=round(wait_per_step, 6),
+                    mfu=round(tokens_per_step / window_dt * flops_per_token / peak, 4)
+                    if peak else None,
+                )
         data_wait_s = batches.data_wait_s
     finally:
+        restore_sigterm()
         batches.close()
+    if ckpt is not None:
+        if steps > 1 and ckpt.latest_step() != global_step:  # the final state
+            ckpt.save(global_step, checkpoint_state(params, optimizer, global_step),
+                      force=True)
+        ckpt.close()
+    if on_state is not None:
+        on_state("final", checkpoint_state(params, optimizer, global_step))
     counts = _build.launch_counts()
     launches = {k: counts[k] - counts0[k] for k in counts}
     timed = step_times[1:] or step_times
     step_s = sum(timed) / len(timed)
-    tps = batch * seq / step_s
+    tps = tokens_per_step / step_s
+    checkpoint = None
+    if ckpt is not None:
+        checkpoint = {
+            "dir": ckpt.directory, "every": ckpt_every, "saves": ckpt.saves,
+            "writes": ckpt.writes, "restores": ckpt.restores,
+            "skipped": ckpt.skipped, "step_overlaps_write": overlaps,
+        }
     return {
         "loss": losses[-1],
         "losses": losses,
@@ -257,11 +507,19 @@ def train(
         "data_wait_s": data_wait_s,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
         "launches": launches,
-        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "launches_per_step": {k: v / len(losses) for k, v in launches.items()},
         "kernels": cfg.kernels,
         "remat_policy": cfg.remat_policy if cfg.remat else "none",
         "device": str(dev),
         "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "launch_to_first_step_s": first_step_s,
+        "launch_breakdown": breakdown,
+        "final_step": global_step,
+        "resumed_from_step": resumed_step,
+        # True when a SIGTERM notice cut the run short (its last step is
+        # durable; the supervisor resubmits from it)
+        "preempted": preempted,
+        "checkpoint": checkpoint,
     }
 
 
@@ -293,6 +551,16 @@ def main(argv: Optional[list[str]] = None) -> None:
         "--device", default=None,
         help="torch device (default: cuda, which must exist; 'cpu' to run on the CPU)",
     )
+    parser.add_argument(
+        "--log-every", type=int, default=None, help="steps between log lines, >= 1"
+    )
+    parser.add_argument(
+        "--ckpt-dir", default=None, help="checkpoint directory (enables save+resume)"
+    )
+    parser.add_argument(
+        "--ckpt-every", type=int, default=0,
+        help="save every N steps (default 100 when --ckpt-dir is set)",
+    )
     args, unknown = parser.parse_known_args(argv)
     for arg in unknown:
         flag = arg.split("=", 1)[0]
@@ -303,6 +571,8 @@ def main(argv: Optional[list[str]] = None) -> None:
             )
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.log_every is not None and args.log_every < 1:
+        parser.error("--log-every must be >= 1")
     metrics = train(
         llama.get_config(args.config),
         args.batch,
@@ -314,6 +584,9 @@ def main(argv: Optional[list[str]] = None) -> None:
         prefetch=args.prefetch,
         kernels=args.kernels,
         device=args.device,
+        log_every=args.log_every or 1,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
     )
     print("final:", json.dumps(metrics), flush=True)
 

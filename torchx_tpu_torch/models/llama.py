@@ -218,11 +218,32 @@ def init_params(
 def leaves(params: Params) -> list[torch.Tensor]:
     """The parameter tensors in the JAX pytree's order (dict keys sorted,
     depth first)."""
+    return [t for _, t in named_leaves(params)]
+
+
+def named_leaves(params: Params, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """``(dotted path, tensor)`` pairs in :func:`leaves`' order, such as
+    ``("layers.wq", ...)``."""
     out = []
     for key in sorted(params):
         val = params[key]
-        out.extend(leaves(val) if isinstance(val, dict) else [val])
+        if isinstance(val, dict):
+            out.extend(named_leaves(val, f"{prefix}{key}."))
+        else:
+            out.append((f"{prefix}{key}", val))
     return out
+
+
+def unflatten(flat: dict[str, torch.Tensor]) -> Params:
+    """Inverse of :func:`named_leaves`: dotted paths -> the nested tree."""
+    tree: Params = {}
+    for path, t in flat.items():
+        *parents, key = path.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = t
+    return tree
 
 
 # -- forward ---------------------------------------------------------------

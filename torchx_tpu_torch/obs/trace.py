@@ -27,10 +27,7 @@ from contextlib import contextmanager
 from dataclasses import asdict, dataclass, field
 from typing import Any, Iterator, Optional
 
-#: The JAX package's environment names (its ``settings``), copied.
-ENV_TPX_TRACE = "TPX_TRACE"
-ENV_TPX_TRACE_ID = "TPX_TRACE_ID"
-ENV_TPX_PARENT_SPAN = "TPX_PARENT_SPAN"
+from torchx_tpu_torch.settings import ENV_TPX_PARENT_SPAN, ENV_TPX_TRACE, ENV_TPX_TRACE_ID
 
 #: record-discriminator value in the JSONL stream ("kind" key).
 SPAN_KIND = "span"

@@ -1,1 +1,1 @@
-"""Host-side input prefetch."""
+"""Host-side input prefetch and checkpoints."""
