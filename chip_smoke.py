@@ -64,8 +64,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
    fsync, digest), the restore's verify, read and H2D seconds, SIGTERM to
    exit and the server's load seconds.
 
+The train phase also runs the trainer once more with the step profiler and
+a torch.profiler trace (``profile=True, profile_dir=...``): one
+``profile.jsonl`` record per timed step, the phases within 5% of each
+step's wall time, the launches of the unprofiled run, the metrics textfile
+holding ``tpx_step_seconds``; it prints the profiled step time against the
+unprofiled one, the trace's size and each step's data wait. The serve
+phase then drives the same burst through a prefill and a decode replica
+(``--serve-role prefill --kv-transfer http:<decode>``, ``--serve-role
+decode``): greedy tokens equal the unified server's, a re-send is a prefix
+hit on the prefill replica, ``/v1/kv`` answers 400 for a body that is no
+payload and 503 at the prefill role; TTFT and TPOT beside the unified
+numbers, the handoff's bytes and seconds by stage. The ckpt phase ends
+with the drill at full depth (16 layers, saves every 2 steps, SIGTERM
+after the step-7 line while step 6's write is in flight): exit 0 with the
+saved step durable, SIGTERM to exit printed against the 30 s notice.
+
 ``--phases build,sweep`` times the RMSNorm backward kernel over its launch
-settings (``ops.norms.BWD_CONFIG``).
+settings (``ops.norms.BWD_CONFIG``). ``--phases build,profile`` profiles a
+training step and a decode step, splits the trainer's own trace
+(``--profile-dir``) of llama3_1b's step into kernel groups with the
+elementwise group split into the optimizer, casts, RoPE, cross-entropy and
+the rest, and times the step profiler's overhead. ``--phases
+build,notice`` runs the full-depth drill under both designs of a save
+during a write, in turns: (a) join the write, then write; (b) write beside
+it (the checkpointer's).
 
 Prints the kernels line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -86,7 +109,7 @@ import time
 PHASES = ("build", "kernels", "train", "reference", "serve", "ckpt")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
-EXTRA_PHASES = ("profile", "sweep")
+EXTRA_PHASES = ("profile", "sweep", "notice")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth.
@@ -519,6 +542,93 @@ def phase_train() -> tuple[dict, dict, dict]:
     return counts, expected, out
 
 
+#: A profiled step's measured phases may miss its wall time by this share
+#: (the loop's own bookkeeping between the phases is not attributed).
+PHASE_SUM_RTOL = 0.05
+
+
+class _ObsDir:
+    """``$TPX_OBS_DIR`` set to ``path`` inside the block, restored after:
+    the profiled runs' journals and textfiles land in a scratch dir."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+
+    def __enter__(self) -> None:
+        self.saved = os.environ.get("TPX_OBS_DIR")
+        os.environ["TPX_OBS_DIR"] = self.path
+
+    def __exit__(self, *exc: object) -> None:
+        if self.saved is None:
+            os.environ.pop("TPX_OBS_DIR", None)
+        else:
+            os.environ["TPX_OBS_DIR"] = self.saved
+
+
+def phase_train_profiled(unprofiled: dict, counts: dict) -> dict:
+    """The train phase's run again with the step profiler and a
+    torch.profiler trace (``profile=True, profile_dir=...``): one
+    ``profile.jsonl`` record per timed step, phases summing to within
+    ``PHASE_SUM_RTOL`` of each step's wall time, the launches of the
+    unprofiled run, the metrics textfile holding ``tpx_step_seconds``;
+    the profiled step time against the unprofiled one."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.obs import profile, sinks
+
+    cfg = llama.llama3_1b()
+    root = tempfile.mkdtemp(prefix="tpx_profile_smoke_")
+    try:
+        with _ObsDir(os.path.join(root, "obs")):
+            torch.cuda.empty_cache()
+            _build.reset_launches()
+            out = train(cfg, TRAIN["batch"], TRAIN["seq"], TRAIN["steps"], kernels="cuda",
+                        device="cuda", warmup=1, log_every=1, profile=True,
+                        profile_dir=os.path.join(root, "trace"))
+            launches = _build.launch_counts()
+            recs = [r for r in profile.load_profile(sinks.session_dir())
+                    if r["kind"] == "step"]
+            prom = open(sinks.metrics_path()).read()
+            trace_bytes = os.path.getsize(out["profile_trace"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gaps = [abs(sum(r["phases"].values()) - r["wall_s"]) / r["wall_s"] for r in recs]
+    res = {
+        "phase": "train", "run": "profiled", "steps": TRAIN["steps"],
+        "records": len(recs), "steps_profiled": [r["step"] for r in recs],
+        "wall_s": [r["wall_s"] for r in recs],
+        "phases_s": [r["phases"] for r in recs],
+        "phase_sum_max_rel_gap": max(gaps, default=None), "phase_sum_rtol": PHASE_SUM_RTOL,
+        "data_wait_s": [r["phases"]["data_wait"] for r in recs],
+        "step_time_s": out["step_time_s"], "unprofiled_step_time_s": unprofiled["step_time_s"],
+        "profiled_overhead": out["step_time_s"] / unprofiled["step_time_s"] - 1,
+        "summary": {k: out["profile"][k] for k in
+                    ("step_s", "mfu", "data_wait_frac", "phase_fracs")},
+        "trace_bytes": trace_bytes,
+        "prom_has_step_seconds": "tpx_step_seconds_bucket" in prom,
+        "launches": launches, "launches_equal_unprofiled": launches == counts,
+        "losses": out["losses"],
+    }
+    emit(res)
+    if len(recs) != TRAIN["steps"] - 1:
+        fail("train", f"{len(recs)} profile records for {TRAIN['steps'] - 1} timed steps")
+    if max(gaps) > PHASE_SUM_RTOL:
+        fail("train", f"profiled phases miss a step's wall time by {max(gaps):.3f}")
+    if launches != counts:
+        fail("train", f"profiled launches {launches} != the unprofiled run's {counts}")
+    if not res["prom_has_step_seconds"] or not trace_bytes:
+        fail("train", "no tpx_step_seconds in the metrics textfile, or an empty trace")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail("train", f"non-finite profiled loss: {out['losses']}")
+    return res
+
+
 def phase_reference() -> None:
     import dataclasses
 
@@ -598,6 +708,18 @@ def _post(port: int, body: dict) -> dict:
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=300) as resp:
         return json.loads(resp.read())
+
+
+def _post_raw(port: int, path: str, raw: bytes) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=raw, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
 
 
 def _get(port: int, path: str) -> tuple[int, str]:
@@ -820,6 +942,220 @@ def phase_serve() -> dict:
           "prompt_lens": [SERVE_REQUESTS[i][0] for i in F32_PROMPTS], "equal": exact})
     if not all(exact):
         fail("serve", f"f32 engine tokens differ from the dense generate: {exact}")
+    return {**out, "outs": outs, "resend": resend}
+
+
+#: f32 K/V bytes per token of a llama3_1b handoff: layers x KV heads x
+#: head_dim x (K, V) x 4 B.
+def _handoff_bytes_per_token(cfg) -> int:  # noqa: ANN001
+    return cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 4
+
+
+def phase_serve_disagg(unified: dict) -> dict:
+    """The serve phase's burst through a prefill replica and a decode
+    replica (``--serve-role prefill`` with ``--kv-transfer http:<decode>``,
+    and ``--serve-role decode``) in-process on 127.0.0.1, llama3_1b at full
+    width and depth, bf16, the same seeded weights. Checks: the greedy
+    tokens equal the unified server's (the decode step's shapes are static
+    over its slots, so a row's tokens do not depend on the other rows),
+    the sampled ones too, a re-send hits the prefill replica's prefix
+    cache, and ``/v1/kv`` answers 400 for a body that is no payload and
+    503 at the prefill role. Prints TTFT and TPOT beside the unified
+    numbers, and the handoff's bytes and seconds by stage: export (the
+    D2H copy), ``to_bytes``, the POST (wire and the decode side's
+    ``from_bytes``), and the H2D scatter into the decode pool."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.apps import generate_server
+    from torchx_tpu_torch.obs import metrics
+    from torchx_tpu_torch.serve import kv_transfer as kvt
+
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    t_setup = time.monotonic()
+    kw = dict(device="cuda", max_batch=SERVE["max_batch"], block_size=SERVE["block_size"])
+    dec_srv = generate_server.serve("llama3_1b", port=0, serve_role="decode", **kw)
+    dec_port = dec_srv.server_address[1]
+    pre_srv = generate_server.serve(
+        "llama3_1b", port=0, serve_role="prefill",
+        kv_transfer=f"http:http://127.0.0.1:{dec_port}", **kw)
+    pre_port = pre_srv.server_address[1]
+    for srv in (dec_srv, pre_srv):
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    setup_s = time.monotonic() - t_setup
+    pre_eng, dec_eng = pre_srv.service._engine, dec_srv.service._engine
+    cfg = pre_srv.service.cfg
+
+    # the handoff's stages, per request id
+    stages: dict = {}
+    lock = threading.Lock()
+
+    def note(rid: str, key: str, value: float) -> None:
+        with lock:
+            stages.setdefault(rid, {})[key] = value
+
+    export = pre_eng._export_handoff
+
+    def timed_export(req, toks, blocks):  # noqa: ANN001, ANN202
+        t0 = time.perf_counter()
+        payload = export(req, toks, blocks)
+        note(payload.request_id, "export_s", time.perf_counter() - t0)
+        note(payload.request_id, "tokens", len(toks))
+        return payload
+
+    to_bytes, from_bytes = kvt.KvPayload.to_bytes, kvt.KvPayload.from_bytes.__func__
+
+    def timed_to_bytes(self):  # noqa: ANN001, ANN202
+        t0 = time.perf_counter()
+        raw = to_bytes(self)
+        note(self.request_id, "to_bytes_s", time.perf_counter() - t0)
+        note(self.request_id, "bytes", len(raw))
+        return raw
+
+    def timed_from_bytes(cls, raw):  # noqa: ANN001, ANN202
+        t0 = time.perf_counter()
+        payload = from_bytes(cls, raw)
+        note(payload.request_id, "from_bytes_s", time.perf_counter() - t0)
+        return payload
+
+    transfer = kvt.HttpTransfer.transfer
+
+    def timed_transfer(self, payload, target, timeout=60.0):  # noqa: ANN001, ANN202
+        note(payload.request_id, "t_send", time.perf_counter())
+        return transfer(self, payload, target, timeout)
+
+    handle = dec_srv.service.handle_kv_payload
+
+    def timed_handle(payload):  # noqa: ANN001, ANN202
+        note(payload.request_id, "t_arrive", time.perf_counter())
+        return handle(payload)
+
+    admit_s: list[float] = []
+    admit_handoffs = dec_eng._admit_handoffs
+
+    def timed_admit() -> bool:
+        t0 = time.perf_counter()
+        worked = admit_handoffs()
+        if worked:
+            torch.cuda.synchronize()
+            admit_s.append(time.perf_counter() - t0)
+        return worked
+
+    pre_eng._export_handoff = timed_export
+    kvt.KvPayload.to_bytes = timed_to_bytes
+    kvt.KvPayload.from_bytes = classmethod(timed_from_bytes)
+    kvt.HttpTransfer.transfer = timed_transfer
+    dec_srv.service.handle_kv_payload = timed_handle
+    dec_eng._admit_handoffs = timed_admit
+    gate = threading.Event()
+    gate.set()
+    admit = pre_eng._admit
+
+    def gated_admit() -> bool:
+        gate.wait()
+        return admit()
+
+    pre_eng._admit = gated_admit
+    try:
+        prompts = _serve_prompts(cfg.vocab_size)
+        n_new = SERVE["new_tokens"]
+        bodies = [{"tokens": [p], "max_new_tokens": n_new, "temperature": t, "seed": sd}
+                  for p, (_, t, sd) in zip(prompts, SERVE_REQUESTS)]
+        _post(pre_port, {"tokens": [[1, 2, 3]], "max_new_tokens": 2})  # warm-up
+        with lock:
+            stages.clear()
+        admit_s.clear()
+        bytes0 = metrics.SERVE_KV_TRANSFER_BYTES.value()
+        gate.clear()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            futures = [pool.submit(_post, pre_port, b) for b in bodies]
+            deadline = time.monotonic() + 60
+            while pre_eng.queue_depth < len(bodies) and time.monotonic() < deadline:
+                time.sleep(0.001)
+            gate.set()
+            replies = [f.result() for f in futures]
+        batch_s = time.monotonic() - t0
+        sent_bytes = metrics.SERVE_KV_TRANSFER_BYTES.value() - bytes0
+        with lock:
+            burst = {rid: dict(v) for rid, v in stages.items()}
+        outs = [r["tokens"][0] for r in replies]
+        hits0 = pre_eng.stats()["prefix_cache"]["hits"]
+        resend = _post(pre_port, bodies[0])["tokens"][0]
+        prefix_hits = pre_eng.stats()["prefix_cache"]["hits"] - hits0
+        code_garbage, _ = _post_raw(dec_port, "/v1/kv", b"not an npz payload")
+        shape = (cfg.n_layers, 1, SERVE["block_size"], cfg.n_kv_heads, cfg.head_dim)
+        probe = kvt.KvPayload(
+            request_id="probe", tokens=[1], generated=[2], cache_len=1, max_new_tokens=2,
+            temperature=0.0, seed=0, eos_id=None, block_size=SERVE["block_size"],
+            k=np.zeros(shape, np.float32), v=np.zeros(shape, np.float32))
+        code_role, _ = _post_raw(pre_port, "/v1/kv", to_bytes(probe))
+        health = {}
+        for name, port in (("prefill", pre_port), ("decode", dec_port)):
+            code, body = _get(port, "/healthz")
+            health[name] = (code, json.loads(body).get("serve_role"))
+    finally:
+        kvt.KvPayload.to_bytes = to_bytes
+        kvt.KvPayload.from_bytes = classmethod(from_bytes)
+        kvt.HttpTransfer.transfer = transfer
+        for srv in (pre_srv, dec_srv):
+            srv.shutdown()
+            srv.service.close()
+            srv.server_close()
+    launches = _build.launch_counts()
+    ttft = [r["timing"]["ttft_ms"] for r in replies]
+    tpot = [(r["timing"]["total_ms"] - r["timing"]["ttft_ms"]) / (n_new - 1) for r in replies]
+    handoffs = []
+    for st in burst.values():
+        post_s = st["t_arrive"] - st["t_send"] - st["to_bytes_s"] - st["from_bytes_s"]
+        handoffs.append({"tokens": st["tokens"], "bytes": st["bytes"],
+                         "export_s": st["export_s"], "to_bytes_s": st["to_bytes_s"],
+                         "post_s": post_s, "from_bytes_s": st["from_bytes_s"],
+                         "send_to_arrive_s": st["t_arrive"] - st["t_send"]})
+    handoffs.sort(key=lambda h: h["tokens"])
+    greedy = [i for i, (_, temp, _) in enumerate(SERVE_REQUESTS) if temp == 0]
+    out = {
+        "phase": "serve", "run": "disaggregated", "config": "llama3_1b",
+        "n_layers": cfg.n_layers, "dtype": "bfloat16", "setup_s": setup_s,
+        "requests": len(replies), "new_tokens": n_new,
+        "ttft_ms": ttft, "ttft_p50_ms": _percentile(ttft, 0.5), "ttft_max_ms": max(ttft),
+        "tpot_ms": tpot, "tpot_p50_ms": _percentile(tpot, 0.5), "tpot_max_ms": max(tpot),
+        "unified": {k: unified[k] for k in ("ttft_p50_ms", "ttft_max_ms", "tpot_p50_ms",
+                                            "tpot_max_ms", "tokens_per_s")},
+        "batch_s": batch_s, "tokens_per_s": len(replies) * n_new / batch_s,
+        "handoff_bytes": sent_bytes,
+        "handoff_bytes_reckoned": sum(
+            -(-len(p) // SERVE["block_size"]) * SERVE["block_size"]
+            * _handoff_bytes_per_token(cfg) for p in prompts),
+        "bytes_per_token_f32": _handoff_bytes_per_token(cfg),
+        "handoffs": handoffs,
+        "handoff_s_max": max(h["export_s"] + h["send_to_arrive_s"] for h in handoffs),
+        "decode_admit_s": admit_s,
+        "greedy_equal_unified": all(outs[i] == unified["outs"][i] for i in greedy),
+        "sampled_equal_unified": outs[1] == unified["outs"][1] and outs[2] == unified["outs"][2],
+        "resend_equal": resend == outs[0], "prefix_hits": prefix_hits,
+        "kv_garbage_code": code_garbage, "kv_at_prefill_code": code_role,
+        "healthz": health, "launches": launches,
+    }
+    emit(out)
+    if not out["greedy_equal_unified"]:
+        diff = [i for i in greedy if outs[i] != unified["outs"][i]]
+        fail("serve", f"disaggregated greedy tokens differ from unified for requests {diff}")
+    if not (out["resend_equal"] and prefix_hits > 0):
+        fail("serve", "the disaggregated re-send missed the prefix cache or changed")
+    if (code_garbage, code_role) != (400, 503):
+        fail("serve", f"/v1/kv answered {code_garbage} to garbage and {code_role} at prefill")
+    if health != {"prefill": (200, "prefill"), "decode": (200, "decode")}:
+        fail("serve", f"healthz of the roles: {health}")
+    if len(handoffs) != len(replies) or sent_bytes != sum(h["bytes"] for h in handoffs):
+        fail("serve", f"{len(handoffs)} handoffs of {sent_bytes} B for {len(replies)} requests")
+    if any(launches.values()):
+        fail("serve", f"the disaggregated path launched a kernel of the kernels line: {launches}")
     return out
 
 
@@ -835,6 +1171,25 @@ def phase_serve() -> dict:
 #: background write and past it.
 CKPT = dict(steps=3, every=2, drill_layers=2, notice_s=30.0, overlap_every=16,
             overlap_steps=31, prompts=(24, 40), new_tokens=64)
+#: The drill at full depth with a write in flight: saves every ``every``
+#: steps (the first periodic save is step 6: none on the first step and the
+#: three warm-up steps), SIGTERM after the line of step ``term_after``, while
+#: step 6's write is in flight; the notice then lands on step 8's periodic
+#: save and its forced save. ``limit_s`` bounds the wait for the exit, which
+#: is printed against ``notice_s``.
+FULL_DRILL = dict(every=2, term_after=7, limit_s=150.0)
+#: Option (a) of a save during a write, for the ``notice`` phase's
+#: comparison: join the write in flight, then write the new step (the
+#: checkpointer's design until this drill). The kept design, (b), writes
+#: the new step beside the old one's fsync and digest.
+JOIN_FIRST_PATCH = (
+    "from torchx_tpu_torch.parallel import checkpoint as _c\n"
+    "_save = _c.Checkpointer.save\n"
+    "def _join_first(self, step, state, force=False):\n"
+    "    if (force or step % self._save_interval == 0) and step not in self._jobs:\n"
+    "        self.wait()\n"
+    "    return _save(self, step, state, force)\n"
+    "_c.Checkpointer.save = _join_first\n")
 #: Repeatability fallback: where the first three steps are not bitwise
 #: those of the train phase, steps 4-6 are held this close, relative.
 RESUME_RTOL = 1e-3
@@ -861,41 +1216,45 @@ def _rel_diff(a: list[float], b: list[float]) -> float:
     return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
 
 
-def _drill(d2: str) -> dict:
+def _drill(d2: str, n_layers: int = CKPT["drill_layers"], every: int = 0,
+           term_after: int = 2, limit_s: float = CKPT["notice_s"], patch: str = "") -> dict:
     """The trainer's module run as ``__main__`` (``runpy``, as ``python -m``
-    does) in a subprocess, with the llama3_1b preset cut to
-    ``drill_layers`` layers, and SIGTERM after its second step line."""
+    does) in a subprocess, with the llama3_1b preset cut to ``n_layers``
+    layers (``patch``, Python source, runs first), saving every ``every``
+    steps (the trainer's default when 0), and SIGTERM after its
+    ``term_after``-th step line; the exit is awaited ``limit_s``."""
     import signal
 
-    code = ("import functools, runpy\n"
+    code = (f"{patch}import functools, runpy\n"
             "from torchx_tpu_torch.models import llama\n"
             "llama.CONFIGS['llama3_1b'] = functools.partial("
-            f"llama.llama3_1b, n_layers={CKPT['drill_layers']})\n"
+            f"llama.llama3_1b, n_layers={n_layers})\n"
             "runpy.run_module('torchx_tpu_torch.examples.train_llama',"
             " run_name='__main__', alter_sys=True)\n")
     cmd = [sys.executable, "-c", code, "--config", "llama3_1b", "--batch",
            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--steps", "1000",
-           "--kernels", "cuda", "--warmup", "1", "--log-every", "1", "--ckpt-dir", d2]
+           "--kernels", "cuda", "--warmup", "1", "--log-every", "1", "--ckpt-dir", d2,
+           "--ckpt-every", str(every)]
     env = dict(os.environ, PYTHONPATH=REPO)
     t_start = time.monotonic()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, env=env, cwd=REPO)
     lines = []
     try:
-        while sum(x.startswith("step ") for x in lines) < 2:
+        while sum(x.startswith("step ") for x in lines) < term_after:
             line = proc.stdout.readline()
             if not line:
-                fail("ckpt", "drill: the trainer ended before its second step:\n"
+                fail("ckpt", f"drill: the trainer ended before its step line {term_after}:\n"
                      + "".join(lines)[-3000:])
             lines.append(line)
         t_term = time.monotonic()
         proc.send_signal(signal.SIGTERM)
         try:
-            rest, _ = proc.communicate(timeout=CKPT["notice_s"])
+            rest, _ = proc.communicate(timeout=limit_s)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.communicate()
-            fail("ckpt", f"drill: no exit within {CKPT['notice_s']} s of SIGTERM")
+            fail("ckpt", f"drill: no exit within {limit_s} s of SIGTERM")
         exit_s = time.monotonic() - t_term
     finally:
         if proc.poll() is None:
@@ -1128,6 +1487,10 @@ def phase_ckpt(train_out: dict | None) -> dict:
               "overlaps": c_ck["step_overlaps_write"], **overlap})
         if not during or not clear:
             fail("ckpt", f"overlap run: {len(during)} steps during a write, {len(clear)} clear")
+        shutil.rmtree(os.path.join(root, "d3"))
+
+        full = _full_drill(os.path.join(root, "d4"), step_bytes)
+        emit({"phase": "ckpt", "run": "drill_full_depth", **full})
 
         restore = b_ck["restores"][0]
         summary = {
@@ -1141,6 +1504,7 @@ def phase_ckpt(train_out: dict | None) -> dict:
             "step_s_during_write": overlap["step_s_during_write"],
             "step_s_clear": overlap["step_s_clear"],
             "sigterm_to_exit_s": drill["sigterm_to_exit_s"],
+            "sigterm_to_exit_full_depth_s": full["sigterm_to_exit_s"],
             "server_load_s": load_s,
             "resume_bitwise": b_vs_whole["bitwise"],
         }
@@ -1148,6 +1512,67 @@ def phase_ckpt(train_out: dict | None) -> dict:
         return summary
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _full_drill(d: str, step_bytes: int, patch: str = "") -> dict:
+    """The drill at llama3_1b's full depth with step 6's write in flight
+    when SIGTERM lands (``FULL_DRILL``): exit 0 with the step it saved
+    durable (in the manifest, its digest verified). -> the drill's numbers,
+    SIGTERM to exit beside the notice."""
+    import shutil
+
+    from torchx_tpu_torch.parallel.checkpoint import Checkpointer
+
+    free = shutil.disk_usage(os.path.dirname(d)).free
+    if free < 3 * step_bytes:
+        fail("ckpt", f"{free / 1e9:.1f} GB free for the full-depth drill's two steps")
+    drill = _drill(d, n_layers=16, every=FULL_DRILL["every"],
+                   term_after=FULL_DRILL["term_after"], limit_s=FULL_DRILL["limit_s"],
+                   patch=patch)
+    saved = drill["saved_step"]
+    t0 = time.monotonic()
+    durable = (_manifest(d)["latest_step"] == saved
+               and Checkpointer(d, read_only=True).verify_step(saved) is True)
+    ck = drill.pop("checkpoint")
+    out = {"n_layers": 16, "every": FULL_DRILL["every"],
+           "term_after_step": FULL_DRILL["term_after"], **drill,
+           "notice_s": CKPT["notice_s"],
+           "within_notice": drill["sigterm_to_exit_s"] <= CKPT["notice_s"],
+           "durable": durable, "verify_s": time.monotonic() - t0,
+           "saves": ck["saves"], "writes": ck["writes"],
+           # step term_after + 1 started after the SIGTERM
+           "write_in_flight_at_notice": ck["step_overlaps_write"][FULL_DRILL["term_after"]]}
+    shutil.rmtree(d, ignore_errors=True)
+    if not (drill["preempted"] and drill["notice_printed"] and durable):
+        fail("ckpt", f"full-depth drill: {out}")
+    if saved <= FULL_DRILL["term_after"] or not out["write_in_flight_at_notice"]:
+        fail("ckpt", f"full-depth drill: step {saved} saved, or no write in flight: {out}")
+    return out
+
+
+def phase_notice() -> None:
+    """The full-depth drill under the two designs of a save during a
+    write, in turns (a, b, b, a): (a) joins the write in flight, then
+    writes the new step (``JOIN_FIRST_PATCH``); (b), the checkpointer's,
+    writes it beside the old write's fsync and digest."""
+    import shutil
+    import tempfile
+
+    from torchx_tpu_torch.models import llama
+
+    step_bytes = 3 * llama.llama3_1b().param_count() * 2
+    root = tempfile.mkdtemp(prefix="tpx_notice_smoke_")
+    runs = []
+    try:
+        for option in ("a", "b", "b", "a"):
+            patch = JOIN_FIRST_PATCH if option == "a" else ""
+            res = _full_drill(os.path.join(root, f"d_{option}{len(runs)}"), step_bytes, patch)
+            emit({"phase": "notice", "option": option, **res})
+            runs.append((option, res["sigterm_to_exit_s"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "notice", "summary": {
+        opt: [t for o, t in runs if o == opt] for opt in ("a", "b")}})
 
 
 #: Kernel-name fragments -> the group a step's device time is booked to.
@@ -1192,7 +1617,190 @@ def phase_profile() -> None:
         wall = time.monotonic() - t0
     emit({"phase": "profile", "path": "train step", **_device_summary(prof, wall)})
     del params, step, batch
+    _profile_trainer_trace()
+    _profile_overhead()
     _profile_decode()
+
+
+def _profile_overhead() -> None:
+    """The step profiler's own cost: the train phase's run unprofiled and
+    with ``profile=True`` (no torch.profiler trace), in turns (u, p, p, u),
+    step times after the first."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+
+    root = tempfile.mkdtemp(prefix="tpx_overhead_smoke_")
+    runs = []
+    try:
+        with _ObsDir(root):
+            for profiled in (False, True, True, False):
+                torch.cuda.empty_cache()
+                out = train(llama.llama3_1b(), TRAIN["batch"], TRAIN["seq"], TRAIN["steps"],
+                            kernels="cuda", device="cuda", warmup=1, log_every=1,
+                            profile=profiled)
+                runs.append({"profiled": profiled, "step_time_s": out["step_time_s"],
+                             "step_times_s": out["step_times_s"][1:]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def mean(flag: bool) -> float:
+        xs = [r["step_time_s"] for r in runs if r["profiled"] == flag]
+        return sum(xs) / len(xs)
+
+    emit({"phase": "profile", "path": "step profiler overhead", "runs": runs,
+          "unprofiled_step_s": mean(False), "profiled_step_s": mean(True),
+          "overhead": mean(True) / mean(False) - 1})
+
+
+#: The port's functions the elementwise split wraps in a record_function
+#: range, and the part of the split each names: (owner, attribute, part).
+SPLIT_RANGES = (
+    ("torchx_tpu_torch.examples.train_llama:AdamW", "step", "optimizer"),
+    ("torchx_tpu_torch.models.llama", "apply_rope", "rope"),
+    ("torchx_tpu_torch.models.llama", "_chunk_nll_sum", "cross_entropy"),
+)
+#: Kernel-name fragments of PyTorch's dtype casts and copies.
+CAST_KERNELS = ("copy_kernel",)
+
+
+def _annotate_ranges():  # noqa: ANN202
+    """Wrap each of ``SPLIT_RANGES`` in ``record_function("tpx.<part>")``.
+    -> a callable that restores the originals. The remat recompute calls
+    the wrapped functions too, so recomputed kernels fall in their part."""
+    import importlib
+
+    import torch
+
+    saved = []
+    for target, attr, part in SPLIT_RANGES:
+        mod, _, cls = target.partition(":")
+        owner = importlib.import_module(mod)
+        if cls:
+            owner = getattr(owner, cls)
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, _fn=fn, _name=f"tpx.{part}", **k):  # noqa: ANN002, ANN003, ANN202
+            with torch.profiler.record_function(_name):
+                return _fn(*a, **k)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapped)
+    return lambda: [setattr(o, a, f) for o, a, f in saved]
+
+
+def split_elementwise(events: list[dict]) -> dict[str, float]:
+    """Device ms of a Chrome trace's kernels, by group (``PROFILE_GROUPS``),
+    with the elementwise group ("other") split into the parts of
+    ``SPLIT_RANGES``, casts and the rest.
+
+    A kernel belongs to the part whose ``tpx.<part>`` range holds the CPU
+    launch of the kernel (the ``cuda_runtime`` event of its correlation id,
+    on the launching thread), or, in the backward, whose range holds the
+    forward op that the launching autograd node's flow (``fwdbwd``) starts
+    at; else, by name, to the casts; else to the rest."""
+    import bisect
+    from collections import defaultdict
+
+    ranges: dict = defaultdict(list)  # tid -> [(start, end, part)]
+    nodes: dict = defaultdict(list)  # tid -> [(start, end)] autograd nodes
+    starts: dict = defaultdict(list)  # flow id -> [(ts, tid)] forward ends
+    finishes: list = []  # (flow id, tid, ts) backward ends
+    launches: dict = {}  # correlation -> (tid, ts)
+    kernels = []
+    for e in events:
+        cat, name, args = e.get("cat"), e.get("name", ""), e.get("args") or {}
+        if cat == "user_annotation" and name.startswith("tpx."):
+            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], name[4:]))
+        elif cat == "cpu_op" and name.startswith("autograd::engine::evaluate_function"):
+            nodes[e["tid"]].append((e["ts"], e["ts"] + e["dur"]))
+        elif cat == "fwdbwd":
+            if e.get("ph") == "s":
+                starts[e["id"]].append((e["ts"], e["tid"]))
+            else:
+                finishes.append((e["id"], e["tid"], e["ts"]))
+        elif cat == "cuda_runtime" and "correlation" in args:
+            launches[args["correlation"]] = (e["tid"], e["ts"])
+        elif cat == "kernel":
+            kernels.append(e)
+
+    def part_at(table: dict, tid, ts) -> str | None:  # noqa: ANN001
+        inner = None
+        for start, end, part in table.get(tid, ()):
+            if start <= ts <= end and (inner is None or start >= inner[0]):
+                inner = (start, end, part)
+        return inner[2] if inner else None
+
+    backward: dict = defaultdict(list)
+    for fid, tid, ts in finishes:
+        # the forward end of this flow: its latest start before the node
+        fwd = [x for x in starts.get(fid, ()) if x[0] <= ts]
+        if not fwd:
+            continue
+        f_ts, f_tid = max(fwd)
+        part = part_at(ranges, f_tid, f_ts)
+        if part is None:
+            continue
+        spans = sorted(nodes.get(tid, ()))
+        i = bisect.bisect_right(spans, (ts, float("inf"))) - 1
+        if i >= 0 and spans[i][0] <= ts <= spans[i][1]:
+            backward[tid].append((*spans[i], part))
+
+    out: dict[str, float] = defaultdict(float)
+    for k in kernels:
+        name = k.get("name", "")
+        group = next((g for g, frags in PROFILE_GROUPS if any(f in name for f in frags)),
+                     "other")
+        ms = k.get("dur", 0.0) / 1e3
+        if group != "other":
+            out[group] += ms
+            continue
+        tid, ts = launches.get((k.get("args") or {}).get("correlation"), (None, None))
+        part = part_at(ranges, tid, ts) or part_at(backward, tid, ts)
+        if part is None:
+            part = "casts" if any(f in name for f in CAST_KERNELS) else "rest"
+        out[f"elementwise.{part}"] += ms
+    return dict(out)
+
+
+def _profile_trainer_trace() -> None:
+    """``train(..., profile_dir=...)`` at llama3_1b for 3 steps, with the
+    ``SPLIT_RANGES`` annotated, and the trainer's own trace of its 2 timed
+    steps split (``split_elementwise``): device ms per step by group, the
+    elementwise group by part."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+
+    steps = 3
+    root = tempfile.mkdtemp(prefix="tpx_trace_smoke_")
+    restore = _annotate_ranges()
+    try:
+        torch.cuda.empty_cache()
+        out = train(llama.llama3_1b(), TRAIN["batch"], TRAIN["seq"], steps, kernels="cuda",
+                    device="cuda", warmup=1, log_every=1, profile_dir=root)
+        with open(out["profile_trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(out["profile_trace"])
+    finally:
+        restore()
+        shutil.rmtree(root, ignore_errors=True)
+    timed = steps - 1
+    split = {k: v / timed for k, v in sorted(split_elementwise(events).items())}
+    elementwise = {k: v for k, v in split.items() if k.startswith("elementwise.")}
+    emit({"phase": "profile", "path": "trainer trace, elementwise split",
+          "steps_traced": timed, "trace_bytes": trace_bytes,
+          "step_time_s": out["step_times_s"][1:], "per_step_ms": split,
+          "elementwise_ms": sum(elementwise.values()),
+          "device_ms": sum(split.values())})
 
 
 def _device_summary(prof, wall_s: float) -> dict:  # noqa: ANN001
@@ -1377,16 +1985,19 @@ def main(argv: list[str] | None = None) -> int:
         # the simt flash kernels are off the bf16 main path (expected 0)
         if any(row["launches"] == 0 for row in kernel_rows if expected[row["name"]]):
             fail("train", "a kernel of the path was never launched")
+        phase_train_profiled(train_out, counts)
     if "reference" in phases:
         phase_reference()
     if "serve" in phases:
-        phase_serve()
+        phase_serve_disagg(phase_serve())
     if "ckpt" in phases:
         phase_ckpt(train_out if "train" in phases else None)
     if "profile" in phases:
         phase_profile()
     if "sweep" in phases:
         phase_sweep()
+    if "notice" in phases:
+        phase_notice()
 
     if kernel_rows:
         print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -325,6 +325,101 @@ class TestSnapshotThenWrite:
         ckpt.close()
 
 
+class TestNoticeDuringAWrite:
+    """A preemption notice lands while a periodic write is in flight: a save
+    of the same step writes nothing more, a newer step's write starts beside
+    the older one's fsync and digest, and the manifest never moves back."""
+
+    @staticmethod
+    def _gate_digest(monkeypatch, step):
+        """Hold ``step``'s digest read-back until the returned event is set."""
+        gate = threading.Event()
+        real = ckpt_mod._digest_path
+
+        def gated(path):
+            if os.path.basename(path) == str(step):
+                assert gate.wait(timeout=30)
+            return real(path)
+
+        monkeypatch.setattr(ckpt_mod, "_digest_path", gated)
+        return gate
+
+    def test_same_step_in_flight_is_written_once(self, tmp_path, monkeypatch):
+        gate = self._gate_digest(monkeypatch, 5)
+        ckpt = Checkpointer(str(tmp_path))
+        assert ckpt.save(5, _state(5.0))
+        returned = []
+        notice = threading.Thread(
+            target=lambda: returned.append(ckpt.save(5, _state(5.0), force=True)))
+        notice.start()
+        time.sleep(0.2)
+        assert notice.is_alive()  # waits for the write in flight
+        gate.set()
+        notice.join(timeout=30)
+        assert not notice.is_alive() and returned == [False]
+        assert [w["step"] for w in ckpt.writes] == [5]
+        assert ckpt.verify_step(5) is True and ckpt.latest_step() == 5
+        assert ckpt.saves[-1]["rewrite_skipped"] is True
+        ckpt.close()
+
+    def test_same_step_on_disk_is_not_rewritten(self, tmp_path):
+        ckpt = Checkpointer(str(tmp_path))
+        ckpt.save(5, _state(5.0))
+        ckpt.wait()
+        mtime = (tmp_path / "5" / ckpt_mod.PAYLOAD).stat().st_mtime_ns
+        assert ckpt.save(5, _state(6.0), force=True) is False
+        ckpt.wait()
+        assert len(ckpt.writes) == 1
+        assert (tmp_path / "5" / ckpt_mod.PAYLOAD).stat().st_mtime_ns == mtime
+        assert _equal(ckpt.restore(5), _state(5.0))
+        ckpt.close()
+
+    def test_newer_step_writes_beside_the_older(self, tmp_path, monkeypatch):
+        gate = self._gate_digest(monkeypatch, 1)
+        ckpt = Checkpointer(str(tmp_path), max_to_keep=1)
+        ckpt.save(1, _state(1.0))
+        # step 1 is held in its digest; step 2 starts and finishes beside it
+        assert ckpt.save(2, _state(2.0))
+        deadline = time.monotonic() + 30
+        while ckpt.verify_step(2) is not True and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert ckpt.verify_step(2) is True
+        assert json.loads((tmp_path / "MANIFEST.json").read_text())["latest_step"] == 2
+        # a third save waits for the older write: two in flight at most
+        third = threading.Thread(target=lambda: ckpt.save(3, _state(3.0)))
+        third.start()
+        time.sleep(0.2)
+        assert third.is_alive()
+        gate.set()
+        third.join(timeout=30)
+        assert not third.is_alive()
+        ckpt.wait()
+        doc = json.loads((tmp_path / "MANIFEST.json").read_text())
+        # step 1's late finish moved nothing back; retention kept one step
+        assert doc["latest_step"] == 3 and set(doc["steps"]) == {"3"}
+        assert ckpt.all_steps() == [3]
+        assert [w["step"] for w in ckpt.writes] == [1, 2, 3]
+        assert all("write_s" in w for w in ckpt.writes)
+        assert _equal(ckpt.restore(3), _state(3.0))
+        ckpt.close()
+
+    def test_the_older_writes_digest_survives_a_newer_prune(self, tmp_path, monkeypatch):
+        """Retention by the newer write never deletes a step whose own
+        write is still reading it back."""
+        gate = self._gate_digest(monkeypatch, 1)
+        ckpt = Checkpointer(str(tmp_path), max_to_keep=1)
+        ckpt.save(1, _state(1.0))
+        ckpt.save(2, _state(2.0))
+        deadline = time.monotonic() + 30
+        while ckpt.verify_step(2) is not True and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert (tmp_path / "1").is_dir()
+        gate.set()
+        ckpt.wait()  # step 1's write ends without error
+        assert ckpt.all_steps() == [2]
+        ckpt.close()
+
+
 class TestContractWithJax:
     """A port-written directory, read by the JAX package's readers."""
 
@@ -338,7 +433,7 @@ class TestContractWithJax:
 
     def test_settings_values_match(self):
         names = [n for n in dir(tsettings) if n.isupper()]
-        assert len(names) == 8
+        assert len(names) == 11
         for name in names:
             assert getattr(tsettings, name) == getattr(jsettings, name), name
 

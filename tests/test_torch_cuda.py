@@ -404,3 +404,56 @@ def test_checkpoint_pinned_buffers_are_reused(gen, tmp_path):
     ckpt.wait()
     assert [w["step"] for w in ckpt.writes] == [1, 2, 3]
     ckpt.close()
+
+
+# -- the step profiler and the disaggregated roles on the card ---------------
+
+
+def test_profiled_cuda_step_is_fenced_and_traced(gen, tmp_path, monkeypatch):
+    """A profiled step on the card: one record per timed step whose
+    forward_backward phase covers the fenced device step, and a
+    torch.profiler trace holding the card's kernels."""
+    import json
+    import os
+
+    from torchx_tpu_torch.obs import profile, sinks
+
+    monkeypatch.setenv("TPX_OBS_DIR", str(tmp_path / "obs"))
+    cfg = llama.llama_tiny(dim=128, n_heads=2, n_kv_heads=1, ffn_dim=256)
+    out = train_llama.train(cfg, 2, 128, 4, device="cuda", kernels="cuda", log_every=1,
+                            profile=True, profile_dir=str(tmp_path / "trace"))
+    recs = [r for r in profile.load_profile(
+        os.path.join(sinks.session_dir(), profile.PROFILE_FILE)) if r["kind"] == "step"]
+    assert len(recs) == 3 == out["profile"]["steps"]
+    for r, step_s in zip(recs, out["step_times_s"][1:]):
+        ph = r["phases"]
+        # the fence puts the device step inside forward_backward + optimizer
+        assert ph["forward_backward"] + ph["optimizer"] <= step_s
+        assert ph["forward_backward"] + ph["optimizer"] >= 0.5 * step_s
+        assert sum(ph.values()) <= r["wall_s"] and r["mfu"] > 0
+    events = json.load(open(out["profile_trace"]))["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
+def test_disaggregated_pair_equals_unified_on_card(gen):
+    """f32 on the card: a prefill replica's K/V payload (through its bytes)
+    decoded by a second engine gives the unified engine's greedy tokens."""
+    from torchx_tpu_torch.serve.engine import ServeRequest, serve_kv_payload
+    from torchx_tpu_torch.serve.kv_transfer import KvPayload
+
+    cfg, params = _tiny_serving("cuda")
+    engines = [ServeEngine(params, cfg, max_slots=2, block_size=8).start() for _ in range(3)]
+    pre, dec, uni = engines
+    try:
+        for prompt in ([1, 2, 3], list(range(4, 24)), list(range(30, 70))):
+            want = uni.generate(prompt, 6, timeout=120).tokens
+            req = pre.submit(ServeRequest(prompt=prompt, max_new_tokens=6,
+                                          prefill_only=True))
+            assert req.wait(timeout=120) and req.error is None
+            payload = KvPayload.from_bytes(req.handoff.to_bytes())
+            assert payload.k.dtype == np.float32
+            out = serve_kv_payload(dec, payload, timeout=120)
+            assert prompt + out["tokens"] == want
+    finally:
+        for e in engines:
+            e.stop()

@@ -1,7 +1,8 @@
 """The port's generation server over real HTTP on the CPU (``--device
 cpu``, the ``tiny`` config): health and metrics, token and text requests,
 the JSONL stream, the coalescing engine against the continuous one, the
-SIGTERM drain, and the options that are not ported yet."""
+SIGTERM drain, the role and option checks, and the options that are not
+ported yet (the disaggregated roles: tests/test_torch_disagg.py)."""
 
 import json
 import threading
@@ -110,8 +111,9 @@ class TestEndpoints:
         assert code == 400 and "one sequence" in body["error"]
         code, body = post(f"{url}/v1/generate", {"tokens": [[1, 512]], "max_new_tokens": 2})
         assert code == 400 and "token ids" in body["error"]
+        # a body that is no KV payload (the unified role would reject one)
         code, body = post(f"{url}/v1/kv", {})
-        assert code == 501 and "not ported yet" in body["error"]
+        assert code == 400 and "error" in body
         assert get(f"{url}/nowhere")[0] == 404
 
 
@@ -200,8 +202,24 @@ class TestDrain:
                                 dict(kv_transfer="local"), dict(int8=True),
                                 dict(kv_transfer="http:http://127.0.0.1:1")])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        gs.GenerateService("tiny", device="cpu", **kw)
+    """int8 is not ported yet; the disaggregated roles are, with the JAX
+    server's checks: a prefill role needs a transfer spec, and a unified
+    replica ignores one."""
+    if kw.get("int8"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            gs.GenerateService("tiny", device="cpu", **kw)
+    elif kw.get("serve_role") == "prefill":
+        with pytest.raises(ValueError, match="kv-transfer"):
+            gs.GenerateService("tiny", device="cpu", **kw)
+        with pytest.raises(ValueError, match="continuous engine"):
+            gs.GenerateService("tiny", device="cpu", engine="coalesce",
+                               kv_transfer="local", **kw)
+    else:
+        svc = gs.GenerateService("tiny", device="cpu", **kw)
+        try:
+            assert svc.serve_role == kw.get("serve_role", "unified")
+        finally:
+            svc.close()
 
 
 def test_a_failed_batch_stops_the_coalescer(monkeypatch):

@@ -146,7 +146,7 @@ class TestDevice:
         assert final["kernels"] == "cuda" and len(final["losses"]) == 2
 
     def test_jax_only_flags_raise(self):
-        for flag in ("--mesh=fsdp=-1", "--int8", "--profile"):
+        for flag in ("--mesh=fsdp=-1", "--int8", "--grad-bucket-mb=4"):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 train_llama.main(["--device", "cpu", flag])
         with pytest.raises(SystemExit):

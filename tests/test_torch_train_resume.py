@@ -128,8 +128,9 @@ class TestResume:
         assert out["resumed_from_step"] == 0 and out["final_step"] == 2
 
 
-#: (steps, ckpt_every): a one-step run (no save at all), a final forced
-#: save off the interval, and interval saves with retention (3 kept)
+#: (steps, ckpt_every): a one-step run (the port saves its step, the JAX
+#: trainer nothing), a final forced save off the interval, and interval
+#: saves with retention (3 kept)
 SAVE_CASES = [(1, 1), (5, 3), (12, 2)]
 
 
@@ -151,6 +152,13 @@ def test_saves_land_on_the_jax_trainers_steps(tmp_path, steps, every):
             doc = {}
         return names, doc.get("latest_step"), sorted(int(s) for s in doc.get("steps", {}))
 
+    if steps == 1:
+        # the one divergence: the JAX trainer returns before its final save,
+        # so a one-step run leaves it nothing; the port saves its step
+        assert saved(jd) == ([], None, [])
+        assert saved(td) == ([1], 1, [1])
+        assert jsup.latest_checkpoint_step(str(td)) == 1
+        return
     assert saved(td) == saved(jd)
     assert jsup.latest_checkpoint_step(str(td)) == jsup.latest_checkpoint_step(str(jd))
 

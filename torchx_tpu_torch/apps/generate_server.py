@@ -13,9 +13,7 @@ trainer's newest checkpoint step that verifies against its digest (only
 the ``params.*`` entries are read), through a read-only reader: a bad step
 is skipped and logged, and nothing in the directory is renamed or written,
 so a server pointed at a live training directory leaves its resume point
-alone. Not ported yet, and raising "not ported yet": ``--serve-role
-prefill|decode``, ``--kv-transfer`` and ``/v1/kv`` (the disaggregated
-roles) and ``--int8``; the MoE configs raise too.
+alone. ``--int8`` and the MoE configs are not ported yet and raise.
 
 API (JSON):
     GET  /healthz            -> {"status": "ok", "model": ..., "requests": N,
@@ -28,7 +26,10 @@ API (JSON):
                           or {"text": "...", ...} (byte-level codec, the
                               same tokenization datapreproc defaults to)
                           -> {"tokens": [[...]]} / {"text": [...]}
-    POST /v1/kv              501: the disaggregated roles are not ported
+    POST /v1/kv              (decode role) an octet-stream ``KvPayload``
+                             -> {"request_id": ..., "tokens": [generated]};
+                             400 for a body that is no payload, 503 at a
+                             role that is not decode or while draining
 
 Two serving engines, selected by ``--engine``:
 
@@ -43,6 +44,19 @@ Two serving engines, selected by ``--engine``:
   batch decodes to completion before the next dispatch. Kept as the
   serving-bench baseline and for bit-exact parity with
   :func:`torchx_tpu_torch.models.generate.generate`.
+
+Disaggregated serving, selected by ``--serve-role`` (continuous engine
+only):
+
+* ``prefill`` runs the cache-aware prefill, then streams each prompt's
+  K/V blocks (an npz :class:`~torchx_tpu_torch.serve.kv_transfer.KvPayload`
+  of f32 ``[L, n_blocks, bs, kvh, hd]`` arrays, the JAX package's wire
+  format) to a decode replica named by ``--kv-transfer``
+  (``http:<url>[,<url>...]`` or ``file:<dir>``) and relays its completion;
+* ``decode`` admits payloads posted to ``/v1/kv`` (or, given a
+  ``file:<dir>`` spec, pumped from that spool) straight into decode slots.
+
+A port replica and a JAX replica exchange payloads either way.
 
 On SIGTERM the server drains instead of dying mid-request: admission
 stops, ``/healthz`` flips to 503 (so routers and the serve pool stop
@@ -185,12 +199,15 @@ class GenerateService:
                 f"unknown serve role {serve_role!r}; have 'unified',"
                 f" 'prefill', 'decode'"
             )
-        if serve_role != "unified":
-            raise _not_ported(
-                f"serve role {serve_role!r}", "decode and serving, disaggregated roles"
+        if serve_role != "unified" and engine != "continuous":
+            raise ValueError(
+                f"serve role {serve_role!r} requires the continuous engine"
+                f" (got {engine!r})"
             )
-        if kv_transfer:
-            raise _not_ported("--kv-transfer", "decode and serving, disaggregated roles")
+        if serve_role == "prefill" and not kv_transfer:
+            raise ValueError(
+                "prefill role needs a --kv-transfer spec (decode targets)"
+            )
         if int8:
             raise _not_ported("--int8", "MoE and int8")
         from torchx_tpu_torch.examples.train_llama import resolve_device
@@ -223,6 +240,13 @@ class GenerateService:
         self._failure: Optional[str] = None  # a coalesced batch raised
         self._count_lock = threading.Lock()
         self._engine = None
+        # prefill role: KV handoffs in flight to decode replicas; drain()
+        # waits these out, or a SIGTERM mid-transfer drops the request
+        self._transferring = 0
+        self._transfer_done = threading.Condition()
+        self._transfer = None
+        self._spool_stop: Optional[threading.Event] = None
+        self._spool_thread: Optional[threading.Thread] = None
         if engine == "continuous":
             from torchx_tpu_torch.serve.engine import ServeEngine
 
@@ -235,6 +259,23 @@ class GenerateService:
                 enable_prefix_cache=enable_prefix_cache,
                 prefix_cache_reserve=prefix_cache_reserve,
             ).start()
+            from torchx_tpu_torch.serve import kv_transfer as kvt
+
+            if serve_role == "prefill":
+                self._transfer = kvt.make_transfer(kvt.TransferConfig.from_spec(kv_transfer))
+            elif serve_role == "decode" and kv_transfer:
+                # a decode role given a file: spec pumps the spool dir
+                # itself (HTTP decode targets are served by /v1/kv)
+                tcfg = kvt.TransferConfig.from_spec(kv_transfer)
+                if tcfg.mode == "file":
+                    self._spool_stop = threading.Event()
+                    self._spool_thread = threading.Thread(
+                        target=kvt.serve_spool,
+                        args=(tcfg.endpoints[0], self.handle_kv_payload, self._spool_stop),
+                        name="tpx-kv-spool",
+                        daemon=True,
+                    )
+                    self._spool_thread.start()
             return
         self._submit_lock = threading.Lock()  # orders enqueue vs close
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
@@ -248,8 +289,13 @@ class GenerateService:
         drains to completion; work racing close fails fast — never hangs."""
         if self._engine is not None:
             self._closed = True
+            if self._spool_stop is not None:
+                self._spool_stop.set()
             self._engine.drain(timeout=60)
+            self._wait_transfers(timeout=60)
             self._engine.stop()
+            if self._spool_thread is not None:
+                self._spool_thread.join(timeout=5)
             return
         with self._submit_lock:
             # under the same lock generate() enqueues with, so every put
@@ -283,13 +329,52 @@ class GenerateService:
         True when fully drained within ``grace_s``."""
         self.draining = True
         if self._engine is not None:
-            return self._engine.drain(timeout=grace_s)
+            if self._spool_stop is not None:
+                self._spool_stop.set()
+            t0 = time.monotonic()
+            ok = self._engine.drain(timeout=grace_s)
+            # prefill role: handoffs the engine finished may still be
+            # streaming to decode replicas; in flight until their reply
+            left = max(0.0, grace_s - (time.monotonic() - t0))
+            return self._wait_transfers(timeout=left) and ok
         deadline = time.monotonic() + grace_s
         with self._submit_lock:
             self._closed = True
             self._queue.put(None)
         self._batcher.join(timeout=max(0.0, deadline - time.monotonic()))
         return not self._batcher.is_alive()
+
+    def _wait_transfers(self, timeout: float) -> bool:
+        """Block until every in-flight KV handoff has its decode reply
+        (prefill role; trivially True elsewhere)."""
+        deadline = time.monotonic() + timeout
+        with self._transfer_done:
+            while self._transferring > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._transfer_done.wait(remaining)
+        return True
+
+    def handle_kv_payload(self, payload: Any) -> dict:
+        """Decode role: admit one prefilled handoff and decode it out.
+
+        Raises :class:`~torchx_tpu_torch.serve.kv_transfer.TransferRejected`
+        at another role and while draining, so the prefill side requeues to
+        another decode replica."""
+        from torchx_tpu_torch.serve.engine import serve_kv_payload
+        from torchx_tpu_torch.serve.kv_transfer import TransferRejected, payload_span
+
+        if self.serve_role != "decode":
+            raise TransferRejected(f"replica role is {self.serve_role!r}, not decode")
+        if self.draining or self._closed:
+            raise TransferRejected("decode replica draining; requeue")
+        with self._count_lock:
+            self.requests += 1
+        # decode inside the handoff's originating trace, so the request's
+        # stitched timeline covers router -> prefill -> transfer -> decode
+        with payload_span(payload, "serve.decode"):
+            return serve_kv_payload(self._engine, payload)
 
     # -- batcher thread ----------------------------------------------------
 
@@ -477,6 +562,10 @@ class GenerateService:
     ) -> tuple[list[list[int]], dict]:
         from torchx_tpu_torch.serve.engine import EngineStopped, ServeRequest
 
+        if self.serve_role == "prefill":
+            return self._generate_disagg(
+                tokens, max_new_tokens, temperature, seed, eos_id
+            )
         reqs = [
             ServeRequest(
                 prompt=list(t),
@@ -508,6 +597,71 @@ class GenerateService:
             "ttft_ms": round(max(r.ttft_s for r in reqs) * 1e3, 2),
         }
         return [r.tokens for r in reqs], timing
+
+    def _generate_disagg(
+        self,
+        tokens: list[list[int]],
+        max_new_tokens: int,
+        temperature: float,
+        seed: int,
+        eos_id: Optional[int],
+    ) -> tuple[list[list[int]], dict]:
+        """Prefill role: run the cache-aware prefill here, then send each
+        prefilled KV payload to a decode replica and relay its completion.
+        TTFT is the first token sampled here; the decode replica owns the
+        rest of the latency."""
+        from torchx_tpu_torch.serve.engine import EngineStopped, ServeRequest
+
+        reqs = [
+            ServeRequest(
+                prompt=list(t),
+                max_new_tokens=max_new_tokens,
+                temperature=round(temperature, 3),
+                seed=seed,
+                eos_id=eos_id,
+                prefill_only=True,
+            )
+            for t in tokens
+        ]
+        t0 = time.monotonic()
+        # the handoff window counts as in flight for drain(): a SIGTERM
+        # between prefill and the decode reply must not drop the request
+        with self._transfer_done:
+            self._transferring += len(reqs)
+        try:
+            try:
+                for r in reqs:
+                    self._engine.submit(r)
+            except EngineStopped as e:
+                raise ServiceDraining(str(e)) from e
+            outs: list[list[int]] = []
+            ttft = 0.0
+            for r in reqs:
+                r.wait()
+                if r.error is not None:
+                    raise RuntimeError(r.error)
+                ttft = max(ttft, r.ttft_s)
+                if r.handoff is None:  # finished at the first token
+                    outs.append(r.tokens)
+                    continue
+                result = self._transfer.send(r.handoff)
+                # transfer replies carry generated tokens only; restore
+                # the prompt+generated shape the unified path returns
+                outs.append(list(r.prompt) + [int(x) for x in result["tokens"]])
+        finally:
+            with self._transfer_done:
+                self._transferring -= len(reqs)
+                self._transfer_done.notify_all()
+        with self._count_lock:
+            self.batches = self._engine.steps
+            self.batched_sequences += len(reqs)
+        total_ms = round((time.monotonic() - t0) * 1e3, 2)
+        timing = {
+            "queue_ms": round(ttft * 1e3, 2),
+            "total_ms": total_ms,
+            "ttft_ms": round(ttft * 1e3, 2),
+        }
+        return outs, timing
 
     def generate_stream(
         self,
@@ -612,6 +766,23 @@ def _make_handler(service: GenerateService):
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
+        def _handle_kv(self) -> None:
+            """Decode-role KV handoff intake (the ``HttpTransfer`` sender):
+            octet-stream payload in, decode completion out; 503 at another
+            role or while draining, so the prefill side requeues."""
+            from torchx_tpu_torch.serve.kv_transfer import KvPayload, TransferRejected
+
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                payload = KvPayload.from_bytes(self.rfile.read(n))
+                self._reply(200, service.handle_kv_payload(payload))
+            except TransferRejected as e:
+                self._reply(503, {"error": str(e)})
+            except (KeyError, ValueError, TypeError, OSError) as e:
+                self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+            except Exception as e:  # noqa: BLE001 - surface, don't kill the server
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
         def _stream(self, tokens: list[int], req: dict, text_mode: bool) -> None:
             """JSONL streaming response (one line per decoded chunk,
             terminated by {\"done\": true}); connection closes at the end.
@@ -660,9 +831,7 @@ def _make_handler(service: GenerateService):
 
         def do_POST(self) -> None:  # noqa: N802
             if self.path == "/v1/kv":
-                self._reply(501, {"error": str(_not_ported(
-                    "/v1/kv (the disaggregated decode role)",
-                    "decode and serving, disaggregated roles"))})
+                self._handle_kv()
                 return
             if self.path != "/v1/generate":
                 self._reply(404, {"error": f"unknown path {self.path}"})
@@ -870,9 +1039,15 @@ def main(argv: Optional[list[str]] = None) -> None:
         choices=("unified", "prefill", "decode"),
         default="unified",
         help="'unified' (default) prefills and decodes in one replica;"
-        " the disaggregated 'prefill' and 'decode' roles are not ported yet",
+        " 'prefill' streams computed KV blocks to decode replicas"
+        " (--kv-transfer); 'decode' accepts them on /v1/kv",
     )
-    parser.add_argument("--kv-transfer", default=None, help="not ported yet")
+    parser.add_argument(
+        "--kv-transfer",
+        default=None,
+        help="prefill->decode transport spec: http:<url>[,<url>...] (decode"
+        " replicas, tried in order on rejection) or file:<spool dir>",
+    )
     parser.add_argument(
         "--no-prefix-cache",
         action="store_true",

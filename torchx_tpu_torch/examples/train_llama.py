@@ -13,12 +13,21 @@ The launcher contract of the JAX trainer: with ``--ckpt-dir`` it resumes
 from the newest checkpoint that verifies (the data stream too) and saves
 every ``--ckpt-every`` steps (:mod:`torchx_tpu_torch.parallel.checkpoint`);
 on SIGTERM (a preemption notice) it saves the current step, waits until it
-is durable and exits 0. Under the launcher's tracing (``$TPX_TRACE_ID``)
-it emits the ``launch.*`` spans, the ``job.first_step`` and
-``step.window`` heartbeats into the session's ``trace.jsonl`` and renews
-its replica's liveness lease. The JAX trainer's meshes, profiler, gradient
-buckets, int8 and ring attention are not ported yet (ROADMAP); their flags
-raise.
+is durable and exits 0; a run saves its last step whatever ``--steps`` is.
+Under the launcher's tracing (``$TPX_TRACE_ID``) it emits the ``launch.*``
+spans, the ``job.first_step`` and ``step.window`` heartbeats into the
+session's ``trace.jsonl``, renews its replica's liveness lease and writes
+its metrics textfile (``metrics-<pid>.prom``) at the end of the run.
+
+``--profile`` (or ``TPX_PROFILE=1``) attributes each timed step to phases
+(:mod:`torchx_tpu_torch.obs.profile`) and appends one record per step to
+the session's ``profile.jsonl``, which ``tpx profile`` reads; it fences
+every step, as the unprofiled loop already does. ``--profile-dir DIR``
+writes a ``torch.profiler`` Chrome trace (CPU and CUDA activity) of the
+timed steps into DIR.
+
+The JAX trainer's meshes, gradient buckets, int8 and ring attention are
+not ported yet (ROADMAP); their flags raise.
 """
 
 from __future__ import annotations
@@ -40,8 +49,10 @@ import torch
 from torchx_tpu_torch import _build, settings
 from torchx_tpu_torch.examples.data import TokenDataset
 from torchx_tpu_torch.models import llama
+from torchx_tpu_torch.obs import metrics as obs_metrics
 from torchx_tpu_torch.obs import sinks
 from torchx_tpu_torch.obs import trace as obs_trace
+from torchx_tpu_torch.obs.profile import StepProfiler, attribution_model
 from torchx_tpu_torch.ops.fused import resolve_kernels
 from torchx_tpu_torch.parallel.checkpoint import Checkpointer
 from torchx_tpu_torch.parallel.prefetch import Prefetcher, device_prefetch
@@ -61,7 +72,7 @@ PEAK_FLOPS = {
 #: Flags of the JAX trainer this port does not have yet.
 NOT_PORTED_FLAGS = (
     "--mesh", "--ring-attention", "--remat-policy", "--int8", "--int8-scope",
-    "--grad-bucket-mb", "--profile-dir", "--profile",
+    "--grad-bucket-mb",
 )
 
 
@@ -265,6 +276,7 @@ def _report_first_step(
     if not _traced():
         return
     sinks.attach_trace_sink()
+    obs_metrics.LAUNCH_TO_FIRST_STEP.observe(first_step_s)
     obs_trace.heartbeat(
         "job.first_step",
         launch_to_first_step_s=round(first_step_s, 3),
@@ -283,6 +295,32 @@ def _step_heartbeat(**attrs: Any) -> None:
     sinks.attach_trace_sink()
     obs_trace.heartbeat("step.window", replica=_replica_id(), **attrs)
     _renew_liveness_lease(int(attrs.get("step", -1)))
+
+
+def _profile_enabled(flag: bool) -> bool:
+    """True when per-step phase profiling is on: the trainer's
+    ``--profile`` flag or the launcher-injected ``TPX_PROFILE`` switch."""
+    if flag:
+        return True
+    return os.environ.get(settings.ENV_TPX_PROFILE, "").lower() in (
+        "1", "true", "yes", "on",
+    )
+
+
+def _make_profiler(
+    cfg: llama.LlamaConfig, tokens_per_step: int, flops_per_token: float,
+    peak: Optional[float], dev: torch.device,
+) -> StepProfiler:
+    """A :class:`StepProfiler` on this run's arithmetic. One card has no
+    mesh, so the collective terms are zero; without a known peak (the
+    CPU) the modeled slices and MFU are zero."""
+    return StepProfiler(attribution_model(
+        flops_per_token=flops_per_token,
+        tokens_per_step=tokens_per_step,
+        peak_flops=peak or 0.0,
+        param_count=cfg.param_count(),
+        generation=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    ))
 
 
 def _install_preempt_handler() -> tuple[Optional[threading.Event], Callable[[], None]]:
@@ -333,6 +371,8 @@ def train(
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 0,
     on_state: Optional[Callable[[str, dict[str, torch.Tensor]], None]] = None,
+    profile: bool = False,
+    profile_dir: Optional[str] = None,
 ) -> dict[str, Any]:
     """Train ``steps`` steps of ``cfg`` from a seeded init, or from the
     newest checkpoint under ``ckpt_dir``. -> metrics: losses, step times,
@@ -344,23 +384,35 @@ def train(
     Checkpoints follow the JAX trainer: saves every ``ckpt_every`` global
     steps (100 when 0), but not on the first step nor on the up to three
     warm-up steps after it, and a forced save of the last step when it is
-    not on disk yet (runs of more than one step). ``on_state(event,
-    state)``, where given, sees :func:`checkpoint_state`'s views of the
-    live state right after a restore (``"restored"``) and at the end
-    (``"final"``)."""
+    not on disk yet; unlike the JAX trainer, a one-step run saves its step
+    too. ``on_state(event, state)``, where given, sees
+    :func:`checkpoint_state`'s views of the live state right after a
+    restore (``"restored"``) and at the end (``"final"``).
+
+    ``profile`` (or ``$TPX_PROFILE``) attributes each timed step (those
+    after the first, or the only one) with a :class:`StepProfiler`; its
+    summary is ``results["profile"]``. ``profile_dir`` writes a
+    ``torch.profiler`` Chrome trace of the timed steps there
+    (``results["profile_trace"]``)."""
     global _FIRST_TRAIN_PENDING
     t_call = time.monotonic()
     launch_ref = _PROCESS_START if _FIRST_TRAIN_PENDING else t_call
     _FIRST_TRAIN_PENDING = False
     # launch-to-first-step by stage (the launch.* spans' names)
-    breakdown: dict[str, float] = {"import": t_call - launch_ref}
+    breakdown: dict[str, float] = {}
+
+    def _stage(stage: str, seconds: float) -> None:
+        breakdown[stage] = seconds
+        obs_metrics.LAUNCH_STAGE_SECONDS.observe(seconds, stage=stage)
+
+    _stage("import", t_call - launch_ref)
     t0 = time.monotonic()
     with _launch_span("launch.backend_init"):
         dev = resolve_device(device)
         cfg = dataclasses.replace(cfg, max_seq=seq, kernels=resolve_kernels(kernels))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-    breakdown["backend_init"] = time.monotonic() - t0
+    _stage("backend_init", time.monotonic() - t0)
 
     ckpt, latest = None, None
     if ckpt_dir:
@@ -377,7 +429,7 @@ def train(
         optimizer = make_optimizer(llama.leaves(params), lr=lr, warmup=warmup)
         if ckpt is not None:  # the pinned snapshot buffers, once
             ckpt.prepare(checkpoint_state(params, optimizer, 0))
-    breakdown["init_state"] = time.monotonic() - t0
+    _stage("init_state", time.monotonic() - t0)
     step_fn = make_train_step(cfg, optimizer)
     if latest is not None:
         t0 = time.monotonic()
@@ -392,7 +444,7 @@ def train(
         else:
             resumed_step = step_r
             optimizer.count = int(live["opt.count"])
-            breakdown["restore"] = time.monotonic() - t0
+            _stage("restore", time.monotonic() - t0)
             print(f"resumed from checkpoint step {resumed_step}", flush=True)
             if on_state is not None:
                 on_state("restored", live)
@@ -411,7 +463,7 @@ def train(
             # code path and an honest (about 0) data-wait account
             data = synthetic_batch(cfg, batch, seq, seed=seed, device=dev)
             batches = Prefetcher(itertools.repeat(data), depth=0)
-    breakdown["data_setup"] = time.monotonic() - t0
+    _stage("data_setup", time.monotonic() - t0)
 
     counts0 = _build.launch_counts()
     losses, grad_norms, step_times, overlaps = [], [], [], []
@@ -423,17 +475,44 @@ def train(
     global_step = resumed_step
     first_step_s = None
     window_t0, window_steps, window_wait = time.monotonic(), 0, 0.0
+    profiler = None
+    if _profile_enabled(profile):
+        profiler = _make_profiler(cfg, tokens_per_step, flops_per_token, peak, dev)
+        # per-next() waits credit the current step's data_wait
+        batches.set_wait_observer(profiler.observe_wait)
+    torch_prof = None
+    profile_trace = None
+
+    prof = None  # the profiler while the step in flight is a timed one
+
+    def _phase(name: str) -> contextlib.AbstractContextManager:
+        return prof.phase(name) if prof is not None else contextlib.nullcontext()
+
     preempt_evt, restore_sigterm = _install_preempt_handler()
     preempted = False
     try:
         for i in range(steps):
+            # the timed steps, which step_time_s averages: those after the
+            # first (it pays the builds), or the only one
+            timed = i > 0 or steps == 1
+            if profile_dir and torch_prof is None and timed:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if dev.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                torch_prof = torch.profiler.profile(activities=activities)
+                torch_prof.start()
+            prof = profiler if timed else None
+            if prof is not None:
+                prof.begin_step()
             overlaps.append(ckpt is not None and ckpt.writing())
             t0 = time.monotonic()
             with _launch_span("launch.first_step") if i == 0 else contextlib.nullcontext():
-                out = step_fn(params, next(batches))
-                loss = float(out["loss"])  # waits for the step
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+                b = next(batches)
+                with _phase("forward_backward"):
+                    out = step_fn(params, b)
+                    loss = float(out["loss"])  # waits for the step
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
             t1 = time.monotonic()
             step_times.append(t1 - t0)
             losses.append(loss)
@@ -443,11 +522,12 @@ def train(
             note = ""
             if i == 0:
                 first_step_s = t1 - launch_ref
-                breakdown["first_step"] = t1 - t0
+                _stage("first_step", t1 - t0)
                 _report_first_step(first_step_s, resumed_step, breakdown)
                 note = f" launch-to-first-step={first_step_s:.1f}s"
             if ckpt is not None and i > warmup_steps and global_step % ckpt_every == 0:
-                ckpt.save(global_step, checkpoint_state(params, optimizer, global_step))
+                with _phase("checkpoint"):
+                    ckpt.save(global_step, checkpoint_state(params, optimizer, global_step))
             if preempt_evt is not None and preempt_evt.is_set():
                 preempted = True
                 if ckpt is not None:
@@ -458,30 +538,49 @@ def train(
                       flush=True)
                 break
             if log_every and (i + 1) % log_every == 0:
-                tps = tokens_per_step / step_times[-1]
-                mfu = f" MFU={tps * flops_per_token / peak:.1%}" if peak else ""
-                print(f"step {global_step} loss={loss:.4f} tokens/sec={tps:,.0f}{mfu}{note}",
-                      flush=True)
-                now = time.monotonic()
-                window_dt = (now - window_t0) / window_steps
-                wait_per_step = (batches.data_wait_s - window_wait) / window_steps
-                window_t0, window_steps, window_wait = now, 0, batches.data_wait_s
-                _step_heartbeat(
-                    step=global_step,
-                    avg_step_s=round(window_dt, 6),
-                    data_wait_s=round(wait_per_step, 6),
-                    mfu=round(tokens_per_step / window_dt * flops_per_token / peak, 4)
-                    if peak else None,
-                )
+                with _phase("host"):
+                    tps = tokens_per_step / step_times[-1]
+                    mfu = f" MFU={tps * flops_per_token / peak:.1%}" if peak else ""
+                    print(f"step {global_step} loss={loss:.4f} tokens/sec={tps:,.0f}{mfu}"
+                          f"{note}", flush=True)
+                    now = time.monotonic()
+                    window_dt = (now - window_t0) / window_steps
+                    wait_per_step = (batches.data_wait_s - window_wait) / window_steps
+                    window_t0, window_steps, window_wait = now, 0, batches.data_wait_s
+                    obs_metrics.STEP_SECONDS.observe(window_dt, phase="total")
+                    obs_metrics.STEP_SECONDS.observe(wait_per_step, phase="data_wait")
+                    _step_heartbeat(
+                        step=global_step,
+                        avg_step_s=round(window_dt, 6),
+                        data_wait_s=round(wait_per_step, 6),
+                        mfu=round(tokens_per_step / window_dt * flops_per_token / peak, 4)
+                        if peak else None,
+                    )
+            if prof is not None:
+                prof.end_step(global_step)
         data_wait_s = batches.data_wait_s
     finally:
         restore_sigterm()
         batches.close()
+        if torch_prof is not None:
+            torch_prof.stop()
+    if torch_prof is not None:
+        os.makedirs(profile_dir, exist_ok=True)
+        profile_trace = os.path.join(profile_dir, f"trace-{os.getpid()}.json")
+        torch_prof.export_chrome_trace(profile_trace)
+        print(f"profile trace written to {profile_trace}", flush=True)
     if ckpt is not None:
-        if steps > 1 and ckpt.latest_step() != global_step:  # the final state
+        if ckpt.latest_step() != global_step:  # the final state, any run length
             ckpt.save(global_step, checkpoint_state(params, optimizer, global_step),
                       force=True)
         ckpt.close()
+    profile_summary = None
+    if profiler is not None:
+        batches.set_wait_observer(None)
+        # the summary, the tpx_profile_* gauges and the metrics textfile
+        profile_summary = profiler.close()
+    elif _traced():
+        sinks.flush_metrics()
     if on_state is not None:
         on_state("final", checkpoint_state(params, optimizer, global_step))
     counts = _build.launch_counts()
@@ -520,6 +619,8 @@ def train(
         # durable; the supervisor resubmits from it)
         "preempted": preempted,
         "checkpoint": checkpoint,
+        "profile": profile_summary,
+        "profile_trace": profile_trace,
     }
 
 
@@ -561,6 +662,17 @@ def main(argv: Optional[list[str]] = None) -> None:
         "--ckpt-every", type=int, default=0,
         help="save every N steps (default 100 when --ckpt-dir is set)",
     )
+    parser.add_argument(
+        "--profile", action="store_true",
+        help="per-step phase attribution (data_wait / forward_backward /"
+        " optimizer / checkpoint / host) appended to the obs session's"
+        " profile.jsonl (view with `tpx profile`); also enabled by"
+        " TPX_PROFILE=1",
+    )
+    parser.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler Chrome trace of the timed steps here",
+    )
     args, unknown = parser.parse_known_args(argv)
     for arg in unknown:
         flag = arg.split("=", 1)[0]
@@ -587,6 +699,8 @@ def main(argv: Optional[list[str]] = None) -> None:
         log_every=args.log_every or 1,
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
+        profile=args.profile,
+        profile_dir=args.profile_dir,
     )
     print("final:", json.dumps(metrics), flush=True)
 

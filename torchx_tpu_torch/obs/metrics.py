@@ -1,8 +1,10 @@
 """In-process metrics registry with a Prometheus text exporter.
 
-The port's copy of the registry of :mod:`torchx_tpu.obs.metrics` and of
-its serving instruments (the ``tpx_serve_*`` counters, gauges and
-histograms the engine, the prefix cache and the KV transfer emit).
+The port's copy of the registry of :mod:`torchx_tpu.obs.metrics`, of its
+serving instruments (the ``tpx_serve_*`` counters, gauges and histograms
+the engine, the prefix cache and the KV transfer emit) and of its
+training instruments (the launch and step histograms the trainer observes
+and the ``tpx_profile_*`` gauges the step profiler exports).
 Counters, gauges and fixed-bucket histograms, labeled and thread-safe;
 :meth:`MetricsRegistry.render` emits the Prometheus text exposition
 format that ``generate_server``'s ``/metricz`` serves.
@@ -376,4 +378,57 @@ SERVE_KV_TRANSFERS = REGISTRY.counter(
 SERVE_KV_TRANSFER_BYTES = REGISTRY.counter(
     "tpx_serve_kv_transfer_bytes_total",
     "bytes of KV blocks streamed from prefill to decode replicas",
+)
+
+#: in-job launch-to-first-step latency (reported by train heartbeats).
+LAUNCH_TO_FIRST_STEP = REGISTRY.histogram(
+    "tpx_launch_to_first_step_seconds",
+    "process start to first completed training step in seconds",
+)
+
+#: steady-state training step time, by phase: "total" = wall time per
+#: step, "data_wait" = the slice of it the host spent blocked on input
+#: (prefetcher queue waits). Fed at each log line with the window's
+#: per-step averages.
+STEP_SECONDS = REGISTRY.histogram(
+    "tpx_step_seconds",
+    "training step seconds by phase (total / data_wait)",
+    ("phase",),
+    buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0),
+)
+
+#: step-profiler summary exports (obs/profile.py): the last profiled
+#: run's per-step attribution. Gauges (not histograms): each profiled run
+#: overwrites its process's snapshot.
+PROFILE_PHASE_SECONDS = REGISTRY.gauge(
+    "tpx_profile_phase_seconds",
+    "profiled per-step seconds by attribution phase",
+    ("phase",),
+)
+
+#: model FLOPs utilization of the last profiled run.
+PROFILE_MFU = REGISTRY.gauge(
+    "tpx_profile_mfu",
+    "model FLOPs utilization measured by the step profiler",
+)
+
+#: fraction of profiled step time the host spent blocked on input.
+PROFILE_DATA_WAIT_FRAC = REGISTRY.gauge(
+    "tpx_profile_data_wait_frac",
+    "fraction of profiled step time spent waiting on input",
+)
+
+#: collective overlap fraction (1 - exposed/modeled comm time).
+PROFILE_OVERLAP_FRAC = REGISTRY.gauge(
+    "tpx_profile_overlap_frac",
+    "profiled collective overlap fraction (1 - exposed/modeled comm)",
+)
+
+#: per-stage breakdown of launch-to-first-step (the ``launch.*`` span
+#: family): import / backend_init / init_state / restore / data_setup /
+#: first_step.
+LAUNCH_STAGE_SECONDS = REGISTRY.histogram(
+    "tpx_launch_stage_seconds",
+    "seconds spent per launch bootstrap stage",
+    ("stage",),
 )

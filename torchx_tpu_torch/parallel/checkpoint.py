@@ -25,8 +25,16 @@ nothing on disk.
 checkpointer owns (pinned, allocated once, for CUDA tensors; the D2H copy
 ends in a stream sync), so the caller may update its tensors in place the
 moment it returns. Serialization, fsync, digest, manifest and retention run
-on one background thread; at most one write is in flight, and its failure
-is raised at the next ``save`` or ``wait``.
+on a background thread, and a write's failure is raised at the next
+``save`` or ``wait``.
+
+A save of the step already in flight, or already the newest on disk,
+waits for that write and writes nothing. A save of a newer step waits only
+until the write in flight has serialized the buffers, then starts beside
+its fsync and digest: at most two writes are in flight, and the manifest's
+``latest_step`` never moves backwards. A preemption notice that lands
+during a periodic write then costs the rest of that write's serialization
+and one write, not the whole of both (PERF.md).
 """
 
 from __future__ import annotations
@@ -114,17 +122,29 @@ class Checkpointer:
             os.makedirs(self.directory, exist_ok=True)
         # host snapshot buffers by name, reused by every save and restore
         self._buffers: dict[str, torch.Tensor] = {}
+        # the newest write and the event set once it no longer reads the
+        # buffers; an older write past that point may still be in its
+        # fsync and digest
         self._writer: Optional[threading.Thread] = None
+        self._released = threading.Event()
+        self._released.set()
+        self._older: Optional[threading.Thread] = None
+        # per write in flight, by step: its record in ``writes`` and the
+        # event set once it no longer reads the buffers
+        self._jobs: dict[int, tuple[dict, threading.Event]] = {}
         self._writer_error: Optional[BaseException] = None
-        # guards the latched writer error and the writer handle, which the
-        # writer thread and the step loop both touch
+        # guards the latched writer error and the writer handles, which the
+        # writer threads and the step loop all touch
         self._lock = threading.Lock()
+        # orders the writers' manifest rewrites and retention
+        self._manifest_lock = threading.Lock()
         #: per save: step, wait_s (for the previous write), snapshot_s
         #: (buffer copies and the device sync), bytes
         self.saves: list[dict] = []
-        #: per background write: step, serialize_s (torch.save), fsync_s
-        #: (fsync and rename), digest_s (the sha256 read-back), write_s
-        #: (all of it, to the manifest), bytes
+        #: per background write, in the order the writes started: step,
+        #: serialize_s (torch.save), fsync_s (fsync and rename), digest_s
+        #: (the sha256 read-back), write_s (all of it, to the manifest),
+        #: bytes
         self.writes: list[dict] = []
         #: per restore: step, verify_s, read_s, h2d_s
         self.restores: list[dict] = []
@@ -152,15 +172,28 @@ class Checkpointer:
         """Save ``state`` as ``step`` if the interval policy says so (or
         ``force``). -> whether a save was started (async) or done (sync).
 
-        Returns once the snapshot is in host memory: the previous write
-        is joined first (its error raised here), then every tensor is
-        copied into the checkpointer's buffers and the device synced."""
+        When ``step`` is the step in flight or the newest on disk, this
+        waits until it is durable and returns False: the step is written
+        once, with or without ``force``. Otherwise it returns once the
+        snapshot is in host memory: it waits until the write in flight no
+        longer reads the buffers and any older write is done (their errors
+        raised here), then copies every tensor into the buffers and syncs
+        the device; the new write runs beside the rest of the previous
+        one."""
         if self.read_only:
             raise RuntimeError(f"checkpointer for {self.directory} is read-only")
         if step % self._save_interval and not force:
             return False
         t0 = time.monotonic()
-        self._join_writer()
+        with self._lock:
+            in_flight = step in self._jobs
+        if in_flight or step == next(iter(self._list_steps()), None):
+            self.wait()
+            self.saves.append({"step": step, "wait_s": time.monotonic() - t0,
+                               "snapshot_s": 0.0, "bytes": 0, "rewrite_skipped": True})
+            return False
+        self._join(older=True)  # at most two writes in flight
+        self._released.wait()
         self._raise_writer_error()
         t1 = time.monotonic()
         host = self._buffers_for(state)
@@ -175,6 +208,11 @@ class Checkpointer:
         nbytes = sum(b.numel() * b.element_size() for b in host.values())
         self.saves.append({"step": step, "wait_s": t1 - t0,
                            "snapshot_s": time.monotonic() - t1, "bytes": nbytes})
+        record = {"step": step}
+        self.writes.append(record)
+        released = threading.Event()
+        with self._lock:
+            self._jobs[step] = (record, released)
         if not self._async:
             self._write(step, host)
             return True
@@ -183,7 +221,8 @@ class Checkpointer:
             name=f"tpx-ckpt-writer-{step}", daemon=True,
         )
         with self._lock:
-            self._writer = t
+            self._older = self._writer
+            self._writer, self._released = t, released
         t.start()
         return True
 
@@ -195,17 +234,35 @@ class Checkpointer:
                 self._writer_error = e
 
     def _write(self, step: int, host: dict[str, torch.Tensor]) -> None:
-        """Payload to ``<step>.tmp.<pid>``, fsync, rename to ``<step>``;
-        then the digest (a read-back of the file) and ``latest_step`` into
-        the manifest, then retention. ``latest_step`` never names a step
-        that is not durable."""
+        """Payload to ``<step>.tmp.<pid>`` (then the buffers are released
+        to the next snapshot), fsync, rename to
+        ``<step>``; then the digest (a read-back of the file) and
+        ``latest_step`` into the manifest, then retention. ``latest_step``
+        never names a step that is not durable, and never moves back to an
+        older step whose write ends after a newer one's."""
+        with self._lock:
+            record, released = self._jobs[step]
+        try:
+            self._write_step(step, host, record, released)
+        finally:
+            released.set()
+            with self._lock:
+                del self._jobs[step]
+
+    def _write_step(
+        self, step: int, host: dict[str, torch.Tensor], record: dict,
+        released: threading.Event,
+    ) -> None:
         t0 = time.monotonic()
         final = os.path.join(self.directory, str(step))
         tmp = f"{final}.tmp.{os.getpid()}"
         try:
             os.makedirs(tmp)
             payload = os.path.join(tmp, PAYLOAD)
-            torch.save(host, payload)
+            try:
+                torch.save(host, payload)
+            finally:
+                released.set()
             t1 = time.monotonic()
             fd = os.open(payload, os.O_RDONLY)
             try:
@@ -229,29 +286,43 @@ class Checkpointer:
         if digest is None:
             raise OSError(f"cannot read back checkpoint step {final}")
         t3 = time.monotonic()
-        self._mutate_manifest(latest=step, set_digests={step: digest})
-        self._prune()
-        self.writes.append({
-            "step": step, "serialize_s": t1 - t0, "fsync_s": t2 - t1,
-            "digest_s": t3 - t2, "write_s": time.monotonic() - t0,
-            "bytes": os.path.getsize(os.path.join(final, PAYLOAD)),
+        nbytes = os.path.getsize(os.path.join(final, PAYLOAD))
+        with self._manifest_lock:
+            latest = self._read_manifest().get("latest_step")
+            newer = isinstance(latest, int) and latest > step and os.path.isdir(
+                os.path.join(self.directory, str(latest)))
+            self._mutate_manifest(latest="keep" if newer else step,
+                                  set_digests={step: digest})
+            self._prune(step)
+        record.update({
+            "serialize_s": t1 - t0, "fsync_s": t2 - t1, "digest_s": t3 - t2,
+            "write_s": time.monotonic() - t0, "bytes": nbytes,
         })
 
-    def _prune(self) -> None:
-        pruned = sorted(self._list_steps())[: -self._max_to_keep]
+    def _prune(self, step: int) -> None:
+        """Retention after ``step``'s write: drop all but the newest
+        ``max_to_keep`` steps, never a step another write is still on."""
+        with self._lock:
+            busy = set(self._jobs) - {step}
+        pruned = [s for s in sorted(self._list_steps())[: -self._max_to_keep]
+                  if s not in busy]
         for old in pruned:
             shutil.rmtree(os.path.join(self.directory, str(old)))
         if pruned:
             self._mutate_manifest(drop_steps=pruned)
 
-    def _join_writer(self) -> None:
+    def _join(self, older: bool = False) -> None:
+        """Join the older write (``older``) or both writes."""
         with self._lock:
-            t = self._writer
-        if t is None:
-            return
-        t.join()
+            threads = [self._older] if older else [self._older, self._writer]
+        for t in threads:
+            if t is not None:
+                t.join()
         with self._lock:
-            self._writer = None
+            if self._older in threads:
+                self._older = None
+            if self._writer in threads:
+                self._writer = None
 
     def _raise_writer_error(self) -> None:
         with self._lock:
@@ -262,12 +333,12 @@ class Checkpointer:
     def writing(self) -> bool:
         """True while a background write is in flight."""
         with self._lock:
-            return self._writer is not None and self._writer.is_alive()
+            return any(t is not None and t.is_alive() for t in (self._writer, self._older))
 
     def wait(self) -> None:
-        """Block until the in-flight write is durable, digested and in the
-        manifest; a failed write raises here."""
-        self._join_writer()
+        """Block until the writes in flight are durable, digested and in
+        the manifest; a failed write raises here."""
+        self._join()
         self._raise_writer_error()
 
     def close(self) -> None:
@@ -333,7 +404,7 @@ class Checkpointer:
     def all_steps(self) -> list[int]:
         """Finalized steps, newest first (an in-flight write is waited
         for: it is a step once finalized)."""
-        self._join_writer()
+        self._join()
         return self._list_steps()
 
     def latest_step(self) -> Optional[int]:
@@ -373,7 +444,7 @@ class Checkpointer:
         on any device): each entry is read into the host buffers, then
         copied into its live tensor in place; the names, shapes and dtypes
         must match (:class:`CheckpointMismatch` otherwise). -> ``into``."""
-        self._join_writer()  # the step may still be in flight
+        self._join()  # the step may still be in flight
         t0 = time.monotonic()
         loaded = torch.load(
             os.path.join(self.directory, str(step), PAYLOAD),

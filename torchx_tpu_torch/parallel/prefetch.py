@@ -4,7 +4,8 @@ Port of :mod:`torchx_tpu.parallel.prefetch`. :class:`Prefetcher` keeps a
 producer thread up to ``depth`` batches ahead of its consumer, running
 batch assembly and the host->device copy of batch N+1 while the device
 computes batch N; every moment the consumer's ``next()`` blocks is counted
-in :attr:`Prefetcher.data_wait_s`.
+in :attr:`Prefetcher.data_wait_s` and handed to the wait observer, where
+one is set (the step profiler's ``observe_wait``).
 
 Depth semantics:
 
@@ -64,6 +65,7 @@ class Prefetcher:
         self._source = iter(source)
         self._place = place if place is not None else (lambda x: x)
         self._wait_s = 0.0
+        self._wait_observer: Optional[Callable[[float], None]] = None
         self._served = 0
         self._closed = False
         self._exhausted = False
@@ -125,7 +127,22 @@ class Prefetcher:
             self._served += 1
             return item
         finally:
-            self._wait_s += time.monotonic() - t0
+            dt = time.monotonic() - t0
+            self._wait_s += dt
+            if self._wait_observer is not None:
+                try:
+                    self._wait_observer(dt)
+                except Exception:  # noqa: BLE001 - observers never break the loop
+                    pass
+
+    def set_wait_observer(
+        self, observer: Optional[Callable[[float], None]]
+    ) -> None:
+        """Install a per-``next()`` wait callback (seconds blocked), or
+        None to uninstall. It runs on the consumer thread inside
+        ``next()`` and sees every interval :attr:`data_wait_s` counts;
+        its exceptions are swallowed."""
+        self._wait_observer = observer
 
     @property
     def data_wait_s(self) -> float:

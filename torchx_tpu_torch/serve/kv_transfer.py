@@ -1,9 +1,10 @@
 """KV-block transfer seam between prefill and decode replicas.
 
 The port's copy of :mod:`torchx_tpu.serve.kv_transfer` (numpy only);
-only its imports differ. The port's engine uses :class:`KvPayload`,
-:func:`new_request_id` and :class:`TransferRejected`; the transports
-serve the disaggregated roles, which the port's server does not run yet.
+only its imports differ, so a payload crosses between a JAX replica and a
+port replica either way. The port's engine uses :class:`KvPayload`,
+:func:`new_request_id` and :class:`TransferRejected`; the transports carry
+``generate_server``'s disaggregated prefill and decode roles.
 
 Disaggregated serving splits the two phases of generation onto dedicated
 replica gangs: prefill replicas (compute-bound, prefix-cache-warm) build

@@ -29,3 +29,15 @@ ENV_TPX_RESUME_STEP = "TPX_RESUME_STEP"
 # latest finalized step and each step's content digest, read by the
 # client-side supervisor and the eval gate without importing the trainer.
 CHECKPOINT_MANIFEST = "MANIFEST.json"
+
+# Step-profiler master switch: "1"/"true"/"yes"/"on" enables the trainer's
+# per-step phase attribution (equivalent to its ``--profile`` flag),
+# appending profile.jsonl under the obs session dir. See obs/profile.py.
+ENV_TPX_PROFILE = "TPX_PROFILE"
+
+# Minimum interval (seconds) between full-registry metrics textfile
+# re-renders by the prom event handler (obs/sinks.py); events arriving
+# inside the window mark the registry dirty and a final flush on handler
+# close writes them. "0" restores flush-on-every-event.
+ENV_TPX_METRICS_MIN_INTERVAL = "TPX_METRICS_MIN_INTERVAL"
+DEFAULT_METRICS_MIN_INTERVAL = 2.0
