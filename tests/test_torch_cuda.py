@@ -131,6 +131,84 @@ def test_wrong_inputs_raise(gen):
         fused._flash_fwd(q, q.transpose(1, 2).contiguous().transpose(1, 2), q, True)
 
 
+def _packed_ids(b, s, max_len, seed):
+    """int32 [b, s] ids of packed documents with lengths drawn in
+    [1, max_len] (boundaries fall inside tiles); the last row is one
+    document."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((b, s), np.int32)
+    for row in range(b - 1):
+        pos, doc = 0, 0
+        while pos < s:
+            n = int(rng.integers(1, max_len + 1))
+            seg[row, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+    return torch.tensor(seg, device="cuda")
+
+
+@pytest.mark.parametrize("variant,dtype,d", [
+    ("simt", torch.float32, 64), ("simt", torch.float32, 256),
+    ("wgmma", torch.bfloat16, 64), ("wgmma", torch.bfloat16, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_masked_flash_kernels_match_plain(gen, variant, dtype, d, causal):
+    """Segment-masked fwd, dq and dk/dv against their plain versions (f32
+    at the CPU parity tolerances, bf16 at 1e-3 relative); the one-document
+    row bitwise the unmasked kernel's."""
+    b, s, kvh, n_rep = 3, 512, 2, 2
+    seg = _packed_ids(b, s, 200, seed=d + causal)
+    q = _randn(gen, b, s, kvh * n_rep, d, dtype=dtype)
+    k, v = (_randn(gen, b, s, kvh, d, dtype=dtype) for _ in range(2))
+    do = _randn(gen, *q.shape, dtype=dtype)
+    o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal, seg)
+    o_k, lse_k = fused._flash_fwd(q, k, v, causal, seg, variant=variant)
+    args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), causal)
+    dq_p, dq_k = fused._flash_dq_plain(*args, seg), fused._flash_dq(*args, seg, variant=variant)
+    dkv_p, dkv_k = fused._flash_dkv_plain(*args, seg), fused._flash_dkv(*args, seg, variant=variant)
+    pairs = [(o_k, o_p, 2e-5), (lse_k, lse_p, 2e-5), (dq_k, dq_p, 5e-4),
+             (dkv_k[0], dkv_p[0], 5e-4), (dkv_k[1], dkv_p[1], 5e-4)]
+    for got, want, tol in pairs:
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        else:
+            assert _rel(got, want) <= 1e-3
+    o_u, lse_u = fused._flash_fwd(q, k, v, causal, variant=variant)
+    dq_u = fused._flash_dq(*args, variant=variant)
+    dk_u, dv_u = fused._flash_dkv(*args, variant=variant)
+    for masked, plain in zip((o_k, lse_k, dq_k, *dkv_k), (o_u, lse_u, dq_u, dk_u, dv_u)):
+        assert torch.equal(masked[-1], plain[-1])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_masked_wgmma_backward_is_deterministic(gen, d):
+    seg = _packed_ids(2, 1024, 300, seed=1)
+    q, do = (_randn(gen, 2, 1024, 8, d, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, 2, 1024, 2, d, dtype=torch.bfloat16) for _ in range(2))
+    o, lse = fused._flash_fwd(q, k, v, True, seg)
+    args = (q, k, v, do, lse, fused._flash_delta(do, o), True, seg)
+    assert torch.equal(fused._flash_dq(*args), fused._flash_dq(*args))
+    first, second = fused._flash_dkv(*args), fused._flash_dkv(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_attention_flash_with_segments_launches_masked_kernels(gen):
+    from torchx_tpu_torch.ops.attention import attention
+
+    seg = _packed_ids(2, 512, 100, seed=2)
+    q = _randn(gen, 2, 512, 8, 64, dtype=torch.bfloat16).requires_grad_()
+    k = _randn(gen, 2, 512, 2, 64, dtype=torch.bfloat16).requires_grad_()
+    v = _randn(gen, 2, 512, 2, 64, dtype=torch.bfloat16).requires_grad_()
+    _build.reset_launches()
+    out = attention(q, k, v, segment_ids=seg, impl="flash")
+    out.float().square().sum().backward()
+    counts = _build.launch_counts()
+    assert [counts[f"flash_{n}_wgmma_seg"] for n in ("fwd", "dq", "dkv")] == [1, 1, 1]
+    assert sum(counts.values()) == 3
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    with pytest.raises(ValueError, match="segment_ids must be int32"):
+        attention(q, k, v, segment_ids=seg.long(), impl="flash")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_norm_kernels_match_plain(gen, dtype):
     n, d = 300, 384  # rows not a multiple of the program count

@@ -11,7 +11,9 @@ tiles, and the probabilities P (forward and dk/dv) and dS (dq and dk)
 split into bf16 hi + lo before the second product. The emulation must meet the port's plain versions within 1e-5
 relative; with one bf16 rounding in place of the split it misses the
 card's 1e-3 tolerance (chip_smoke.py ``BF16_TOL``), which is why the
-kernels issue each of those products twice.
+kernels issue each of those products twice. With segment ids the masked
+instances' arithmetic, the forward's running-max guard included, meets the
+masked plain versions as well.
 """
 
 import math
@@ -40,7 +42,7 @@ def _heads(x, n_rep):
     return x.float().repeat_interleave(n_rep, dim=2).transpose(1, 2)
 
 
-def _emulate_fwd(q, k, v, causal, rounding, tile=128):
+def _emulate_fwd(q, k, v, causal, rounding, tile=128, seg=None, guard=True):
     b, s, h, d = q.shape
     n_rep = h // k.shape[2]
     qf, kf, vf = q.float().transpose(1, 2), _heads(k, n_rep), _heads(v, n_rep)
@@ -54,9 +56,14 @@ def _emulate_fwd(q, k, v, causal, rounding, tile=128):
         x = (qf @ kf[:, :, kv].transpose(-1, -2)) * scale_log2
         if causal:
             x = x.masked_fill(torch.arange(kv.start, kv.stop)[None, :] > rows, -math.inf)
+        if seg is not None:
+            x = x.masked_fill(seg[:, None, :, None] != seg[:, None, None, kv], -math.inf)
         m_new = torch.maximum(m, x.amax(-1))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(x - m_new[..., None])
+        # a row whose keys so far all lie in other segments keeps max -inf:
+        # the masked kernel takes 0 as its softmax reference there
+        ref = torch.where(m_new == -math.inf, 0.0, m_new) if guard else m_new
+        alpha = torch.exp2(m - ref)
+        p = torch.exp2(x - ref[..., None])
         l = l * alpha + p.sum(-1)  # noqa: E741
         acc = acc * alpha[..., None]
         for part in _parts(p, rounding):
@@ -66,7 +73,7 @@ def _emulate_fwd(q, k, v, causal, rounding, tile=128):
     return (acc / l[..., None]).transpose(1, 2), lse
 
 
-def _emulate_dkv(q, k, v, do, lse, delta, causal, rounding):
+def _emulate_dkv(q, k, v, do, lse, delta, causal, rounding, seg=None):
     b, s, h, d = q.shape
     kvh = k.shape[2]
     n_rep = h // kvh
@@ -77,6 +84,8 @@ def _emulate_dkv(q, k, v, do, lse, delta, causal, rounding):
                    - (lse * LOG2E)[:, :, None, :])
     if causal:
         p = p.masked_fill(torch.arange(s)[None, :] < torch.arange(s)[:, None], 0.0)
+    if seg is not None:
+        p = p.masked_fill((seg[:, :, None] != seg[:, None, :])[:, None], 0.0)
     ds = p * (vf @ dof.transpose(-1, -2) - delta[:, :, None, :])
     dv = sum(part @ dof for part in _parts(p, rounding))
     dk = sum(part @ qf for part in _parts(ds, rounding)) / math.sqrt(d)
@@ -87,7 +96,7 @@ def _emulate_dkv(q, k, v, do, lse, delta, causal, rounding):
     return fold(dk), fold(dv)
 
 
-def _emulate_dq(q, k, v, do, lse, delta, causal, rounding):
+def _emulate_dq(q, k, v, do, lse, delta, causal, rounding, seg=None):
     d = q.shape[-1]
     n_rep = q.shape[2] // k.shape[2]
     qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
@@ -98,6 +107,8 @@ def _emulate_dq(q, k, v, do, lse, delta, causal, rounding):
     if causal:
         s = q.shape[1]
         p = p.masked_fill(torch.arange(s)[None, :] > torch.arange(s)[:, None], 0.0)
+    if seg is not None:
+        p = p.masked_fill((seg[:, :, None] != seg[:, None, :])[:, None], 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
     # the scale multiplies dq once, in the f32 epilogue
     dq = sum(part @ kf for part in _parts(ds, rounding)) * (1 / math.sqrt(d))
@@ -109,22 +120,23 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
-def _case(b, s, h, kvh, d, causal, rounding):
+def _case(b, s, h, kvh, d, causal, rounding, seg=None):
     """-> relative errors of the emulated o, lse, dq, dk, dv against the
-    port's plain versions on the same bf16 inputs."""
+    port's plain versions on the same bf16 inputs (masked by the segment
+    ids ``seg`` where given)."""
     rng = np.random.default_rng(0)
 
     def rnd(*shape):  # noqa: ANN001, ANN202
         return torch.tensor(rng.standard_normal(shape).astype(np.float32)).bfloat16()
 
     q, k, v, do = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d), rnd(b, s, h, d)
-    o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal)
-    o_e, lse_e = _emulate_fwd(q, k, v, causal, rounding)
+    o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal, seg)
+    o_e, lse_e = _emulate_fwd(q, k, v, causal, rounding, seg=seg)
     args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), causal)
-    dq_p = fused._flash_dq_plain(*args)
-    dq_e = _emulate_dq(*args, rounding)
-    dk_p, dv_p = fused._flash_dkv_plain(*args)
-    dk_e, dv_e = _emulate_dkv(*args, rounding)
+    dq_p = fused._flash_dq_plain(*args, seg)
+    dq_e = _emulate_dq(*args, rounding, seg=seg)
+    dk_p, dv_p = fused._flash_dkv_plain(*args, seg)
+    dk_e, dv_e = _emulate_dkv(*args, rounding, seg=seg)
     return {"o": _rel(o_e, o_p), "lse": _rel(lse_e, lse_p), "dq": _rel(dq_e, dq_p),
             "dk": _rel(dk_e, dk_p), "dv": _rel(dv_e, dv_p)}
 
@@ -135,6 +147,33 @@ def test_hi_lo_split_meets_plain(shape):
     1e-5 of the f32 plain versions."""
     errs = _case(*shape, causal=True, rounding="split")
     assert max(errs.values()) <= 1e-5, errs
+
+
+#: two rows of packed documents whose boundaries fall inside the 128-row
+#: tiles; in the second the first document ends at 150, so its rows
+#: 150-255 see the whole first kv tile masked
+SEGMENTS = torch.tensor([[0] * 37 + [1] * 100 + [2] * 119, [0] * 150 + [1] * 106],
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_hi_lo_split_meets_plain_with_segments(causal):
+    """The masked kernels' arithmetic (flash_*_wgmma.cu with kSeg) within
+    1e-5 of the masked plain versions."""
+    errs = _case(2, 256, 4, 2, 64, causal, "split", seg=SEGMENTS)
+    assert max(errs.values()) <= 1e-5, errs
+
+
+def test_masked_forward_needs_the_running_max_guard():
+    """Rows whose first kv tile lies wholly in another segment keep a
+    running max of -inf; without the masked forward's reference of 0 there,
+    exp2(-inf - -inf) turns them NaN."""
+    q = torch.randn(2, 256, 4, 64, generator=torch.Generator().manual_seed(1)).bfloat16()
+    kv = q[:, :, :2].contiguous()
+    o_n, _ = _emulate_fwd(q, kv, kv, True, "split", seg=SEGMENTS, guard=False)
+    assert torch.isnan(o_n[1, 150:]).all() and not torch.isnan(o_n[1, :150]).any()
+    o_g, _ = _emulate_fwd(q, kv, kv, True, "split", seg=SEGMENTS)
+    assert not torch.isnan(o_g).any()
 
 
 def test_single_bf16_rounding_misses_tolerance():

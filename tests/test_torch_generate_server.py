@@ -239,9 +239,16 @@ def test_a_failed_batch_stops_the_coalescer(monkeypatch):
 
 
 def test_unknown_and_moe_configs_raise():
+    """An unknown config raises; the MoE presets, which raised before the
+    MoE family was ported, are served (tests/test_torch_moe.py serves
+    moe_tiny over HTTP)."""
     with pytest.raises(ValueError, match="unknown config"):
         gs.GenerateService("nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        gs.GenerateService("moe_tiny", device="cpu")
+    svc = gs.GenerateService("moe_tiny", device="cpu")
+    try:
+        assert svc.cfg.n_experts == 4
+        assert svc.generate([[1, 2, 3]], 2)[0][:3] == [1, 2, 3]
+    finally:
+        svc.close()
     with pytest.raises(ValueError, match="unknown engine"):
         gs.GenerateService("tiny", device="cpu", engine="bogus")

@@ -36,6 +36,20 @@ def _close(a, b, tol):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=tol, atol=tol)
 
 
+def _packed_ids(rng, b, s, max_len):
+    """int32 [b, s] ids of packed documents, lengths drawn in [1, max_len]
+    (boundaries fall inside the 64/128-row tiles); the last row is one
+    document."""
+    seg = np.zeros((b, s), np.int32)
+    for row in range(b - 1):
+        pos, doc = 0, 0
+        while pos < s:
+            n = int(rng.integers(1, max_len + 1))
+            seg[row, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+    return seg
+
+
 class TestRope:
     def test_frequencies(self):
         for start in (0, 96):
@@ -84,9 +98,30 @@ class TestXlaAttention:
         assert sum(_build.launch_counts().values()) == 0
 
     def test_flash_rejects_segment_ids(self):
-        q = torch.zeros(1, 128, 2, 64)
-        with pytest.raises(ValueError, match="segment_ids"):
-            attention(q, q, q, segment_ids=torch.zeros(1, 128), impl="flash")
+        """impl='flash' off the CPU refuses ids its kernels cannot take
+        (meta tensors: no data, no card), before anything launches."""
+        q = torch.zeros(1, 128, 2, 64, device="meta")
+        for bad in (torch.zeros(1, 128, device="meta"),  # float
+                    torch.zeros(1, 128, dtype=torch.int64, device="meta"),
+                    torch.zeros(2, 128, dtype=torch.int32, device="meta")):
+            with pytest.raises(ValueError, match="segment_ids must be int32"):
+                attention(q, q, q, segment_ids=bad, impl="flash")
+        seg = torch.zeros(1, 128, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            attention(q, q, q, segment_ids=seg, impl="flash")
+
+    def test_flash_takes_segment_ids(self):
+        """On CPU tensors impl='flash' with segment ids runs the kernels'
+        plain versions and equals the plain attention."""
+        rng = np.random.default_rng(7)
+        q = _t(_randn(rng, 2, 128, 4, 64), True)
+        k, v = _t(_randn(rng, 2, 128, 2, 64), True), _t(_randn(rng, 2, 128, 2, 64), True)
+        seg = torch.tensor(_packed_ids(rng, 2, 128, 50))
+        _build.reset_launches()
+        out = attention(q, k, v, segment_ids=seg, impl="flash")
+        assert out.grad_fn is not None and "Flash" in type(out.grad_fn).__name__
+        assert sum(_build.launch_counts().values()) == 0
+        _close(out.detach(), xla_attention(q, k, v, segment_ids=seg).detach(), 2e-5)
 
 
 class TestRmsNorm:
@@ -205,6 +240,62 @@ class TestFlashAttention:
         q = torch.randn(1, 128, 2, 64, requires_grad=True)
         fused.flash_attention(q, q, q).sum().backward()
         assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+class TestFlashSegments:
+    """The masked flash path (plain versions on CPU tensors) against the
+    JAX package's plain attention with segment ids, and against its
+    splash kernel run in the Pallas interpreter."""
+
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("n_rep", [1, 2])
+    def test_matches_jax_xla_attention(self, causal, n_rep):
+        rng = np.random.default_rng(20 + n_rep + causal)
+        b, s, kvh, d = 3, 256, 2, 64
+        q = _randn(rng, b, s, kvh * n_rep, d)
+        k, v = _randn(rng, b, s, kvh, d), _randn(rng, b, s, kvh, d)
+        dy = _randn(rng, *q.shape)
+        seg = _packed_ids(rng, b, s, 90)
+        out_j, vjp = jax.vjp(
+            lambda q, k, v: j_xla_attention(q, k, v, causal=causal, segment_ids=seg), q, k, v
+        )
+        g_j = vjp(jnp.asarray(dy))
+        qt, kt, vt = _t(q, True), _t(k, True), _t(v, True)
+        out_t = fused.flash_attention(
+            qt, kt, vt, causal=causal, kernels="cuda", segment_ids=torch.tensor(seg)
+        )
+        out_t.backward(_t(dy))
+        _close(out_j, out_t.detach(), 2e-5)
+        for a, b_ in zip(g_j, (qt.grad, kt.grad, vt.grad)):
+            _close(a, b_, 5e-4)
+
+    def test_cross_document_pairs_get_no_gradient(self):
+        """A key's gradient depends only on the queries of its own
+        document: a loss on document 0's rows leaves every later key's dk
+        and dv exactly 0."""
+        rng = np.random.default_rng(24)
+        q, k, v = (_t(_randn(rng, 1, 128, 2, 64), True) for _ in range(3))
+        seg = torch.tensor(np.repeat(np.arange(2, dtype=np.int32), [77, 51])[None])
+        out = fused.flash_attention(q, k, v, causal=False, segment_ids=seg)
+        out[:, :77].sum().backward()
+        assert torch.count_nonzero(k.grad[:, 77:]) == 0
+        assert torch.count_nonzero(v.grad[:, 77:]) == 0
+        assert torch.count_nonzero(q.grad[:, 77:]) == 0
+        assert torch.count_nonzero(k.grad[:, :77]) > 0
+
+    def test_matches_jax_splash_interpret(self):
+        from torchx_tpu.ops.attention import splash_attention
+
+        rng = np.random.default_rng(25)
+        b, s, h, kvh, d = 2, 256, 4, 2, 64
+        q = _randn(rng, b, s, h, d)
+        k, v = _randn(rng, b, s, kvh, d), _randn(rng, b, s, kvh, d)
+        seg = _packed_ids(rng, b, s, 90)
+        out_j = splash_attention(
+            q, k, v, causal=True, segment_ids=jnp.asarray(seg), interpret=True
+        )
+        out_t = attention(_t(q), _t(k), _t(v), segment_ids=torch.tensor(seg), impl="flash")
+        _close(out_j, out_t, 5e-3)
 
 
 class TestResolveKernels:

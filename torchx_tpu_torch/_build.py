@@ -41,10 +41,14 @@ NVCC_FLAGS = [
 
 #: Kernel names, in the order of the training step's path. The flash
 #: forward, dq and dk/dv come as two variants (``ops.fused.flash_variant``):
-#: ``wgmma`` on the tensor cores, ``simt`` on the CUDA cores.
+#: ``wgmma`` on the tensor cores, ``simt`` on the CUDA cores. A launch with
+#: segment ids counts under the name with ``_seg`` (the wgmma kernels are
+#: separate instances then; the simt ones take the ids at run time).
 KERNELS = (
     "flash_fwd_wgmma", "flash_fwd_simt", "flash_dq_wgmma", "flash_dq_simt",
     "flash_dkv_wgmma", "flash_dkv_simt", "norm_res_fwd", "rms_norm_bwd",
+    "flash_fwd_wgmma_seg", "flash_fwd_simt_seg", "flash_dq_wgmma_seg",
+    "flash_dq_simt_seg", "flash_dkv_wgmma_seg", "flash_dkv_simt_seg",
 )
 
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -96,12 +100,12 @@ def _sources() -> list[Path]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    # tensors..., then batch, seq, heads, kv_heads, head_dim, causal, dtype,
-    # then the stream
+    # tensors..., the segment ids (or null), then batch, seq, heads,
+    # kv_heads, head_dim, causal, dtype, then the stream
     ints = [i] * 7
     fns = {
-        "tpx_flash_fwd": 5, "tpx_flash_fwd_wgmma": 5, "tpx_flash_dq": 7,
-        "tpx_flash_dq_wgmma": 7, "tpx_flash_dkv": 8, "tpx_flash_dkv_wgmma": 8,
+        "tpx_flash_fwd": 6, "tpx_flash_fwd_wgmma": 6, "tpx_flash_dq": 8,
+        "tpx_flash_dq_wgmma": 8, "tpx_flash_dkv": 9, "tpx_flash_dkv_wgmma": 9,
     }
     for name, n_tensors in fns.items():
         fn = getattr(lib, name)

@@ -13,7 +13,8 @@ trainer's newest checkpoint step that verifies against its digest (only
 the ``params.*`` entries are read), through a read-only reader: a bad step
 is skipped and logged, and nothing in the directory is renamed or written,
 so a server pointed at a live training directory leaves its resume point
-alone. ``--int8`` and the MoE configs are not ported yet and raise.
+alone. Every preset of the JAX server's ``all_configs()`` is served, the
+MoE family included. ``--int8`` is not ported yet and raises.
 
 API (JSON):
     GET  /healthz            -> {"status": "ok", "model": ..., "requests": N,
@@ -209,14 +210,15 @@ class GenerateService:
                 "prefill role needs a --kv-transfer spec (decode targets)"
             )
         if int8:
-            raise _not_ported("--int8", "MoE and int8")
+            raise _not_ported("--int8", "int8")
         from torchx_tpu_torch.examples.train_llama import resolve_device
         from torchx_tpu_torch.models import llama
 
         self.device = resolve_device(device)
-        if config not in llama.CONFIGS and config not in llama.MOE_CONFIGS:
-            raise ValueError(f"unknown config {config!r}; have {sorted(llama.CONFIGS)}")
-        self.cfg = llama.get_config(config)
+        configs = llama.all_configs()
+        if config not in configs:
+            raise ValueError(f"unknown config {config!r}; have {sorted(configs)}")
+        self.cfg = configs[config]()
         self.name = config
         if ckpt_dir:
             self.ckpt_step, self.params = _load_params(ckpt_dir, self.cfg, self.device)

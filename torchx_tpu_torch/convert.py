@@ -4,7 +4,10 @@ arrays, to the port's.
 Both packages keep one layout, so the conversion is leaf by leaf and
 changes no axis: layer weights stacked on a leading ``L`` axis, matrices
 ``[in, out]`` applied as ``x @ W`` (not ``nn.Linear``'s ``[out, in]``), and
-no ``lm_head`` under ``tie_embeddings`` (the head is ``embed.T``). The
+no ``lm_head`` under ``tie_embeddings`` (the head is ``embed.T``). A MoE
+config's tree (:mod:`torchx_tpu_torch.models.moe`) has the router
+``w_router`` [L, d, E] and expert-stacked ``w_gate``/``w_up`` [L, E, d, f]
+and ``w_down`` [L, E, f, d] in place of the dense FFN leaves. The
 caller turns the JAX arrays into numpy (``jax.tree.map(np.asarray, ...)``),
 so this module imports no JAX.
 """
@@ -30,12 +33,23 @@ _LAYER_SHAPES = {
     "w_down": lambda c: (c.ffn_dim, c.dim),
 }
 
+#: A MoE config's FFN leaves (per layer), which replace the dense ones.
+_MOE_LAYER_SHAPES = {
+    "w_router": lambda c: (c.dim, c.n_experts),
+    "w_gate": lambda c: (c.n_experts, c.dim, c.ffn_dim),
+    "w_up": lambda c: (c.n_experts, c.dim, c.ffn_dim),
+    "w_down": lambda c: (c.n_experts, c.ffn_dim, c.dim),
+}
+
 
 def expected_shapes(cfg: LlamaConfig) -> dict[str, Any]:
     """The parameter tree's shapes for ``cfg`` (``init_params``' layout)."""
+    layer_shapes = dict(_LAYER_SHAPES)
+    if getattr(cfg, "n_experts", 0):
+        layer_shapes.update(_MOE_LAYER_SHAPES)
     shapes: dict[str, Any] = {
         "embed": (cfg.vocab_size, cfg.dim),
-        "layers": {k: (cfg.n_layers, *f(cfg)) for k, f in _LAYER_SHAPES.items()},
+        "layers": {k: (cfg.n_layers, *f(cfg)) for k, f in layer_shapes.items()},
         "final_norm": (cfg.dim,),
     }
     if not cfg.tie_embeddings:

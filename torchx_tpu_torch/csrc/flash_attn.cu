@@ -5,8 +5,9 @@
 //   flash_fwd_kernel  <- _flash_fwd_kernel (launched by _flash_fwd)
 //   flash_dq_kernel   <- _flash_dq_kernel  (in _flash_bwd)
 //   flash_dkv_kernel  <- _flash_dkv_kernel (in _flash_bwd)
-// and, for the no-segment-ids case, the role of the library splash kernel
-// (torchx_tpu/ops/attention.py splash_attention): GQA is native here.
+// and the role of the library splash kernel (torchx_tpu/ops/attention.py
+// splash_attention): GQA is native here, and optional segment ids mask
+// packed documents.
 //
 // What bounds them on an H100: operations. At the llama3_1b shapes
 // (b=4, s=2048, 32 query heads over 8 KV heads, head_dim 64, causal) the
@@ -30,6 +31,15 @@
 // The dkv kernel loops over the n_rep query heads that share its KV head
 // inside one CTA, so dk and dv are summed in a fixed order, without
 // atomics: the result is deterministic.
+//
+// Segment ids: seg is int32 [b, s] or null. Given, a query sees only keys
+// of its own segment: each tile's key (dq, fwd) or query (dkv) ids are
+// loaded into shared memory beside the tile, a thread's own rows' ids are
+// kept in registers, and every element whose ids differ gets kNegInf, on
+// every tile. A row whose first tiles are all masked takes a running max
+// of kNegInf: its sums so far are then scaled by exp(kNegInf - m) = 0 once
+// a key of its own segment arrives, which every row has (its own key), so
+// the finite kNegInf needs no guard.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,14 +144,15 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(threads<D>())
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 float* __restrict__ o, float* __restrict__ lse, int S, int H, int KVH,
-                 float scale, int causal) {
+                 const int* __restrict__ seg, float* __restrict__ o, float* __restrict__ lse,
+                 int S, int H, int KVH, float scale, int causal) {
   constexpr int B = Tile<D>::B, TX = B / 4, NT = TX * TX, P = B + 4, NCH = D / B;
   extern __shared__ __align__(16) float smem[];
   float* QT = smem;         // [D][P]  q * scale, transposed
   float* KT = QT + D * P;   // [D][P]  k, transposed
   float* Vn = KT + D * P;   // [B][D]  v
   float* PT = Vn + B * D;   // [B][P]  probabilities, transposed
+  int* KS = reinterpret_cast<int*>(PT + B * P);  // [B] the kv tile's segment ids
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int r0 = ty * 4, c0 = tx * 4;
@@ -153,8 +164,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   load_t<T, D, B, NT>(QT, q + ((int64_t)b * S + qt * B) * qs + h * D, qs, scale, tid);
 
   float m[4], l[4], acc[4][NCH * 4];
+  int qid[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    qid[i] = seg ? seg[(int64_t)b * S + qt * B + r0 + i] : 0;
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -166,6 +179,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int64_t kv_off = ((int64_t)b * S + kt * B) * ks + hk * D;
     load_t<T, D, B, NT>(KT, k + kv_off, ks, 1.f, tid);
     load_n<T, D, B, NT>(Vn, v + kv_off, ks, tid);
+    if (seg)
+      for (int r = tid; r < B; r += NT) KS[r] = seg[(int64_t)b * S + kt * B + r];
     __syncthreads();
 
     float s[4][4] = {};
@@ -176,6 +191,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           if (c0 + j > r0 + i) s[i][j] = kNegInf;
+    }
+    if (seg) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (KS[c0 + j] != qid[i]) s[i][j] = kNegInf;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -219,8 +241,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(threads<D>())
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dq, int S, int H, int KVH,
-                float scale, int causal) {
+                const float* __restrict__ delta, const int* __restrict__ seg,
+                float* __restrict__ dq, int S, int H, int KVH, float scale, int causal) {
   constexpr int B = Tile<D>::B, TX = B / 4, NT = TX * TX, P = B + 4, NCH = D / B;
   extern __shared__ __align__(16) float smem[];
   float* QT = smem;          // [D][P]  q * scale, transposed
@@ -229,6 +251,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* VT = KT + D * P;    // [D][P]  v, transposed
   float* Kn = VT + D * P;    // [B][D]  k
   float* DST = Kn + B * D;   // [B][P]  ds, transposed
+  int* KS = reinterpret_cast<int*>(DST + B * P);  // [B] the kv tile's segment ids
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int r0 = ty * 4, c0 = tx * 4;
@@ -241,9 +264,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   load_t<T, D, B, NT>(QT, q + q_off, qs, scale, tid);
   load_t<T, D, B, NT>(DOT, dout + q_off, qs, 1.f, tid);
   float lse_r[4], delta_r[4], acc[4][NCH * 4];
+  int qid[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = ((int64_t)b * H + h) * S + qt * B + r0 + i;
+    qid[i] = seg ? seg[(int64_t)b * S + qt * B + r0 + i] : 0;
     lse_r[i] = lse[row];
     delta_r[i] = delta[row];
 #pragma unroll
@@ -256,6 +281,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     load_t<T, D, B, NT>(KT, k + kv_off, ks, 1.f, tid);
     load_t<T, D, B, NT>(VT, v + kv_off, ks, 1.f, tid);
     load_n<T, D, B, NT>(Kn, k + kv_off, ks, tid);
+    if (seg)
+      for (int r = tid; r < B; r += NT) KS[r] = seg[(int64_t)b * S + kt * B + r];
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
@@ -265,7 +292,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float sij = (causal && kt == qt && c0 + j > r0 + i) ? kNegInf : s[i][j];
+        const bool masked =
+            (causal && kt == qt && c0 + j > r0 + i) || (seg && KS[c0 + j] != qid[i]);
+        const float sij = masked ? kNegInf : s[i][j];
         const float p = expf(sij - lse_r[i]);
         DST[(c0 + j) * P + r0 + i] = p * (dp[i][j] - delta_r[i]);
       }
@@ -294,8 +323,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(threads<D>())
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dk,
-                 float* __restrict__ dv, int S, int H, int KVH, float scale, int causal) {
+                 const float* __restrict__ delta, const int* __restrict__ seg,
+                 float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KVH,
+                 float scale, int causal) {
   constexpr int B = Tile<D>::B, TX = B / 4, NT = TX * TX, P = B + 4;
   constexpr int DACC = Tile<D>::DACC, NCH = DACC / B;
   extern __shared__ __align__(16) float smem[];
@@ -308,6 +338,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* PS = DOn + B * D;   // [B][P]  p, then ds, as [q][k]
   float* LS = PS + B * P;    // [B]     lse of the q tile
   float* DS = LS + B;        // [B]     delta of the q tile
+  int* QS = reinterpret_cast<int*>(DS + B);  // [B] segment ids of the q tile
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int r0 = ty * 4, c0 = tx * 4;
@@ -320,6 +351,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int64_t kv_off = ((int64_t)b * S + kt * B) * ks + hk * D;
   load_t<T, D, B, NT>(KT, k + kv_off, ks, 1.f, tid);
   load_t<T, D, B, NT>(VT, v + kv_off, ks, 1.f, tid);
+  int kid[4];  // the segment ids of this thread's kv rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) kid[i] = seg ? seg[(int64_t)b * S + kt * B + r0 + i] : 0;
 
   for (int pass = 0; pass < D / DACC; ++pass) {
     const int cbase = pass * DACC;
@@ -341,6 +375,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           const int64_t row = ((int64_t)b * H + h) * S + qt * B + r;
           LS[r] = lse[row];
           DS[r] = delta[row];
+          if (seg) QS[r] = seg[(int64_t)b * S + qt * B + r];
         }
         __syncthreads();
 
@@ -352,7 +387,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             // kv row r0+i, query column c0+j: masked where query < key
-            const float sij = (causal && qt == kt && c0 + j < r0 + i) ? kNegInf : st[i][j];
+            const bool masked =
+                (causal && qt == kt && c0 + j < r0 + i) || (seg && QS[c0 + j] != kid[i]);
+            const float sij = masked ? kNegInf : st[i][j];
             const float p = expf(sij - LS[c0 + j]);
             ds[i][j] = p * (dpt[i][j] - DS[c0 + j]);
             PS[(c0 + j) * P + r0 + i] = p;
@@ -386,15 +423,15 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <int D> constexpr size_t fwd_smem() {
   constexpr int B = Tile<D>::B, P = B + 4;
-  return sizeof(float) * (2 * D * P + B * D + B * P);
+  return sizeof(float) * (2 * D * P + B * D + B * P) + sizeof(int) * B;
 }
 template <int D> constexpr size_t dq_smem() {
   constexpr int B = Tile<D>::B, P = B + 4;
-  return sizeof(float) * (4 * D * P + B * D + B * P);
+  return sizeof(float) * (4 * D * P + B * D + B * P) + sizeof(int) * B;
 }
 template <int D> constexpr size_t dkv_smem() {
   constexpr int B = Tile<D>::B, P = B + 4;
-  return sizeof(float) * (4 * D * P + 2 * B * D + B * P + 2 * B);
+  return sizeof(float) * (4 * D * P + 2 * B * D + B * P + 2 * B) + sizeof(int) * B;
 }
 
 // Raise the dynamic shared-memory cap of a kernel once, then launch it.
@@ -409,33 +446,35 @@ cudaError_t launch(K kernel, dim3 grid, int nthreads, size_t smem, cudaStream_t 
 }
 
 template <typename T, int D>
-cudaError_t fwd_d(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
-                  int H, int KVH, int causal, cudaStream_t st) {
+cudaError_t fwd_d(const void* q, const void* k, const void* v, void* o, void* lse,
+                  const void* seg, int B, int S, int H, int KVH, int causal, cudaStream_t st) {
   dim3 grid(S / Tile<D>::B, B * H);
   return launch(flash_fwd_kernel<T, D>, grid, threads<D>(), fwd_smem<D>(), st,
-                (const T*)q, (const T*)k, (const T*)v, (float*)o, (float*)lse, S, H, KVH,
+                (const T*)q, (const T*)k, (const T*)v, (const int*)seg, (float*)o,
+                (float*)lse, S, H, KVH,
                 (float)(1.0 / sqrt((double)D)), causal);
 }
 
 template <typename T, int D>
 cudaError_t dq_d(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* delta, void* dq, int B, int S, int H, int KVH, int causal,
-                 cudaStream_t st) {
+                 const void* delta, void* dq, const void* seg, int B, int S, int H, int KVH,
+                 int causal, cudaStream_t st) {
   dim3 grid(S / Tile<D>::B, B * H);
   return launch(flash_dq_kernel<T, D>, grid, threads<D>(), dq_smem<D>(), st, (const T*)q,
                 (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                (const float*)delta, (float*)dq, S, H, KVH, (float)(1.0 / sqrt((double)D)),
+                (const float*)delta, (const int*)seg, (float*)dq, S, H, KVH,
+                (float)(1.0 / sqrt((double)D)),
                 causal);
 }
 
 template <typename T, int D>
 cudaError_t dkv_d(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-                  int KVH, int causal, cudaStream_t st) {
+                  const void* lse, const void* delta, void* dk, void* dv, const void* seg,
+                  int B, int S, int H, int KVH, int causal, cudaStream_t st) {
   dim3 grid(S / Tile<D>::B, B * KVH);
   return launch(flash_dkv_kernel<T, D>, grid, threads<D>(), dkv_smem<D>(), st, (const T*)q,
                 (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                (const float*)delta, (float*)dk, (float*)dv, S, H, KVH,
+                (const float*)delta, (const int*)seg, (float*)dk, (float*)dv, S, H, KVH,
                 (float)(1.0 / sqrt((double)D)), causal);
 }
 
@@ -456,22 +495,25 @@ cudaError_t dkv_d(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // The wrappers check shapes, dtypes and contiguity; S must be a multiple of
-// 64 (of 32 at head_dim 256) and H a multiple of KVH.
-int tpx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
-                  int H, int KVH, int D, int causal, int dtype, void* stream) {
-  TPX_DISPATCH(fwd_d, q, k, v, o, lse, B, S, H, KVH, causal, (cudaStream_t)stream)
+// 64 (of 32 at head_dim 256) and H a multiple of KVH. seg: int32 [B, S]
+// segment ids, or null for none.
+int tpx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                  const void* seg, int B, int S, int H, int KVH, int D, int causal, int dtype,
+                  void* stream) {
+  TPX_DISPATCH(fwd_d, q, k, v, o, lse, seg, B, S, H, KVH, causal, (cudaStream_t)stream)
 }
 
 int tpx_flash_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* delta, void* dq, int B, int S, int H, int KVH, int D, int causal,
-                 int dtype, void* stream) {
-  TPX_DISPATCH(dq_d, q, k, v, dout, lse, delta, dq, B, S, H, KVH, causal, (cudaStream_t)stream)
+                 const void* delta, void* dq, const void* seg, int B, int S, int H, int KVH,
+                 int D, int causal, int dtype, void* stream) {
+  TPX_DISPATCH(dq_d, q, k, v, dout, lse, delta, dq, seg, B, S, H, KVH, causal,
+               (cudaStream_t)stream)
 }
 
 int tpx_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-                  int KVH, int D, int causal, int dtype, void* stream) {
-  TPX_DISPATCH(dkv_d, q, k, v, dout, lse, delta, dk, dv, B, S, H, KVH, causal,
+                  const void* lse, const void* delta, void* dk, void* dv, const void* seg,
+                  int B, int S, int H, int KVH, int D, int causal, int dtype, void* stream) {
+  TPX_DISPATCH(dkv_d, q, k, v, dout, lse, delta, dk, dv, seg, B, S, H, KVH, causal,
                (cudaStream_t)stream)
 }
 

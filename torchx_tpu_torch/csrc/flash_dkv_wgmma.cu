@@ -35,6 +35,12 @@
 // the grid puts the low kv tiles, which see the most q tiles, first.
 // Layouts as flash_attn.cu: q, do [b, s, h, d]; k, v [b, s, kvh, d]; lse,
 // delta f32 [b, h, s]; dk, dv f32 [b, s, kvh, d]; s a multiple of 128.
+//
+// Segment ids (the forward's, flash_fwd_wgmma.cu): with seg [b, s] int32
+// given (the kSeg instance), a thread keeps its two kv rows' ids in
+// registers, each Q/dO stage also brings the q tile's ids by bulk copy,
+// and P^T is zeroed where a query's id differs from its key's, on every
+// tile, so that pairs across documents add exactly 0 to dk and dv.
 
 #include <math.h>
 
@@ -62,18 +68,19 @@ struct DkvSmem {
   bf16 dout[kStages][kBQ * D];
   float lse[kStages][kBQ];
   float delta[kStages][kBQ];
+  int qseg[kStages][kBQ];  // the q tile's segment ids (kSeg only)
   uint64_t kv_full, full[kStages], empty[kStages];
 };
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
-                       const float* __restrict__ delta, float* __restrict__ dk,
-                       float* __restrict__ dv, int S, int H, int KVH, float scale,
-                       float scale_log2, int causal) {
+                       const float* __restrict__ delta, const int* __restrict__ seg,
+                       float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KVH,
+                       float scale, float scale_log2, int causal) {
   constexpr int kBQ = kQRows<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(align_1024(smem_raw));
@@ -91,7 +98,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_q = [&](int it) {
     const int st = it % kStages;
     const int h = hk * n_rep + it / nq, q0 = (q_begin + it % nq) * kBQ;
-    mbar_expect_tx(&sm.full[st], 2 * kBQ * D * 2 + 2 * kBQ * 4);
+    mbar_expect_tx(&sm.full[st], 2 * kBQ * D * 2 + (kSeg ? 3 : 2) * kBQ * 4);
     for (int c = 0; c < D / 64; ++c) {
       tma_load_3d(sm.q[st] + c * kBQ * 64, &tq, &sm.full[st], c * 64, h, b * S + q0);
       tma_load_3d(sm.dout[st] + c * kBQ * 64, &tdo, &sm.full[st], c * 64, h, b * S + q0);
@@ -99,6 +106,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int64_t rows = (int64_t)(b * H + h) * S + q0;
     bulk_load(sm.lse[st], lse + rows, kBQ * 4, &sm.full[st]);
     bulk_load(sm.delta[st], delta + rows, kBQ * 4, &sm.full[st]);
+    if constexpr (kSeg) bulk_load(sm.qseg[st], seg + (int64_t)b * S + q0, kBQ * 4, &sm.full[st]);
   };
   if (tid == 0) {
     mbar_init(&sm.kv_full, 1);
@@ -127,6 +135,11 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  int ks0 = 0, ks1 = 0;  // the segment ids of kv rows row and row + 8
+  if constexpr (kSeg) {
+    ks0 = seg[(int64_t)b * S + row];
+    ks1 = seg[(int64_t)b * S + row + 8];
+  }
   mbar_wait(&sm.kv_full, 0);
 
   for (int it = 0; it < n_iter; ++it) {
@@ -164,6 +177,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int qc = 8 * (i / 4) + col + (i & 1);
         float p = exp2_approx(s[i] * scale_log2 - sm.lse[st][qc] * kLog2e);
         if (diag && q0 + qc < row + (i & 2 ? 8 : 0)) p = 0.f;
+        if constexpr (kSeg)
+          if (sm.qseg[st][qc] != (i & 2 ? ks1 : ks0)) p = 0.f;
         s[i] = p;
         dp[i] = p * (dp[i] - sm.delta[st][qc]);
       }
@@ -227,10 +242,10 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
 cudaError_t dkv_d(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-                  int KVH, int causal, cudaStream_t stream) {
+                  const void* lse, const void* delta, const void* seg, void* dk, void* dv, int B,
+                  int S, int H, int KVH, int causal, cudaStream_t stream) {
   constexpr int kBQ = kQRows<D>;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err;
@@ -239,9 +254,10 @@ cudaError_t dkv_d(const void* q, const void* k, const void* v, const void* dout,
   if ((err = make_row_map(&tv, v, D, KVH, (int64_t)B * S, kBKV)) != cudaSuccess) return err;
   if ((err = make_row_map(&tdo, dout, D, H, (int64_t)B * S, kBQ)) != cudaSuccess) return err;
   const double scale = 1.0 / sqrt((double)D);
-  return launch(flash_dkv_wgmma_kernel<D>, dim3(B * KVH, S / kBKV), kThreads,
+  return launch(flash_dkv_wgmma_kernel<D, kSeg>, dim3(B * KVH, S / kBKV), kThreads,
                 sizeof(DkvSmem<D>) + 1024, stream, tq, tk, tv, tdo, (const float*)lse,
-                (const float*)delta, (float*)dk, (float*)dv, S, H, KVH, (float)scale,
+                (const float*)delta, (const int*)seg, (float*)dk, (float*)dv, S, H, KVH,
+                (float)scale,
                 (float)(scale * 1.4426950408889634), causal);
 }
 
@@ -250,18 +266,25 @@ cudaError_t dkv_d(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // bf16 only (dtype 1), head_dim 64 or 128, S a multiple of 128, H a
-// multiple of KVH, every pointer 16-byte aligned; the wrapper checks.
+// multiple of KVH, every pointer 16-byte aligned; the wrapper checks. seg:
+// int32 [B, S] segment ids, or null for none.
 int tpx_flash_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-                        int H, int KVH, int D, int causal, int dtype, void* stream) {
+                        const void* lse, const void* delta, void* dk, void* dv, const void* seg,
+                        int B, int S, int H, int KVH, int D, int causal, int dtype,
+                        void* stream) {
   if (dtype != 1 || S % kBKV) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return (int)dkv_d<64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KVH, causal,
-                            (cudaStream_t)stream);
+      return (int)(seg ? dkv_d<64, true>(q, k, v, dout, lse, delta, seg, dk, dv, B, S, H, KVH,
+                                         causal, st)
+                       : dkv_d<64, false>(q, k, v, dout, lse, delta, seg, dk, dv, B, S, H, KVH,
+                                          causal, st));
     case 128:
-      return (int)dkv_d<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KVH, causal,
-                             (cudaStream_t)stream);
+      return (int)(seg ? dkv_d<128, true>(q, k, v, dout, lse, delta, seg, dk, dv, B, S, H,
+                                          KVH, causal, st)
+                       : dkv_d<128, false>(q, k, v, dout, lse, delta, seg, dk, dv, B, S, H,
+                                           KVH, causal, st));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -42,6 +42,12 @@
 // bitwise repeatable. Layouts as flash_attn.cu: q, do [b, s, h, d]; k, v
 // [b, s, kvh, d]; lse, delta f32 [b, h, s]; dq f32 [b, s, h, d]; s a
 // multiple of 128.
+//
+// Segment ids (the forward's, flash_fwd_wgmma.cu): with seg [b, s] int32
+// given (the kSeg instance), each K/V stage also brings the tile's ids by
+// bulk copy, and P is zeroed where a key's id differs from its query's, on
+// every tile, so that dS of a pair across documents is exactly 0, as in
+// the forward. lse is finite on every row (each row keeps its own key).
 
 #include <math.h>
 
@@ -67,19 +73,21 @@ struct DqSmem {
   bf16 dout[kBQ * D];
   bf16 k[kStages][kBK * D];  // [D/64][kBK][64]
   bf16 v[kStages][kBK * D];
+  int kseg[kStages][kBK];  // the K/V tile's segment ids (kSeg only)
   float lse[kBQ];
   float delta[kBQ];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dq, int S, int H,
-                      int KVH, float scale, float scale_log2, int causal) {
+                      const float* __restrict__ delta, const int* __restrict__ seg,
+                      float* __restrict__ dq, int S, int H, int KVH, float scale,
+                      float scale_log2, int causal) {
   constexpr int kBK = kKVRows<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(align_1024(smem_raw));
@@ -92,11 +100,13 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // have released it (empty), and the products wait for it to land (full)
   auto load_kv = [&](int kt) {
     const int st = kt % kStages;
-    mbar_expect_tx(&sm.full[st], 2 * kBK * D * 2);
+    mbar_expect_tx(&sm.full[st], 2 * kBK * D * 2 + (kSeg ? kBK * 4 : 0));
     for (int c = 0; c < D / 64; ++c) {
       tma_load_3d(sm.k[st] + c * kBK * 64, &tk, &sm.full[st], c * 64, hk, b * S + kt * kBK);
       tma_load_3d(sm.v[st] + c * kBK * 64, &tv, &sm.full[st], c * 64, hk, b * S + kt * kBK);
     }
+    if constexpr (kSeg)
+      bulk_load(sm.kseg[st], seg + (int64_t)b * S + kt * kBK, kBK * 4, &sm.full[st]);
   };
   if (tid == 0) {
     mbar_init(&sm.q_full, 1);
@@ -129,6 +139,11 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int qs0 = 0, qs1 = 0;  // the segment ids of rows row and row + 8
+  if constexpr (kSeg) {
+    qs0 = seg[(int64_t)b * S + row];
+    qs1 = seg[(int64_t)b * S + row + 8];
+  }
   mbar_wait(&sm.q_full, 0);
   const float lse0 = sm.lse[local] * kLog2e, lse1 = sm.lse[local + 8] * kLog2e;
   const float delta0 = sm.delta[local], delta1 = sm.delta[local + 8];
@@ -168,6 +183,8 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const bool low = i & 2;
         float p = exp2_approx(s[i] * scale_log2 - (low ? lse1 : lse0));
         if (diag && k0 + 8 * (i / 4) + col + (i & 1) > row + (low ? 8 : 0)) p = 0.f;
+        if constexpr (kSeg)
+          if (sm.kseg[st][8 * (i / 4) + col + (i & 1)] != (low ? qs1 : qs0)) p = 0.f;
         dp[i] = p * (dp[i] - (low ? delta1 : delta0));
       }
 
@@ -206,10 +223,10 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
 cudaError_t dq_d(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* delta, void* dq, int B, int S, int H, int KVH, int causal,
-                 cudaStream_t stream) {
+                 const void* delta, const void* seg, void* dq, int B, int S, int H, int KVH,
+                 int causal, cudaStream_t stream) {
   constexpr int kBK = kKVRows<D>;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err;
@@ -218,9 +235,9 @@ cudaError_t dq_d(const void* q, const void* k, const void* v, const void* dout, 
   if ((err = make_row_map(&tv, v, D, KVH, (int64_t)B * S, kBK)) != cudaSuccess) return err;
   if ((err = make_row_map(&tdo, dout, D, H, (int64_t)B * S, kBQ)) != cudaSuccess) return err;
   const double scale = 1.0 / sqrt((double)D);
-  return launch(flash_dq_wgmma_kernel<D>, dim3(B * H, S / kBQ), kThreads,
+  return launch(flash_dq_wgmma_kernel<D, kSeg>, dim3(B * H, S / kBQ), kThreads,
                 sizeof(DqSmem<D>) + 1024, stream, tq, tk, tv, tdo, (const float*)lse,
-                (const float*)delta, (float*)dq, S, H, KVH, (float)scale,
+                (const float*)delta, (const int*)seg, (float*)dq, S, H, KVH, (float)scale,
                 (float)(scale * 1.4426950408889634), causal);
 }
 
@@ -229,18 +246,24 @@ cudaError_t dq_d(const void* q, const void* k, const void* v, const void* dout, 
 extern "C" {
 
 // bf16 only (dtype 1), head_dim 64 or 128, S a multiple of 128, H a
-// multiple of KVH, every pointer 16-byte aligned; the wrapper checks.
+// multiple of KVH, every pointer 16-byte aligned; the wrapper checks. seg:
+// int32 [B, S] segment ids, or null for none.
 int tpx_flash_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dq, int B, int S, int H, int KVH,
-                       int D, int causal, int dtype, void* stream) {
+                       const void* lse, const void* delta, void* dq, const void* seg, int B,
+                       int S, int H, int KVH, int D, int causal, int dtype, void* stream) {
   if (dtype != 1 || S % kBQ) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return (int)dq_d<64>(q, k, v, dout, lse, delta, dq, B, S, H, KVH, causal,
-                           (cudaStream_t)stream);
+      return (int)(seg ? dq_d<64, true>(q, k, v, dout, lse, delta, seg, dq, B, S, H, KVH,
+                                        causal, st)
+                       : dq_d<64, false>(q, k, v, dout, lse, delta, seg, dq, B, S, H, KVH,
+                                         causal, st));
     case 128:
-      return (int)dq_d<128>(q, k, v, dout, lse, delta, dq, B, S, H, KVH, causal,
-                            (cudaStream_t)stream);
+      return (int)(seg ? dq_d<128, true>(q, k, v, dout, lse, delta, seg, dq, B, S, H, KVH,
+                                         causal, st)
+                       : dq_d<128, false>(q, k, v, dout, lse, delta, seg, dq, B, S, H, KVH,
+                                          causal, st));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -33,6 +33,17 @@
 //
 // Causal tiles above the diagonal are never loaded, and the CTAs with the
 // longest rows are scheduled first. GQA reads KV head h / n_rep in place.
+//
+// Segment ids (packed documents; the SegmentIds(q=seg, kv=seg) that
+// torchx_tpu/ops/attention.py splash_attention hands the library kernel):
+// with seg [b, s] int32 given, a query sees only keys of its own segment.
+// The kernel is instantiated twice (kSeg), so launches without ids keep
+// their code. With ids, each K/V stage also brings the tile's 128 ids by
+// bulk copy, a thread keeps its two rows' ids in registers, and every tile
+// is masked per element (a tile whose segments never meet is still
+// computed: skipping it is later work). A row may then see a whole tile
+// masked before any key of its own: its running max stays -inf, and the
+// softmax takes 0 as its reference so that exp2 yields 0, not NaN.
 // Layouts as flash_attn.cu: q [b, s, h, d]; k, v [b, s, kvh, d]; o f32
 // [b, s, h, d]; lse f32 [b, h, s]; s a multiple of 128.
 
@@ -56,16 +67,17 @@ struct FwdSmem {
   bf16 q[kBQ * D];  // [D/64][kBQ][64], swizzled; every array 1024-byte aligned
   bf16 k[kStages][kBK * D];
   bf16 v[kStages][kBK * D];
+  int kseg[kStages][kBK];  // the K/V tile's segment ids (kSeg only)
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
-                       float* __restrict__ lse, int S, int H, int KVH, float scale_log2,
-                       int causal) {
+                       const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg,
+                       float* __restrict__ o, float* __restrict__ lse, int S, int H, int KVH,
+                       float scale_log2, int causal) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(align_1024(smem_raw));
   const int tid = threadIdx.x;
@@ -77,11 +89,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // have released it (empty), and the products wait for it to land (full)
   auto load_kv = [&](int kt) {
     const int st = kt % kStages;
-    mbar_expect_tx(&sm.full[st], 2 * kBK * D * 2);
+    mbar_expect_tx(&sm.full[st], 2 * kBK * D * 2 + (kSeg ? kBK * 4 : 0));
     for (int c = 0; c < D / 64; ++c) {
       tma_load_3d(sm.k[st] + c * kBK * 64, &tk, &sm.full[st], c * 64, hk, b * S + kt * kBK);
       tma_load_3d(sm.v[st] + c * kBK * 64, &tv, &sm.full[st], c * 64, hk, b * S + kt * kBK);
     }
+    if constexpr (kSeg)
+      bulk_load(sm.kseg[st], seg + (int64_t)b * S + kt * kBK, kBK * 4, &sm.full[st]);
   };
   if (tid == 0) {
     mbar_init(&sm.q_full, 1);
@@ -107,6 +121,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns only
+  int qs0 = 0, qs1 = 0;  // the segment ids of rows row and row + 8
+  if constexpr (kSeg) {
+    qs0 = seg[(int64_t)b * S + row];
+    qs1 = seg[(int64_t)b * S + row + 8];
+  }
   mbar_wait(&sm.q_full, 0);
 
   for (int kt = 0; kt < nk; ++kt) {
@@ -133,6 +152,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < kBK / 2; ++i) {
       float x = s[i] * scale_log2;
       if (diag && kt * kBK + 8 * (i / 4) + col + (i & 1) > row + (i & 2 ? 8 : 0)) x = -INFINITY;
+      if constexpr (kSeg)
+        if (sm.kseg[st][8 * (i / 4) + col + (i & 1)] != (i & 2 ? qs1 : qs0)) x = -INFINITY;
       s[i] = x;
       if (i & 2)
         mx1 = fmaxf(mx1, x);
@@ -144,14 +165,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    // tile 0 leaves every row a finite max (column 0 is never masked)
-    const float a0 = exp2_approx(m0 - mx0), a1 = exp2_approx(m1 - mx1);
+    // without segments tile 0 leaves every row a finite max (column 0 is
+    // never masked); with them a row's max is -inf until a key of its own
+    // segment: the reference 0 then gives a = p = 0 instead of NaN
+    float ref0 = mx0, ref1 = mx1;
+    if constexpr (kSeg) {
+      ref0 = mx0 == -INFINITY ? 0.f : mx0;
+      ref1 = mx1 == -INFINITY ? 0.f : mx1;
+    }
+    const float a0 = exp2_approx(m0 - ref0), a1 = exp2_approx(m1 - ref1);
     m0 = mx0;
     m1 = mx1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) {
-      const float p = exp2_approx(s[i] - (i & 2 ? m1 : m0));
+      const float p = exp2_approx(s[i] - (i & 2 ? ref1 : ref0));
       s[i] = p;
       if (i & 2)
         rs1 += p;
@@ -209,18 +237,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
-cudaError_t fwd_d(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
-                  int H, int KVH, int causal, cudaStream_t stream) {
+template <int D, bool kSeg>
+cudaError_t fwd_d(const void* q, const void* k, const void* v, const void* seg, void* o,
+                  void* lse, int B, int S, int H, int KVH, int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err;
   if ((err = make_row_map(&tq, q, D, H, (int64_t)B * S, kBQ)) != cudaSuccess) return err;
   if ((err = make_row_map(&tk, k, D, KVH, (int64_t)B * S, kBK)) != cudaSuccess) return err;
   if ((err = make_row_map(&tv, v, D, KVH, (int64_t)B * S, kBK)) != cudaSuccess) return err;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  return launch(flash_fwd_wgmma_kernel<D>, dim3(B * H, S / kBQ), kThreads,
-                sizeof(FwdSmem<D>) + 1024, stream, tq, tk, tv, (float*)o, (float*)lse, S, H,
-                KVH, scale_log2, causal);
+  return launch(flash_fwd_wgmma_kernel<D, kSeg>, dim3(B * H, S / kBQ), kThreads,
+                sizeof(FwdSmem<D>) + 1024, stream, tq, tk, tv, (const int*)seg, (float*)o,
+                (float*)lse, S, H, KVH, scale_log2, causal);
 }
 
 }  // namespace
@@ -228,13 +256,20 @@ cudaError_t fwd_d(const void* q, const void* k, const void* v, void* o, void* ls
 extern "C" {
 
 // bf16 only (dtype 1), head_dim 64 or 128, S a multiple of 128, H a
-// multiple of KVH, every pointer 16-byte aligned; the wrapper checks.
-int tpx_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                        int S, int H, int KVH, int D, int causal, int dtype, void* stream) {
+// multiple of KVH, every pointer 16-byte aligned; the wrapper checks. seg:
+// int32 [B, S] segment ids, or null for none.
+int tpx_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                        const void* seg, int B, int S, int H, int KVH, int D, int causal,
+                        int dtype, void* stream) {
   if (dtype != 1 || S % kBQ) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 64: return (int)fwd_d<64>(q, k, v, o, lse, B, S, H, KVH, causal, (cudaStream_t)stream);
-    case 128: return (int)fwd_d<128>(q, k, v, o, lse, B, S, H, KVH, causal, (cudaStream_t)stream);
+    case 64:
+      return (int)(seg ? fwd_d<64, true>(q, k, v, seg, o, lse, B, S, H, KVH, causal, st)
+                       : fwd_d<64, false>(q, k, v, seg, o, lse, B, S, H, KVH, causal, st));
+    case 128:
+      return (int)(seg ? fwd_d<128, true>(q, k, v, seg, o, lse, B, S, H, KVH, causal, st)
+                       : fwd_d<128, false>(q, k, v, seg, o, lse, B, S, H, KVH, causal, st));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,13 +1,15 @@
 """Llama pretraining on one GPU: the port of
-:mod:`torchx_tpu.examples.train_llama`'s dense, single-device path.
+:mod:`torchx_tpu.examples.train_llama`'s single-device path, dense and MoE.
 
     python -m torchx_tpu_torch.examples.train_llama --config llama3_1b \\
         --batch 4 --seq 2048 --steps 10 --kernels cuda
 
 Runs on the CUDA device unless ``--device cpu`` is given, and raises where
 no CUDA device is present. Prints each step's loss, tokens/s and model
-FLOPs utilization (MFU), then a JSON summary with the launch count of each
-hand-written kernel.
+FLOPs utilization (MFU; a MoE config counts its active parameters, as the
+JAX trainer does) and, for a MoE config, the router's ``router_aux``,
+``router_entropy`` and ``router_overflow``, then a JSON summary with the
+launch count of each hand-written kernel.
 
 The launcher contract of the JAX trainer: with ``--ckpt-dir`` it resumes
 from the newest checkpoint that verifies (the data stream too) and saves
@@ -467,6 +469,9 @@ def train(
 
     counts0 = _build.launch_counts()
     losses, grad_norms, step_times, overlaps = [], [], [], []
+    is_moe = bool(getattr(cfg, "n_experts", 0))
+    router: dict[str, list[float]] = {"router_aux": [], "router_entropy": [],
+                                      "router_overflow": []}
     peak = device_peak_flops(dev)
     flops_per_token = cfg.flops_per_token()
     tokens_per_step = batch * seq
@@ -517,6 +522,11 @@ def train(
             step_times.append(t1 - t0)
             losses.append(loss)
             grad_norms.append(float(out["grad_norm"]))
+            if is_moe:
+                aux = out["aux"].tolist()
+                router["router_aux"].append(aux[llama.AUX_BALANCE])
+                router["router_entropy"].append(aux[llama.AUX_ENTROPY])
+                router["router_overflow"].append(aux[llama.AUX_OVERFLOW])
             global_step += 1
             window_steps += 1
             note = ""
@@ -541,8 +551,14 @@ def train(
                 with _phase("host"):
                     tps = tokens_per_step / step_times[-1]
                     mfu = f" MFU={tps * flops_per_token / peak:.1%}" if peak else ""
+                    moe_note = (
+                        f" router_aux={router['router_aux'][-1]:.3f}"
+                        f" router_entropy={router['router_entropy'][-1]:.2f}"
+                        f" router_overflow={router['router_overflow'][-1]:.1%}"
+                        if is_moe else ""
+                    )
                     print(f"step {global_step} loss={loss:.4f} tokens/sec={tps:,.0f}{mfu}"
-                          f"{note}", flush=True)
+                          f"{moe_note}{note}", flush=True)
                     now = time.monotonic()
                     window_dt = (now - window_t0) / window_steps
                     wait_per_step = (batches.data_wait_s - window_wait) / window_steps
@@ -621,13 +637,15 @@ def train(
         "checkpoint": checkpoint,
         "profile": profile_summary,
         "profile_trace": profile_trace,
+        # per step, MoE configs only (the JAX trainer's log fields)
+        **(router if is_moe else {}),
     }
 
 
 def main(argv: Optional[list[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--config", default="tiny", choices=sorted(llama.CONFIGS) + list(llama.MOE_CONFIGS)
+        "--config", default="tiny", choices=sorted(llama.all_configs())
     )
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--seq", type=int, default=128)
@@ -679,7 +697,7 @@ def main(argv: Optional[list[str]] = None) -> None:
         if flag in NOT_PORTED_FLAGS:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP queue 1); the port runs the"
-                " dense single-device step"
+                " single-device step"
             )
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")

@@ -1,5 +1,6 @@
-"""Llama-3-family decoder in PyTorch: the dense path of
-:mod:`torchx_tpu.models.llama`.
+"""Llama-3-family decoder in PyTorch: the port of
+:mod:`torchx_tpu.models.llama`, dense and (with a :mod:`.moe` config) with
+the GShard MoE FFN.
 
 Parameters keep the JAX package's layout, so :mod:`torchx_tpu_torch.convert`
 maps one onto the other leaf by leaf: a dict of tensors with the layer
@@ -13,10 +14,9 @@ computes cross-entropy in sequence chunks (``loss_chunk``), each recomputed
 in the backward, so only ``[batch, chunk, vocab]`` logits ever exist, stored
 in bf16 unless ``ce_f32_logits``.
 
-Not ported yet (ROADMAP, queue 1): MoE and int8 matmuls, ring attention,
-pipeline parallelism and every mesh; the config fields that would select
-them raise ``NotImplementedError``, and so do the JAX package's MoE preset
-names (:data:`MOE_CONFIGS`).
+Not ported yet (ROADMAP, queue 1): int8 matmuls, ring attention, pipeline
+parallelism and every mesh; the config fields that would select them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -159,17 +159,21 @@ CONFIGS = {
     "tiny": llama_tiny,
 }
 
-#: The JAX package's MoE presets (models/moe.py), not ported yet.
-MOE_CONFIGS = ("moe_tiny", "mixtral_8x7b")
+
+def all_configs() -> dict:
+    """Dense llama presets plus the MoE family (models/moe.py), as the JAX
+    trainer's ``all_configs``."""
+    from torchx_tpu_torch.models import moe
+
+    return {**CONFIGS, **moe.CONFIGS}
 
 
 def get_config(name: str) -> LlamaConfig:
-    """The preset ``name``; the JAX package's MoE presets raise."""
-    if name in MOE_CONFIGS:
-        raise NotImplementedError(
-            f"config {name!r}: MoE is not ported yet (ROADMAP queue 1: MoE and int8)"
-        )
-    return CONFIGS[name]()
+    """The preset ``name``, dense or MoE."""
+    configs = all_configs()
+    if name not in configs:
+        raise ValueError(f"unknown config {name!r}; have {sorted(configs)}")
+    return configs[name]()
 
 
 # -- parameters ------------------------------------------------------------
@@ -182,7 +186,13 @@ def init_params(
 ) -> Params:
     """Scaled-normal init (N(0, 1) * in_dim**-0.5, drawn in f32 and cast to
     ``cfg.dtype``); layer params stacked on a leading axis. Leaves require
-    grad. ``generator`` must live on ``device``."""
+    grad. ``generator`` must live on ``device``.
+
+    A MoE config (``n_experts``) gets the router ``w_router`` [L, d, E] and
+    expert-stacked FFN leaves ``w_gate``/``w_up`` [L, E, d, f] and
+    ``w_down`` [L, E, f, d] in place of the dense FFN, each expert's matrix
+    drawn on its own, so that no f32 draw holds a whole leaf (Mixtral's
+    ``w_gate`` at 16 layers would take 30 GB)."""
     d, f = cfg.dim, cfg.ffn_dim
     hd, h, kvh, L = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
 
@@ -190,22 +200,36 @@ def init_params(
         x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
         return (x * in_dim**-0.5).to(cfg.dtype)
 
+    def normal_per_matrix(shape, in_dim):  # noqa: ANN001, ANN202
+        out = torch.empty(shape, dtype=cfg.dtype, device=device)
+        for mat in out.view(-1, *shape[-2:]):
+            mat.copy_(normal(shape[-2:], in_dim))
+        return out
+
     def ones(shape):  # noqa: ANN001, ANN202
         return torch.ones(shape, dtype=cfg.dtype, device=device)
 
+    layers = {
+        "attn_norm": ones((L, d)),
+        "wq": normal((L, d, h * hd), d),
+        "wk": normal((L, d, kvh * hd), d),
+        "wv": normal((L, d, kvh * hd), d),
+        "wo": normal((L, h * hd, d), h * hd),
+        "mlp_norm": ones((L, d)),
+    }
+    n_experts = getattr(cfg, "n_experts", 0)
+    if n_experts:
+        layers["w_router"] = normal((L, d, n_experts), d)
+        layers["w_gate"] = normal_per_matrix((L, n_experts, d, f), d)
+        layers["w_up"] = normal_per_matrix((L, n_experts, d, f), d)
+        layers["w_down"] = normal_per_matrix((L, n_experts, f, d), f)
+    else:
+        layers["w_gate"] = normal((L, d, f), d)
+        layers["w_up"] = normal((L, d, f), d)
+        layers["w_down"] = normal((L, f, d), f)
     params: Params = {
         "embed": normal((cfg.vocab_size, d), d),
-        "layers": {
-            "attn_norm": ones((L, d)),
-            "wq": normal((L, d, h * hd), d),
-            "wk": normal((L, d, kvh * hd), d),
-            "wv": normal((L, d, kvh * hd), d),
-            "wo": normal((L, h * hd, d), h * hd),
-            "mlp_norm": ones((L, d)),
-            "w_gate": normal((L, d, f), d),
-            "w_up": normal((L, d, f), d),
-            "w_down": normal((L, f, d), f),
-        },
+        "layers": layers,
         "final_norm": ones((d,)),
     }
     if not cfg.tie_embeddings:
@@ -250,7 +274,13 @@ def unflatten(flat: dict[str, torch.Tensor]) -> Params:
 
 
 def ffn(cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dense SwiGLU. -> (down, aux)."""
+    """The FFN half of a layer: dense SwiGLU, or the GShard MoE dispatch
+    when the config carries experts. -> (down, aux). Shared by the
+    training forward and the decode paths, so the two never diverge."""
+    if getattr(cfg, "n_experts", 0):
+        from torchx_tpu_torch.models.moe import moe_ffn
+
+        return moe_ffn(cfg, layer, mlp_in)
     gate = F.silu(mlp_in @ layer["w_gate"])
     up = mlp_in @ layer["w_up"]
     return (
@@ -262,15 +292,21 @@ def ffn(cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor) -> tuple[torch.Te
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
 
 
+def _layer_keys(cfg: LlamaConfig) -> tuple[str, ...]:
+    """The stacked layer leaves a layer reads: a MoE config adds its
+    router."""
+    return _LAYER_KEYS + (("w_router",) if getattr(cfg, "n_experts", 0) else ())
+
+
 def _layer(
     cfg: LlamaConfig,
     cos: torch.Tensor,
     sin: torch.Tensor,
     x: torch.Tensor,  # [b, s, d]
-    *weights: torch.Tensor,  # one layer's slice, in _LAYER_KEYS order
+    *weights: torch.Tensor,  # one layer's slice, in _layer_keys order
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (x, aux)."""
-    layer = dict(zip(_LAYER_KEYS, weights))
+    layer = dict(zip(_layer_keys(cfg), weights))
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -310,7 +346,7 @@ def forward_features(
     s = x.shape[1]
     cos, sin = rope_frequencies(cfg.head_dim, s, cfg.rope_theta, device=x.device)
     # one unbind per stacked leaf: the backward stacks the layer grads once
-    per_layer = [params["layers"][key].unbind(0) for key in _LAYER_KEYS]
+    per_layer = [params["layers"][key].unbind(0) for key in _layer_keys(cfg)]
     auxes = []
     for i in range(cfg.n_layers):
         weights = [w[i] for w in per_layer]
@@ -373,9 +409,11 @@ def loss_and_aux(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (loss, router-health aux vector). ``batch["tokens"]`` is
     [b, seq+1]: the model runs on ``tokens[:, :-1]``; an optional
-    ``loss_mask`` weights the targets."""
+    ``loss_mask`` weights the targets. The loss adds ``router_aux_coef``
+    times the balance term (``aux[AUX_BALANCE]``, 0 for dense models)."""
     tokens = batch["tokens"]
     x, aux = forward_features(params, tokens[:, :-1], cfg)
+    aux_term = getattr(cfg, "router_aux_coef", 0.0) * aux[AUX_BALANCE]
     targets = tokens[:, 1:]
     head = lm_head(params, cfg)
     mask = batch.get("loss_mask")
@@ -395,10 +433,10 @@ def loss_and_aux(
                 args += (m[:, sl],)
             total = total + checkpoint(_chunk_nll_sum, *args, use_reentrant=False)
         if m is None:
-            return total / (b * s), aux
-        return total / torch.clamp(m.sum(), min=1.0), aux
+            return total / (b * s) + aux_term, aux
+        return total / torch.clamp(m.sum(), min=1.0) + aux_term, aux
 
     nll = _token_nll(x, head, targets, f32)
     if m is not None:
-        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0), aux
-    return nll.mean(), aux
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0) + aux_term, aux
+    return nll.mean() + aux_term, aux

@@ -1,0 +1,205 @@
+"""Sparse Mixture-of-Experts Llama variant: the port of
+:mod:`torchx_tpu.models.moe` on one card.
+
+A Mixtral-style MoE FFN in the GShard/Switch **einsum dispatch** form, as
+the JAX package writes it: top-k routing materialised as one-hot dispatch
+and combine tensors with a fixed per-expert capacity per batch row, so
+every shape is static. Tokens routed past their expert's capacity are
+dropped (GShard semantics). The products are plain ``torch.einsum``
+calls: the JAX package leaves them to XLA, and no Pallas kernel computes
+them.
+
+On one card the experts are not sharded (expert parallelism ``ep=1``):
+the JAX package's ``param_specs`` / ``shard_params`` come with the
+port's meshes (ROADMAP queue 1, multi-GPU). Parameters keep the JAX
+layout leaf for leaf (:mod:`torchx_tpu_torch.convert`): the dense model's
+leaves with ``w_gate``/``w_up`` ``[L, E, d, f]``, ``w_down`` ``[L, E, f, d]``
+and a router ``w_router`` ``[L, d, E]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from torchx_tpu_torch.models import llama
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig(llama.LlamaConfig):
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 2.0
+    # Switch/GShard load-balancing auxiliary loss coefficient (0 disables)
+    router_aux_coef: float = 0.01
+
+    def param_count(self) -> int:
+        """Exact parameter count (dense shapes + per-expert FFNs)."""
+        dense = super().param_count()
+        ffn = 3 * self.dim * self.ffn_dim
+        return dense + self.n_layers * (
+            (self.n_experts - 1) * ffn + self.dim * self.n_experts
+        )
+
+    def flops_per_token(self) -> float:
+        """MoE FLOPs count only the top_k ACTIVE experts per token."""
+        attn = 12 * self.n_layers * self.dim * self.max_seq
+        return 6 * self.active_param_count() + attn
+
+    def active_param_count(self) -> int:
+        """Params touched per token (top_k experts): the MFU-relevant N."""
+        ffn = 3 * self.dim * self.ffn_dim
+        dense = super().param_count()
+        return dense + self.n_layers * (
+            (self.top_k - 1) * ffn + self.dim * self.n_experts
+        )
+
+
+def moe_tiny(**overrides: Any) -> MoEConfig:
+    """Test/debug MoE config: runs anywhere in milliseconds."""
+    defaults = dict(
+        vocab_size=512,
+        dim=64,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=2,
+        ffn_dim=128,
+        max_seq=128,
+        dtype=torch.float32,
+        remat=False,
+        n_experts=4,
+        top_k=2,
+    )
+    defaults.update(overrides)
+    return MoEConfig(**defaults)
+
+
+def mixtral_8x7b_shape(**overrides: Any) -> MoEConfig:
+    """Mixtral-8x7B architecture shape (for parity/scaling experiments)."""
+    defaults = dict(
+        vocab_size=32000,
+        dim=4096,
+        n_layers=32,
+        n_heads=32,
+        n_kv_heads=8,
+        ffn_dim=14336,
+        n_experts=8,
+        top_k=2,
+        rope_theta=1e6,
+    )
+    defaults.update(overrides)
+    return MoEConfig(**defaults)
+
+
+CONFIGS = {"moe_tiny": moe_tiny, "mixtral_8x7b": mixtral_8x7b_shape}
+
+
+# -- parameters ------------------------------------------------------------
+
+
+def init_params(
+    cfg: MoEConfig,
+    generator: torch.Generator,
+    device: torch.device | str = "cpu",
+) -> llama.Params:
+    """Dense-llama params (:func:`llama.init_params`, which draws the
+    expert-stacked FFN leaves and the router for a MoE config) from
+    ``generator``, which must live on ``device``."""
+    return llama.init_params(cfg, generator, device)
+
+
+# -- MoE FFN ----------------------------------------------------------------
+
+
+def moe_ffn(
+    cfg: MoEConfig,
+    layer: llama.Params,  # one layer's slice (with w_router/w_gate/w_up/w_down)
+    x: torch.Tensor,  # [b, s, d]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GShard einsum dispatch: route -> dispatch to capacity slots ->
+    per-expert SwiGLU -> combine.
+
+    Returns (output, aux): aux is the router-health vector
+    ``[balance, entropy, overflow]`` (order of ``llama.AUX_*``): the
+    Switch load-balancing term ``E * sum_e fraction_routed_e *
+    mean_router_prob_e`` (scaled into the loss by ``router_aux_coef``),
+    the mean router entropy over log(E), and the share of (token, choice)
+    routings dropped for a full expert buffer; the last two carry no
+    gradient."""
+    dispatch, combine, aux = route(cfg, layer, x)
+    # tokens -> expert capacity slots [b, E, C, d], and back, gate-weighted
+    expert_in = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
+    expert_out = experts(layer, expert_in)
+    out = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), expert_out)
+    return out, aux
+
+
+def route(
+    cfg: MoEConfig, layer: llama.Params, x: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router: -> (dispatch [b, s, E, C] 0/1, combine [b, s, E, C]
+    gate-weighted, aux), both f32, with capacity ``max(1, int(cf * s * k /
+    E))`` per batch row."""
+    b, s, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    capacity = max(1, int(cfg.capacity_factor * s * k / E))
+
+    # f32 logits: exact products of the inputs, f32 sums
+    router_logits = x.float() @ layer["w_router"].float()  # [b, s, E]
+    probs = torch.softmax(router_logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # [b, s, k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+    choice_oh = F.one_hot(gate_idx, E).float()  # [b, s, k, E]
+    # position of each (token, choice) in its expert's buffer: cumsum over
+    # the flattened (s, k) axis, per (b, E)
+    flat = choice_oh.reshape(b, s * k, E)
+    pos = torch.cumsum(flat, dim=1) - flat
+    pos = (pos * flat).sum(-1).reshape(b, s, k).to(torch.int64)
+    within = pos < capacity
+    # jax.nn.one_hot of an out-of-range position is all zeros; F.one_hot
+    # refuses it, so clamp and let ``within`` zero the row
+    pos_oh = F.one_hot(pos.clamp(max=capacity - 1), capacity).float() * within[..., None]
+
+    dispatch = torch.einsum("bske,bskc->bsec", choice_oh, pos_oh)
+    combine = torch.einsum("bske,bskc,bsk->bsec", choice_oh, pos_oh, gate_vals)
+
+    # load balance: fraction of top-1 routings per expert x mean router
+    # probability per expert (Switch Transformer eq. 4-6)
+    top1_oh = choice_oh[:, :, 0, :]  # [b, s, E]
+    balance = E * torch.sum(top1_oh.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+    with torch.no_grad():  # health metrics only
+        p_safe = torch.clamp(probs, min=1e-9)
+        entropy = (-(p_safe * torch.log(p_safe)).sum(-1).mean()) / math.log(float(E))
+        overflow = 1.0 - within.float().mean()
+    return dispatch, combine, torch.stack([balance, entropy, overflow])
+
+
+def experts(layer: llama.Params, expert_in: torch.Tensor) -> torch.Tensor:
+    """Per-expert SwiGLU over the capacity slots: [b, E, C, d] -> [b, E, C,
+    d], the expert axis a batch axis of each product."""
+    gate = F.silu(torch.einsum("becd,edf->becf", expert_in, layer["w_gate"]))
+    up = torch.einsum("becd,edf->becf", expert_in, layer["w_up"])
+    return torch.einsum("becf,efd->becd", gate * up, layer["w_down"])
+
+
+# -- model glue -------------------------------------------------------------
+# llama.ffn dispatches to moe_ffn when the config carries n_experts;
+# forward/loss_fn are re-exported so MoE callers depend only on this module.
+
+
+def forward(params: llama.Params, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """Logits for a MoE config (the shared llama forward dispatches to the
+    expert FFN when the config carries experts)."""
+    return llama.forward(params, tokens, cfg)
+
+
+def loss_fn(
+    params: llama.Params, batch: dict[str, torch.Tensor], cfg: MoEConfig
+) -> torch.Tensor:
+    """Next-token CE + the router balancing aux term."""
+    return llama.loss_fn(params, batch, cfg)

@@ -7,14 +7,14 @@ Port of :mod:`torchx_tpu.ops.attention`. Selection (``impl``):
   PV product). Runs everywhere; the numerical reference of the kernels.
   The name is kept from the JAX package, whose plain path XLA compiled.
 * ``"flash"`` — the port's flash kernels (:func:`.fused.flash_attention`):
-  GQA-native, O(seq) memory. CUDA tensors only.
+  GQA-native, O(seq) memory, masked by ``segment_ids`` where given (the
+  JAX package's ``"splash"`` with ``SegmentIds``). On a CUDA tensor they
+  launch or raise; a CPU tensor takes their plain versions.
 * ``"auto"`` — the flash kernels on a CUDA tensor wherever the JAX
   package's ``auto`` picks the splash kernel on a TPU (head_dim in
   {64, 128, 256}, both sequences multiples of 128, seq >= 512, no
-  ``segment_ids``), else ``"xla"``.
-
-``segment_ids`` (packed-document masking) is served by ``"xla"`` only: the
-flash kernels do not mask by segment yet (ROADMAP).
+  ``segment_ids``), else ``"xla"``: with ``segment_ids`` ``auto`` takes
+  the plain path, as the JAX ``auto`` does.
 """
 
 from __future__ import annotations
@@ -80,11 +80,6 @@ def attention(
     """[b, s, heads, head_dim] x3 -> [b, s, heads, head_dim]."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "flash" and segment_ids is not None:
-        raise ValueError(
-            "the flash kernels do not mask by segment_ids yet; use impl='xla'"
-            " (or 'auto', which takes xla for packed documents)"
-        )
     use_flash = impl == "flash" or (
         impl == "auto"
         and segment_ids is None
@@ -94,7 +89,9 @@ def attention(
     if use_flash:
         from torchx_tpu_torch.ops.fused import flash_attention
 
-        out = flash_attention(q, k, v, causal=causal, kernels="cuda")
+        out = flash_attention(
+            q, k, v, causal=causal, kernels="cuda", segment_ids=segment_ids
+        )
         if out is not None:
             return out
         if impl == "flash":

@@ -11,7 +11,11 @@ Port of :mod:`torchx_tpu.ops.fused`, the ``--kernels cuda`` hot path:
   variants, chosen by the static rule :func:`flash_variant`: ``wgmma``
   on the tensor cores (``csrc/flash_fwd_wgmma.cu``,
   ``csrc/flash_dq_wgmma.cu``, ``csrc/flash_dkv_wgmma.cu``) and ``simt``
-  on the CUDA cores (``csrc/flash_attn.cu``).
+  on the CUDA cores (``csrc/flash_attn.cu``). Optional ``segment_ids``
+  (``[b, s]`` int32, one array for queries and keys, as the JAX package
+  hands ``SegmentIds(q=seg, kv=seg)`` to the library splash kernel) mask
+  packed documents: a query sees only keys of its own segment, in all
+  three kernels, so pairs across documents get exactly zero gradient.
 * :func:`rms_norm_residual` — ``s = x + residual`` in the input dtype, then
   ``y = rms_norm(s) * w`` in f32, one Triton pass returning ``(y, s)``. Its
   backward runs the RMSNorm dx+dw kernel of :mod:`.norms` on ``s`` and
@@ -98,20 +102,25 @@ def norm_shapes_ok(d: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, causal):  # noqa: ANN001, ANN202
-    """f32 logits [b, h, s, s] of q*scale against the repeated k, masked."""
+def _scores(q, k, causal, segment_ids=None):  # noqa: ANN001, ANN202
+    """f32 logits [b, h, s, s] of q*scale against the repeated k, masked
+    (causally, and across segments where ``segment_ids`` [b, s] is
+    given)."""
     scale = q.shape[-1] ** -0.5
     kf = _repeat_kv(k, q.shape[2] // k.shape[2]).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kf)
     if causal:
         keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, NEG_INF)
+    if segment_ids is not None:
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]
+        s = s.masked_fill(~same[:, None], NEG_INF)
     return s
 
 
-def _flash_fwd_plain(q, k, v, causal):  # noqa: ANN001, ANN202
+def _flash_fwd_plain(q, k, v, causal, segment_ids=None):  # noqa: ANN001, ANN202
     """-> (o f32 [b, s, h, d], lse f32 [b, h, s])."""
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, segment_ids)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)  # noqa: E741
@@ -120,8 +129,8 @@ def _flash_fwd_plain(q, k, v, causal):  # noqa: ANN001, ANN202
     return (acc / l).transpose(1, 2).contiguous(), (m + torch.log(l))[..., 0]
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, causal):  # noqa: ANN001, ANN202
-    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+def _probs_and_ds(q, k, v, do, lse, delta, causal, segment_ids):  # noqa: ANN001, ANN202
+    p = torch.exp(_scores(q, k, causal, segment_ids) - lse[..., None])
     vf = _repeat_kv(v, q.shape[2] // v.shape[2]).float()
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
     return p, p * (dp - delta[..., None])
@@ -134,14 +143,14 @@ def _fold_heads(x, kv_heads):  # noqa: ANN001, ANN202
     return x.reshape(b, s, kv_heads, h // kv_heads, d).sum(dim=3)
 
 
-def _flash_dq_plain(q, k, v, do, lse, delta, causal):  # noqa: ANN001, ANN202
-    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+def _flash_dq_plain(q, k, v, do, lse, delta, causal, segment_ids=None):  # noqa: ANN001, ANN202
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, segment_ids)
     kf = _repeat_kv(k, q.shape[2] // k.shape[2]).float()
     return torch.einsum("bhqk,bkhd->bqhd", ds, kf) * q.shape[-1] ** -0.5
 
 
-def _flash_dkv_plain(q, k, v, do, lse, delta, causal):  # noqa: ANN001, ANN202
-    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+def _flash_dkv_plain(q, k, v, do, lse, delta, causal, segment_ids=None):  # noqa: ANN001, ANN202
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, segment_ids)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * q.shape[-1] ** -0.5
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return _fold_heads(dk, k.shape[2]), _fold_heads(dv, v.shape[2])
@@ -171,6 +180,21 @@ def _check_flash(q, k, v, *more):  # noqa: ANN001, ANN202
     return b, s, h, k.shape[2], d
 
 
+def _check_segments(segment_ids, q):  # noqa: ANN001, ANN202
+    """The kernels take int32 ids [b, s], contiguous, on q's device, 16-byte
+    aligned (the wgmma kernels bring them by bulk copy)."""
+    b, s = q.shape[:2]
+    if segment_ids.dtype != torch.int32 or tuple(segment_ids.shape) != (b, s):
+        raise ValueError(
+            f"flash attention: segment_ids must be int32 [{b}, {s}], got"
+            f" {segment_ids.dtype} {tuple(segment_ids.shape)}"
+        )
+    if segment_ids.device != q.device or not segment_ids.is_contiguous():
+        raise ValueError("flash attention: segment_ids must be contiguous on q's device")
+    if segment_ids.data_ptr() % 16:
+        raise ValueError("flash attention: segment_ids must be 16-byte aligned")
+
+
 def _dims(q, k, v, causal, *more):  # noqa: ANN001, ANN202
     b, s, h, kvh, d = _check_flash(q, k, v, *more)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -196,50 +220,55 @@ def _pick_variant(variant, tensors):  # noqa: ANN001, ANN202
     return variant
 
 
-def _launch(kernel, variant, inputs, outputs, causal):  # noqa: ANN001, ANN202
+def _launch(kernel, variant, inputs, outputs, causal, segment_ids=None):  # noqa: ANN001, ANN202
     """Launch ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv") of the
     chosen variant on CUDA tensors: inputs (q, k, v[, do, lse, delta]),
-    then the outputs, all as pointers, then the dims."""
+    then the outputs and the segment ids (null for none), all as pointers,
+    then the dims."""
+    seg_ptr = None
+    if segment_ids is not None:
+        _check_segments(segment_ids, inputs[0])
+        seg_ptr = segment_ids.data_ptr()
     dims = _dims(*inputs[:3], causal, *inputs[3:])
     variant = _pick_variant(variant, inputs)
     lib = _build.cuda_lib()
     fn = getattr(lib, f"tpx_{kernel}_wgmma" if variant == "wgmma" else f"tpx_{kernel}")
     with torch.cuda.device(inputs[0].device):
-        rc = fn(*(t.data_ptr() for t in (*inputs, *outputs)), *dims)
-    name = f"{kernel}_{variant}"
+        rc = fn(*(t.data_ptr() for t in (*inputs, *outputs)), seg_ptr, *dims)
+    name = f"{kernel}_{variant}" + ("" if segment_ids is None else "_seg")
     _build.check(rc, name)
     _build.count_launch(name)
 
 
-def _flash_fwd(q, k, v, causal, variant=None):  # noqa: ANN001, ANN202
-    """[b, s, h, d], [b, s, kvh, d] x2 -> (o f32 [b, s, h, d], lse f32
-    [b, h, s])."""
+def _flash_fwd(q, k, v, causal, segment_ids=None, variant=None):  # noqa: ANN001, ANN202
+    """[b, s, h, d], [b, s, kvh, d] x2 (, int32 segment ids [b, s]) ->
+    (o f32 [b, s, h, d], lse f32 [b, h, s])."""
     if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, causal)
+        return _flash_fwd_plain(q, k, v, causal, segment_ids)
     b, s, h = q.shape[:3]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", variant, (q, k, v), (o, lse), causal)
+    _launch("flash_fwd", variant, (q, k, v), (o, lse), causal, segment_ids)
     return o, lse
 
 
-def _flash_dq(q, k, v, do, lse, delta, causal, variant=None):  # noqa: ANN001, ANN202
+def _flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None, variant=None):  # noqa: ANN001, ANN202
     """-> dq f32 [b, s, h, d]."""
     if q.device.type == "cpu":
-        return _flash_dq_plain(q, k, v, do, lse, delta, causal)
+        return _flash_dq_plain(q, k, v, do, lse, delta, causal, segment_ids)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch("flash_dq", variant, (q, k, v, do, lse, delta), (dq,), causal)
+    _launch("flash_dq", variant, (q, k, v, do, lse, delta), (dq,), causal, segment_ids)
     return dq
 
 
-def _flash_dkv(q, k, v, do, lse, delta, causal, variant=None):  # noqa: ANN001, ANN202
+def _flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None, variant=None):  # noqa: ANN001, ANN202
     """-> (dk, dv) f32 [b, s, kvh, d], summed over each KV head's query
     heads."""
     if q.device.type == "cpu":
-        return _flash_dkv_plain(q, k, v, do, lse, delta, causal)
+        return _flash_dkv_plain(q, k, v, do, lse, delta, causal, segment_ids)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    _launch("flash_dkv", variant, (q, k, v, do, lse, delta), (dk, dv), causal)
+    _launch("flash_dkv", variant, (q, k, v, do, lse, delta), (dk, dv), causal, segment_ids)
     return dk, dv
 
 
@@ -250,20 +279,20 @@ def _flash_delta(do, o_f32):  # noqa: ANN001, ANN202
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):  # noqa: ANN001, ANN205
-        o, lse = _flash_fwd(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, causal, segment_ids):  # noqa: ANN001, ANN205
+        o, lse = _flash_fwd(q, k, v, causal, segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
         ctx.causal = causal
         return o.to(q.dtype)
 
     @staticmethod
     def backward(ctx, do):  # noqa: ANN001, ANN205
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, segment_ids = ctx.saved_tensors
         do = do.contiguous()
         delta = _flash_delta(do, o)
-        dq = _flash_dq(q, k, v, do, lse, delta, ctx.causal)
-        dk, dv = _flash_dkv(q, k, v, do, lse, delta, ctx.causal)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+        dq = _flash_dq(q, k, v, do, lse, delta, ctx.causal, segment_ids)
+        dk, dv = _flash_dkv(q, k, v, do, lse, delta, ctx.causal, segment_ids)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
 def flash_attention(
@@ -272,18 +301,22 @@ def flash_attention(
     v: torch.Tensor,
     causal: bool = True,
     kernels: str = "cuda",
+    segment_ids: Optional[torch.Tensor] = None,  # [b, s] int32
 ) -> Optional[torch.Tensor]:
     """Flash attention, or ``None`` when the gate says "use the plain path":
     ``kernels`` is not "cuda", the shapes fail :func:`flash_shapes_ok`, or
-    the query heads are not a multiple of the KV heads."""
+    the query heads are not a multiple of the KV heads. ``segment_ids``
+    masks packed documents (the kernels check their dtype and shape)."""
     if kernels != "cuda":
         return None
     if not flash_shapes_ok(q.shape[1], k.shape[1], q.shape[-1]):
         return None
     if q.shape[2] % k.shape[2]:
         return None
+    if segment_ids is not None:
+        segment_ids = segment_ids.contiguous()
     return _FlashAttention.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal
+        q.contiguous(), k.contiguous(), v.contiguous(), causal, segment_ids
     )
 
 

@@ -136,6 +136,12 @@ def _check_rows(name: str, *tensors: torch.Tensor) -> None:
 #: design (1, 8, 2, 1, 128), whose few bytes in flight per SM and 16-program
 #: dw pass bounded it.
 BWD_CONFIG = (4, 4, 2, 2, 16)
+#: The row width BWD_CONFIG was chosen at. A wider row gets proportionally
+#: more warps (at most 16), so that each thread holds as many values of
+#: the [ROWS, d] block as at this width: at d 4096 with 4 warps each thread
+#: would hold 128 f32 values per array, and the kernel took 1.56 ms against
+#: the plain version's 1.40 (chip_smoke.py, Mixtral's dim 4096).
+BWD_WIDTH = 2048
 
 
 def _bwd(x2d, dy2d, weight, eps: float, config=BWD_CONFIG):  # noqa: ANN001
@@ -151,6 +157,7 @@ def _bwd(x2d, dy2d, weight, eps: float, config=BWD_CONFIG):  # noqa: ANN001
     bwd_kernel, reduce_kernel = _triton_kernels()
     rows, num_warps, per_sm, stages, reduce_cols = config
     n, d = x2d.shape
+    num_warps = min(16, num_warps * max(1, triton.next_power_of_2(d) // BWD_WIDTH))
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
     rows_per_prog = triton.cdiv(triton.cdiv(n, per_sm * sms), rows) * rows
     n_prog = triton.cdiv(n, rows_per_prog)
