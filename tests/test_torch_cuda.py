@@ -535,3 +535,126 @@ def test_disaggregated_pair_equals_unified_on_card(gen):
     finally:
         for e in engines:
             e.stop()
+
+
+# -- int8: the int8-weight matmul kernel and the int8 training dot -----------
+
+
+def _int8_inputs(gen, m, k, n, dtype):
+    from torchx_tpu_torch.ops import quant
+
+    x = _randn(gen, m, k, dtype=dtype)
+    q, scale = quant.quantize(_randn(gen, k, n) * k**-0.5)
+    return x, q, scale
+
+
+@pytest.mark.parametrize("m", [1, 8, 17, 2048])
+@pytest.mark.parametrize("k,n", [(4096, 1040), (14336, 4112), (520, 16)])
+@pytest.mark.parametrize("dtype,out", [(torch.bfloat16, None), (torch.bfloat16, torch.float32),
+                                       (torch.float32, None)])
+def test_int8_matmul_matches_plain(gen, m, k, n, dtype, out):
+    """Ragged shapes (N not a multiple of the 128-column tile, K = 14336 and
+    a K that is no multiple of the 64-row stage, M of 1 to 2048) against
+    the plain version on the same tensors: f32 outputs within 1e-5 of the
+    largest value, bf16 ones within one bf16 rounding (8e-3 relative); two
+    calls bitwise equal; one launch a call."""
+    from torchx_tpu_torch.ops import quant
+
+    x, q, scale = _int8_inputs(gen, m, k, n, dtype)
+    name = quant.kernel_name(dtype)
+    _build.reset_launches()
+    y = quant.int8_matmul(x, q, scale, out_dtype=out)
+    assert _build.launch_counts()[name] == 1
+    want = quant._int8_matmul_plain(x, q, scale, out)
+    assert y.shape == (m, n) and y.dtype == (out or dtype)
+    if y.dtype == torch.float32:
+        assert _rel(y, want) <= 1e-5, _rel(y, want)
+    else:
+        big = float(want.float().abs().max())
+        torch.testing.assert_close(y.float(), want.float(), rtol=8e-3, atol=1e-5 * big)
+    assert torch.equal(y, quant.int8_matmul(x, q, scale, out_dtype=out))
+
+
+def test_int8_matmul_takes_leading_axes(gen):
+    from torchx_tpu_torch.ops import quant
+
+    x, q, scale = _int8_inputs(gen, 2 * 24, 256, 96, torch.bfloat16)
+    y = quant.int8_matmul(x.view(2, 24, 256), q, scale)
+    assert y.shape == (2, 24, 96) and torch.equal(y.view(48, 96), quant.int8_matmul(x, q, scale))
+
+
+def test_int8_matmul_wrong_inputs_raise(gen):
+    from torchx_tpu_torch.ops import quant
+
+    x, q, scale = _int8_inputs(gen, 8, 256, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        quant.int8_matmul(x, q.cpu(), scale)  # a CPU weight
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.int8_matmul(_randn(gen, 8, 512, dtype=torch.bfloat16)[:, ::2], q, scale)
+    with pytest.raises(ValueError, match="scale"):
+        quant.int8_matmul(x, q, scale[..., :95].contiguous())
+    with pytest.raises(ValueError, match="contract"):
+        quant.int8_matmul(x[:, :128].contiguous(), q, scale)
+    with pytest.raises(ValueError, match="multiple"):
+        x2, q2, s2 = _int8_inputs(gen, 8, 256, 100, torch.bfloat16)
+        quant.int8_matmul(x2, q2, s2)
+    with pytest.raises(ValueError, match="output"):
+        quant.int8_matmul(x, q, scale, out_dtype=torch.float16)
+
+
+def test_int_mm_shape_rules_raise(gen):
+    """torch._int_mm on the card takes m > 16 and k, n multiples of 8: the
+    int8 training dot raises outside them and never falls back to bf16."""
+    from torchx_tpu_torch.ops import quant
+
+    a = torch.ones((16, 64), dtype=torch.int8, device="cuda")
+    b = torch.ones((64, 32), dtype=torch.int8, device="cuda")
+    for lhs, rhs in ((a, b), (a[:, :60].contiguous(), b[:60]), (a, b[:, :12])):
+        with pytest.raises(ValueError, match="_int_mm"):
+            quant._int_mm(lhs, rhs)
+    with pytest.raises(ValueError, match="_int_mm"):
+        quant.int8_dot(_randn(gen, 8, 64, dtype=torch.bfloat16),
+                       _randn(gen, 64, 32, dtype=torch.bfloat16))
+    lhs = torch.randint(-127, 128, (17, 64), dtype=torch.int8, device="cuda")
+    assert torch.equal(quant._int_mm(lhs, b).cpu(), lhs.cpu().int() @ b.cpu().int())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_dot_on_card_equals_cpu(gen, dtype):
+    """The int8 training dot's forward and both gradients on the card equal
+    the CPU's bitwise: the int32 sums are exact and each elementwise step
+    rounds once in the operands' dtype on both devices."""
+    from torchx_tpu_torch.ops import quant
+
+    x, w = _randn(gen, 64, 128, dtype=dtype), (_randn(gen, 128, 96) * 0.05).to(dtype)
+    g = (_randn(gen, 64, 96) * 1e-3).to(dtype)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.detach().to(dev).requires_grad_(True)
+        wd = w.detach().to(dev).requires_grad_(True)
+        y = quant.maybe_matmul(xd, wd, int8_training=True)
+        y.backward(g.to(dev))
+        out[dev] = [t.detach().cpu() for t in (y, xd.grad, wd.grad)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_int8_engine_on_card_matches_dense(gen):
+    """The tiny f32 tree quantized, served on the card: every projection
+    runs the f32 int8 kernel, and the engine's greedy tokens equal the dense
+    generate's on the same tree."""
+    from torchx_tpu_torch.ops import quant
+
+    cfg, params = _tiny_serving("cuda")
+    qp = quant.quantize_params(params)
+    _build.reset_launches()
+    eng = ServeEngine(qp, cfg, max_slots=4, block_size=8, max_prefill_batch=2).start()
+    try:
+        prompts = [[1, 2, 3], [7, 8], [4, 5, 6, 7, 8, 9, 10], [11]]
+        reqs = [eng.generate(p, 6, timeout=120) for p in prompts]
+    finally:
+        eng.stop()
+    assert _build.launch_counts()["int8_matmul_simt"] > 0
+    for p, r in zip(prompts, reqs):
+        dense = tgen.generate(qp, torch.tensor([p], device="cuda"), cfg, 6)
+        assert r.tokens == dense[0].tolist()

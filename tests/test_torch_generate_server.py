@@ -202,12 +202,16 @@ class TestDrain:
                                 dict(kv_transfer="local"), dict(int8=True),
                                 dict(kv_transfer="http:http://127.0.0.1:1")])
 def test_unported_options_raise(kw):
-    """int8 is not ported yet; the disaggregated roles are, with the JAX
-    server's checks: a prefill role needs a transfer spec, and a unified
-    replica ignores one."""
+    """Ported since: int8 (the service quantizes its projections and says
+    so) and the disaggregated roles, with the JAX server's checks: a
+    prefill role needs a transfer spec, and a unified replica ignores
+    one."""
     if kw.get("int8"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            gs.GenerateService("tiny", device="cpu", **kw)
+        svc = gs.GenerateService("tiny", device="cpu", **kw)
+        try:
+            assert svc.int8 and svc.params["layers"]["wq"]["q"].dtype == torch.int8
+        finally:
+            svc.close()
     elif kw.get("serve_role") == "prefill":
         with pytest.raises(ValueError, match="kv-transfer"):
             gs.GenerateService("tiny", device="cpu", **kw)

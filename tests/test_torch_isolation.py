@@ -64,6 +64,23 @@ SERVING_MODULES = (
 )
 
 
+#: The int8 modules (weight-only serving and the int8 training dot) and
+#: the int8-weight matmul kernel's source.
+INT8_SOURCES = ("ops/quant.py", "csrc/int8_matmul.cu")
+
+
+def test_int8_sources_are_present_and_built():
+    from torchx_tpu_torch import _build
+
+    for rel in INT8_SOURCES:
+        assert (PKG / rel).is_file(), rel
+    assert PKG / "csrc" / "int8_matmul.cu" in _build._sources()
+    assert {"int8_matmul", "int8_matmul_simt"} <= set(_build.KERNELS)
+    # the build directory, where nvcc writes the library, stays untracked
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert _build.BUILD_DIR.relative_to(REPO).as_posix() + "/" in ignored
+
+
 def test_serving_modules_are_present():
     sources = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in p.parents}
     assert set(SERVING_MODULES) <= sources
@@ -146,17 +163,20 @@ class TestDevice:
         assert final["kernels"] == "cuda" and len(final["losses"]) == 2
 
     def test_jax_only_flags_raise(self):
-        for flag in ("--mesh=fsdp=-1", "--int8", "--grad-bucket-mb=4"):
+        for flag in ("--mesh=fsdp=-1", "--ring-attention", "--grad-bucket-mb=4"):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 train_llama.main(["--device", "cpu", flag])
         with pytest.raises(SystemExit):
             train_llama.main(["--device", "cpu", "--no-such-flag"])
+        # int8 is ported (its flags: tests/test_torch_quant.py)
+        assert not {"--int8", "--int8-scope"} & set(train_llama.NOT_PORTED_FLAGS)
 
     def test_unported_model_options_raise(self):
-        for kw in ({"int8_matmuls": True}, {"use_ring_attention": True},
-                   {"remat_policy": "dots"}):
+        for kw in ({"use_ring_attention": True}, {"remat_policy": "dots"}):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 llama.llama_tiny(**kw)
+        # int8 matmuls, which raised before int8 was ported, are a config
+        assert llama.llama_tiny(int8_matmuls=True, int8_scope="ffn").int8_matmuls
         with pytest.raises(ValueError):
             llama.llama_tiny(kernels="interpret")
         # the MoE presets, which raised before the MoE family was ported, run

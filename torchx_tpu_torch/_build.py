@@ -43,12 +43,16 @@ NVCC_FLAGS = [
 #: forward, dq and dk/dv come as two variants (``ops.fused.flash_variant``):
 #: ``wgmma`` on the tensor cores, ``simt`` on the CUDA cores. A launch with
 #: segment ids counts under the name with ``_seg`` (the wgmma kernels are
-#: separate instances then; the simt ones take the ids at run time).
+#: separate instances then; the simt ones take the ids at run time). The
+#: int8-weight matmul of weight-only serving (``csrc/int8_matmul.cu``)
+#: counts as ``int8_matmul`` for bf16 activations (tensor cores) and as
+#: ``int8_matmul_simt`` for f32 ones (CUDA cores).
 KERNELS = (
     "flash_fwd_wgmma", "flash_fwd_simt", "flash_dq_wgmma", "flash_dq_simt",
     "flash_dkv_wgmma", "flash_dkv_simt", "norm_res_fwd", "rms_norm_bwd",
     "flash_fwd_wgmma_seg", "flash_fwd_simt_seg", "flash_dq_wgmma_seg",
     "flash_dq_simt_seg", "flash_dkv_wgmma_seg", "flash_dkv_simt_seg",
+    "int8_matmul", "int8_matmul_simt",
 )
 
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -111,6 +115,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_tensors + ints + [p]
         fn.restype = i
+    # x, q, scale, y, the split-k workspace (or null); M, N, K, x's dtype,
+    # f32 output, block rows, splits, k steps per split; the stream
+    lib.tpx_int8_matmul.argtypes = [p] * 5 + [i] * 8 + [p]
+    lib.tpx_int8_matmul.restype = i
     lib.tpx_cuda_error_string.argtypes = [i]
     lib.tpx_cuda_error_string.restype = ctypes.c_char_p
 

@@ -14,7 +14,13 @@ the ``params.*`` entries are read), through a read-only reader: a bad step
 is skipped and logged, and nothing in the directory is renamed or written,
 so a server pointed at a live training directory leaves its resume point
 alone. Every preset of the JAX server's ``all_configs()`` is served, the
-MoE family included. ``--int8`` is not ported yet and raises.
+MoE family included. ``--int8`` serves weight-only int8: after the init
+or the ``--ckpt-dir`` load, every projection matrix becomes an int8 matrix
+with per-output-channel f32 scales
+(:func:`torchx_tpu_torch.ops.quant.quantize_params`), each float leaf
+freed as soon as its record exists, and every projection runs the
+hand-written int8-weight matmul kernel on the card; the prefill and decode
+roles take it too (their handoff carries K/V only).
 
 API (JSON):
     GET  /healthz            -> {"status": "ok", "model": ..., "requests": N,
@@ -89,10 +95,6 @@ import torch
 from torchx_tpu_torch.settings import ENV_TPX_REPLICA_ID
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
 
 
 def _load_params(ckpt_dir: str, cfg: Any, device: torch.device) -> tuple[int, dict]:
@@ -209,8 +211,6 @@ class GenerateService:
             raise ValueError(
                 "prefill role needs a --kv-transfer spec (decode targets)"
             )
-        if int8:
-            raise _not_ported("--int8", "int8")
         from torchx_tpu_torch.examples.train_llama import resolve_device
         from torchx_tpu_torch.models import llama
 
@@ -229,7 +229,12 @@ class GenerateService:
             self.ckpt_step = None
         for leaf in llama.leaves(self.params):
             leaf.requires_grad_(False)
-        self.int8 = False
+        if int8:
+            from torchx_tpu_torch.ops.quant import quantize_params
+
+            # in place: each float leaf is freed once its int8 record exists
+            quantize_params(self.params, inplace=True)
+        self.int8 = int8
         self.requests = 0
         self.batches = 0  # device dispatches (< enqueued seqs when coalesced)
         self.batched_sequences = 0
@@ -1002,7 +1007,11 @@ def main(argv: Optional[list[str]] = None) -> None:
         help="serve the newest verified trainer checkpoint under this directory"
         " (read-only; default: seeded random weights)",
     )
-    parser.add_argument("--int8", action="store_true", help="not ported yet")
+    parser.add_argument(
+        "--int8", action="store_true",
+        help="weight-only int8: quantize every projection matrix (per-output-channel"
+        " scales) and run them through the int8-weight matmul kernel",
+    )
     parser.add_argument(
         "--device",
         default="cuda",

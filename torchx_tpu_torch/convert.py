@@ -7,9 +7,12 @@ changes no axis: layer weights stacked on a leading ``L`` axis, matrices
 no ``lm_head`` under ``tie_embeddings`` (the head is ``embed.T``). A MoE
 config's tree (:mod:`torchx_tpu_torch.models.moe`) has the router
 ``w_router`` [L, d, E] and expert-stacked ``w_gate``/``w_up`` [L, E, d, f]
-and ``w_down`` [L, E, f, d] in place of the dense FFN leaves. The
-caller turns the JAX arrays into numpy (``jax.tree.map(np.asarray, ...)``),
-so this module imports no JAX.
+and ``w_down`` [L, E, f, d] in place of the dense FFN leaves. A tree of
+weight-only int8 (``quantize_params`` of either package) holds ``{"q":
+int8, "scale": f32}`` records in place of its projection matrices, and
+converts as it is (the records keep their dtypes). The caller turns the
+JAX arrays into numpy (``jax.tree.map(np.asarray, ...)``), so this module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from torchx_tpu_torch.models.llama import LlamaConfig, Params
+from torchx_tpu_torch.ops.quant import _QUANT_KEYS
 
 _LAYER_SHAPES = {
     "attn_norm": lambda c: (c.dim,),
@@ -42,8 +46,17 @@ _MOE_LAYER_SHAPES = {
 }
 
 
-def expected_shapes(cfg: LlamaConfig) -> dict[str, Any]:
-    """The parameter tree's shapes for ``cfg`` (``init_params``' layout)."""
+def _quantized_shape(key: str, shape: tuple) -> Any:
+    """A projection's ``{"q", "scale"}`` shapes under ``quantize_params``
+    (a matrix or a layer stack of one; expert stacks stay float)."""
+    if key not in _QUANT_KEYS or len(shape) not in (2, 3):
+        return shape
+    return {"q": shape, "scale": (*shape[:-2], 1, shape[-1])}
+
+
+def expected_shapes(cfg: LlamaConfig, quantized: bool = False) -> dict[str, Any]:
+    """The parameter tree's shapes for ``cfg`` (``init_params``' layout);
+    with ``quantized``, those of its ``quantize_params`` tree."""
     layer_shapes = dict(_LAYER_SHAPES)
     if getattr(cfg, "n_experts", 0):
         layer_shapes.update(_MOE_LAYER_SHAPES)
@@ -54,7 +67,20 @@ def expected_shapes(cfg: LlamaConfig) -> dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.dim, cfg.vocab_size)
+    if quantized:
+        shapes["layers"] = {k: _quantized_shape(k, v) for k, v in shapes["layers"].items()}
+        shapes.update({k: _quantized_shape(k, v) for k, v in shapes.items() if k != "layers"})
     return shapes
+
+
+def _is_record(node: Any) -> bool:
+    return isinstance(node, dict) and set(node) == {"q", "scale"}
+
+
+def _shapes(node: Any) -> Any:
+    if isinstance(node, dict):
+        return {k: _shapes(v) for k, v in node.items()}
+    return tuple(np.shape(node))
 
 
 def _to_tensor(arr: Any, device, dtype) -> torch.Tensor:  # noqa: ANN001
@@ -77,24 +103,26 @@ def params_from_jax(
 
     With ``cfg``, every leaf's shape and the presence of ``lm_head`` are
     checked against it. ``dtype`` (default: keep each array's) casts every
-    leaf. The returned leaves require grad for training; serving takes
-    ``requires_grad=False`` (the engine refuses leaves that require grad)."""
+    float leaf; the int8 records of a quantized tree keep their dtypes and
+    never require grad. The returned leaves require grad for training;
+    serving takes ``requires_grad=False`` (the engine refuses leaves that
+    require grad)."""
     if cfg is not None:
-        want = expected_shapes(cfg)
+        quantized = any(_is_record(v) for v in (*tree.values(), *tree["layers"].values()))
+        want = expected_shapes(cfg, quantized)
         if set(tree) != set(want) or set(tree["layers"]) != set(want["layers"]):
             raise ValueError(
                 f"param tree keys {sorted(tree)} / {sorted(tree['layers'])} do not"
                 f" match the config's {sorted(want)} (tie_embeddings="
                 f"{cfg.tie_embeddings})"
             )
-        got = {
-            **{k: np.shape(tree[k]) for k in want if k != "layers"},
-            "layers": {k: np.shape(v) for k, v in tree["layers"].items()},
-        }
+        got = _shapes(tree)
         if got != want:
             raise ValueError(f"param shapes {got} do not match the config's {want}")
 
     def conv(node: Any) -> Any:
+        if _is_record(node):
+            return {k: _to_tensor(v, device, None) for k, v in node.items()}
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         return _to_tensor(node, device, dtype).requires_grad_(requires_grad)

@@ -28,8 +28,14 @@ every step, as the unprofiled loop already does. ``--profile-dir DIR``
 writes a ``torch.profiler`` Chrome trace (CPU and CUDA activity) of the
 timed steps into DIR.
 
-The JAX trainer's meshes, gradient buckets, int8 and ring attention are
-not ported yet (ROADMAP); their flags raise.
+``--int8`` (and ``--int8-scope all|ffn``, which implies it) routes the layer
+projections through the int8 training dot (AQT's numerics, forward and both
+backward products in int8; :mod:`torchx_tpu_torch.ops.quant`), as the JAX
+trainer maps the flags; MFU keeps the bf16 formula and peak, and the master
+weights (and so the checkpoints) stay in the model dtype.
+
+The JAX trainer's meshes, gradient buckets and ring attention are not
+ported yet (ROADMAP); their flags raise.
 """
 
 from __future__ import annotations
@@ -73,8 +79,7 @@ PEAK_FLOPS = {
 
 #: Flags of the JAX trainer this port does not have yet.
 NOT_PORTED_FLAGS = (
-    "--mesh", "--ring-attention", "--remat-policy", "--int8", "--int8-scope",
-    "--grad-bucket-mb",
+    "--mesh", "--ring-attention", "--remat-policy", "--grad-bucket-mb",
 )
 
 
@@ -625,6 +630,8 @@ def train(
         "launches_per_step": {k: v / len(losses) for k, v in launches.items()},
         "kernels": cfg.kernels,
         "remat_policy": cfg.remat_policy if cfg.remat else "none",
+        # the int8 training dot's scope, None when the projections run in bf16
+        "int8_scope": cfg.int8_scope if cfg.int8_matmuls else None,
         "device": str(dev),
         "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "launch_to_first_step_s": first_step_s,
@@ -640,6 +647,15 @@ def train(
         # per step, MoE configs only (the JAX trainer's log fields)
         **(router if is_moe else {}),
     }
+
+
+def int8_config(cfg: llama.LlamaConfig, int8: bool = False,
+                scope: Optional[str] = None) -> llama.LlamaConfig:
+    """``--int8`` / ``--int8-scope`` on ``cfg``, as the JAX trainer maps
+    them: a scope implies int8, and the default scope is ``"all"``."""
+    if int8 or scope:
+        return dataclasses.replace(cfg, int8_matmuls=True, int8_scope=scope or "all")
+    return cfg
 
 
 def main(argv: Optional[list[str]] = None) -> None:
@@ -665,6 +681,14 @@ def main(argv: Optional[list[str]] = None) -> None:
         help="'cuda' routes attention and the residual-add + RMSNorm through"
         " the hand-written kernels ('pallas', the JAX trainer's name, means"
         " the same); default the plain PyTorch ops",
+    )
+    parser.add_argument(
+        "--int8", action="store_true",
+        help="int8 training matmuls for the layer projections (AQT's numerics)",
+    )
+    parser.add_argument(
+        "--int8-scope", default=None, choices=["all", "ffn"],
+        help="which projections to quantize (implies --int8; default all)",
     )
     parser.add_argument(
         "--device", default=None,
@@ -704,7 +728,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     if args.log_every is not None and args.log_every < 1:
         parser.error("--log-every must be >= 1")
     metrics = train(
-        llama.get_config(args.config),
+        int8_config(llama.get_config(args.config), args.int8, args.int8_scope),
         args.batch,
         args.seq,
         args.steps,

@@ -15,6 +15,13 @@ The attention scores and the lm-head logits are f32 from bf16 operands
 einsums' ``preferred_element_type=float32``: a bf16 logit row would flip
 greedy argmaxes over a 128256-token vocabulary.
 
+**Weight-only int8.** Every projection goes through
+:func:`~torchx_tpu_torch.ops.quant.maybe_matmul`, so a parameter tree from
+:func:`~torchx_tpu_torch.ops.quant.quantize_params` (``{"q", "scale"}``
+records in place of the matrices) runs the same code: on the card each
+projection launches the int8-weight matmul kernel, and a quantized lm head
+keeps its f32 sum (``out_dtype=torch.float32``).
+
 **Sampling.** Greedy rows take the first maximum, as ``jnp.argmax`` does,
 so greedy tokens match the JAX package. Sampled tokens cannot follow JAX's
 threefry stream; they keep its engine's contract instead: a row's draw is
@@ -45,6 +52,8 @@ from torchx_tpu_torch.ops.paged_attention import (
     check_range,
     matmul_f32,
 )
+from torchx_tpu_torch.ops.quant import int8_matmul
+from torchx_tpu_torch.ops.quant import maybe_matmul as mm
 from torchx_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 KVCache = dict[str, torch.Tensor]  # {"k": [L,b,S,kvh,hd], "v": ...}
@@ -54,9 +63,14 @@ Seeds = Union[int, Sequence[int], torch.Tensor]
 _MASKED = -1e30
 
 
-def _layer(params: llama.Params, i: int) -> dict[str, torch.Tensor]:
-    """Layer ``i``'s slice of the stacked layer weights (views)."""
-    return {key: w[i] for key, w in params["layers"].items()}
+def _layer(params: llama.Params, i: int) -> dict[str, torch.Tensor | dict]:
+    """Layer ``i``'s slice of the stacked layer weights (views); a quantized
+    record ``{"q", "scale"}`` (weight-only int8) is sliced leaf by leaf,
+    as the JAX package's ``scan`` slices it."""
+    return {
+        key: {k: t[i] for k, t in w.items()} if isinstance(w, dict) else w[i]
+        for key, w in params["layers"].items()
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -181,22 +195,27 @@ def _layer_step(
     b, t, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn_in = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = apply_rope((attn_in @ layer["wq"]).reshape(b, t, h, hd), cos, sin)
-    k = apply_rope((attn_in @ layer["wk"]).reshape(b, t, kvh, hd), cos, sin)
-    v = (attn_in @ layer["wv"]).reshape(b, t, kvh, hd)
+    q = apply_rope(mm(attn_in, layer["wq"]).reshape(b, t, h, hd), cos, sin)
+    k = apply_rope(mm(attn_in, layer["wk"]).reshape(b, t, kvh, hd), cos, sin)
+    v = mm(attn_in, layer["wv"]).reshape(b, t, kvh, hd)
     k_cache[:, start : start + t] = k
     v_cache[:, start : start + t] = v
     attn = _cached_attention(q, k_cache, v_cache, q_pos)
-    x = x + attn.reshape(b, t, h * hd) @ layer["wo"]
+    x = x + mm(attn.reshape(b, t, h * hd), layer["wo"])
     mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     down, _aux = llama.ffn(cfg, layer, mlp_in)
     return x + down
 
 
 def _lm_head_rows(params: llama.Params, x: torch.Tensor, cfg: llama.LlamaConfig) -> torch.Tensor:
-    """[..., d] -> [..., vocab] f32 logits."""
+    """[..., d] -> [..., vocab] f32 logits (an int8 head keeps the f32 sum)."""
     lead = x.shape[:-1]
-    out = matmul_f32(x.reshape(-1, x.shape[-1]), llama.lm_head(params, cfg))
+    head = llama.lm_head(params, cfg)
+    x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(head, dict):
+        out = int8_matmul(x2, head["q"], head["scale"], out_dtype=torch.float32)
+    else:
+        out = matmul_f32(x2, head)
     return out.reshape(*lead, -1)
 
 
@@ -375,13 +394,13 @@ def _paged_layer_step(
     slots = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn_in = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _rope_rows((attn_in @ layer["wq"]).reshape(slots, h, hd), cos, sin)
-    k = _rope_rows((attn_in @ layer["wk"]).reshape(slots, kvh, hd), cos, sin)
-    v = (attn_in @ layer["wv"]).reshape(slots, kvh, hd)
+    q = _rope_rows(mm(attn_in, layer["wq"]).reshape(slots, h, hd), cos, sin)
+    k = _rope_rows(mm(attn_in, layer["wk"]).reshape(slots, kvh, hd), cos, sin)
+    v = mm(attn_in, layer["wv"]).reshape(slots, kvh, hd)
     _append_kv(k_pool, tables, positions, k)
     _append_kv(v_pool, tables, positions, v)
     attn = _paged_attention(q, k_pool, v_pool, tables, positions + 1)
-    x = x + attn.reshape(slots, 1, h * hd) @ layer["wo"]
+    x = x + mm(attn.reshape(slots, 1, h * hd), layer["wo"])
     mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     down, _aux = llama.ffn(cfg, layer, mlp_in)
     return x + down
@@ -482,13 +501,13 @@ def _paged_chunk_layer_step(
     b, t, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn_in = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _rope_chunk((attn_in @ layer["wq"]).reshape(b, t, h, hd), cos, sin)
-    k = _rope_chunk((attn_in @ layer["wk"]).reshape(b, t, kvh, hd), cos, sin)
-    v = (attn_in @ layer["wv"]).reshape(b, t, kvh, hd)
+    q = _rope_chunk(mm(attn_in, layer["wq"]).reshape(b, t, h, hd), cos, sin)
+    k = _rope_chunk(mm(attn_in, layer["wk"]).reshape(b, t, kvh, hd), cos, sin)
+    v = mm(attn_in, layer["wv"]).reshape(b, t, kvh, hd)
     _scatter_kv_chunk(k_pool, tables, positions, k, valid)
     _scatter_kv_chunk(v_pool, tables, positions, v, valid)
     attn = _paged_attention_chunk(q, k_pool, v_pool, tables, positions)
-    x = x + attn.reshape(b, t, h * hd) @ layer["wo"]
+    x = x + mm(attn.reshape(b, t, h * hd), layer["wo"])
     mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     down, _aux = llama.ffn(cfg, layer, mlp_in)
     return x + down

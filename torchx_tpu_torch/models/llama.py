@@ -14,8 +14,15 @@ computes cross-entropy in sequence chunks (``loss_chunk``), each recomputed
 in the backward, so only ``[batch, chunk, vocab]`` logits ever exist, stored
 in bf16 unless ``ce_f32_logits``.
 
-Not ported yet (ROADMAP, queue 1): int8 matmuls, ring attention, pipeline
-parallelism and every mesh; the config fields that would select them raise
+``int8_matmuls`` routes the layer projections through the int8 training
+dot (:func:`torchx_tpu_torch.ops.quant.maybe_matmul`; ``int8_scope``
+``"all"`` or ``"ffn"``), as the JAX package routes them through AQT. A
+layer weight may also be a quantized ``{"q", "scale"}`` record of weight-only
+serving (:func:`~torchx_tpu_torch.ops.quant.quantize_params`): the same
+call takes it.
+
+Not ported yet (ROADMAP, queue 1): ring attention, pipeline parallelism and
+every mesh; the config fields that would select them raise
 ``NotImplementedError``.
 """
 
@@ -31,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from torchx_tpu_torch.ops.attention import attention
 from torchx_tpu_torch.ops.fused import flash_attention, rms_norm_residual
 from torchx_tpu_torch.ops.norms import rms_norm
+from torchx_tpu_torch.ops.quant import maybe_matmul
 from torchx_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = dict[str, Any]
@@ -64,23 +72,29 @@ class LlamaConfig:
     use_ring_attention: bool = False
     # cross-entropy in sequence chunks of this size; 0 disables chunking
     loss_chunk: int = 512
+    # int8 training matmuls for the layer projections (ops/quant.py: AQT's
+    # numerics, forward and backward in int8, straight-through gradient);
+    # the master weights stay in the model dtype
     int8_matmuls: bool = False
+    # which projections int8_matmuls quantizes: "all" (attention + FFN) or
+    # "ffn" (gate/up/down only)
+    int8_scope: str = "all"
     ce_f32_logits: bool = False
     # "reference" keeps the plain ops; "cuda" routes attention and the
     # residual-add + RMSNorm through the hand-written kernels (ops/fused.py)
     kernels: str = "reference"
 
     def __post_init__(self) -> None:
+        if self.int8_scope not in ("all", "ffn"):
+            raise ValueError(
+                f"int8_scope must be 'all' or 'ffn', got {self.int8_scope!r}"
+            )
         if self.kernels not in KERNELS:
             raise ValueError(f"kernels must be one of {KERNELS}, got {self.kernels!r}")
         if self.remat_policy != "full":
             raise NotImplementedError(
                 f"remat_policy={self.remat_policy!r} is not ported yet"
                 " (ROADMAP queue 1: remat policies); use 'full'"
-            )
-        if self.int8_matmuls:
-            raise NotImplementedError(
-                "int8 matmuls are not ported yet (ROADMAP queue 1: MoE and int8)"
             )
         if self.use_ring_attention:
             raise NotImplementedError(
@@ -278,13 +292,29 @@ def ffn(cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor) -> tuple[torch.Te
     when the config carries experts. -> (down, aux). Shared by the
     training forward and the decode paths, so the two never diverge."""
     if getattr(cfg, "n_experts", 0):
+        if cfg.int8_matmuls:
+            import warnings
+
+            scope = cfg.int8_scope
+            warnings.warn(
+                "int8_matmuls does not cover the MoE expert einsums"
+                " (expert-stacked weights need a grouped AQT einsum); "
+                + (
+                    "only the attention projections quantize"
+                    if scope == "all"
+                    else "with int8_scope='ffn' NOTHING quantizes on a MoE"
+                    " config — the flag is a no-op here"
+                ),
+                stacklevel=2,
+            )
         from torchx_tpu_torch.models.moe import moe_ffn
 
         return moe_ffn(cfg, layer, mlp_in)
-    gate = F.silu(mlp_in @ layer["w_gate"])
-    up = mlp_in @ layer["w_up"]
+    i8 = cfg.int8_matmuls
+    gate = F.silu(maybe_matmul(mlp_in, layer["w_gate"], int8_training=i8))
+    up = maybe_matmul(mlp_in, layer["w_up"], int8_training=i8)
     return (
-        (gate * up) @ layer["w_down"],
+        maybe_matmul(gate * up, layer["w_down"], int8_training=i8),
         torch.zeros((AUX_LEN,), dtype=torch.float32, device=mlp_in.device),
     )
 
@@ -310,10 +340,11 @@ def _layer(
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
+    i8_attn = cfg.int8_matmuls and cfg.int8_scope == "all"
     attn_in = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = (attn_in @ layer["wq"]).reshape(b, s, h, hd)
-    k = (attn_in @ layer["wk"]).reshape(b, s, kvh, hd)
-    v = (attn_in @ layer["wv"]).reshape(b, s, kvh, hd)
+    q = maybe_matmul(attn_in, layer["wq"], int8_training=i8_attn).reshape(b, s, h, hd)
+    k = maybe_matmul(attn_in, layer["wk"], int8_training=i8_attn).reshape(b, s, kvh, hd)
+    v = maybe_matmul(attn_in, layer["wv"], int8_training=i8_attn).reshape(b, s, kvh, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn_out = None
@@ -322,7 +353,7 @@ def _layer(
         attn_out = flash_attention(q, k, v, causal=True, kernels=cfg.kernels)
     if attn_out is None:
         attn_out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
-    attn_out = attn_out.reshape(b, s, h * hd) @ layer["wo"]
+    attn_out = maybe_matmul(attn_out.reshape(b, s, h * hd), layer["wo"], int8_training=i8_attn)
     if cfg.kernels != "reference":
         # fused residual-add + RMSNorm: one pass yields the mlp input and
         # the continued stream (plain op sequence when the gate fails)
