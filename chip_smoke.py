@@ -29,13 +29,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (``bound_ms``; a mask's bound counts the pairs it keeps), at the main
    path's shapes and, for the wgmma flash and the norm kernels, at the
    moe phase's (head_dim 128, dim 4096). The int8-weight matmul of
-   weight-only serving (``csrc/int8_matmul.cu``) at llama3_8b's shapes
-   (wq/wo, wk/wv, w_gate/w_up, w_down, and the lm head with f32 output)
-   with 8 rows (decode) and 2048 (the burst's largest prefill chunk) in
-   bf16, and one f32 case (the CUDA-core kernel): within 1e-5 (f32
-   outputs) or one bf16 rounding (8e-3) of its plain version, two calls
-   bitwise equal; timed beside its plain version and ``torch.matmul`` on
-   the weight dequantized to bf16 and held resident.
+   weight-only serving (``csrc/int8_matmul.cu``) at llama3_8b's shapes:
+   wq/wo, wk/wv, w_gate/w_up and w_down with 8 rows (decode: the
+   mma.sync kernel, its k range split, one launch), 512 (a mid prefill
+   bucket) and 2048 (the burst's largest prefill chunk: the wgmma
+   kernel), the lm head with f32 output at 4 rows (a prefill's last rows)
+   and 8 (decode) and, off the serving path, 2048; bf16 activations, and
+   one f32 case (the CUDA-core kernel): within 1e-5 (f32 outputs) or one
+   bf16 rounding (8e-3) of its plain version, two calls bitwise equal;
+   timed beside its plain version and ``torch.matmul`` on the weight
+   dequantized to bf16 and held resident (for the head it writes bf16, the
+   kernel f32), with the host's time to issue a call, the device kernels
+   a call runs (torch.profiler) and the allocations a repeated call makes.
 3. train — ``train`` on llama3_1b at full width (16 layers, dim 2048,
    32/8 heads, vocab 128256, tied), bf16, ``kernels="cuda"``, batch 4,
    seq 2048, synthetic tokens; launch counts reset just before and read just
@@ -167,7 +172,14 @@ trace) by part: the experts, the dispatch and combine einsums, the router,
 AdamW, cross-entropy, RoPE, attention and the rest. ``--phases
 build,int8profile`` profiles one llama3_1b training step in bf16 and with
 int8 matmuls: device time by group, the int8 products apart, and the
-change from bf16 to int8.
+change from bf16 to int8. ``--phases build,int8sweep`` times the
+int8-weight matmul's bf16 paths (decode, and wgmma at 128- and 256-row
+tiles, each with its own k split) at llama3_8b's shapes from 8 to 512
+rows, each checked against the plain version, and prints where the wgmma
+kernel starts to win and where its 256-row tiles do: the sources of
+``ops.quant``'s launch-plan constants. ``--phases build,int8parts`` times
+the wgmma kernel's parts: the kernel rebuilt without its widening,
+without its products, and with neither (the TMA loads alone).
 
 Prints the kernels line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -190,7 +202,8 @@ import time
 PHASES = ("build", "kernels", "train", "reference", "serve", "ckpt", "moe", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
-EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile")
+EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
+                "int8parts")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth; its L2 cache.
@@ -635,23 +648,29 @@ def _norm_rows(norm, suffix, gen, errs):  # noqa: ANN001, ANN202
     ]
 
 
-#: The segment checks: (variant, dtype name, shape) x causal and full.
 #: The int8-weight matmul's shapes on llama3_8b's serving path: (K, N, the
 #: projections of that shape, f32 output). One layer's seven projections
 #: and the untied lm head, whose logits stay f32.
 INT8_SHAPES = [(4096, 4096, "wq_wo", False), (4096, 1024, "wk_wv", False),
                (4096, 14336, "w_gate_w_up", False), (14336, 4096, "w_down", False),
                (4096, 128256, "lm_head", True)]
-#: Rows a call: the serve burst's 8 busy slots (decode), and its largest
-#: prefill chunk: the 1500-token prompt alone at its bucket's width, 2048
-#: (four rows of one bucket never exceed it; the int8 run checks).
-INT8_M = (8, 2048)
+#: Rows a call: the serve burst's 8 busy slots (decode), a mid prefill
+#: bucket (512) and its largest prefill chunk: the 1500-token prompt alone
+#: at its bucket's width, 2048 (four rows of one bucket never exceed it;
+#: the int8 run checks). The head runs on a prefill's last rows (one per
+#: prompt, at most 4) and at decode on the busy slots; its 2048-row case
+#: is off the serving path.
+INT8_M = (8, 512, 2048)
+INT8_HEAD_M = (4, 8, 2048)
+INT8_OFF_PATH = {("lm_head", 2048)}
 #: The f32 case (the CUDA-core kernel): ragged N, K no multiple of the stage.
 INT8_F32_CASE = (17, 520, 1040)
 #: f32 outputs within 1e-5 of the largest value (the sums' order differs);
 #: bf16 outputs within one bf16 rounding of the f32 sum, elementwise.
 INT8_F32_TOL = 1e-5
 INT8_BF16_RTOL = 8e-3
+#: The int8 kernels' path names, by ``quant.Plan.path``.
+INT8_PATHS = {0: "simt", 1: "decode (mma.sync)", 2: "wgmma (TMA)"}
 
 
 def int8_row_name(k: int, n: int, m: int) -> str:
@@ -675,21 +694,58 @@ def _int8_check(y, want) -> tuple[float, float, bool]:  # noqa: ANN001
     return rel, float(diff.max()), ok
 
 
+def device_kernels(fn) -> list[str]:  # noqa: ANN001
+    """The names of the device kernels one call of ``fn`` runs (after a
+    warm-up call), by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+def allocations(fn) -> int:  # noqa: ANN001
+    """The caching allocator's allocations in one call of ``fn`` after a
+    warm-up call."""
+    import torch
+
+    fn()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+def _weight_pool(q, nbytes: int) -> list:  # noqa: ANN001
+    """``q`` and copies of it that together exceed the 50 MB L2 twice: a
+    timed call rotating over them reads its weight from device memory, as
+    a decode step does (one read per layer and step)."""
+    return [q] + [q.clone() for _ in range(math.ceil(2 * L2_BYTES / nbytes) - 1)]
+
+
 def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
     """The int8-weight matmul against its plain version on the same
-    tensors at llama3_8b's shapes (decode and the largest prefill chunk,
-    bf16) and one f32 case, two calls bitwise equal; then the timed rows:
-    the kernel, the plain version, and ``torch.matmul`` on the weight
-    dequantized to bf16 and held resident (cuBLAS doing what the bf16
-    model does: the yardstick, never called by the port)."""
+    tensors at llama3_8b's shapes (decode, a mid and the largest prefill
+    chunk, bf16; the head at the rows it runs on) and one f32 case, two
+    calls bitwise equal; then the timed rows: the kernel, the plain
+    version, and ``torch.matmul`` on the weight dequantized to bf16 and
+    held resident (cuBLAS doing what the bf16 model does: the yardstick,
+    never called by the port); the host's time per call, the device
+    kernels a call runs and the allocations of a repeated call."""
     import torch
 
     from torchx_tpu_torch.ops import quant
 
-    cases = [(m, k, n, f32) for k, n, _, f32 in INT8_SHAPES for m in INT8_M]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(m, k, n, f32, tag) for k, n, tag, f32 in INT8_SHAPES
+             for m in (INT8_HEAD_M if tag == "lm_head" else INT8_M)]
+    cases.append((*INT8_F32_CASE, True, "f32_case"))
     rows = []
-    for m, k, n, f32 in cases + [(INT8_F32_CASE[0], INT8_F32_CASE[1], INT8_F32_CASE[2], True)]:
-        simt = (m, k, n) == INT8_F32_CASE
+    for m, k, n, f32, tag in cases:
+        simt = tag == "f32_case"
         dtype = torch.float32 if simt else torch.bfloat16
         out = torch.float32 if f32 else None
         x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
@@ -702,9 +758,11 @@ def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
         repeat = torch.equal(y, quant.int8_matmul(x, q, scale, out_dtype=out))
         kernel = quant.kernel_name(dtype)
         name = kernel if simt else int8_row_name(k, n, m)
+        plan = quant.launch_plan(m, n, k, simt, sms, f32 and not simt)
         emit({"phase": "kernels", "check": name, "m": m, "k": k, "n": n,
               "dtype": str(dtype).removeprefix("torch."), "out": "float32" if f32 else
-              str(dtype).removeprefix("torch."), "rel_err": rel, "max_abs_err": err,
+              str(dtype).removeprefix("torch."), "path": INT8_PATHS[plan.path],
+              "rel_err": rel, "max_abs_err": err,
               "tol": INT8_F32_TOL if y.dtype == torch.float32 else INT8_BF16_RTOL,
               "within_tol": ok, "bitwise_repeat": repeat})
         if not ok:
@@ -712,19 +770,16 @@ def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
         if not repeat:
             fail("kernels", f"{name} ({m}, {k}, {n}): two calls differ")
         del y, want
-        # each call reads its weight from device memory, as a decode step
-        # does (one read per layer and step): the timed calls rotate over
-        # copies that together exceed the 50 MB L2 twice
-        qs = [q] + [q.clone() for _ in range(math.ceil(2 * L2_BYTES / q.numel()) - 1)]
-        # the yardstick's weight, dequantized to x's dtype and resident
-        libs = [quant.dequantize(q, scale, dtype)]
-        libs += [libs[0].clone()
-                 for _ in range(math.ceil(2 * L2_BYTES / (q.numel() * libs[0].element_size())) - 1)]
+        qs = _weight_pool(q, q.numel())
+        libs = _weight_pool(quant.dequantize(q, scale, dtype), q.numel() * x.element_size())
         turn = {"q": 0, "lib": 0}
 
         def rotate(key: str, pool: list):  # noqa: ANN202
             turn[key] = (turn[key] + 1) % len(pool)
             return pool[turn[key]]
+
+        def call():  # noqa: ANN202
+            return quant.int8_matmul(x, q, scale, out_dtype=out)
 
         x_bytes = 4 if simt else 2
         out_bytes = 4 if (f32 or simt) else 2
@@ -732,36 +787,43 @@ def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
         flops = 2 * m * k * n
         t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
         ms = time_ms(lambda: quant.int8_matmul(x, rotate("q", qs), scale, out_dtype=out))
-        splits, per = quant.split_k(m, n, k, 16 if (m <= 16 or simt) else 128,
-                                    torch.cuda.get_device_properties(0).multi_processor_count)
-        rows.append({
+        kernels = device_kernels(call)
+        row = {
             "name": name, "route": "cuda", "source": KERNEL_INFO[kernel][1],
             "replaces": KERNEL_INFO[kernel][2], "launches": None,
             "shape": {"m": m, "k": k, "n": n, "x": str(dtype).removeprefix("torch."),
                       "out": "float32" if (f32 or simt) else "bfloat16"},
-            "split_k": splits, "max_abs_err": err, "rel_err": rel,
-            "f32_rel_err": None, "f32_tol": None,
+            "path": INT8_PATHS[plan.path], "split_k": plan.splits,
+            "on_serving_path": (tag, m) not in INT8_OFF_PATH and not simt,
+            "max_abs_err": err, "rel_err": rel, "f32_rel_err": None, "f32_tol": None,
             "tol": INT8_F32_TOL if (f32 or simt) else INT8_BF16_RTOL,
             "ms": ms, "plain_ms": time_ms(lambda: quant._int8_matmul_plain(
-                x, rotate("q", qs), scale, out),
-                                          iters=3),
+                x, rotate("q", qs), scale, out), iters=3),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "library_ms": time_ms(lambda: torch.matmul(x, rotate("lib", libs))),
             "weight_copies": [len(qs), len(libs)],
             # the host's time to issue one call, which a decode step pays for
             # every projection (the card runs behind it)
-            "host_us": host_us(lambda: quant.int8_matmul(x, q, scale, out_dtype=out)),
+            "host_us": host_us(call),
             "library_host_us": host_us(lambda: torch.matmul(x, libs[0])),
+            "device_kernels_per_call": len(kernels), "device_kernel_names": sorted(set(kernels)),
+            "allocations_per_call": allocations(call),
             "library_call": "torch.matmul(x, w) on the weight dequantized to x's dtype,"
-                            " resident (cuBLAS)",
+                            " resident (cuBLAS)"
+                            + ("; it writes bf16, the kernel f32" if f32 and not simt else ""),
             "flops": flops, "bytes": nbytes, "roofline_share": 1e3 * max(t_bytes, t_ops) / ms,
-        })
+        }
+        rows.append(row)
+        if len(kernels) != 1 or row["allocations_per_call"] != 1:
+            fail("kernels", f"{name}: {kernels} device kernels and"
+                            f" {row['allocations_per_call']} allocations a call (want 1 and 1)")
         del x, q, scale, qs, libs
     torch.cuda.synchronize()
     return rows
 
 
+#: The segment checks: (variant, dtype name, shape) x causal and full.
 SEG_CASES = [("wgmma", "bfloat16", "llama3_1b"), ("wgmma", "bfloat16", "mixtral_8x7b"),
              ("simt", "float32", "llama3_1b"), ("simt", "float32", "mixtral_8x7b")]
 
@@ -1301,6 +1363,8 @@ def phase_serve(config: str = "llama3_1b", phase: str = "serve", f32_cfg=None,  
         return plain_int8(x, *args, **kw)
 
     quant._int8_matmul_plain = guarded_plain
+    # threads an earlier run left alive share the host with this one
+    threads_at_start = sorted(t.name for t in threading.enumerate())
     allocated0 = torch.cuda.memory_allocated()
     t_setup = time.monotonic()
     server = generate_server.serve(
@@ -1445,6 +1509,7 @@ def phase_serve(config: str = "llama3_1b", phase: str = "serve", f32_cfg=None,  
         "phase": phase, "run": "serve", "config": config, "n_layers": cfg.n_layers,
         "dim": cfg.dim, "params": cfg.param_count(),
         "dtype": "bfloat16", "int8": bool(int8), "engine": "continuous", "setup_s": setup_s,
+        "threads_at_start": threads_at_start,
         "param_bytes": quant.size_bytes(params), "setup_allocated_bytes": setup_allocated,
         "setup_peak_bytes": setup_peak,
         "requests": len(replies), "new_tokens": n_new,
@@ -2193,7 +2258,7 @@ def phase_notice() -> None:
 
 #: Kernel-name fragments -> the group a step's device time is booked to.
 PROFILE_GROUPS = (
-    ("int8_matmul", ("int8_mma_kernel", "int8_simt_kernel", "splitk_sum_kernel")),
+    ("int8_matmul", ("int8_decode_kernel", "int8_wgmma_kernel", "int8_simt_kernel")),
     ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
     ("flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_kernel")),
     ("flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_kernel")),
@@ -3108,9 +3173,9 @@ def ptxas_summary(log: str) -> dict[str, str]:
             seg = ",seg" if m.group(4) else ""
             name = f"{m.group(1)}<{dtype},{m.group(3)}{seg}>"
             out[name] = ""
-        elif m := re.search(r"Compiling entry function .*?\d((?:int8_mma|int8_simt|splitk_sum)"
+        elif m := re.search(r"Compiling entry function .*?\d((?:int8_decode|int8_wgmma|int8_simt)"
                             r"_kernel)(I\w*?E)?E", line):
-            # int8_mma_kernel<block rows, stages, f32 output>, splitk_sum_kernel<f32 output>
+            # int8_decode_kernel<f32 output>, int8_wgmma_kernel<warpgroups, f32 output>
             name = f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) or ''))}>"
             out[name] = ""
         elif name and ("spill" in line or "Used" in line):
@@ -3125,6 +3190,171 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+#: The wgmma kernel's parts, each a build of ``csrc/int8_matmul.cu`` with
+#: ``TPX_INT8_ABLATE`` set: the whole kernel, without the widening, without
+#: the products, and the TMA loads with their barriers alone.
+INT8_PARTS = {"whole": 0, "no_widening": 1, "no_products": 2, "loads_only": 3}
+
+
+def phase_int8_parts() -> None:
+    """Where the int8 wgmma kernel's time goes: at llama3_8b's four layer
+    shapes with 2048 and 512 rows, the kernel built as it ships and with
+    its widening, its products or both left out (``INT8_PARTS``), each on
+    the shipped launch plan, beside ``torch.matmul`` on the weight
+    dequantized to bf16. Only the whole kernel's output is checked."""
+    import ctypes
+
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.ops import quant
+
+    src = _build.CSRC_DIR / "int8_matmul.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sos = {name: _build.BUILD_DIR / f"int8_parts_{v}.{os.getpid()}.so"
+           for name, v in INT8_PARTS.items()}
+    _build._run([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-DTPX_INT8_ABLATE={v}",
+                  "-I", str(_build.CSRC_DIR), "-o", str(sos[name]), str(src)]
+                 for name, v in INT8_PARTS.items()])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name, so in sos.items():
+        fn = ctypes.CDLL(str(so)).tpx_int8_matmul
+        fn.argtypes, fn.restype = [p] * 6 + [i] * 8 + [p], i
+        fns[name] = fn
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch = quant._Scratch()
+    for k, n, tag, f32 in INT8_SHAPES:
+        if f32:
+            continue  # the head's prefill is off the serving path
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        q, scale = quant.quantize(w)
+        lib_w = quant.dequantize(q, scale, torch.bfloat16)
+        del w
+        for m in (2048, 512):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+            plan = quant.launch_plan(m, n, k, False, sms)
+            if plan.path != quant.PATH_WGMMA:
+                continue
+            work, counters = scratch.fit(plan, torch.device("cuda"))
+            times = {}
+            for name, fn in fns.items():
+                def call(fn=fn):  # noqa: ANN001, ANN202
+                    rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                            work.data_ptr(), counters.data_ptr(), m, n, k, plan.path,
+                            plan.block_m, 0, plan.splits, plan.per, stream)
+                    if rc:
+                        fail("int8parts", f"{name}: launch failed ({rc})")
+
+                call()
+                if name == "whole":
+                    rel, _, ok = _int8_check(y, quant._int8_matmul_plain(x, q, scale))
+                    if not ok:
+                        fail("int8parts", f"{tag} m={m}: error {rel} beyond tolerance")
+                times[name] = time_ms(call, iters=20)
+            emit({"phase": "int8parts", "proj": tag, "m": m, "k": k, "n": n,
+                  "block_m": plan.block_m, "splits": plan.splits,
+                  **times, "library_ms": time_ms(lambda: torch.matmul(x, lib_w), iters=20),
+                  "bound_ms": 1e3 * 2 * m * k * n / PEAK_BF16_FLOPS,
+                  "l2_to_smem_bytes": (m * k * 2 * math.ceil(n / quant.BLOCK_N)
+                                       + k * n * math.ceil(m / plan.block_m))})
+        del q, scale, lib_w
+    for so in sos.values():
+        so.unlink()
+
+
+#: Rows the int8 sweep times the bf16 paths at: a decode step's slots to a
+#: few prefill buckets of one or more rows.
+INT8_SWEEP_M = (8, 16, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+#: The configurations the sweep compares, as settings of ``ops.quant``'s
+#: launch plan: the decode kernel, the wgmma kernel's 128-row tiles, its
+#: 256-row tiles.
+INT8_PLAN_KNOBS = ("DECODE_MAX_M", "DECODE_MIN_STEPS", "WGMMA_TALL_M", "TALL_MIN_STEPS")
+INT8_SWEEP_CONFIGS = {
+    "decode": {"DECODE_MAX_M": 1 << 30},
+    "wgmma128": {"DECODE_MAX_M": 0, "DECODE_MIN_STEPS": 0, "WGMMA_TALL_M": 1 << 30},
+    "wgmma256": {"DECODE_MAX_M": 0, "DECODE_MIN_STEPS": 0, "WGMMA_TALL_M": 0,
+                 "TALL_MIN_STEPS": 0},
+}
+
+
+def phase_int8_sweep() -> None:
+    """The int8-weight matmul's decode (mma.sync) path and its wgmma path
+    at 128- and 256-row tiles, each with its own launch plan, at llama3_8b's
+    shapes and ``INT8_SWEEP_M`` rows: checked against the plain version,
+    timed with weights read from device memory. Prints a line per shape and
+    rows, with the configuration the launch plan picks there and whether it
+    was the fastest; then the rows up to which the decode path is at least
+    as fast on every shape (the sources of ``ops.quant``'s
+    ``INT8_PLAN_KNOBS``)."""
+    import torch
+
+    from torchx_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = {knob: getattr(quant, knob) for knob in INT8_PLAN_KNOBS}
+    decode_wins: dict[int, bool] = {}
+    picked_fastest: list[bool] = []
+    try:
+        for k, n, tag, f32 in INT8_SHAPES:
+            out = torch.float32 if f32 else None
+            w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+            q, scale = quant.quantize(w)
+            del w
+            qs = _weight_pool(q, q.numel())
+            for m in INT8_SWEEP_M:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                want = quant._int8_matmul_plain(x, q, scale, out)
+                times = {}
+                for path, knobs in INT8_SWEEP_CONFIGS.items():
+                    if f32 and path == "wgmma256":
+                        continue  # f32 outputs take 128-row tiles only
+                    for knob, value in {**chosen, **knobs}.items():
+                        setattr(quant, knob, value)
+                    quant._PLANS.clear()
+                    rel, _, ok = _int8_check(quant.int8_matmul(x, q, scale, out_dtype=out), want)
+                    if not ok:
+                        fail("int8sweep", f"{tag} m={m} {path}: error {rel} beyond tolerance")
+                    turn = [0]
+
+                    def call():  # noqa: ANN202
+                        turn[0] = (turn[0] + 1) % len(qs)
+                        return quant.int8_matmul(x, qs[turn[0]], scale, out_dtype=out)
+
+                    times[path] = time_ms(call, iters=20)
+                    plan = quant.launch_plan(m, n, k, False, sms, f32)
+                    times[f"{path}_splits"] = plan.splits
+                    times[f"{path}_per"] = plan.per
+                best_wgmma = min(times["wgmma128"], times.get("wgmma256", math.inf))
+                decode_wins[m] = decode_wins.get(m, True) and times["decode"] <= best_wgmma
+                for knob, value in chosen.items():
+                    setattr(quant, knob, value)
+                plan = quant.launch_plan(m, n, k, False, sms, f32)
+                times["chosen"] = ("decode" if plan.path == quant.PATH_DECODE
+                                   else f"wgmma{plan.block_m}")
+                times["chosen_is_fastest"] = times[times["chosen"]] <= min(
+                    times[c] for c in INT8_SWEEP_CONFIGS if c in times)
+                picked_fastest.append(times["chosen_is_fastest"])
+                emit({"phase": "int8sweep", "proj": tag, "m": m, "k": k, "n": n, **times,
+                      "bound_ms": 1e3 * max((2 * m * k + k * n + (4 if f32 else 2) * m * n)
+                                            / PEAK_BYTES, 2 * m * k * n / PEAK_BF16_FLOPS)})
+            del q, scale, qs
+    finally:
+        for knob, value in chosen.items():
+            setattr(quant, knob, value)
+        quant._PLANS.clear()
+    below = [m for m in INT8_SWEEP_M if all(decode_wins[r] for r in INT8_SWEEP_M if r <= m)]
+    emit({"phase": "int8sweep", "decode_at_least_as_fast_up_to": max(below, default=None),
+          "decode_wins_by_m": decode_wins, "plan_picked_the_fastest":
+          f"{sum(picked_fastest)} of {len(picked_fastest)}", **chosen})
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3216,6 +3446,10 @@ def main(argv: list[str] | None = None) -> int:
         phase_moe_profile()
     if "int8profile" in phases:
         phase_int8_profile()
+    if "int8sweep" in phases:
+        phase_int8_sweep()
+    if "int8parts" in phases:
+        phase_int8_parts()
 
     if kernel_rows:
         print(json.dumps({"kernels": kernel_rows}), flush=True)

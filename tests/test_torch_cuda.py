@@ -548,16 +548,30 @@ def _int8_inputs(gen, m, k, n, dtype):
     return x, q, scale
 
 
-@pytest.mark.parametrize("m", [1, 8, 17, 2048])
-@pytest.mark.parametrize("k,n", [(4096, 1040), (14336, 4112), (520, 16)])
-@pytest.mark.parametrize("dtype,out", [(torch.bfloat16, None), (torch.bfloat16, torch.float32),
-                                       (torch.float32, None)])
+#: (M, K, N) of the bf16 cases: M from a decode step (1-16) to a prefill
+#: chunk (2048), across the two paths' threshold; K of llama3_8b and one no
+#: multiple of the 64-row stage; the lm head's N at decode rows; and ragged
+#: N (no multiple of the 128-column tile).
+INT8_BF16_CASES = (
+    [(m, k, n) for m in (1, 8, 16, 17, 64, 100, 128, 512, 2048)
+     for k in (4096, 14336, 1040) for n in (1024, 4096)]
+    + [(m, k, 128256) for m in (1, 8) for k in (4096, 14336, 1040)]
+    + [(m, k, n) for m in (1, 8, 17, 2048) for k, n in ((4096, 1040), (14336, 4112), (520, 16))]
+)
+#: f32 activations (the CUDA-core kernel): the ragged cases.
+INT8_F32_CASES = [(m, k, n) for m in (1, 8, 17, 2048)
+                  for k, n in ((4096, 1040), (14336, 4112), (520, 16))]
+
+
+@pytest.mark.parametrize(
+    "m,k,n,dtype,out",
+    [(*c, torch.bfloat16, out) for c in INT8_BF16_CASES for out in (None, torch.float32)]
+    + [(*c, torch.float32, None) for c in INT8_F32_CASES],
+)
 def test_int8_matmul_matches_plain(gen, m, k, n, dtype, out):
-    """Ragged shapes (N not a multiple of the 128-column tile, K = 14336 and
-    a K that is no multiple of the 64-row stage, M of 1 to 2048) against
-    the plain version on the same tensors: f32 outputs within 1e-5 of the
-    largest value, bf16 ones within one bf16 rounding (8e-3 relative); two
-    calls bitwise equal; one launch a call."""
+    """Against the plain version on the same tensors: f32 outputs within
+    1e-5 of the largest value, bf16 ones within one bf16 rounding (8e-3
+    relative); two calls bitwise equal; one launch a call."""
     from torchx_tpu_torch.ops import quant
 
     x, q, scale = _int8_inputs(gen, m, k, n, dtype)
@@ -573,6 +587,60 @@ def test_int8_matmul_matches_plain(gen, m, k, n, dtype, out):
         big = float(want.float().abs().max())
         torch.testing.assert_close(y.float(), want.float(), rtol=8e-3, atol=1e-5 * big)
     assert torch.equal(y, quant.int8_matmul(x, q, scale, out_dtype=out))
+
+
+def test_int8_matmul_interleaved_shapes_share_the_counters(gen):
+    """Split calls of different shapes in turns on one stream (decode
+    splits of three widths, split wgmma calls of both tile heights): each
+    call finds its tile counters at 0, so each result equals its shape's
+    first, bitwise."""
+    from torchx_tpu_torch.ops import quant
+
+    shapes = [(8, 4096, 4096), (8, 4096, 1024), (512, 4096, 1024), (512, 4096, 4096),
+              (3, 1040, 4096)]
+    plans = [quant.launch_plan(m, n, k, False, 132) for m, k, n in shapes]
+    assert all(p.splits > 1 for p in plans)
+    assert {p.path for p in plans} == {quant.PATH_DECODE, quant.PATH_WGMMA}
+    cases = [_int8_inputs(gen, m, k, n, torch.bfloat16) for m, k, n in shapes]
+    first = [quant.int8_matmul(*c) for c in cases]
+    for c, y in zip(cases, first):
+        big = float(quant._int8_matmul_plain(*c).float().abs().max())
+        torch.testing.assert_close(y.float(), quant._int8_matmul_plain(*c).float(), rtol=8e-3,
+                                   atol=1e-5 * big)
+    for _ in range(3):
+        for c, y in zip(cases, first):
+            assert torch.equal(quant.int8_matmul(*c), y)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m", [8, 2048])
+def test_int8_matmul_allocates_only_the_output(gen, m):
+    """After a shape's first call on a stream, a call allocates its output
+    and nothing else (the split-k scratch is held)."""
+    from torchx_tpu_torch.ops import quant
+
+    x, q, scale = _int8_inputs(gen, m, 4096, 1024, torch.bfloat16)
+    quant.int8_matmul(x, q, scale)
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    quant.int8_matmul(x, q, scale)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
+
+
+@pytest.mark.parametrize("m", [8, 2048])
+def test_int8_matmul_runs_one_device_kernel(gen, m):
+    """A call is one kernel on the card: no separate split-k pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchx_tpu_torch.ops import quant
+
+    x, q, scale = _int8_inputs(gen, m, 4096, 4096, torch.bfloat16)
+    quant.int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        quant.int8_matmul(x, q, scale)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert len(kernels) == 1 and "int8" in kernels[0], kernels
 
 
 def test_int8_matmul_takes_leading_axes(gen):

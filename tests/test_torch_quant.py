@@ -213,12 +213,118 @@ def test_maybe_matmul_both_forms():
                                            (8, 128256, 4096, 16), (8, 4096, 14336, 16),
                                            (2048, 4096, 4096, 128), (17, 1040, 14336, 128)])
 def test_split_k_covers_the_k_range(m, n, k, block_m):
-    splits, per = tquant.split_k(m, n, k, block_m, sms=132)
+    slots = 2 * 132 if block_m == 16 else 132  # the blocks an H100 holds at once
+    splits, per = tquant.split_k(m, n, k, block_m, slots=slots)
     steps = -(-k // tquant.BLOCK_K)
     assert (splits - 1) * per < steps <= splits * per  # no split is empty
     tiles = -(-m // block_m) * -(-n // tquant.BLOCK_N)
-    assert splits == 1 if tiles >= 132 else splits >= 1
+    assert splits == 1 if tiles >= slots else splits >= 1
+    assert tiles * splits <= max(tiles, slots)  # one wave where it splits
     assert per >= min(4, steps) or splits == 1
+
+
+# -- the int8-weight matmul: the launch plan at llama3_8b's shapes ------------
+
+#: llama3_8b's five (K, N): wq/wo, wk/wv, w_gate/w_up, w_down, the lm head.
+LLAMA3_8B_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+#: The rows the engine sends: decode, the busy slots (1-16); prefill, r
+#: rows of one bucket (r <= 4) at a power-of-two width of at least 16.
+DECODE_M = list(range(1, 17))
+PREFILL_M = sorted({r * w for r in range(1, 5) for w in (16 << i for i in range(8))
+                    if r * w <= 2048})
+
+
+def _k_ranges(plan, k):
+    """The [begin, end) k range of each split, as the kernels compute it."""
+    step = plan.per * tquant.BLOCK_K
+    return [(z * step, min(k, (z + 1) * step)) for z in range(plan.splits)]
+
+
+@pytest.mark.parametrize("k,n", LLAMA3_8B_KN)
+@pytest.mark.parametrize("m", sorted(set(DECODE_M + PREFILL_M)))
+def test_launch_plan(m, k, n):
+    """Which path the call takes, its tiles, splits that cover the k range
+    exactly once, and scratch that the wrapper's holder provides (the head,
+    N 128256, with f32 output, as the model calls it)."""
+    out_f32 = n == 128256
+    plan = tquant.launch_plan(m, n, k, x_f32=False, sms=132, out_f32=out_f32)
+    if m <= tquant.WGMMA_TALL_M or out_f32:
+        wide_m = 128
+    else:  # 256-row tiles where their splits stay long
+        tall = tquant.split_k(m, n, k, 256, 132)[1] >= tquant.TALL_MIN_STEPS
+        wide_m = 256 if tall else 128
+    short = tquant.split_k(m, n, k, wide_m, 132)[1] < tquant.DECODE_MIN_STEPS
+    want = tquant.PATH_DECODE if m <= tquant.DECODE_MAX_M or short else tquant.PATH_WGMMA
+    assert plan.path == want
+    assert plan.block_m == (16 if want == tquant.PATH_DECODE else wide_m)
+    assert plan.tiles == -(-m // plan.block_m) * -(-n // tquant.BLOCK_N)
+    ranges = _k_ranges(plan, k)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a < b for a, b in ranges)  # none empty
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(len(ranges) - 1))
+    slots = 132 * (2 if want == tquant.PATH_DECODE else 1)
+    assert plan.tiles * plan.splits <= max(plan.tiles, slots)
+    if plan.splits > 1:
+        assert (plan.work, plan.counters) == (plan.splits * m * n, plan.tiles)
+    else:
+        assert (plan.work, plan.counters) == (0, 0)
+    work, counters = tquant._Scratch().fit(plan, torch.device("cpu"))
+    assert work.numel() >= plan.work and work.dtype == torch.float32
+    assert counters.numel() >= plan.counters and counters.dtype == torch.int32
+    assert not counters.any()
+
+
+def test_decode_plans_split_and_prefill_fills_the_card():
+    """At 8 busy slots every projection but the head splits its k range;
+    a full-width prefill chunk splits only where its tiles would leave
+    SMs idle."""
+    for k, n in LLAMA3_8B_KN:
+        decode = tquant.launch_plan(8, n, k, x_f32=False, sms=132)
+        assert (decode.splits > 1) == (n != 128256), (k, n, decode)
+        # 256-row tiles: wk / wv's 64 tiles split in two to fill the card
+        prefill = tquant.launch_plan(2048, n, k, x_f32=False, sms=132)
+        assert (prefill.block_m, prefill.splits) == (256, 2 if n == 1024 else 1)
+    assert tquant.launch_plan(8, 64, 64, x_f32=True, sms=132).path == tquant.PATH_SIMT
+
+
+@pytest.mark.parametrize("m,k,n,block_m", [
+    (512, 4096, 4096, 256), (512, 4096, 1024, 128), (256, 4096, 4096, 128),
+    (256, 14336, 4096, 256), (192, 4096, 14336, 256), (128, 4096, 14336, 128),
+    (2048, 4096, 128256, 128), (16, 4096, 4096, 16), (32, 4096, 4096, 128),
+    (64, 4096, 1024, 16), (128, 4096, 1024, 16), (192, 4096, 1024, 128)])
+def test_int8_paths_follow_the_sweep(m, k, n, block_m):
+    """The kernel (16-row blocks: decode) and tile heights chip_smoke.py's
+    int8 sweep (``--phases build,int8sweep``) found fastest on the card at
+    these llama3_8b shapes."""
+    plan = tquant.launch_plan(m, n, k, x_f32=False, sms=132, out_f32=n == 128256)
+    assert plan.block_m == block_m
+    assert (plan.path == tquant.PATH_DECODE) == (block_m == 16)
+
+
+def test_scratch_holds_the_largest_need_and_never_shrinks():
+    """One holder across every plan of the engine's shapes: it grows to the
+    largest need, then serves every call with the same tensors."""
+    scratch = tquant._Scratch()
+    plans = [tquant.launch_plan(m, n, k, False, 132, out_f32=n == 128256)
+             for k, n in LLAMA3_8B_KN for m in DECODE_M + PREFILL_M]
+    for plan in plans:
+        work, counters = scratch.fit(plan, torch.device("cpu"))
+        assert work.numel() >= plan.work and counters.numel() >= plan.counters
+    held = (scratch.work, scratch.counters)
+    assert held[0].numel() == max(p.work for p in plans)
+    assert held[1].numel() == max(p.counters for p in plans)
+    for plan in plans:
+        assert all(a is b for a, b in zip(scratch.fit(plan, torch.device("cpu")), held))
+
+
+def test_int8_matmul_on_cpu_makes_no_plan_and_no_scratch():
+    """A CPU call takes the plain version: no plan, no scratch."""
+    tquant._PLANS.clear()
+    x = torch.ones((3, 64))
+    q = torch.ones((64, 16), dtype=torch.int8)
+    y = tquant.int8_matmul(x, q, torch.ones((1, 16)))
+    assert torch.equal(y, torch.full((3, 16), 64.0))
+    assert not tquant._PLANS and not tquant._SCRATCH
 
 
 # -- the int8 training dot ----------------------------------------------------

@@ -45,8 +45,9 @@ NVCC_FLAGS = [
 #: segment ids counts under the name with ``_seg`` (the wgmma kernels are
 #: separate instances then; the simt ones take the ids at run time). The
 #: int8-weight matmul of weight-only serving (``csrc/int8_matmul.cu``)
-#: counts as ``int8_matmul`` for bf16 activations (tensor cores) and as
-#: ``int8_matmul_simt`` for f32 ones (CUDA cores).
+#: counts as ``int8_matmul`` for bf16 activations (tensor cores: the wgmma
+#: kernel at prefill, the mma.sync one at decode) and as
+#: ``int8_matmul_simt`` for f32 ones (CUDA cores), one count a call.
 KERNELS = (
     "flash_fwd_wgmma", "flash_fwd_simt", "flash_dq_wgmma", "flash_dq_simt",
     "flash_dkv_wgmma", "flash_dkv_simt", "norm_res_fwd", "rms_norm_bwd",
@@ -115,9 +116,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_tensors + ints + [p]
         fn.restype = i
-    # x, q, scale, y, the split-k workspace (or null); M, N, K, x's dtype,
-    # f32 output, block rows, splits, k steps per split; the stream
-    lib.tpx_int8_matmul.argtypes = [p] * 5 + [i] * 8 + [p]
+    # x, q, scale, y, the split-k workspace and tile counters (or null);
+    # M, N, K, the path, block rows, f32 output, splits, k steps per split;
+    # the stream
+    lib.tpx_int8_matmul.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.tpx_int8_matmul.restype = i
     lib.tpx_cuda_error_string.argtypes = [i]
     lib.tpx_cuda_error_string.restype = ctypes.c_char_p

@@ -1,17 +1,21 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_wgmma.cu, flash_dq_wgmma.cu, flash_dkv_wgmma.cu), in raw PTX:
+// Hopper (sm_90a) building blocks of the tensor-core kernels (the flash
+// kernels flash_fwd_wgmma.cu, flash_dq_wgmma.cu, flash_dkv_wgmma.cu, and the
+// prefill path of int8_matmul.cu), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
-//     and a parity wait;
-//   * TMA: a 3-D tiled load of a tensor map, and a plain bulk copy, both
-//     completing on an mbarrier;
+//     and a parity wait; a named barrier over part of a block;
+//   * TMA: 2-D and 3-D tiled loads of a tensor map, and a plain bulk copy,
+//     all completing on an mbarrier; the proxy fence that makes threads'
+//     shared-memory writes visible to wgmma;
 //   * wgmma: the shared-memory matrix descriptor for the 128-byte swizzle
 //     that TMA writes, fence / commit / wait, and the m64nNk16 bf16 products
-//     the kernels issue (A and B from shared memory, or A from registers);
+//     the kernels issue (A and B from shared memory, K-major or B MN-major,
+//     or A from registers);
 //   * the register math around them: the bf16 hi + lo split and exp2;
-//   * the host side: a 128-byte-swizzled tensor map over a [rows, heads, d]
-//     bf16 tensor, encoded through the CUDA driver's entry point, which the
-//     runtime hands out, so the library links nothing but the CUDA runtime.
+//   * the host side: 128-byte-swizzled tensor maps over a [rows, heads, d]
+//     bf16 tensor, and 2-D maps over a row-major matrix, encoded through
+//     the CUDA driver's entry point, which the runtime hands out, so the
+//     library links nothing but the CUDA runtime.
 //
 // Tile layout shared by every kernel: a tile of R rows by d bf16 columns is
 // stored as d / 64 column blocks of [R][64], each block R * 128 bytes and
@@ -85,9 +89,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// Synchronise the `count` threads (a multiple of 32) that take part in
+// barrier `id` (1-15; 0 is __syncthreads').
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
+
+// Load the box at coordinates (c0, c1) of a 2-D tensor map into dst.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 
 // Load the box at coordinates (c0, c1, c2) of a 3-D tensor map into dst.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -107,6 +127,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Order this thread's earlier shared-memory writes (the generic proxy)
+// before later reads by wgmma or TMA (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -220,6 +246,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A in shared memory K-major, B
+// in shared memory MN-major (the transpose bit of B).
+__device__ __forceinline__ void wgmma_ss_bt(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (wgmma fragment),
 // B in shared memory, MN-major (the transpose bit).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -302,6 +354,25 @@ inline cudaError_t make_row_map(CUtensorMap* map, const void* base, int d, int h
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over a row-major matrix [rows, cols] of `elem_bytes`-byte
+// elements (bf16 or int8; the row pitch a multiple of 16 bytes) whose box
+// is box_rows x box_cols, with the given swizzle; elements outside the
+// matrix read as zero. Coordinates are (column, row). -> a CUDA error code.
+inline cudaError_t make_2d_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                               int elem_bytes, int64_t rows, int64_t cols, int box_rows,
+                               int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -38,7 +38,7 @@ Nothing here needs a GPU at import time.
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -159,10 +159,32 @@ def size_bytes(params: Params) -> int:
 # int8-weight matmul: the kernel's wrapper and its plain version
 # ---------------------------------------------------------------------------
 
-#: The kernel's tile: output columns per block and k rows per stage
+#: The kernels' tile: output columns per block and k rows per stage
 #: (``csrc/int8_matmul.cu``).
 BLOCK_N, BLOCK_K = 128, 64
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernel paths, by the C launcher's code: f32 activations on the CUDA
+#: cores; bf16 at decode (mma.sync, 16-row blocks, bound by the weight
+#: bytes); bf16 at prefill (wgmma fed by TMA, 128- or 256-row blocks,
+#: bound by operations).
+PATH_SIMT, PATH_DECODE, PATH_WGMMA = 0, 1, 2
+#: The blocks of each path that one SM holds at once (the decode ring takes
+#: 45 KB of shared memory, the wgmma one 145-209 KB).
+_BLOCKS_PER_SM = {PATH_SIMT: 2, PATH_DECODE: 2, PATH_WGMMA: 1}
+#: The wgmma kernel's 256-row tiles (four warpgroups share each widened
+#: weight tile) serve bf16-output calls of more rows than this whose
+#: 256-row plan keeps at least ``TALL_MIN_STEPS`` k steps per split: a
+#: split's last block adds every split's partial tile alone, which only a
+#: long split amortizes. Smaller calls, short splits and f32 outputs take
+#: 128-row tiles (chip_smoke.py ``--phases build,int8sweep``, PERF.md).
+WGMMA_TALL_M = 128
+TALL_MIN_STEPS = 32
+#: bf16 calls with at most this many rows take the decode kernel, and so
+#: do larger ones whose wgmma plan would split k into runs of fewer than
+#: ``DECODE_MIN_STEPS`` steps (a few column tiles, as wk / wv's 8): where
+#: the two kernels cross on llama3_8b's shapes (chip_smoke.py ``--phases
+#: build,int8sweep``, PERF.md).
+DECODE_MAX_M = 16
+DECODE_MIN_STEPS = 8
 
 
 def _int8_matmul_plain(
@@ -176,27 +198,63 @@ def _int8_matmul_plain(
 
 def kernel_name(x_dtype: torch.dtype) -> str:
     """The launch-count name of the kernel a CUDA ``x`` of this dtype
-    takes: tensor cores for bf16, CUDA cores for f32."""
+    takes: tensor cores for bf16 (either path), CUDA cores for f32."""
     return "int8_matmul" if x_dtype == torch.bfloat16 else "int8_matmul_simt"
 
 
-def split_k(m: int, n: int, k: int, block_m: int, sms: int) -> tuple[int, int]:
+def split_k(m: int, n: int, k: int, block_m: int, slots: int) -> tuple[int, int]:
     """-> (splits, k steps per split) of the kernel's k loop. Where the
-    output tiles alone would leave SMs idle (decode: a handful of rows),
-    the k range is split so that about two blocks run per SM, each over at
-    least 4 steps of ``BLOCK_K``; the partial sums go to a workspace that a
-    second pass adds in a fixed order, so the result is deterministic."""
+    output tiles alone fill fewer than ``slots`` blocks (the blocks the card
+    holds at once), the k range is split so that the blocks come close to
+    ``slots``, each over at least 4 steps of ``BLOCK_K``; every split is
+    non-empty. The kernel's last block of a tile adds the partial sums in
+    split order, so the result is deterministic."""
     steps = math.ceil(k / BLOCK_K)
     tiles = math.ceil(m / block_m) * math.ceil(n / BLOCK_N)
     splits = 1
-    if tiles < sms:
-        splits = max(1, min(steps // 4, math.ceil(2 * sms / tiles)))
+    if tiles < slots:
+        splits = max(1, min(steps // 4, slots // tiles))
     per = math.ceil(steps / splits)
     return math.ceil(steps / per), per
 
 
-def _check_int8_matmul(x, q, scale, out_dtype):  # noqa: ANN001, ANN202
-    if x.dtype not in _DTYPE_CODE:
+class Plan(NamedTuple):
+    """One call's launch: the path, its block rows, the k split, the output
+    tiles, and the scratch a split needs (f32 workspace elements, one int32
+    counter per tile; none without a split)."""
+
+    path: int
+    block_m: int
+    splits: int
+    per: int
+    tiles: int
+    work: int
+    counters: int
+
+
+def launch_plan(m: int, n: int, k: int, x_f32: bool, sms: int, out_f32: bool = False) -> Plan:
+    """The launch of an ``[m, k] x [k, n]`` call on a card with ``sms`` SMs
+    (``out_f32``: f32 output from bf16 activations)."""
+    path, block_m = PATH_SIMT if x_f32 else PATH_DECODE, 16
+    if not x_f32 and m > DECODE_MAX_M:
+        slots = sms * _BLOCKS_PER_SM[PATH_WGMMA]
+        tall = m > WGMMA_TALL_M and not out_f32
+        wide_m = 256 if tall and split_k(m, n, k, 256, slots)[1] >= TALL_MIN_STEPS else 128
+        if split_k(m, n, k, wide_m, slots)[1] >= DECODE_MIN_STEPS:
+            path, block_m = PATH_WGMMA, wide_m
+    splits, per = split_k(m, n, k, block_m, sms * _BLOCKS_PER_SM[path])
+    tiles = math.ceil(m / block_m) * math.ceil(n / BLOCK_N)
+    split = splits > 1
+    return Plan(path, block_m, splits, per, tiles, splits * m * n if split else 0,
+                tiles if split else 0)
+
+
+_X_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _explain_bad_inputs(x, q, scale, out_dtype):  # noqa: ANN001, ANN202
+    """Raise the ValueError that names what the kernel does not take."""
+    if x.dtype not in _X_DTYPES:
         raise ValueError(f"int8_matmul: x must be bf16 or f32, got {x.dtype}")
     if q.dtype != torch.int8 or q.ndim != 2:
         raise ValueError(
@@ -223,44 +281,93 @@ def _check_int8_matmul(x, q, scale, out_dtype):  # noqa: ANN001, ANN202
             raise ValueError(f"int8_matmul: {name} must be 16-byte aligned")
     if k % 8 or n % 16:
         raise ValueError(f"int8_matmul: K must be a multiple of 8 and N of 16, got {k}, {n}")
+    raise AssertionError("unreachable: the inputs passed every check")
 
 
-#: Launch plans by (M, N, K, f32 activations, device): (block rows, splits,
-#: k steps per split). A decode step calls the same few shapes each time.
-_PLANS: dict[tuple, tuple[int, int, int]] = {}
+def _check_int8_matmul(x, q, scale, out_dtype) -> None:  # noqa: ANN001
+    """Raise unless the kernel takes these inputs: x bf16 or f32 and q a
+    2-D int8 [K, N] on x's CUDA device, scale f32 with N values, out_dtype
+    x's or f32, all contiguous and 16-byte aligned, K % 8 == 0, N % 16 ==
+    0. One expression on the way through; the message is built only on
+    the way out."""
+    dev = x.device
+    if not (
+        x.is_cuda and q.device == dev and scale.device == dev
+        and x.dtype in _X_DTYPES and q.dtype == torch.int8 and scale.dtype == torch.float32
+        and q.dim() == 2 and x.dim() >= 1 and x.shape[-1] == q.shape[0]
+        and scale.numel() == q.shape[1] and (out_dtype == x.dtype or out_dtype == torch.float32)
+        and not (q.shape[0] % 8 or q.shape[1] % 16)
+        and x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()
+        and not (x.data_ptr() % 16 or q.data_ptr() % 16 or scale.data_ptr() % 16)
+    ):
+        _explain_bad_inputs(x, q, scale, out_dtype)
 
 
-def _plan(m: int, n: int, k: int, f32: bool, dev: int) -> tuple[int, int, int]:
-    key = (m, n, k, f32, dev)
-    if key not in _PLANS:
-        block_m = 16 if (m <= 16 or f32) else 128
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _PLANS[key] = (block_m, *split_k(m, n, k, block_m, sms))
-    return _PLANS[key]
+#: Launch plans by (M, N, K, x's dtype, out dtype, device): a decode step
+#: calls the same few shapes each time.
+_PLANS: dict[tuple, Plan] = {}
+
+
+class _Scratch:
+    """The split-k workspace (f32) and tile counters (int32, left at 0 by
+    every call) of one (device, stream). They grow when a call needs more
+    and are never allocated per call: the kernels of one stream run in
+    order, so each call finds the counters at 0."""
+
+    __slots__ = ("work", "counters")
+
+    def __init__(self) -> None:
+        self.work: Optional[torch.Tensor] = None
+        self.counters: Optional[torch.Tensor] = None
+
+    def fit(self, plan: Plan, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.work is None or self.work.numel() < plan.work:
+            self.work = torch.empty(plan.work, dtype=torch.float32, device=device)
+        if self.counters is None or self.counters.numel() < plan.counters:
+            self.counters = torch.zeros(plan.counters, dtype=torch.int32, device=device)
+        return self.work, self.counters
+
+
+#: Scratch by (device index, stream handle).
+_SCRATCH: dict[tuple[int, int], _Scratch] = {}
 
 
 def _int8_matmul_cuda(x, q, scale, out_dtype):  # noqa: ANN001, ANN202
-    """Launch ``csrc/int8_matmul.cu`` (and its split-k sum where it splits)."""
+    """Launch ``csrc/int8_matmul.cu``: one kernel per call, whatever the
+    path and split; nothing allocated but the output once the call's
+    shape has run on this stream."""
     _check_int8_matmul(x, q, scale, out_dtype)
     dev = x.device
     k, n = q.shape
     m = x.numel() // k
-    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    y = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=dev)
     if m == 0:
-        return y.view(*x.shape[:-1], n)
-    f32 = x.dtype == torch.float32
-    block_m, splits, per = _plan(m, n, k, f32, dev.index)
-    work = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
-    name = kernel_name(x.dtype)
+        return y
+    idx = dev.index
+    key = (m, n, k, x.dtype, out_dtype, idx)
+    plan = _PLANS.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        plan = _PLANS[key] = launch_plan(m, n, k, x.dtype == torch.float32, sms,
+                                         out_dtype == torch.float32)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    work_ptr = counters_ptr = None
+    if plan.splits > 1:
+        scratch = _SCRATCH.get((idx, stream))
+        if scratch is None:
+            scratch = _SCRATCH[(idx, stream)] = _Scratch()
+        work, counters = scratch.fit(plan, dev)
+        work_ptr, counters_ptr = work.data_ptr(), counters.data_ptr()
     rc = _build.cuda_lib().tpx_int8_matmul(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        work.data_ptr() if work is not None else None,
-        m, n, k, _DTYPE_CODE[x.dtype], int(out_dtype == torch.float32),
-        block_m, splits, per, torch.cuda.current_stream(dev).cuda_stream,
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), work_ptr, counters_ptr,
+        m, n, k, plan.path, plan.block_m, out_dtype == torch.float32, plan.splits, plan.per,
+        stream,
     )
-    _build.check(rc, name)
+    name = kernel_name(x.dtype)
+    if rc:
+        _build.check(rc, name)
     _build.count_launch(name)
-    return y.view(*x.shape[:-1], n)
+    return y
 
 
 def int8_matmul(
