@@ -49,6 +49,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the ``wgmma`` flash kernels and no ``simt`` one.
 4. reference — one step of the same config at 2 layers with the kernels
    and with plain PyTorch ops, losses and gradient norms compared.
+   gang — the trainer launched as a gang through ``spmd_main``. A: the train
+   phase's run (llama3_1b at full width, 6 steps) as one replica, one
+   worker a card on NCCL, ``--mesh fsdp=-1 --grad-bucket-mb 32``,
+   unprofiled, then profiled as the train phase's profiled run: exit 0,
+   every rank's kernel launches the train phase's, and at a world of one
+   the losses the train phase's (bitwise where that phase's two runs were,
+   else within 1e-3; on more cards within 1e-2). Prints the world, backend
+   and mesh, the step time against the train phase's (unprofiled and
+   profiled), tokens/s per card, MFU, each rank's peak memory, the
+   device's busy time and idle share, and the collectives' device time a
+   step (the GPU work launched inside their CPU spans in the trainer's
+   trace) beside the bytes a step's gathers and reduce-scatter move. B:
+   several ranks with 32 MiB gradient buckets at 2 layers against one
+   process on the same global batch, 3 steps, losses within 1e-2 and
+   gradient norms within 5e-2 (the reference phase's): four ranks on NCCL
+   as ``dp=2,fsdp=2`` with four cards or more, two as ``fsdp=2`` on NCCL
+   with two or three, else two on gloo sharing the one card (NCCL refuses
+   two ranks on one card).
 5. serve — ``generate_server`` in-process on 127.0.0.1 (continuous engine,
    8 slots, block size 16, the default pool) with llama3_1b at full width
    and depth, bf16, seeded random weights: 8 concurrent ``/v1/generate``
@@ -179,7 +197,10 @@ rows, each checked against the plain version, and prints where the wgmma
 kernel starts to win and where its 256-row tiles do: the sources of
 ``ops.quant``'s launch-plan constants. ``--phases build,int8parts`` times
 the wgmma kernel's parts: the kernel rebuilt without its widening,
-without its products, and with neither (the TMA loads alone).
+without its products, and with neither (the TMA loads alone). ``--phases
+build,gangparts`` splits the world-1 sharded step's cost in this process:
+single-device, sharded, and sharded with its collectives swapped for
+local copies, in turns.
 
 Prints the kernels line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -199,11 +220,11 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "train", "reference", "serve", "ckpt", "moe", "int8")
+PHASES = ("build", "kernels", "train", "reference", "gang", "serve", "ckpt", "moe", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
-                "int8parts")
+                "int8parts", "gangparts")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth; its L2 cache.
@@ -694,18 +715,27 @@ def _int8_check(y, want) -> tuple[float, float, bool]:  # noqa: ANN001
     return rel, float(diff.max()), ok
 
 
-def device_kernels(fn) -> list[str]:  # noqa: ANN001
+def device_kernels(fn, sessions: int = 5) -> list[str]:  # noqa: ANN001
     """The names of the device kernels one call of ``fn`` runs (after a
-    warm-up call), by torch.profiler."""
+    warm-up call), by torch.profiler: the most that any of ``sessions``
+    sessions of one call each recorded. On the H100 the profiler now and
+    then drops the record of a kernel of ~10 us, the port's or cuBLAS's
+    (at M 8, one of 25 sessions of a cuBLAS matmul came back empty, and
+    sessions of ten int8 calls lost one record or all ten), and never adds
+    one, so the largest count is the call's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    seen: list[str] = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        seen = max(seen, names, key=len)
+    return seen
 
 
 def allocations(fn) -> int:  # noqa: ANN001
@@ -1111,6 +1141,8 @@ def phase_train_profiled(unprofiled: dict, counts: dict) -> dict:
                     if r["kind"] == "step"]
             prom = open(sinks.metrics_path()).read()
             trace_bytes = os.path.getsize(out["profile_trace"])
+            with open(out["profile_trace"]) as f:
+                busy = device_busy(json.load(f)["traceEvents"], TRAIN["steps"] - 1)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gaps = [abs(sum(r["phases"].values()) - r["wall_s"]) / r["wall_s"] for r in recs]
@@ -1125,7 +1157,7 @@ def phase_train_profiled(unprofiled: dict, counts: dict) -> dict:
         "profiled_overhead": out["step_time_s"] / unprofiled["step_time_s"] - 1,
         "summary": {k: out["profile"][k] for k in
                     ("step_s", "mfu", "data_wait_frac", "phase_fracs")},
-        "trace_bytes": trace_bytes,
+        "trace_bytes": trace_bytes, **busy,
         "prom_has_step_seconds": "tpx_step_seconds_bucket" in prom,
         "launches": launches, "launches_equal_unprofiled": launches == counts,
         "losses": out["losses"],
@@ -1181,6 +1213,345 @@ def phase_reference() -> None:
             and gn_rel <= REF_GRAD_NORM_RTOL):
         fail("reference", f"kernels {k} vs reference {r}")
 
+
+
+# ---------------------------------------------------------------------------
+# the gang: the trainer launched through spmd_main
+# ---------------------------------------------------------------------------
+
+#: The gang phase: A, the train phase's run through ``spmd_main`` (one
+#: worker a card, NCCL, ``--mesh fsdp=-1``, 32 MiB gradient buckets,
+#: profiled as the train phase's profiled run is); B, two or four ranks at
+#: 2 layers against one process on the same global batch (3 steps).
+GANG = dict(bucket_mb=32, timeout_s=420, b_layers=2, b_steps=3)
+#: A's losses against the train phase's where that phase's runs were not
+#: bitwise repeatable (the ckpt phase's rule).
+GANG_LOSS_RTOL = 1e-3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spmd(args: list[str], target: list[str], env: dict, phase: str) -> tuple[dict, str]:
+    """``python -m torchx_tpu_torch.apps.spmd_main ARGS TARGET`` as one
+    replica of a gang (``TPX_REPLICA_ID`` 0 of 1 on 127.0.0.1), in a session
+    of its own that is killed past ``GANG["timeout_s"]``. -> (rank 0's final
+    summary, the output)."""
+    import signal
+
+    full = dict(os.environ, PYTHONPATH=REPO, TPX_REPLICA_ID="0", TPX_NUM_REPLICAS="1",
+                TPX_COORDINATOR_HOST="127.0.0.1", **env)
+    cmd = [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", "--port",
+           str(_free_port()), "--timeout", "120", *args, *target]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=full, cwd=REPO, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=GANG["timeout_s"])
+    except subprocess.TimeoutExpired:
+        out = ""
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        proc.wait()
+    if proc.returncode != 0 or "final:" not in out:
+        fail(phase, f"spmd_main exit {proc.returncode}: {' '.join(cmd)}\n{out[-4000:]}")
+    return json.loads(out.split("final:", 1)[1].splitlines()[0]), out
+
+
+def gang_bytes(cfg) -> dict[str, int]:  # noqa: ANN001
+    """Bytes a step's fsdp collectives move at any world (the whole
+    tensors gathered and reduce-scattered): each layer's matrices gathered
+    in the forward and again in the remat recompute, the embedding (and an
+    untied head) once; every sharded gradient reduce-scattered once; the
+    norms' gradients all-reduced."""
+    b = torch_itemsize(cfg.dtype)
+    d, f, hd = cfg.dim, cfg.ffn_dim, cfg.head_dim
+    layer = d * cfg.n_heads * hd * 2 + 2 * d * cfg.n_kv_heads * hd + 3 * d * f
+    top = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    gathers = (cfg.n_layers * (1 + int(cfg.remat)) * layer + top) * b
+    return {"gathers": gathers, "reduce_scatter": (cfg.n_layers * layer + top) * b,
+            "norms_all_reduce": (2 * cfg.n_layers * d + d) * b}
+
+
+def torch_itemsize(dtype) -> int:  # noqa: ANN001
+    import torch
+
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def collective_device_ms(events: list[dict]) -> dict:
+    """Device time of the collectives in a torch.profiler Chrome trace, by
+    collective: the GPU events (kernels and copies) launched, through the
+    runtime or the driver API, from inside the CPU spans of the collectives
+    (``nccl:*`` / ``c10d::*``), matched by correlation id (NCCL copies with
+    a memcpy where a group has one rank), and any other GPU event whose
+    name is NCCL's (``nccl*`` kernels). A kernel waiting for its peers
+    counts its wait."""
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "cpu_op"
+             and e.get("name", "").startswith(("nccl:", "c10d::"))]
+    by_corr: dict[int, str] = {}
+    for e in events:
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver") or \
+                "correlation" not in e.get("args", {}):
+            continue
+        around = [(b - a, n) for tid, a, b, n in spans if tid == e["tid"] and a <= e["ts"] <= b]
+        if around:  # the outermost span's name: the collective's own op
+            by_corr[e["args"]["correlation"]] = max(around)[1]
+    ms: dict[str, float] = {}
+    count = 0
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name = by_corr.get(e.get("args", {}).get("correlation"))
+        if name is None and "nccl" in e.get("name", "").lower():
+            name = "nccl kernels"
+        if name is not None:
+            ms[name] = ms.get(name, 0.0) + e["dur"] / 1e3
+            count += 1
+    return {"ms": ms, "events": count}
+
+
+def device_busy(events: list[dict], steps: int) -> dict:
+    """Device busy time a step (the GPU events' durations) and the idle
+    share of the span from the first GPU event to the last, in a trace of
+    ``steps`` steps."""
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e["dur"] for e in gpu) / 1e3
+    span = (max(e["ts"] + e["dur"] for e in gpu) - min(e["ts"] for e in gpu)) / 1e3
+    return {"device_busy_ms_per_step": busy / steps, "span_ms_per_step": span / steps,
+            "device_idle_share": 1 - busy / span}
+
+
+def _gang_a(cfg, root: str, profiled: bool) -> dict:  # noqa: ANN001
+    """The train phase's run through ``spmd_main`` (module docstring); with
+    ``profiled``, as the train phase's profiled run (the step profiler and
+    the trainer's torch.profiler trace, read here)."""
+    extra = ["--profile", "--profile-dir", os.path.join(root, "trace")] if profiled else []
+    final, _ = _spmd(
+        [], ["-m", "torchx_tpu_torch.examples.train_llama", "--", "--config", "llama3_1b",
+             "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--steps",
+             str(TRAIN["steps"]), "--kernels", "cuda", "--warmup", "1", "--mesh", "fsdp=-1",
+             "--grad-bucket-mb", str(GANG["bucket_mb"]), *extra],
+        {"TPX_OBS_DIR": os.path.join(root, "obs")}, "gang")
+    if profiled:
+        with open(final["profile_trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        timed = TRAIN["steps"] - 1
+        coll = collective_device_ms(events)
+        final["collective_device_ms_per_step"] = {k: v / timed for k, v in coll["ms"].items()}
+        final["collective_device_ms_per_step_total"] = sum(coll["ms"].values()) / timed
+        final["collective_gpu_events"] = coll["events"]
+        final.update(device_busy(events, timed))
+    return final
+
+
+def phase_gang(train_out: dict, train_profiled: dict) -> dict:
+    """A: the train phase's llama3_1b run (6 steps, warm-up 1) through
+    ``spmd_main`` as one replica with one worker a card on NCCL, ``--mesh
+    fsdp=-1 --grad-bucket-mb 32``, unprofiled and then profiled as the
+    train phase's profiled run: exit 0, every rank's launches the train
+    phase's, at a world of one the losses the train phase's (bitwise where
+    its two runs were, else within ``GANG_LOSS_RTOL``; on more cards within
+    ``REF_LOSS_RTOL``). B: :func:`phase_gang_ranks`."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torchx_tpu_torch.models import llama
+
+    cfg = llama.llama3_1b()
+    cards = torch.cuda.device_count()
+    root = tempfile.mkdtemp(prefix="tpx_gang_smoke_")
+    free_card()
+    try:
+        plain = _gang_a(cfg, root, profiled=False)
+        prof = _gang_a(cfg, root, profiled=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    expected = expected_launches(cfg, TRAIN["steps"])
+    repeatable = train_profiled["losses"] == train_out["losses"]
+    rel = max(_rel_diff(f["losses"], train_out["losses"]) for f in (plain, prof))
+    res = {
+        "phase": "gang", "run": "A", "config": "llama3_1b", "world": plain["world"],
+        "cards": cards, "backend": plain["backend"], "mesh": plain["mesh"],
+        "grad_bucket_mb": plain["grad_bucket_mb"], "grad_buckets": plain["grad_buckets"],
+        "losses": plain["losses"], "profiled_losses": prof["losses"],
+        "train_losses": train_out["losses"], "train_runs_repeatable": repeatable,
+        "losses_bitwise": plain["losses"] == prof["losses"] == train_out["losses"],
+        "loss_max_rel_diff": rel, "grad_norms": plain["grad_norms"],
+        "step_times_s": plain["step_times_s"], "step_time_s": plain["step_time_s"],
+        "train_step_time_s": train_out["step_time_s"],
+        "step_time_over_train": plain["step_time_s"] / train_out["step_time_s"] - 1,
+        "profiled_step_times_s": prof["step_times_s"],
+        "profiled_step_time_s": prof["step_time_s"],
+        "train_profiled_step_time_s": train_profiled["step_time_s"],
+        "profiled_over_train_profiled": prof["step_time_s"] / train_profiled["step_time_s"]
+        - 1,
+        "tokens_per_sec_per_card": plain["tokens_per_sec_per_card"], "mfu": plain["mfu"],
+        "peak_memory_bytes_by_rank": plain["peak_memory_bytes_by_rank"],
+        "train_peak_memory_bytes": train_out["peak_memory_bytes"],
+        "train_profiled_trace": {k: train_profiled[k] for k in
+                                 ("device_busy_ms_per_step", "span_ms_per_step",
+                                  "device_idle_share")},
+        **{k: prof[k] for k in ("device_busy_ms_per_step", "span_ms_per_step",
+                                "device_idle_share", "collective_device_ms_per_step",
+                                "collective_device_ms_per_step_total",
+                                "collective_gpu_events")},
+        "collective_bytes_per_step_reckoned": gang_bytes(cfg),
+        "launches_by_rank": plain["launches_by_rank"], "expected_launches": expected,
+    }
+    emit(res)
+    for final in (plain, prof):
+        if final["backend"] != "nccl" or final["world"] != cards:
+            fail("gang", f"A ran {final['world']} ranks on {final['backend']}, not one a card"
+                 " on NCCL")
+        if any(launches != expected for launches in final["launches_by_rank"]):
+            fail("gang", f"a rank's launches differ from the train phase's:"
+                 f" {final['launches_by_rank']}")
+        if final["world"] == 1 and (final["losses"] != train_out["losses"] if repeatable
+                                    else rel > GANG_LOSS_RTOL):
+            fail("gang", f"world-1 losses {final['losses']} against the train phase's"
+                 f" {train_out['losses']}")
+        if final["world"] > 1 and rel > REF_LOSS_RTOL:  # another summation order
+            fail("gang", f"world-{final['world']} losses {final['losses']} against the"
+                 f" train phase's {train_out['losses']}")
+    return {"A": res, "B": phase_gang_ranks(cards)}
+
+
+def phase_gang_parts() -> None:
+    """Where the world-1 sharded step's time goes, in this process (no
+    ``spmd_main``): the train phase's run on one device, sharded
+    (``mesh="fsdp=-1"``, a world-1 NCCL group), and sharded with every
+    gather and reduce-scatter swapped for a local copy of the same layout
+    (the NCCL calls gone, the copies kept), after a warm-up run, in turns
+    single, sharded, local, local, sharded, single, twice; the mean step
+    time of each."""
+    import contextlib
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+
+    cfg = llama.llama3_1b()
+
+    def local_copy(out, inp, group=None):  # noqa: ANN001, ANN202, ARG001
+        return out.copy_(inp.reshape(out.shape))  # a world of one's gather or sum
+
+    times: dict[str, list[float]] = {}
+    # a first run warms the process (the first run's steps ran slower than
+    # any later run's); then turns, each order forward and back
+    order = ("warm-up",) + ("single", "sharded", "local", "local", "sharded", "single") * 2
+    for run in order:
+        free_card()
+        with contextlib.ExitStack() as stack:
+            if run == "local":  # the mesh's two FSDP collectives become copies
+                for name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+                    stack.enter_context(mock.patch.object(dist, name, local_copy))
+            out = train(cfg, TRAIN["batch"], TRAIN["seq"], TRAIN["steps"], kernels="cuda",
+                        device="cuda", warmup=1, log_every=0,
+                        mesh=None if run in ("single", "warm-up") else "fsdp=-1")
+        times.setdefault(run, []).append(out["step_time_s"])
+        if run in ("sharded", "local") and out["backend"] != "nccl":
+            fail("gangparts", f"{run} ran on {out['backend']}")
+    mean = {k: sum(v) / len(v) for k, v in times.items() if k != "warm-up"}
+    emit({"phase": "gangparts", "step_time_s": times, "mean_s": mean,
+          "sharded_over_single": mean["sharded"] / mean["single"] - 1,
+          "local_over_single": mean["local"] / mean["single"] - 1})
+
+
+#: B's script: the trainer's module as ``__main__`` with llama3_1b cut to
+#: GANG["b_layers"] layers (the ckpt drill's way of cutting the preset).
+_B_SCRIPT = """import functools, runpy
+from torchx_tpu_torch.models import llama
+llama.CONFIGS['llama3_1b'] = functools.partial(llama.llama3_1b, n_layers={layers})
+runpy.run_module('torchx_tpu_torch.examples.train_llama', run_name='__main__', alter_sys=True)
+"""
+
+
+def b_layout(cards: int) -> tuple[int, str, str]:
+    """B's (ranks, backend, mesh) on a machine of ``cards`` cards, chosen
+    from the count: four ranks on NCCL as ``dp=2,fsdp=2`` with four cards
+    or more (the dp gradient sum and its buckets on NCCL); two on NCCL as
+    ``fsdp=2`` with two or three; else two ranks sharing the one card on
+    gloo (NCCL refuses two ranks on one card), which takes CUDA tensors in
+    all_gather_into_tensor, reduce_scatter_tensor and all_reduce in bf16
+    and f32 (torch 2.11's, checked on the card)."""
+    if cards >= 4:
+        return 4, "nccl", "dp=2,fsdp=2"
+    return 2, "nccl" if cards >= 2 else "gloo", "fsdp=2"
+
+
+def phase_gang_ranks(cards: int) -> dict:
+    """B: several ranks (:func:`b_layout`, ``--grad-bucket-mb 32``) train
+    llama3_1b cut to 2 layers on the train phase's global batch, against
+    ``train`` in this process: losses within REF_LOSS_RTOL, gradient norms
+    within REF_GRAD_NORM_RTOL, every rank's launches one process's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.parallel.mesh_config import mesh_sizes_spec, parse_mesh_spec
+
+    ranks, backend, mesh = b_layout(cards)
+    steps, layers = GANG["b_steps"], GANG["b_layers"]
+    cfg = llama.llama3_1b(n_layers=layers)
+    free_card()
+    one = train(cfg, TRAIN["batch"], TRAIN["seq"], steps, kernels="cuda", device="cuda",
+                warmup=1, log_every=0)
+    free_card()
+    root = tempfile.mkdtemp(prefix="tpx_gang_b_")
+    try:
+        script = os.path.join(root, "train_cut.py")
+        with open(script, "w") as f:
+            f.write(_B_SCRIPT.format(layers=layers))
+        final, _ = _spmd(
+            ["--nproc-per-node", str(ranks), "--backend", backend],
+            ["--script", script, "--", "--config", "llama3_1b", "--batch", str(TRAIN["batch"]),
+             "--seq", str(TRAIN["seq"]), "--steps", str(steps), "--kernels", "cuda",
+             "--warmup", "1", "--mesh", mesh, "--grad-bucket-mb", str(GANG["bucket_mb"])],
+            {}, "gang")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    loss_rel = _rel_diff(final["losses"], one["losses"])
+    gn_rel = _rel_diff(final["grad_norms"], one["grad_norms"])
+    expected = expected_launches(cfg, steps)
+    res = {"phase": "gang", "run": "B", "n_layers": layers, "steps": steps, "cards": cards,
+           "ranks_share_a_card": cards < 2, "backend": final["backend"],
+           "mesh": final["mesh"], "world": final["world"],
+           "grad_bucket_mb": final["grad_bucket_mb"], "grad_buckets": final["grad_buckets"],
+           "losses": final["losses"],
+           "one_process_losses": one["losses"], "loss_max_rel_diff": loss_rel,
+           "loss_rtol": REF_LOSS_RTOL, "grad_norms": final["grad_norms"],
+           "one_process_grad_norms": one["grad_norms"], "grad_norm_max_rel_diff": gn_rel,
+           "grad_norm_rtol": REF_GRAD_NORM_RTOL, "step_time_s": final["step_time_s"],
+           "launches_by_rank": final["launches_by_rank"], "expected_launches": expected}
+    emit(res)
+    want_mesh = mesh_sizes_spec(parse_mesh_spec(mesh).resolve(ranks))
+    if (final["world"], final["backend"], final["mesh"]) != (ranks, backend, want_mesh):
+        fail("gang", f"B ran {final['world']} ranks on {final['backend']} as"
+             f" {final['mesh']}, not {ranks} on {backend} as {want_mesh}")
+    if "dp=2" in mesh and final["grad_buckets"] < 2:
+        fail("gang", f"B's dp sum ran in {final['grad_buckets']} bucket(s), not several")
+    if loss_rel > REF_LOSS_RTOL or gn_rel > REF_GRAD_NORM_RTOL:
+        fail("gang", f"{ranks} ranks {final['losses']} / {final['grad_norms']} against one"
+             f" process {one['losses']} / {one['grad_norms']}")
+    if any(launches != expected for launches in final["launches_by_rank"]):
+        fail("gang", f"B's launches {final['launches_by_rank']} != {expected}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3404,9 +3775,13 @@ def main(argv: list[str] | None = None) -> int:
         # the simt flash kernels are off the bf16 main path (expected 0)
         if any(row["launches"] == 0 for row in kernel_rows if expected.get(row["name"])):
             fail("train", "a kernel of the path was never launched")
-        phase_train_profiled(train_out, counts)
+        train_profiled = phase_train_profiled(train_out, counts)
     if "reference" in phases:
         phase_reference()
+    if "gang" in phases:
+        if "train" not in phases:
+            fail("gang", "the gang phase compares with the train phase: add train")
+        phase_gang(train_out, train_profiled)
     if "serve" in phases:
         phase_serve_disagg(phase_serve())
     if "ckpt" in phases:
@@ -3450,6 +3825,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_int8_sweep()
     if "int8parts" in phases:
         phase_int8_parts()
+    if "gangparts" in phases:
+        phase_gang_parts()
 
     if kernel_rows:
         print(json.dumps({"kernels": kernel_rows}), flush=True)

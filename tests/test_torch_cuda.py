@@ -513,6 +513,36 @@ def test_profiled_cuda_step_is_fenced_and_traced(gen, tmp_path, monkeypatch):
     assert any(e.get("cat") == "kernel" for e in events)
 
 
+def test_world_one_mesh_on_card_is_bitwise_the_single_device_step(gen):
+    """The sharded trainer on the card at a world of one (NCCL through an
+    in-process store): gathers and reduce-scatters of one rank, the kernels
+    on the gathered weights, give the single-device trainer's losses,
+    gradient norms, state and launches, bitwise (bf16: the wgmma flash
+    kernels, whose backward is repeatable)."""
+    import torch.distributed as dist
+
+    cfg = llama.llama_tiny(dim=128, n_heads=2, n_kv_heads=1, ffn_dim=256,
+                           dtype=torch.bfloat16)
+    runs = []
+    for mesh in (None, "fsdp=-1"):
+        box = {}
+
+        def keep(event, state, box=box):
+            if event == "final":
+                box.update({k: v.clone() for k, v in state.items()})
+
+        out = train_llama.train(cfg, 2, 128, 3, device="cuda", kernels="cuda", warmup=1,
+                                log_every=0, mesh=mesh, grad_bucket_mb=4 if mesh else 0,
+                                on_state=keep)
+        runs.append((out, box))
+    (a, sa), (b, sb) = runs
+    assert b["backend"] == "nccl" and b["world"] == 1 and not dist.is_initialized()
+    assert a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"]
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert a["launches"] == b["launches"] == b["launches_by_rank"][0]
+    assert b["launches"]["flash_fwd_wgmma"] > 0
+
+
 def test_disaggregated_pair_equals_unified_on_card(gen):
     """f32 on the card: a prefill replica's K/V payload (through its bytes)
     decoded by a second engine gives the unified engine's greedy tokens."""

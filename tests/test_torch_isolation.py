@@ -81,6 +81,18 @@ def test_int8_sources_are_present_and_built():
     assert _build.BUILD_DIR.relative_to(REPO).as_posix() + "/" in ignored
 
 
+#: The gang's modules (the bootstrap, the mesh, the gradient buckets).
+GANG_MODULES = (
+    "distributed/__init__.py", "apps/spmd_main.py", "examples/compute_mesh_size.py",
+    "parallel/mesh_config.py", "parallel/mesh.py", "parallel/overlap.py",
+)
+
+
+def test_gang_modules_are_present():
+    sources = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in p.parents}
+    assert set(GANG_MODULES) <= sources
+
+
 def test_serving_modules_are_present():
     sources = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in p.parents}
     assert set(SERVING_MODULES) <= sources
@@ -155,6 +167,37 @@ class TestDevice:
             generate_server.main(["--config", "tiny"])
         assert seen["device"] == "cuda"
 
+    def test_spmd_main_without_cuda_needs_the_cpu_asked_for(self, monkeypatch, capsys):
+        from torchx_tpu_torch import distributed
+        from torchx_tpu_torch.apps import spmd_main
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setenv("LOCAL_RANK", "0")
+        monkeypatch.delenv("LOCAL_RANK")
+        with pytest.raises(SystemExit):
+            spmd_main.main(["-m", "torchx_tpu_torch.examples.compute_mesh_size"])
+        assert "no CUDA device" in capsys.readouterr().err
+        assert distributed.default_backend() == "gloo"
+
+    def test_spmd_main_defaults_to_one_worker_a_card_on_nccl(self, monkeypatch):
+        from torchx_tpu_torch import distributed
+        from torchx_tpu_torch.apps import spmd_main
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        for name in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):  # unset, and unset after
+            monkeypatch.setenv(name, "0")
+            monkeypatch.delenv(name)
+        seen = []
+        monkeypatch.setattr(spmd_main, "run_worker", lambda args, rest: seen.append(rest))
+        spmd_main.main(["-m", "x", "--", "--flag"])
+        assert seen == [["--flag"]] and os.environ["LOCAL_WORLD_SIZE"] == "1"
+        assert distributed.default_backend() == "nccl"
+        # two ranks on one card: NCCL refuses, so the bootstrap does first
+        monkeypatch.delenv("LOCAL_RANK")
+        with pytest.raises(SystemExit):
+            spmd_main.main(["--nproc-per-node", "2", "-m", "x"])
+
     def test_main_on_cpu(self, capsys):
         train_llama.main(["--config", "tiny", "--batch", "2", "--seq", "16",
                           "--steps", "2", "--device", "cpu", "--kernels", "pallas"])
@@ -163,9 +206,15 @@ class TestDevice:
         assert final["kernels"] == "cuda" and len(final["losses"]) == 2
 
     def test_jax_only_flags_raise(self):
-        for flag in ("--mesh=fsdp=-1", "--ring-attention", "--grad-bucket-mb=4"):
+        # the mesh's data axes and the gradient buckets are ported (their
+        # flags: tests/test_torch_fsdp.py); the model axes, ring attention
+        # and remat policies are not
+        for flag in ("--mesh=tp=2", "--ring-attention", "--remat-policy=full"):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 train_llama.main(["--device", "cpu", flag])
+        assert not {"--mesh", "--grad-bucket-mb"} & set(train_llama.NOT_PORTED_FLAGS)
+        with pytest.raises(ValueError, match="give --mesh"):
+            train_llama.main(["--device", "cpu", "--grad-bucket-mb=4"])
         with pytest.raises(SystemExit):
             train_llama.main(["--device", "cpu", "--no-such-flag"])
         # int8 is ported (its flags: tests/test_torch_quant.py)

@@ -1,0 +1,219 @@
+"""Cases the port's multi-process tests run on every rank of a gloo gang.
+
+Run through the port's bootstrap, which starts the ranks and joins them:
+
+    python -m torchx_tpu_torch.apps.spmd_main --nproc-per-node N --port P \\
+        --script tests/torch_gang_cases.py -- job.json
+
+``job.json`` holds ``{"out": dir, "cases": [...]}``; each rank runs the
+cases in order and saves ``{case name: result}`` to ``dir/rank<r>.pt``.
+Kinds of case:
+
+* ``train``: ``train_llama.train`` on ``--config tiny``'s test shape (dim
+  128, 2/1 heads, ffn 256, 2 layers, f32) under ``mesh``, from the token
+  file ``data``; -> losses, gradient norms, the final shards.
+* ``step``: ``make_train_step`` under ``mesh`` on the parameters of
+  ``init`` (an ``.npz`` of the JAX tree's leaves by path) and the global
+  batches of ``batches`` (``tokens`` [steps, b, s+1], optional
+  ``loss_mask``); -> the same.
+* ``sync``: ``overlap.bucketed_sync`` over the ``dp`` group of a ``dp``
+  mesh, on seeded per-rank gradients, with ``bucket_mb`` and with one
+  fused sync; -> both results.
+* ``refuse_ckpt``: ``train`` with a ``ckpt_dir``; -> the error it raised.
+
+Not a test module itself: the tests that read the results are
+``tests/test_torch_fsdp.py`` and ``tests/test_torch_overlap.py``.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from torchx_tpu_torch.examples import train_llama
+from torchx_tpu_torch.models import llama
+from torchx_tpu_torch.parallel import overlap
+from torchx_tpu_torch.parallel.mesh import make_mesh
+from torchx_tpu_torch.parallel.mesh_config import parse_mesh_spec
+
+#: The tests' model: llama_tiny at the flash-tileable width of
+#: tests/test_torch_model.py.
+SHAPE = dict(dim=128, n_heads=2, n_kv_heads=1, ffn_dim=256)
+
+
+def tiny(kernels: str = "cuda") -> llama.LlamaConfig:
+    return llama.llama_tiny(kernels=kernels, **SHAPE)
+
+
+def _final_capture():
+    box = {}
+
+    def on_state(event, state):  # noqa: ANN001, ANN202
+        if event == "final":
+            box.update({k: v.detach().clone() for k, v in state.items()
+                        if k.startswith("params.")})
+
+    return box, on_state
+
+
+def run_train(case: dict) -> dict:
+    box, on_state = _final_capture()
+    out = train_llama.train(
+        tiny(), batch=case["batch"], seq=case["seq"], steps=case["steps"],
+        warmup=case["warmup"], data_path=case["data"], prefetch=0, kernels="cuda",
+        device="cpu", log_every=0, mesh=case["mesh"],
+        grad_bucket_mb=case.get("grad_bucket_mb", 0), on_state=on_state,
+    )
+    return {"losses": out["losses"], "grad_norms": out["grad_norms"], "params": box,
+            "world": out["world"], "mesh": out["mesh"], "grad_buckets": out["grad_buckets"]}
+
+
+def run_step(case: dict) -> dict:
+    from torchx_tpu_torch import convert
+
+    cfg = tiny(case.get("kernels", "cuda"))
+    init = np.load(case["init"])
+    tree = {}
+    for path in init.files:
+        node = tree
+        *parents, key = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = init[path]
+    params = convert.params_from_jax(tree, cfg)
+    mesh = make_mesh(parse_mesh_spec(case["mesh"]))
+    params = llama.shard_params(params, cfg, mesh)
+    sharded = ["fsdp" in spec for spec in llama.leaves(llama.param_specs(cfg))]
+    opt = train_llama.make_optimizer(
+        llama.leaves(params), lr=case["lr"], warmup=case["warmup"], sharded=sharded,
+        norm_group=mesh.fsdp_group,
+    )
+    step = train_llama.make_train_step(cfg, opt, mesh)
+    data = np.load(case["batches"])
+    rows = mesh.batch_rows(data["tokens"].shape[1])
+    losses, norms = [], []
+    for i in range(data["tokens"].shape[0]):
+        batch = {"tokens": torch.from_numpy(data["tokens"][i][rows])}
+        if "loss_mask" in data.files:
+            batch["loss_mask"] = torch.from_numpy(data["loss_mask"][i][rows])
+        out = step(params, batch)
+        losses.append(float(out["loss"]))
+        norms.append(float(out["grad_norm"]))
+    shards = {f"params.{k}": v.detach().clone() for k, v in llama.named_leaves(params)}
+    return {"losses": losses, "grad_norms": norms, "params": shards}
+
+
+def run_sync(case: dict) -> dict:
+    mesh = make_mesh(parse_mesh_spec(case["mesh"]))
+    gen = torch.Generator().manual_seed(1000 + dist.get_rank())
+    # leaves of mixed sizes, a bf16 one among them, some above the cap
+    shapes = [(3, 5), (1024, 300), (7,), (64, 64), (2048, 129), (11, 13)]
+    dtypes = [torch.float32, torch.float32, torch.bfloat16, torch.float32,
+              torch.float32, torch.float32]
+    grads = [torch.randn(s, generator=gen).to(dt) for s, dt in zip(shapes, dtypes)]
+    fused = [g.clone() for g in grads]
+    bucketed = [g.clone() for g in grads]
+    plan = overlap.plan_buckets(bucketed, case["bucket_mb"] * 1024 * 1024)
+    n_fused = overlap.bucketed_sync(fused, None, mesh.dp_group)
+    n_bucketed = overlap.bucketed_sync(bucketed, plan, mesh.dp_group)
+    return {"local": grads, "fused": fused, "bucketed": bucketed, "n_buckets": plan.n_buckets,
+            "issued": [n_fused, n_bucketed]}
+
+
+def run_refuse_ckpt(case: dict) -> dict:
+    try:
+        train_llama.train(tiny(), batch=case["batch"], seq=case["seq"], steps=1,
+                          data_path=case["data"], device="cpu", log_every=0,
+                          ckpt_dir=case["dir"])
+    except NotImplementedError as e:
+        return {"error": f"NotImplementedError: {e}"}
+    return {"error": None}
+
+
+RUNNERS = {"train": run_train, "step": run_step, "sync": run_sync,
+           "refuse_ckpt": run_refuse_ckpt}
+
+
+def main() -> None:
+    job = json.load(open(sys.argv[1]))
+    results = {case["name"]: RUNNERS[case["kind"]](case) for case in job["cases"]}
+    torch.save(results, os.path.join(job["out"], f"rank{dist.get_rank()}.pt"))
+
+
+# -- the launcher side, for the tests ----------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start(argv: list, env: dict = None):  # noqa: ANN201
+    """``python -m torchx_tpu_torch.apps.spmd_main *argv`` in a session of
+    its own (so that its workers can be killed with it), the repo on
+    ``PYTHONPATH``, one intra-op thread a process."""
+    import subprocess
+
+    full = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", **(env or {}))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", *argv],
+        cwd=REPO, env=full, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+    )
+
+
+def finish(procs: list, timeout: float = 240.0) -> list:
+    """Wait for every process of ``procs`` under one deadline; past it, kill
+    each one's whole session (its workers too). -> [(rc, out, err)], rc
+    None for a killed one."""
+    import signal
+    import subprocess
+    import time
+
+    deadline = time.monotonic() + timeout
+    res = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=max(0.1, deadline - time.monotonic()))
+            res.append((p.returncode, out, err))
+        except subprocess.TimeoutExpired:
+            res.append((None, "", "timed out"))
+    for p in procs:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        if p.poll() is None:
+            p.communicate()
+    return res
+
+
+def run_cases(tmp, nproc: int, cases: list):  # noqa: ANN001, ANN201
+    """Start a gang of ``nproc`` ranks on ``cases``; -> the Popen (read it
+    with :func:`finish`, then :func:`load_results`)."""
+    out = os.path.join(str(tmp), f"out{nproc}")
+    os.makedirs(out, exist_ok=True)
+    job = os.path.join(str(tmp), f"job{nproc}.json")
+    with open(job, "w") as f:
+        json.dump({"out": out, "cases": cases}, f)
+    return start(["--nproc-per-node", str(nproc), "--port", str(free_port()),
+                  "--timeout", "60", "--script", os.path.join(REPO, "tests",
+                                                              "torch_gang_cases.py"),
+                  "--", job])
+
+
+def load_results(tmp, nproc: int) -> list:  # noqa: ANN001
+    out = os.path.join(str(tmp), f"out{nproc}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(nproc)]
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,166 @@
+"""In-job distributed helpers: the port of :mod:`torchx_tpu.distributed`.
+
+The launcher injects the gang identity (``TPX_REPLICA_ID``,
+``TPX_NUM_REPLICAS``, ``TPX_COORDINATOR_HOST``) into every replica.
+:func:`init_from_env` turns it into a live ``torch.distributed`` process
+group, which :mod:`torchx_tpu_torch.apps.spmd_main` calls for the user's
+code (the reference TorchX's ``init_pg(backend="auto")``).
+
+A JAX replica is one process per host that owns all of the host's chips.
+Here a replica is still one host, but it runs one process per card, the
+torch idiom: ``spmd_main`` starts the workers and tells each its place in
+the replica through ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` (torchrun's
+names). A worker's global rank is ``replica_id * local_world + local_rank``
+and the world is ``num_replicas * local_world``.
+
+Divergences from the JAX package: the GKE TPU fallbacks
+(``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``) are not read; and the process
+group is initialized at world 1 too (through an in-process store, no port),
+because torch's collectives need a group where JAX needs no coordinator.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+from typing import Iterator, Optional
+
+import torch
+import torch.distributed as dist
+
+from torchx_tpu_torch import settings
+
+#: torchrun's names for a worker's place within its replica (host).
+ENV_LOCAL_RANK = "LOCAL_RANK"
+ENV_LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
+
+#: Seconds a collective (and the rendezvous) may wait for its peers before
+#: it raises, so that a rank that died leaves no peer hanging for good.
+DEFAULT_TIMEOUT_S = 600.0
+
+
+def is_tpx_job() -> bool:
+    """True when running inside a tpx-launched replica."""
+    return settings.ENV_TPX_APP_ID in os.environ
+
+
+def gang_info() -> tuple[int, int, str]:
+    """(replica_id, num_replicas, coordinator_host) from the injected env.
+
+    ``TPX_REPLICA_ID`` is the global id; backends that inject the
+    multi-slice decomposition instead give ``slice_id * hosts_per_slice +
+    host_id``. Defaults: replica 0 of 1 on ``localhost``."""
+    raw = os.environ.get(settings.ENV_TPX_REPLICA_ID)
+    if raw is None:
+        slice_id = os.environ.get(settings.ENV_TPX_SLICE_ID)
+        host_id = os.environ.get(settings.ENV_TPX_HOST_ID)
+        per_slice = os.environ.get(settings.ENV_TPX_HOSTS_PER_SLICE)
+        if slice_id is not None and host_id is not None and per_slice is not None:
+            raw = str(int(slice_id) * int(per_slice) + int(host_id))
+    replica = int(raw or 0)
+    num = int(os.environ.get(settings.ENV_TPX_NUM_REPLICAS) or 0)
+    coordinator = os.environ.get(settings.ENV_TPX_COORDINATOR_HOST, "")
+    return replica, num or 1, coordinator or "localhost"
+
+
+def replica_id() -> int:
+    """This process's replica (host) id within the role's gang (0-based)."""
+    return gang_info()[0]
+
+
+def num_replicas() -> int:
+    """Replicas (hosts) in the role's gang."""
+    return gang_info()[1]
+
+
+def coordinator_address(port: Optional[int] = None) -> str:
+    """``host:port`` of replica 0, where the rendezvous store listens."""
+    host = gang_info()[2]
+    return f"{host}:{port or settings.TPX_COORDINATOR_PORT}"
+
+
+def local_rank() -> int:
+    """This worker's index among its replica's workers (0 outside
+    ``spmd_main``)."""
+    return int(os.environ.get(ENV_LOCAL_RANK) or 0)
+
+
+def local_device_count() -> int:
+    """Workers (one per card) in this process's replica."""
+    return int(os.environ.get(ENV_LOCAL_WORLD_SIZE) or 1)
+
+
+def world_layout() -> tuple[int, int]:
+    """(global rank, world size) of this worker, from the gang's env."""
+    replica, n, _ = gang_info()
+    nproc = local_device_count()
+    return replica * nproc + local_rank(), n * nproc
+
+
+def default_backend() -> str:
+    """NCCL where the process has a card, gloo on the CPU."""
+    return "nccl" if torch.cuda.is_available() else "gloo"
+
+
+def init_from_env(
+    port: Optional[int] = None,
+    backend: Optional[str] = None,
+    timeout_s: float = DEFAULT_TIMEOUT_S,
+) -> None:
+    """Initialize the default process group from the gang's env. Idempotent:
+    a no-op where a group is up already.
+
+    ``backend`` overrides :func:`default_backend`. A world of 1 rendezvouses
+    through an in-process store; a larger one through a TCP store on the
+    coordinator at ``port`` (default :data:`settings.TPX_COORDINATOR_PORT`),
+    which rank 0 hosts and the others wait for up to ``timeout_s``."""
+    if dist.is_initialized():
+        return
+    rank, world = world_layout()
+    timeout = datetime.timedelta(seconds=timeout_s)
+    backend = backend or default_backend()
+    if world == 1:
+        dist.init_process_group(
+            backend, store=dist.HashStore(), rank=0, world_size=1, timeout=timeout
+        )
+        return
+    dist.init_process_group(
+        backend,
+        init_method=f"tcp://{coordinator_address(port)}",
+        rank=rank,
+        world_size=world,
+        timeout=timeout,
+    )
+
+
+def world_device_count() -> int:
+    """Ranks (cards) across the whole gang: the process group's world."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_process_zero() -> bool:
+    """True on the gang's rank 0 (the logging and checkpoint guard)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    """All ranks meet: a one-element all-reduce on the default group (on
+    the card under NCCL), a no-op without a group."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    dist.all_reduce(torch.zeros(1, device=dev))
+
+
+@contextlib.contextmanager
+def on_process_zero_first() -> Iterator[None]:
+    """Rank 0 runs the body before everyone else (a build or download done
+    once), the reference's ``on_rank0_first``; the barrier is a collective
+    on the default group."""
+    if is_process_zero():
+        yield
+        barrier()
+    else:
+        barrier()
+        yield

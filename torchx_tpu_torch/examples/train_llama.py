@@ -1,8 +1,11 @@
-"""Llama pretraining on one GPU: the port of
-:mod:`torchx_tpu.examples.train_llama`'s single-device path, dense and MoE.
+"""Llama pretraining on GPUs: the port of
+:mod:`torchx_tpu.examples.train_llama`, dense and MoE on one card, dense
+across a gang of them (the ``dp`` and ``fsdp`` mesh axes).
 
     python -m torchx_tpu_torch.examples.train_llama --config llama3_1b \\
         --batch 4 --seq 2048 --steps 10 --kernels cuda
+    python -m torchx_tpu_torch.apps.spmd_main -m torchx_tpu_torch.examples.train_llama \\
+        -- --config llama3_1b --batch 8 --seq 2048 --kernels cuda --mesh fsdp=-1
 
 Runs on the CUDA device unless ``--device cpu`` is given, and raises where
 no CUDA device is present. Prints each step's loss, tokens/s and model
@@ -34,8 +37,19 @@ backward products in int8; :mod:`torchx_tpu_torch.ops.quant`), as the JAX
 trainer maps the flags; MFU keeps the bf16 formula and peak, and the master
 weights (and so the checkpoints) stay in the model dtype.
 
-The JAX trainer's meshes, gradient buckets and ring attention are not
-ported yet (ROADMAP); their flags raise.
+``--mesh`` (``$TPX_MESH`` overrides it), or a process group already up
+(``spmd_main`` initializes one; its default mesh is ``fsdp=-1``, the JAX
+trainer's), trains the state sharded over the world: each rank keeps its
+``fsdp`` shard of every weight and both moments, gathers a layer's weights
+for its use, and computes its rows of the global ``--batch``; the gradient
+is reduce-scattered over ``fsdp`` and summed over ``dp`` in
+``--grad-bucket-mb`` buckets. Rank 0 prints the lines and the summary
+(tokens/s per card, MFU on the global tokens, the world, mesh, backend,
+buckets, and each rank's launches and peak memory). A preemption notice
+on any rank stops every rank after the same step. Not ported yet, and
+refused with the ROADMAP item named: ``tp``/``sp``/``ep``/``pp`` above 1,
+a MoE config under a mesh, ``--ckpt-dir`` at a world above 1, and the
+flags of ring attention and remat policies.
 """
 
 from __future__ import annotations
@@ -53,8 +67,9 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from torchx_tpu_torch import _build, settings
+from torchx_tpu_torch import _build, distributed, settings
 from torchx_tpu_torch.examples.data import TokenDataset
 from torchx_tpu_torch.models import llama
 from torchx_tpu_torch.obs import metrics as obs_metrics
@@ -62,7 +77,10 @@ from torchx_tpu_torch.obs import sinks
 from torchx_tpu_torch.obs import trace as obs_trace
 from torchx_tpu_torch.obs.profile import StepProfiler, attribution_model
 from torchx_tpu_torch.ops.fused import resolve_kernels
+from torchx_tpu_torch.parallel import overlap
 from torchx_tpu_torch.parallel.checkpoint import Checkpointer
+from torchx_tpu_torch.parallel.mesh import Mesh, make_mesh
+from torchx_tpu_torch.parallel.mesh_config import MeshConfig, mesh_sizes_spec, parse_mesh_spec
 from torchx_tpu_torch.parallel.prefetch import Prefetcher, device_prefetch
 
 _PROCESS_START = time.monotonic()
@@ -78,9 +96,7 @@ PEAK_FLOPS = {
 }
 
 #: Flags of the JAX trainer this port does not have yet.
-NOT_PORTED_FLAGS = (
-    "--mesh", "--ring-attention", "--remat-policy", "--grad-bucket-mb",
-)
+NOT_PORTED_FLAGS = ("--ring-attention", "--remat-policy")
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -131,18 +147,40 @@ class AdamW:
     Moments take each parameter's dtype (bf16 parameters keep bf16 moments,
     as optax does; no f32 master copy), and every step follows optax's
     operation order and casts. Updates the parameters in place and clears
-    their ``.grad``."""
+    their ``.grad``.
+
+    Under a mesh the parameters are this rank's shards: ``sharded`` flags
+    the leaves split over ``norm_group`` (fsdp), whose squared sums the
+    global norm adds up over that group; the other leaves are whole on
+    every rank and count once."""
 
     B1, B2, EPS, MAX_NORM, DECAY_STEPS = 0.9, 0.95, 1e-8, 1.0, 100_000
 
     def __init__(
-        self, params: list[torch.Tensor], lr: float, warmup: int, weight_decay: float
+        self, params: list[torch.Tensor], lr: float, warmup: int, weight_decay: float,
+        sharded: Optional[list[bool]] = None, norm_group: Any = None,
     ) -> None:
         self.params = params
         self.lr, self.warmup, self.weight_decay = lr, warmup, weight_decay
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
+        self.sharded, self.norm_group = sharded, norm_group
+
+    def _squared_sums(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each leaf's sum of squares over the whole (unsharded) leaf: the
+        sharded leaves' local sums added up over ``norm_group`` in one
+        all-reduce (f32 on the wire; a group of one returns them exact)."""
+        import torch.distributed as dist
+
+        sq = [torch.sum(torch.square(g)) for g in grads]
+        idx = [i for i, s in enumerate(self.sharded) if s]
+        if idx:
+            part = torch.stack([sq[i].float() for i in idx])
+            dist.all_reduce(part, group=self.norm_group)
+            for j, i in enumerate(idx):
+                sq[i] = part[j].to(sq[i].dtype)
+        return sq
 
     def schedule(self, count: int) -> float:
         """Learning rate of update ``count`` (0-based; 0 at count 0)."""
@@ -157,7 +195,10 @@ class AdamW:
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise RuntimeError("AdamW.step: a parameter has no gradient")
-        sq = sum(torch.sum(torch.square(g)) for g in grads)
+        if self.sharded is None:
+            sq = sum(torch.sum(torch.square(g)) for g in grads)
+        else:
+            sq = sum(self._squared_sums(grads))
         g_norm = torch.sqrt(sq)
         keep = g_norm < self.MAX_NORM
         count_inc = self.count + 1
@@ -184,24 +225,38 @@ class AdamW:
 
 def make_optimizer(
     params: list[torch.Tensor], lr: float = 3e-4, weight_decay: float = 0.1,
-    warmup: int = 100,
+    warmup: int = 100, sharded: Optional[list[bool]] = None, norm_group: Any = None,
 ) -> AdamW:
-    """The JAX trainer's ``make_optimizer`` over ``params``."""
-    return AdamW(params, lr=lr, warmup=warmup, weight_decay=weight_decay)
+    """The JAX trainer's ``make_optimizer`` over ``params`` (this rank's
+    shards under a mesh: see :class:`AdamW`)."""
+    return AdamW(params, lr=lr, warmup=warmup, weight_decay=weight_decay,
+                 sharded=sharded, norm_group=norm_group)
 
 
 def make_train_step(
-    cfg: llama.LlamaConfig, optimizer: AdamW
+    cfg: llama.LlamaConfig, optimizer: AdamW, mesh: Optional[Mesh] = None,
+    grad_plan: Optional[overlap.BucketPlan] = None,
 ) -> Callable[[llama.Params, dict[str, torch.Tensor]], dict[str, torch.Tensor]]:
     """-> ``step(params, batch)``: loss, backward, one optimizer update in
     place. Returns device scalars (no host sync): the loss before the
-    update, the router aux vector and the gradient norm."""
+    update, the router aux vector and the gradient norm.
+
+    Under ``mesh`` (``params`` this rank's shards, ``batch`` its rows) the
+    backward leaves each shard's gradient summed over ``fsdp``; the step
+    then sums every gradient over ``dp`` (``grad_plan``'s buckets, or one
+    fused sync), and returns the loss of the whole batch."""
 
     def step(params: llama.Params, batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        loss, aux = llama.loss_and_aux(params, batch, cfg)
+        loss, aux = llama.loss_and_aux(params, batch, cfg, mesh)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            overlap.bucketed_sync([p.grad for p in optimizer.params], grad_plan, mesh.dp_group)
+            dist.all_reduce(loss, group=mesh.data_group)
         grad_norm = optimizer.step()
-        return {"loss": loss.detach(), "aux": aux.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "aux": aux.detach(), "grad_norm": grad_norm}
 
     return step
 
@@ -242,7 +297,10 @@ def checkpoint_state(
 
 
 def _traced() -> bool:
-    return bool(os.environ.get(settings.ENV_TPX_TRACE_ID))
+    """Under the launcher's tracing, on the replica's first worker: one
+    trace stream and one lease per replica, as the gang monitor counts
+    replicas."""
+    return bool(os.environ.get(settings.ENV_TPX_TRACE_ID)) and distributed.local_rank() == 0
 
 
 def _replica_id() -> int:
@@ -362,6 +420,49 @@ def _install_preempt_handler() -> tuple[Optional[threading.Event], Callable[[], 
     return evt, _restore
 
 
+def _any_rank(flag: bool, world: int, dev: torch.device) -> bool:
+    """``flag`` set on any rank of the world (a MAX all-reduce; the flag
+    itself at a world of one). Ranks that stop must stop at the same step:
+    the next step's collectives would wait for a rank that left."""
+    if world == 1:
+        return flag
+    t = torch.tensor([int(flag)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def _open_mesh(
+    mesh: Optional[str | MeshConfig], cfg: llama.LlamaConfig, dev: torch.device,
+) -> Optional[Mesh]:
+    """The training mesh: None (the single-device path) without a mesh and
+    without a process group; else ``mesh`` (a ``--mesh`` spec or a
+    :class:`MeshConfig`; default ``fsdp=-1``, the JAX trainer's) over the
+    group, which a world of one initializes here (NCCL on the card, gloo
+    on the CPU). What is not ported raises, naming its ROADMAP item."""
+    if mesh is None and not dist.is_initialized():
+        return None
+    config = parse_mesh_spec(mesh) if isinstance(mesh, str) else mesh or MeshConfig()
+    if getattr(cfg, "n_experts", 0):
+        raise NotImplementedError(
+            "a MoE config under a mesh is not ported yet (expert parallelism, the ep"
+            " axis: ROADMAP queue 1 item 2.2)"
+        )
+
+    def refuse_model_axes(sizes: dict[str, int]) -> None:
+        model = {a: sizes[a] for a in ("tp", "sp", "ep", "pp") if sizes[a] not in (1, -1)}
+        if model:
+            raise NotImplementedError(
+                f"mesh axes {model}: tensor, sequence and expert parallelism (ROADMAP"
+                " queue 1 item 2.2) and pipeline parallelism (item 2.6) are not ported"
+                " yet; the port shards over dp and fsdp"
+            )
+
+    refuse_model_axes(dataclasses.asdict(config))
+    distributed.init_from_env(backend="gloo" if dev.type == "cpu" else "nccl")
+    refuse_model_axes(config.resolve(dist.get_world_size()))  # a -1 on a model axis
+    return make_mesh(config)
+
+
 def train(
     cfg: llama.LlamaConfig,
     batch: int,
@@ -380,6 +481,8 @@ def train(
     on_state: Optional[Callable[[str, dict[str, torch.Tensor]], None]] = None,
     profile: bool = False,
     profile_dir: Optional[str] = None,
+    mesh: Optional[str | MeshConfig] = None,
+    grad_bucket_mb: Any = 0,
 ) -> dict[str, Any]:
     """Train ``steps`` steps of ``cfg`` from a seeded init, or from the
     newest checkpoint under ``ckpt_dir``. -> metrics: losses, step times,
@@ -387,6 +490,14 @@ def train(
     kernels' builds and Triton's compiles), peak device memory, each
     kernel's launches, and the launcher's results (``final_step``,
     ``resumed_from_step``, ``preempted``, ``launch_to_first_step_s``).
+
+    With ``mesh``, or inside a process group (``spmd_main``), each rank
+    trains its shards of the state (``fsdp``) on its rows of the global
+    ``batch`` (:func:`_open_mesh`); ``grad_bucket_mb`` (a cap in MiB,
+    ``"auto"``, or 0 for one fused sync) buckets the ``dp`` gradient sum.
+    Rank 0 prints; every rank returns the metrics, with each rank's
+    launches and peak memory. A group that this call initialized it also
+    destroys. Without a mesh and a group, the single-device path runs.
 
     Checkpoints follow the JAX trainer: saves every ``ckpt_every`` global
     steps (100 when 0), but not on the first step nor on the up to three
@@ -401,6 +512,27 @@ def train(
     summary is ``results["profile"]``. ``profile_dir`` writes a
     ``torch.profiler`` Chrome trace of the timed steps there
     (``results["profile_trace"]``)."""
+    had_group = dist.is_initialized()
+    try:
+        return _train(
+            cfg, batch, seq, steps, lr, warmup, data_path, prefetch, kernels, device,
+            seed, log_every, ckpt_dir, ckpt_every, on_state, profile, profile_dir,
+            mesh, grad_bucket_mb,
+        )
+    finally:
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(
+    cfg: llama.LlamaConfig, batch: int, seq: int, steps: int, lr: float, warmup: int,
+    data_path: Optional[str], prefetch: int, kernels: str,
+    device: Optional[str | torch.device], seed: int, log_every: int,
+    ckpt_dir: Optional[str], ckpt_every: int,
+    on_state: Optional[Callable[[str, dict[str, torch.Tensor]], None]],
+    profile: bool, profile_dir: Optional[str], mesh: Optional[str | MeshConfig],
+    grad_bucket_mb: Any,
+) -> dict[str, Any]:
     global _FIRST_TRAIN_PENDING
     t_call = time.monotonic()
     launch_ref = _PROCESS_START if _FIRST_TRAIN_PENDING else t_call
@@ -419,7 +551,20 @@ def train(
         cfg = dataclasses.replace(cfg, max_seq=seq, kernels=resolve_kernels(kernels))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
+        m = _open_mesh(mesh, cfg, dev)
     _stage("backend_init", time.monotonic() - t0)
+    world = dist.get_world_size() if m is not None else 1
+    rank0 = m is None or dist.get_rank() == 0
+    if world > 1 and ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir at a world above 1: multi-process checkpoints, each rank"
+            " saving its own shard, are not ported yet (ROADMAP queue 1 item 2.4)"
+        )
+    if grad_bucket_mb not in (0, "0", None, "") and m is None:
+        raise ValueError("--grad-bucket-mb buckets the gang's gradient sync: give --mesh")
+    if m is not None and dev.type == "cuda" and cfg.kernels == "cuda":
+        with distributed.on_process_zero_first():  # one nvcc build, not one a rank
+            _build.build()
 
     ckpt, latest = None, None
     if ckpt_dir:
@@ -433,11 +578,24 @@ def train(
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = llama.init_params(cfg, gen, dev)
-        optimizer = make_optimizer(llama.leaves(params), lr=lr, warmup=warmup)
+        sharded, norm_group = None, None
+        if m is not None:
+            # every rank draws the whole seeded init and keeps its shards
+            params = llama.shard_params(params, cfg, m)
+            specs = llama.leaves(llama.param_specs(cfg))
+            sharded, norm_group = ["fsdp" in spec for spec in specs], m.fsdp_group
+        optimizer = make_optimizer(llama.leaves(params), lr=lr, warmup=warmup,
+                                   sharded=sharded, norm_group=norm_group)
         if ckpt is not None:  # the pinned snapshot buffers, once
             ckpt.prepare(checkpoint_state(params, optimizer, 0))
     _stage("init_state", time.monotonic() - t0)
-    step_fn = make_train_step(cfg, optimizer)
+    grad_plan, grad_bucket_mb_used, bucket_trials = None, 0, ()
+    if grad_bucket_mb not in (0, "0", None, ""):
+        grad_bucket_mb_used, bucket_trials = overlap.resolve_bucket_mb(params, grad_bucket_mb)
+        grad_plan = overlap.plan_buckets(params, grad_bucket_mb_used * 1024 * 1024)
+        if rank0:
+            print(f"grad buckets -> {grad_plan.describe()}", flush=True)
+    step_fn = make_train_step(cfg, optimizer, m, grad_plan)
     if latest is not None:
         t0 = time.monotonic()
         live = checkpoint_state(params, optimizer, 0)
@@ -458,17 +616,21 @@ def train(
 
     t0 = time.monotonic()
     with _launch_span("launch.data_setup"):
+        # this rank's rows of every global batch (all of them off a mesh), so
+        # that any world sees the same global batches
+        mine = m.batch_rows(batch) if m is not None else slice(None)
         if data_path:
             # the stream continues at the restored step (after a fallback
             # past a corrupt step too: it is built after the restore)
             rows = TokenDataset(data_path, seq, batch, seed=seed, start_step=resumed_step)
             batches = device_prefetch(
-                ({"tokens": r} for r in rows), dev, depth=prefetch
+                ({"tokens": r[mine]} for r in rows), dev, depth=prefetch
             )
         else:
             # a constant device batch through a passthrough prefetcher: one
             # code path and an honest (about 0) data-wait account
             data = synthetic_batch(cfg, batch, seq, seed=seed, device=dev)
+            data = {k: v[mine] for k, v in data.items()}
             batches = Prefetcher(itertools.repeat(data), depth=0)
     _stage("data_setup", time.monotonic() - t0)
 
@@ -479,15 +641,15 @@ def train(
                                       "router_overflow": []}
     peak = device_peak_flops(dev)
     flops_per_token = cfg.flops_per_token()
-    tokens_per_step = batch * seq
+    tokens_per_step = batch * seq  # the global batch's
     # no periodic save on the first step nor on these warm-up steps
     warmup_steps = min(3, max(steps - 2, 0))
     global_step = resumed_step
     first_step_s = None
     window_t0, window_steps, window_wait = time.monotonic(), 0, 0.0
     profiler = None
-    if _profile_enabled(profile):
-        profiler = _make_profiler(cfg, tokens_per_step, flops_per_token, peak, dev)
+    if _profile_enabled(profile) and rank0:
+        profiler = _make_profiler(cfg, tokens_per_step // world, flops_per_token, peak, dev)
         # per-next() waits credit the current step's data_wait
         batches.set_wait_observer(profiler.observe_wait)
     torch_prof = None
@@ -543,27 +705,29 @@ def train(
             if ckpt is not None and i > warmup_steps and global_step % ckpt_every == 0:
                 with _phase("checkpoint"):
                     ckpt.save(global_step, checkpoint_state(params, optimizer, global_step))
-            if preempt_evt is not None and preempt_evt.is_set():
+            if _any_rank(preempt_evt is not None and preempt_evt.is_set(), world, dev):
                 preempted = True
                 if ckpt is not None:
                     ckpt.save(global_step, checkpoint_state(params, optimizer, global_step),
                               force=True)
                     ckpt.wait()  # durable BEFORE the hard kill lands
-                print(f"preemption notice: checkpointed step {global_step}, exiting",
-                      flush=True)
+                if rank0:
+                    print(f"preemption notice: checkpointed step {global_step}, exiting",
+                          flush=True)
                 break
             if log_every and (i + 1) % log_every == 0:
                 with _phase("host"):
                     tps = tokens_per_step / step_times[-1]
-                    mfu = f" MFU={tps * flops_per_token / peak:.1%}" if peak else ""
+                    mfu = f" MFU={tps / world * flops_per_token / peak:.1%}" if peak else ""
                     moe_note = (
                         f" router_aux={router['router_aux'][-1]:.3f}"
                         f" router_entropy={router['router_entropy'][-1]:.2f}"
                         f" router_overflow={router['router_overflow'][-1]:.1%}"
                         if is_moe else ""
                     )
-                    print(f"step {global_step} loss={loss:.4f} tokens/sec={tps:,.0f}{mfu}"
-                          f"{moe_note}{note}", flush=True)
+                    if rank0:
+                        print(f"step {global_step} loss={loss:.4f} tokens/sec={tps:,.0f}"
+                              f"{mfu}{moe_note}{note}", flush=True)
                     now = time.monotonic()
                     window_dt = (now - window_t0) / window_steps
                     wait_per_step = (batches.data_wait_s - window_wait) / window_steps
@@ -574,7 +738,8 @@ def train(
                         step=global_step,
                         avg_step_s=round(window_dt, 6),
                         data_wait_s=round(wait_per_step, 6),
-                        mfu=round(tokens_per_step / window_dt * flops_per_token / peak, 4)
+                        mfu=round(tokens_per_step / world / window_dt * flops_per_token
+                                  / peak, 4)
                         if peak else None,
                     )
             if prof is not None:
@@ -609,6 +774,11 @@ def train(
     timed = step_times[1:] or step_times
     step_s = sum(timed) / len(timed)
     tps = tokens_per_step / step_s
+    peak_memory = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    by_rank = [(launches, peak_memory)]
+    if m is not None:
+        by_rank = [None] * world
+        dist.all_gather_object(by_rank, (launches, peak_memory))
     checkpoint = None
     if ckpt is not None:
         checkpoint = {
@@ -623,9 +793,10 @@ def train(
         "step_times_s": step_times,
         "step_time_s": step_s,
         "tokens_per_sec": tps,
-        "mfu": tps * flops_per_token / peak if peak else None,
+        "tokens_per_sec_per_card": tps / world,
+        "mfu": tps / world * flops_per_token / peak if peak else None,
         "data_wait_s": data_wait_s,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+        "peak_memory_bytes": peak_memory,
         "launches": launches,
         "launches_per_step": {k: v / len(losses) for k, v in launches.items()},
         "kernels": cfg.kernels,
@@ -644,6 +815,15 @@ def train(
         "checkpoint": checkpoint,
         "profile": profile_summary,
         "profile_trace": profile_trace,
+        # the gang: world 1, no mesh and no backend on the single-device path
+        "world": world,
+        "mesh": mesh_sizes_spec(m.sizes) if m is not None else None,
+        "backend": m.backend if m is not None else None,
+        "grad_bucket_mb": grad_bucket_mb_used,
+        "grad_buckets": grad_plan.n_buckets if grad_plan else 0,
+        **({"grad_bucket_trials": [t.to_dict() for t in bucket_trials]} if bucket_trials else {}),
+        "launches_by_rank": [r[0] for r in by_rank],
+        "peak_memory_bytes_by_rank": [r[1] for r in by_rank],
         # per step, MoE configs only (the JAX trainer's log fields)
         **(router if is_moe else {}),
     }
@@ -715,14 +895,22 @@ def main(argv: Optional[list[str]] = None) -> None:
         "--profile-dir", default=None,
         help="write a torch.profiler Chrome trace of the timed steps here",
     )
+    parser.add_argument(
+        "--mesh", default=None,
+        help="axis sizes pp/dp/fsdp/ep/tp/sp, e.g. dp=2,fsdp=-1 (only dp and fsdp"
+        " may exceed 1); $TPX_MESH overrides it. Default: the single-device"
+        " step, or fsdp=-1 inside a process group (spmd_main)",
+    )
+    parser.add_argument(
+        "--grad-bucket-mb", default="0",
+        help="bucket the dp gradient sum: a size cap in MiB, 'auto' (the"
+        " candidate ladder), or 0 for one fused sync",
+    )
     args, unknown = parser.parse_known_args(argv)
     for arg in unknown:
         flag = arg.split("=", 1)[0]
         if flag in NOT_PORTED_FLAGS:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1); the port runs the"
-                " single-device step"
-            )
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP queue 1)")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.log_every is not None and args.log_every < 1:
@@ -743,8 +931,13 @@ def main(argv: Optional[list[str]] = None) -> None:
         ckpt_every=args.ckpt_every,
         profile=args.profile,
         profile_dir=args.profile_dir,
+        # an elastic reshape overrides --mesh: the supervisor injects the
+        # degraded shape of a resubmitted attempt as $TPX_MESH
+        mesh=os.environ.get(settings.ENV_TPX_MESH) or args.mesh,
+        grad_bucket_mb=args.grad_bucket_mb,
     )
-    print("final:", json.dumps(metrics), flush=True)
+    if distributed.is_process_zero():
+        print("final:", json.dumps(metrics), flush=True)
 
 
 if __name__ == "__main__":

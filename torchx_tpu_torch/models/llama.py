@@ -21,14 +21,22 @@ layer weight may also be a quantized ``{"q", "scale"}`` record of weight-only
 serving (:func:`~torchx_tpu_torch.ops.quant.quantize_params`): the same
 call takes it.
 
-Not ported yet (ROADMAP, queue 1): ring attention, pipeline parallelism and
-every mesh; the config fields that would select them raise
-``NotImplementedError``.
+Under a :class:`~torchx_tpu_torch.parallel.mesh.Mesh` (``mesh=`` of
+:func:`forward_features` and :func:`loss_and_aux`) the parameters are this
+rank's shards (:func:`param_specs`, :func:`shard_params`, the JAX
+package's ``fsdp`` layout) and the tokens its rows of the batch: each layer
+gathers its weights inside the checkpointed layer, so the remat recompute
+gathers them again and no more than one layer's whole weights live at a
+time (ZeRO-3); the embedding is gathered once a step. Only the data axes
+(``dp``, ``fsdp``) are ported; ring attention, pipeline parallelism and the
+model axes are not (ROADMAP, queue 1), and the config fields that would
+select them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -284,6 +292,56 @@ def unflatten(flat: dict[str, torch.Tensor]) -> Params:
     return tree
 
 
+# -- sharding --------------------------------------------------------------
+
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """The tree of :func:`init_params` with, for each leaf, the mesh axes
+    that shard each of its dimensions (None: not sharded), as the JAX
+    package's ``param_specs`` (without pipeline stages): ``fsdp`` shards
+    the model dimension of every matrix (ZeRO-3), ``tp`` its heads or ffn
+    dimension; the norms are replicated."""
+    if getattr(cfg, "n_experts", 0):
+        raise NotImplementedError(
+            "MoE parameters under a mesh are not ported yet (expert parallelism,"
+            " the ep axis: ROADMAP queue 1 item 2.2)"
+        )
+    specs: Params = {
+        "embed": (None, "fsdp"),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, "fsdp", "tp"),
+            "wk": (None, "fsdp", "tp"),
+            "wv": (None, "fsdp", "tp"),
+            "wo": (None, "tp", "fsdp"),
+            "mlp_norm": (None, None),
+            "w_gate": (None, "fsdp", "tp"),
+            "w_up": (None, "fsdp", "tp"),
+            "w_down": (None, "tp", "fsdp"),
+        },
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", "tp")
+    return specs
+
+
+def shard_params(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
+    """This rank's shard of every leaf of the whole tree ``params`` under
+    :func:`param_specs` (fresh tensors that require grad, as the leaves
+    of :func:`init_params`): rank ``r`` holds what JAX's ``shard_params``
+    puts on device ``r``."""
+    from torchx_tpu_torch.parallel.mesh import shard
+
+    specs = dict(named_leaves(param_specs(cfg)))
+    out = unflatten({
+        name: shard(p.detach(), specs[name], mesh) for name, p in named_leaves(params)
+    })
+    for leaf in leaves(out):
+        leaf.requires_grad_(True)
+    return out
+
+
 # -- forward ---------------------------------------------------------------
 
 
@@ -367,24 +425,55 @@ def _layer(
     return x + down, aux
 
 
+def _sharded_layer(
+    mesh: Any, specs: tuple, cfg: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
+    x: torch.Tensor, *shards: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_layer` on one layer's weights gathered from this rank's
+    shards (``specs``: each shard's spec, the layer axis dropped)."""
+    return _layer(cfg, cos, sin, x, *(mesh.unshard(w, sp) for w, sp in zip(shards, specs)))
+
+
+def _unshard_top(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
+    """``params`` with the leaves outside the layers whole: the embedding
+    (the tied head too) and an untied head gathered once, the final norm
+    marked replicated."""
+    specs = param_specs(cfg)
+    out = dict(params)
+    for key in ("embed", "lm_head", "final_norm"):
+        if key in params:
+            out[key] = mesh.unshard(params[key], specs[key])
+    return out
+
+
 def forward_features(
     params: Params,
     tokens: torch.Tensor,  # [b, s] int
     cfg: LlamaConfig,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (final-norm hidden states [b, s, dim], router-health aux)."""
+    """-> (final-norm hidden states [b, s, dim], router-health aux).
+
+    With ``mesh``, the layer leaves of ``params`` are this rank's shards,
+    which each layer gathers inside the (checkpointed) layer; the leaves
+    outside the layers are whole (:func:`_unshard_top`)."""
     x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     s = x.shape[1]
     cos, sin = rope_frequencies(cfg.head_dim, s, cfg.rope_theta, device=x.device)
+    keys = _layer_keys(cfg)
     # one unbind per stacked leaf: the backward stacks the layer grads once
-    per_layer = [params["layers"][key].unbind(0) for key in _layer_keys(cfg)]
+    per_layer = [params["layers"][key].unbind(0) for key in keys]
+    layer_fn = _layer
+    if mesh is not None:
+        specs = tuple(param_specs(cfg)["layers"][key][1:] for key in keys)
+        layer_fn = functools.partial(_sharded_layer, mesh, specs)
     auxes = []
     for i in range(cfg.n_layers):
         weights = [w[i] for w in per_layer]
         if cfg.remat:
-            x, aux = checkpoint(_layer, cfg, cos, sin, x, *weights, use_reentrant=False)
+            x, aux = checkpoint(layer_fn, cfg, cos, sin, x, *weights, use_reentrant=False)
         else:
-            x, aux = _layer(cfg, cos, sin, x, *weights)
+            x, aux = layer_fn(cfg, cos, sin, x, *weights)
         auxes.append(aux)
     aux = torch.stack(auxes)
     aux_total = torch.stack(
@@ -433,24 +522,53 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor], cfg: LlamaConfig) ->
     return loss_and_aux(params, batch, cfg)[0]
 
 
+def _global_count(m: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """The kept targets of the whole batch: ``m.sum()`` summed over the
+    ranks that split the batch (a constant of the graph)."""
+    import torch.distributed as dist
+
+    n = m.sum().detach()
+    dist.all_reduce(n, group=mesh.data_group)
+    return n
+
+
 def loss_and_aux(
     params: Params,
     batch: dict[str, torch.Tensor],
     cfg: LlamaConfig,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (loss, router-health aux vector). ``batch["tokens"]`` is
     [b, seq+1]: the model runs on ``tokens[:, :-1]``; an optional
     ``loss_mask`` weights the targets. The loss adds ``router_aux_coef``
-    times the balance term (``aux[AUX_BALANCE]``, 0 for dense models)."""
+    times the balance term (``aux[AUX_BALANCE]``, 0 for dense models).
+
+    With ``mesh``, ``params`` are this rank's shards and ``batch`` its rows:
+    the loss is this rank's share of the whole batch's mean (its mean over
+    the data-group size; with a mask, its sum over the whole batch's kept
+    targets), so the shares summed over the data group give the mean."""
     tokens = batch["tokens"]
-    x, aux = forward_features(params, tokens[:, :-1], cfg)
+    if mesh is not None:
+        params = _unshard_top(params, cfg, mesh)
+    x, aux = forward_features(params, tokens[:, :-1], cfg, mesh)
     aux_term = getattr(cfg, "router_aux_coef", 0.0) * aux[AUX_BALANCE]
     targets = tokens[:, 1:]
     head = lm_head(params, cfg)
     mask = batch.get("loss_mask")
     m = mask[:, 1:].float() if mask is not None else None
     f32 = cfg.ce_f32_logits
+    count = None  # the kept targets of the whole batch
+    if m is not None:
+        count = _global_count(m, mesh) if mesh is not None else m.sum()
 
+    def mean_share(loss: torch.Tensor) -> torch.Tensor:
+        # this rank's share of the mean over the ranks the batch is split over
+        return loss / mesh.data_size if mesh is not None else loss
+
+    # summed over the data group, the router term counts once. Its mean over
+    # ranks is not the whole batch's balance term (a product of per-expert
+    # means): MoE under a mesh is refused until ep is ported (ROADMAP 2.2)
+    aux_term = mean_share(aux_term)
     b, s = targets.shape
     chunk = cfg.loss_chunk
     if chunk and s % chunk == 0 and s > chunk:
@@ -464,10 +582,10 @@ def loss_and_aux(
                 args += (m[:, sl],)
             total = total + checkpoint(_chunk_nll_sum, *args, use_reentrant=False)
         if m is None:
-            return total / (b * s) + aux_term, aux
-        return total / torch.clamp(m.sum(), min=1.0) + aux_term, aux
+            return mean_share(total / (b * s)) + aux_term, aux
+        return total / torch.clamp(count, min=1.0) + aux_term, aux
 
     nll = _token_nll(x, head, targets, f32)
     if m is not None:
-        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0) + aux_term, aux
-    return nll.mean() + aux_term, aux
+        return (nll * m).sum() / torch.clamp(count, min=1.0) + aux_term, aux
+    return mean_share(nll.mean()) + aux_term, aux
