@@ -66,7 +66,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
    gradient norms within 5e-2 (the reference phase's): four ranks on NCCL
    as ``dp=2,fsdp=2`` with four cards or more, two as ``fsdp=2`` on NCCL
    with two or three, else two on gloo sharing the one card (NCCL refuses
-   two ranks on one card).
+   two ranks on one card). The profiled A run prints the step profiler's
+   modeled ``grad_sync`` seconds a step per data axis (the cost model's
+   bytes over NVLink's rate; none at a world of one) beside the NCCL
+   device time it measures.
+   gangckpt — the gang's checkpoints. A: A's run (llama3_1b at full width
+   and depth, 16 layers, one worker a card on NCCL, ``--mesh fsdp=-1``)
+   with ``--ckpt-dir``, SIGTERM to ``spmd_main`` after its second step
+   line: exit 0, preempted, the step it saved passing
+   ``verify_checkpoint``; a gang resumed on that step runs the rest of six
+   steps, whose losses are the gang phase's uninterrupted ones (bitwise
+   where the drill's own steps were, else within 1e-3). With four cards
+   or more the step is also restored at ``fsdp=2`` on two of them, every
+   restored block bitwise its half of the whole tensor that a reader
+   without a mesh assembles from the step's files, and continued (losses
+   within 1e-2: another world sums in another order). B: two ranks on
+   gloo sharing the card train llama3_1b cut to 2 layers at ``fsdp=2`` and
+   save a file a rank; the step is restored onto the card at a world of
+   one, every entry bitwise the two ranks' final state. Prints each rank's
+   host buffer (pinned) bytes, snapshot stall, serialize / fsync / digest
+   seconds and rank 0's wait for the other ranks' files
+   (``commit_wait_s``; the others' wait for its commit, ``commit_s``), the
+   restore's verify, read and H2D seconds, launch-to-first-step on resume,
+   SIGTERM to exit against the 30 s notice, and the phase's own seconds
+   by part.
 5. serve — ``generate_server`` in-process on 127.0.0.1 (continuous engine,
    8 slots, block size 16, the default pool) with llama3_1b at full width
    and depth, bf16, seeded random weights: 8 concurrent ``/v1/generate``
@@ -220,7 +243,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "train", "reference", "gang", "serve", "ckpt", "moe", "int8")
+PHASES = ("build", "kernels", "train", "reference", "gang", "gangckpt", "serve", "ckpt", "moe",
+          "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
@@ -1407,6 +1431,12 @@ def phase_gang(train_out: dict, train_profiled: dict) -> dict:
                                 "collective_device_ms_per_step_total",
                                 "collective_gpu_events")},
         "collective_bytes_per_step_reckoned": gang_bytes(cfg),
+        # the step profiler's grad_sync: the cost model's seconds a step per
+        # data axis (bytes over NVLink's 450 GB/s), and what it attributed
+        "grad_sync_modeled_s_per_step": prof["profile"]["meta"]["comm_modeled_axis_s"],
+        "grad_sync_attributed_s_per_step": {
+            k: v / prof["profile"]["steps"]
+            for k, v in prof["profile"]["grad_sync_seconds"].items()},
         "launches_by_rank": plain["launches_by_rank"], "expected_launches": expected,
     }
     emit(res)
@@ -1424,7 +1454,7 @@ def phase_gang(train_out: dict, train_profiled: dict) -> dict:
         if final["world"] > 1 and rel > REF_LOSS_RTOL:  # another summation order
             fail("gang", f"world-{final['world']} losses {final['losses']} against the"
                  f" train phase's {train_out['losses']}")
-    return {"A": res, "B": phase_gang_ranks(cards)}
+    return {"A": res, "A_final": plain, "B": phase_gang_ranks(cards)}
 
 
 def phase_gang_parts() -> None:
@@ -1554,6 +1584,330 @@ def phase_gang_ranks(cards: int) -> dict:
     return res
 
 
+#: The gangckpt phase (module docstring): A's SIGTERM after its step line
+#: ``term_after`` (the notice lands within the next step: a save of step 2
+#: to 4 of the 6 the gang phase's A ran uninterrupted), the wait for its
+#: exit; B at ``b_layers`` layers for ``b_steps`` steps.
+GANGCKPT = dict(term_after=2, limit_s=150.0, b_layers=2, b_steps=2)
+
+#: B's script: the trainer on llama3_1b cut to ``layers`` layers as two
+#: ranks at ``fsdp=2`` saving into ``<out>/ck``; each rank also leaves its
+#: final state (its shards) in ``<out>/rank<r>.pt`` to hold the restore to.
+_GANGCKPT_B_SCRIPT = """import json, os, sys
+import torch, torch.distributed as dist
+from torchx_tpu_torch.examples import train_llama
+from torchx_tpu_torch.models import llama
+out = sys.argv[1]
+
+def dump(event, state):
+    if event == "final":
+        torch.save({{k: v.detach().cpu().clone() for k, v in state.items()}},
+                   os.path.join(out, f"rank{{dist.get_rank()}}.pt"))
+
+res = train_llama.train(llama.llama3_1b(n_layers={layers}), {batch}, {seq}, {steps},
+                        warmup=1, kernels="cuda", device="cuda", log_every=0,
+                        mesh="fsdp=2", ckpt_dir=os.path.join(out, "ck"), on_state=dump)
+if dist.get_rank() == 0:
+    print("final:", json.dumps(res), flush=True)
+"""
+
+
+#: The resize's script: A's trainer as two ranks at ``fsdp=-1`` resuming
+#: from ``<ck>``. Right after the restore each rank holds every restored
+#: block against its chunk of the whole tensor that a reader without a mesh
+#: assembles from the step's files, one entry at a time, and leaves the
+#: names that differ in ``<out>/restored<r>.json``.
+_GANGCKPT_RESIZE_SCRIPT = """import json, os, sys, time
+import torch, torch.distributed as dist
+from torchx_tpu_torch.examples import train_llama
+from torchx_tpu_torch.models import llama
+from torchx_tpu_torch.parallel.checkpoint import Checkpointer
+out, ck = sys.argv[1], sys.argv[2]
+cfg = llama.llama3_1b()
+specs = train_llama.checkpoint_specs(cfg)
+
+def check(event, state):
+    if event != "restored":
+        return
+    t0 = time.monotonic()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    reader = Checkpointer(ck, read_only=True)
+    step = reader.latest_step()
+    bad = []
+    for name, live in state.items():
+        whole = reader.restore(step, prefix=name)[name]
+        for d, axis in enumerate(specs.get(name, ())):
+            if axis == "fsdp":
+                whole = whole.chunk(world, d)[rank]
+        if not torch.equal(live.detach().cpu(), whole):
+            bad.append(name)
+    with open(os.path.join(out, f"restored{{rank}}.json"), "w") as f:
+        json.dump({{"step": step, "entries": len(state), "mismatched": bad,
+                   "check_s": time.monotonic() - t0}}, f)
+
+res = train_llama.train(cfg, {batch}, {seq}, {steps}, warmup=1, kernels="cuda",
+                        log_every=1, mesh="fsdp=-1", grad_bucket_mb={bucket_mb},
+                        ckpt_dir=ck, on_state=check)
+if dist.get_rank() == 0:
+    print("final:", json.dumps(res), flush=True)
+"""
+
+
+def _link_copy(src: str, dst: str) -> str:
+    """A copy of the checkpoint directory ``src`` made of hard links: a run
+    on it writes new files and replaces the manifest, never a file in place,
+    so ``src`` stays as it was."""
+    import shutil
+
+    shutil.copytree(src, dst, copy_function=os.link)
+    return dst
+
+
+def _spmd_drill(args: list[str], target: list[str], term_after: int, limit_s: float,
+                phase: str) -> dict:
+    """:func:`_spmd`'s gang, SIGTERM to ``spmd_main`` (the launcher's
+    notice; it forwards the signal to every worker) after rank 0's
+    ``term_after``-th step line; the exit awaited ``limit_s``. -> rank 0's
+    final summary, SIGTERM to exit, and whether the notice was printed."""
+    import signal
+
+    full = dict(os.environ, PYTHONPATH=REPO, TPX_REPLICA_ID="0", TPX_NUM_REPLICAS="1",
+                TPX_COORDINATOR_HOST="127.0.0.1")
+    cmd = [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", "--port",
+           str(_free_port()), "--timeout", "120", *args, *target]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=full, cwd=REPO, start_new_session=True)
+    lines = []
+    try:
+        while sum(x.startswith("step ") for x in lines) < term_after:
+            line = proc.stdout.readline()
+            if not line:
+                fail(phase, f"drill: the gang ended before its step line {term_after}:\n"
+                     + "".join(lines)[-3000:])
+            lines.append(line)
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)  # spmd_main forwards it to every worker
+        try:
+            rest, _ = proc.communicate(timeout=limit_s)
+        except subprocess.TimeoutExpired:
+            fail(phase, f"drill: no exit within {limit_s} s of SIGTERM")
+        exit_s = time.monotonic() - t_term
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        proc.wait()
+    out = "".join(lines) + rest
+    if proc.returncode != 0 or "final:" not in out:
+        fail(phase, f"drill: spmd_main exit {proc.returncode}:\n{out[-4000:]}")
+    final = json.loads(out.split("final:", 1)[1].splitlines()[0])
+    notice = f"preemption notice: checkpointed step {final['final_step']}, exiting"
+    return {"final": final, "sigterm_to_exit_s": exit_s, "notice_printed": notice in out}
+
+
+def _ckpt_by_rank(final: dict) -> list[dict]:
+    """Each rank's checkpoint numbers of a run: its host buffers (pinned),
+    the last save's stall, the last write's split, and its restore."""
+    out = []
+    for ck in final["checkpoint_by_rank"]:
+        row = {"buffer_bytes": ck["buffer_bytes"]}
+        saves = [x for x in ck["saves"] if not x.get("rewrite_skipped")]
+        if saves:
+            row["snapshot_s"] = saves[-1]["snapshot_s"]
+            row["snapshot_bytes"] = saves[-1]["bytes"]
+        if ck["writes"]:
+            row["write"] = ck["writes"][-1]
+        if ck["restores"]:
+            row["restore"] = ck["restores"][0]
+        out.append(row)
+    return out
+
+
+def phase_gang_ckpt(gang_a: dict | None) -> dict:
+    """A: llama3_1b at full width and depth through ``spmd_main``, one
+    worker a card on NCCL, ``--mesh fsdp=-1`` (the gang phase's A run,
+    which gives the uninterrupted losses), saving with ``--ckpt-dir``,
+    SIGTERM to ``spmd_main`` mid-run; the step it committed passes
+    ``verify_checkpoint``, and a resume on it runs the remaining steps of
+    six: their losses are the uninterrupted run's (bitwise where the
+    drill's own steps were, else within RESUME_RTOL). With four cards or
+    more, the step is also restored at ``fsdp=2`` on two of them, every
+    block bitwise (``_GANGCKPT_RESIZE_SCRIPT``), and continued (losses
+    within REF_LOSS_RTOL: another summation order). B: two ranks on gloo
+    sharing the card save llama3_1b cut to 2 layers at ``fsdp=2``; a
+    checkpointer at a world of one restores the step onto the card, every
+    entry bitwise the two ranks' state. Prints each rank's checkpoint
+    numbers and the phase's seconds by part."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torchx_tpu_torch.apps.eval_main import verify_checkpoint
+    from torchx_tpu_torch.examples.train_llama import checkpoint_specs
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.parallel.checkpoint import Checkpointer
+    from torchx_tpu_torch.parallel.mesh import shard_extent
+    from torchx_tpu_torch.parallel.mesh_config import AXES, parse_mesh_spec
+
+    t_phase = time.monotonic()
+    seconds: dict[str, float] = {}
+    cfg = llama.llama3_1b()
+    cards = torch.cuda.device_count()
+    steps = TRAIN["steps"]
+    step_bytes = 3 * cfg.param_count() * torch_itemsize(cfg.dtype)
+    root = tempfile.mkdtemp(prefix="tpx_gangckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < 4 * step_bytes:
+            fail("gangckpt", f"{free / 1e9:.1f} GB free under {root}: the phase writes up to"
+                 f" four {step_bytes / 1e9:.1f} GB steps")
+        free_card()
+        t0 = time.monotonic()
+        if gang_a is None:
+            gang_a = _gang_a(cfg, root, profiled=False)
+            seconds["uninterrupted"] = time.monotonic() - t0
+        ref = gang_a["losses"]
+        d = os.path.join(root, "ck")
+        a_args = ["--config", "llama3_1b", "--batch", str(TRAIN["batch"]), "--seq",
+                  str(TRAIN["seq"]), "--kernels", "cuda", "--warmup", "1", "--mesh",
+                  "fsdp=-1", "--grad-bucket-mb", str(GANG["bucket_mb"])]
+        trainer = ["-m", "torchx_tpu_torch.examples.train_llama", "--"]
+        t0 = time.monotonic()
+        drill = _spmd_drill([], trainer + a_args + ["--steps", "1000", "--ckpt-dir", d,
+                                                     "--log-every", "1"],
+                            GANGCKPT["term_after"], GANGCKPT["limit_s"], "gangckpt")
+        n = drill["final"]["final_step"]
+        seconds["drill"] = time.monotonic() - t0
+        if not (drill["final"]["preempted"] and drill["notice_printed"] and 0 < n < steps):
+            fail("gangckpt", f"drill: {drill}")
+        t0 = time.monotonic()
+        verified, _ = verify_checkpoint(d)
+        verify_s = seconds["verify_checkpoint"] = time.monotonic() - t0
+        if verified != n:
+            fail("gangckpt", f"verify_checkpoint: step {verified}, not {n}")
+        t0 = time.monotonic()
+        resume, _ = _spmd([], trainer + a_args + [
+            "--steps", str(steps - n), "--ckpt-dir", _link_copy(d, d + "_resume")], {},
+            "gangckpt")
+        seconds["resume"] = time.monotonic() - t0
+        repeatable = drill["final"]["losses"] == ref[:n]
+        bitwise = resume["losses"] == ref[n:]
+        res_a = {
+            "phase": "gangckpt", "run": "A", "world": drill["final"]["world"],
+            "backend": drill["final"]["backend"], "mesh": drill["final"]["mesh"],
+            "saved_step": n, "step_files": sorted(os.listdir(os.path.join(d, str(n)))),
+            "step_bytes": sum(os.path.getsize(os.path.join(d, str(n), x))
+                              for x in os.listdir(os.path.join(d, str(n)))),
+            "sigterm_to_exit_s": drill["sigterm_to_exit_s"], "notice_s": CKPT["notice_s"],
+            "within_notice": drill["sigterm_to_exit_s"] <= CKPT["notice_s"],
+            "verify_checkpoint_s": verify_s,
+            "launch_to_first_step_s": drill["final"]["launch_to_first_step_s"],
+            "resume_launch_to_first_step_s": resume["launch_to_first_step_s"],
+            "resume_launch_breakdown": resume["launch_breakdown"],
+            "resumed_from_step": resume["resumed_from_step"],
+            "drill_losses": drill["final"]["losses"], "resumed_losses": resume["losses"],
+            "uninterrupted_losses": ref, "drill_steps_bitwise": repeatable,
+            "resume_bitwise": bitwise,
+            "resume_max_rel_diff": _rel_diff(resume["losses"], ref[n:]),
+            "drill_by_rank": _ckpt_by_rank(drill["final"]),
+            "resume_by_rank": _ckpt_by_rank(resume),
+        }
+        emit(res_a)
+        if resume["resumed_from_step"] != n or (
+                not bitwise if repeatable else res_a["resume_max_rel_diff"] > RESUME_RTOL):
+            fail("gangckpt", f"A's resume from step {n}: {resume['losses']} against the"
+                 f" uninterrupted {ref[n:]}")
+        out = {"A": res_a}
+        if cards >= 4:
+            t0 = time.monotonic()
+            r_out = os.path.join(root, "resize")
+            os.makedirs(r_out)
+            script = os.path.join(root, "resize_train.py")
+            with open(script, "w") as f:
+                f.write(_GANGCKPT_RESIZE_SCRIPT.format(
+                    batch=TRAIN["batch"], seq=TRAIN["seq"], steps=steps - n,
+                    bucket_mb=GANG["bucket_mb"]))
+            resize, _ = _spmd(["--nproc-per-node", "2"], [
+                "--script", script, "--", r_out, _link_copy(d, d + "_resize")], {},
+                "gangckpt")
+            seconds["resize"] = time.monotonic() - t0
+            checks = []
+            for r in range(resize["world"]):
+                with open(os.path.join(r_out, f"restored{r}.json")) as f:
+                    checks.append(json.load(f))
+            res_r = {"phase": "gangckpt", "run": "resize", "from_world": res_a["world"],
+                     "world": resize["world"], "mesh": resize["mesh"],
+                     "resumed_from_step": resize["resumed_from_step"],
+                     "restored_step_by_rank": [c["step"] for c in checks],
+                     "entries_by_rank": [c["entries"] for c in checks],
+                     "mismatched_by_rank": [c["mismatched"] for c in checks],
+                     "restore_check_s_by_rank": [c["check_s"] for c in checks],
+                     "losses": resize["losses"], "uninterrupted_losses": ref[n:],
+                     "max_rel_diff": _rel_diff(resize["losses"], ref[n:]),
+                     "launch_to_first_step_s": resize["launch_to_first_step_s"],
+                     "by_rank": _ckpt_by_rank(resize)}
+            emit(res_r)
+            if (resize["resumed_from_step"] != n or res_r["max_rel_diff"] > REF_LOSS_RTOL
+                    or any(c["step"] != n or c["mismatched"] or not c["entries"]
+                           for c in checks)):
+                fail("gangckpt", f"resize to fsdp=2: {res_r}")
+            out["resize"] = res_r
+        shutil.rmtree(d + "_resume", ignore_errors=True)
+        shutil.rmtree(d, ignore_errors=True)
+        free_card()
+        # B: two ranks sharing the card save; a world of one restores
+        t0 = time.monotonic()
+        b_out = os.path.join(root, "b")
+        os.makedirs(b_out)
+        script = os.path.join(root, "b_train.py")
+        with open(script, "w") as f:
+            f.write(_GANGCKPT_B_SCRIPT.format(layers=GANGCKPT["b_layers"],
+                                              batch=TRAIN["batch"], seq=TRAIN["seq"],
+                                              steps=GANGCKPT["b_steps"]))
+        saved, _ = _spmd(["--nproc-per-node", "2", "--backend", "gloo"],
+                         ["--script", script, "--", b_out], {}, "gangckpt")
+        cfg_b = llama.llama3_1b(n_layers=GANGCKPT["b_layers"])
+        specs = checkpoint_specs(cfg_b)
+        sizes = parse_mesh_spec("fsdp=2").resolve(2)
+        whole: dict = {}
+        for r in range(2):
+            coords = {a: (r if a == "fsdp" else 0) for a in AXES}
+            for k, v in torch.load(os.path.join(b_out, f"rank{r}.pt")).items():
+                spec = specs.get(k, (None,) * v.dim())
+                shape = tuple(n_ * (2 if ax == "fsdp" else 1) for n_, ax in zip(v.shape, spec))
+                if k not in whole:
+                    whole[k] = torch.empty(shape, dtype=v.dtype)
+                whole[k][shard_extent(spec, shape, sizes, coords)] = v
+        live = {k: torch.empty_like(v, device="cuda") for k, v in whole.items()}
+        one = Checkpointer(os.path.join(b_out, "ck"))
+        restored_step, _ = one.restore_latest(into=live)
+        one.close()
+        mismatched = sorted(k for k in whole if not torch.equal(live[k].cpu(), whole[k]))
+        seconds["B"] = time.monotonic() - t0
+        res_b = {"phase": "gangckpt", "run": "B", "n_layers": GANGCKPT["b_layers"],
+                 "ranks_share_a_card": True, "backend": saved["backend"],
+                 "world": saved["world"], "mesh": saved["mesh"],
+                 "saved_step": saved["final_step"],
+                 "save_launch_to_first_step_s": saved["launch_to_first_step_s"],
+                 "save_step_times_s": saved["step_times_s"], "restored_world": 1,
+                 "restored_step": restored_step,
+                 "entries": len(whole), "entries_bitwise": len(whole) - len(mismatched),
+                 "save_by_rank": _ckpt_by_rank(saved), "restore": one.restores}
+        emit(res_b)
+        if (saved["world"], saved["backend"]) != (2, "gloo") or \
+                restored_step != saved["final_step"] or mismatched:
+            fail("gangckpt", f"B: {res_b}; entries not bitwise: {mismatched[:5]}")
+        out["B"] = res_b
+        seconds["total"] = time.monotonic() - t_phase
+        emit({"phase": "gangckpt", "run": "seconds", **seconds})
+        out["seconds"] = seconds
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serving
 # ---------------------------------------------------------------------------
@@ -1650,11 +2004,11 @@ def _teacher_forced_gaps(params, cfg, prompt, completion, width):  # noqa: ANN00
     calls: list = []
     route = moe.route
     if getattr(cfg, "n_experts", 0):
-        def recording_route(cfg_, layer, x):  # noqa: ANN001, ANN202
+        def recording_route(cfg_, layer, x, *rest):  # noqa: ANN001, ANN002, ANN202
             probs = torch.softmax(x.float() @ layer["w_router"].float(), dim=-1)
             top = probs.topk(cfg_.top_k + 1, dim=-1).values
             calls.append((top[..., -2] - top[..., -1])[0])
-            return route(cfg_, layer, x)
+            return route(cfg_, layer, x, *rest)
 
         moe.route = recording_route
     try:
@@ -3778,10 +4132,13 @@ def main(argv: list[str] | None = None) -> int:
         train_profiled = phase_train_profiled(train_out, counts)
     if "reference" in phases:
         phase_reference()
+    gang_out = None
     if "gang" in phases:
         if "train" not in phases:
             fail("gang", "the gang phase compares with the train phase: add train")
-        phase_gang(train_out, train_profiled)
+        gang_out = phase_gang(train_out, train_profiled)
+    if "gangckpt" in phases:
+        phase_gang_ckpt(gang_out["A_final"] if gang_out else None)
     if "serve" in phases:
         phase_serve_disagg(phase_serve())
     if "ckpt" in phases:

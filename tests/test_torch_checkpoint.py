@@ -504,3 +504,152 @@ def test_manifest_digest_of_a_multi_megabyte_payload(tmp_path):
     assert doc["steps"]["1"]["digest"] == jckpt._digest_path(str(tmp_path / "1"))
     assert set(ckpt.writes[0]) == {"step", "serialize_s", "fsync_s", "digest_s", "write_s",
                                    "bytes"}
+
+
+def _mesh_at(spec, world, rank):
+    """Rank ``rank``'s sizes and coordinates (no process group: the layout
+    arithmetic needs no more)."""
+    from torchx_tpu_torch.parallel.mesh import Mesh
+    from torchx_tpu_torch.parallel.mesh_config import AXES, parse_mesh_spec
+
+    sizes = parse_mesh_spec(spec).resolve(world)
+    coords = np.unravel_index(rank, [sizes[a] for a in AXES])
+    return Mesh(None, sizes, {a: int(c) for a, c in zip(AXES, coords)}, None, None, None,
+                "gloo")
+
+
+def _trainer_state():
+    """The trainer's flat state of llama_tiny (its moments filled, so that
+    no two entries are alike) and its specs: the embedding, ``wo`` and
+    ``w_down`` shard their last dimension."""
+    from torchx_tpu_torch.examples import train_llama as ttrain
+    from torchx_tpu_torch.models import llama as tllama
+
+    cfg = tllama.llama_tiny()
+    params = tllama.init_params(cfg, torch.Generator().manual_seed(3))
+    opt = ttrain.make_optimizer(tllama.leaves(params))
+    gen = torch.Generator().manual_seed(4)
+    for m in opt.mu + opt.nu:
+        m.copy_(torch.randn(m.shape, generator=gen))
+    opt.count = 7
+    state = {k: v.clone() for k, v in ttrain.checkpoint_state(params, opt, 7).items()}
+    return state, ttrain.checkpoint_specs(cfg)
+
+
+def _save_as_gang(directory, spec, world, state, specs, step=7, **kw):
+    """Every rank of a ``spec`` mesh saves its blocks of ``state``, each on
+    a thread of its own (rank 0 waits for the others' files; they wait for
+    its manifest; the staging name is the class fixture's). -> the ranks'
+    checkpointers."""
+    from torchx_tpu_torch.parallel.mesh import shard_extent
+
+    ckpts = [Checkpointer(directory, mesh=_mesh_at(spec, world, r), specs=specs,
+                          async_save=False, **kw) for r in range(world)]
+    errors = []
+
+    def one(ck):
+        m = ck._mesh
+        blocks = {k: v[shard_extent(specs.get(k, (None,) * v.dim()), tuple(v.shape),
+                                    m.sizes, m.coords)].clone() for k, v in state.items()}
+        try:
+            ck.save(step, blocks)
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(ck,)) for ck in ckpts]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    return ckpts
+
+
+class TestShardedLayout:
+    """A gang's step written by simulated ranks (threads, no process
+    group): any layout reassembles bitwise and reshards into any other."""
+
+    @pytest.fixture(autouse=True)
+    def _one_staging_name(self, monkeypatch):
+        """The name rank 0 would broadcast, the same on every thread."""
+        monkeypatch.setattr(ckpt_mod.distributed, "broadcast_from_zero", lambda value: "t")
+
+    LAYOUTS = [("fsdp=1", 1), ("fsdp=2", 2), ("fsdp=4", 4), ("dp=2,fsdp=2", 4)]
+
+    @pytest.mark.parametrize("spec,world", LAYOUTS)
+    def test_reassembled_and_resharded_bitwise(self, tmp_path, spec, world):
+        from torchx_tpu_torch.parallel.mesh import shard_extent
+
+        state, specs = _trainer_state()
+        _save_as_gang(str(tmp_path), spec, world, state, specs)
+        files = sorted(os.listdir(tmp_path / "7"))
+        writers = {"fsdp=1": 0, "fsdp=2": 2, "fsdp=4": 4, "dp=2,fsdp=2": 2}[spec]
+        if world == 1:
+            assert files == [ckpt_mod.PAYLOAD]
+        else:
+            assert files == [ckpt_mod.INDEX] + [f"shard-{r}.pt" for r in range(writers)]
+        whole = Checkpointer(str(tmp_path), read_only=True).restore(7)
+        assert set(whole) == set(state)
+        for k in state:
+            assert torch.equal(whole[k], state[k]), k
+        for into_spec, into_world in self.LAYOUTS:
+            for rank in range(into_world):
+                m = _mesh_at(into_spec, into_world, rank)
+                want = {k: v[shard_extent(specs.get(k, (None,) * v.dim()), tuple(v.shape),
+                                          m.sizes, m.coords)] for k, v in state.items()}
+                live = {k: torch.zeros_like(v) for k, v in want.items()}
+                Checkpointer(str(tmp_path), mesh=m, specs=specs).restore(
+                    7, into=live)
+                assert all(torch.equal(live[k], want[k]) for k in want), (into_spec, rank)
+
+    def test_index_round_trips(self, tmp_path):
+        state, specs = _trainer_state()
+        _save_as_gang(str(tmp_path), "dp=2,fsdp=2", 4, state, specs)
+        index = json.loads((tmp_path / "7" / ckpt_mod.INDEX).read_text())
+        entries = {k: (tuple(specs.get(k, (None,) * v.dim())), tuple(v.shape), v.dtype)
+                   for k, v in state.items()}
+        assert ckpt_mod.layout_index(entries, index["mesh"]) == index
+        assert ckpt_mod.index_files(index) == ["shard-0.pt", "shard-1.pt"]
+        embed = index["entries"]["params.embed"]
+        assert embed["spec"] == [None, "fsdp"] and embed["dtype"] == "float32"
+        assert [(p["file"], p["start"], p["stop"]) for p in embed["pieces"]] == [
+            ("shard-0.pt", [0, 0], [512, 32]), ("shard-1.pt", [0, 32], [512, 64])]
+        assert index["entries"]["step"]["pieces"] == [
+            {"file": "shard-0.pt", "start": [], "stop": []}]
+        doc = json.loads((tmp_path / "MANIFEST.json").read_text())
+        assert doc["latest_step"] == 7 and doc["steps"]["7"]["tag"] == "t"
+        assert jeval.verify_checkpoint(str(tmp_path))[0] == 7
+
+    def test_world_one_payload_is_todays_bytes(self, tmp_path):
+        """At a world of one the step is the one torch.save file of the
+        whole state, byte for byte, with or without a mesh of one."""
+        state, specs = _trainer_state()
+        for sub, mesh in (("plain", None), ("mesh", _mesh_at("fsdp=-1", 1, 0))):
+            ckpt = Checkpointer(str(tmp_path / sub), mesh=mesh, specs=specs)
+            ckpt.save(7, state)
+            ckpt.close()
+        os.makedirs(tmp_path / "direct")
+        torch.save(state, str(tmp_path / "direct" / ckpt_mod.PAYLOAD))
+        want = (tmp_path / "direct" / ckpt_mod.PAYLOAD).read_bytes()
+        for sub in ("plain", "mesh"):
+            assert os.listdir(tmp_path / sub / "7") == [ckpt_mod.PAYLOAD]
+            assert (tmp_path / sub / "7" / ckpt_mod.PAYLOAD).read_bytes() == want
+
+    def test_a_rank_that_never_writes_leaves_no_step(self, tmp_path, monkeypatch):
+        """Rank 0 of two alone: its wait for rank 1's file times out, the
+        write fails at wait(), and no step, staging directory or manifest
+        entry is left that looks finished."""
+        state, specs = _trainer_state()
+        from torchx_tpu_torch.parallel.mesh import shard_extent
+
+        m = _mesh_at("fsdp=2", 2, 0)
+        monkeypatch.setattr(ckpt_mod, "COMMIT_TIMEOUT_S", 0.5)
+        ck = Checkpointer(str(tmp_path), mesh=m, specs=specs)
+        blocks = {k: v[shard_extent(specs.get(k, (None,) * v.dim()), tuple(v.shape),
+                                    m.sizes, m.coords)].clone() for k, v in state.items()}
+        assert ck.save(7, blocks)
+        with pytest.raises(RuntimeError, match="background checkpoint write") as info:
+            ck.wait()
+        assert isinstance(info.value.__cause__, TimeoutError)
+        assert os.listdir(tmp_path) == []
+        assert ck.all_steps() == []

@@ -484,6 +484,54 @@ def test_checkpoint_pinned_buffers_are_reused(gen, tmp_path):
     ckpt.close()
 
 
+def _spmd_train(d, steps, tmp_path):
+    """The trainer as two gloo ranks sharing the card (``fsdp=2``,
+    ``--ckpt-dir d``); -> rank 0's final summary."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = 29500 + os.getpid() % 1000 + steps
+    cmd = [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", "--nproc-per-node", "2",
+           "--backend", "gloo", "--port", str(port), "--timeout", "120",
+           "-m", "torchx_tpu_torch.examples.train_llama", "--", "--device", "cuda",
+           "--config", "tiny", "--batch", "4", "--seq", "16", "--steps", str(steps),
+           "--mesh", "fsdp=2", "--ckpt-dir", d, "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1",
+               TPX_OBS_DIR=str(tmp_path / "obs"))
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=repo,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    return json.loads(out.stdout.split("final:", 1)[1].splitlines()[0])
+
+
+def test_checkpoint_of_two_ranks_sharing_the_card(gen, tmp_path):
+    """Two gloo ranks on the card save one sharded step (a file a rank and
+    the index), resume from it, and one process restores it onto the card
+    bitwise as a reader without a mesh assembles it."""
+    import os
+
+    d = str(tmp_path / "ck")
+    first = _spmd_train(d, 3, tmp_path)
+    assert first["world"] == 2 and first["final_step"] == 3
+    assert sorted(os.listdir(os.path.join(d, "3"))) == ["index.json", "shard-0.pt",
+                                                        "shard-1.pt"]
+    again = _spmd_train(d, 2, tmp_path)
+    assert again["resumed_from_step"] == 3 and again["final_step"] == 5
+    whole = Checkpointer(d, read_only=True).restore(5)
+    seen = {}
+    out = train_llama.train(llama.llama_tiny(), 4, 16, 1, device="cuda", log_every=0,
+                            ckpt_dir=d, on_state=lambda e, s: seen.update(
+                                {k: v.clone() for k, v in s.items()}) if e == "restored"
+                            else None)
+    assert out["resumed_from_step"] == 5 and set(seen) == set(whole)
+    for k, v in seen.items():
+        assert torch.equal(v.cpu(), whole[k]), k
+        assert v.is_cuda or k in ("opt.count", "step")
+
+
 # -- the step profiler and the disaggregated roles on the card ---------------
 
 

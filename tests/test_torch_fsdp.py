@@ -85,7 +85,6 @@ def gangs(tmp_path_factory):
         dict(name="dp=2", mesh="dp=2", grad_bucket_mb=1, **train),
         dict(name="mask", mesh="fsdp=2", batches=str(tmp / "mask.npz"), **step),
         dict(name="jax", mesh="fsdp=2", batches=str(tmp / "jax.npz"), **step),
-        dict(name="ckpt", kind="refuse_ckpt", data=data, dir=str(tmp / "ck"), **TRAIN),
     ]
     cases4 = [dict(name="dp=2,fsdp=2", mesh="dp=2,fsdp=2", grad_bucket_mb="auto", **train)]
     procs = [gang.run_cases(tmp, 2, cases2), gang.run_cases(tmp, 4, cases4)]
@@ -194,13 +193,6 @@ def test_fsdp2_matches_the_jax_fsdp2_step(gangs):
     whole = {f"params.{'.'.join(str(k.key) for k in kp)}": torch.from_numpy(np.array(v))
              for kp, v in jax.tree_util.tree_flatten_with_path(state.params)[0]}
     _assert_shards_match(results, whole, "fsdp=2", 2, JAX_TOL)
-
-
-def test_checkpoints_at_a_world_above_one_raise(gangs):
-    """Multi-process checkpoints (each rank its shard) are ROADMAP item
-    2.4: the trainer refuses --ckpt-dir at world 2, on every rank."""
-    for r in gangs[2]:
-        assert "2.4" in r["ckpt"]["error"] and "NotImplementedError" in r["ckpt"]["error"]
 
 
 def test_a_preemption_notice_stops_every_rank_at_one_step():

@@ -251,8 +251,8 @@ class TestTrainer:
         seen = {}
         real = ttrain._make_profiler
 
-        def spy(cfg_, tokens_per_step, flops_per_token, peak, dev):
-            prof = real(cfg_, tokens_per_step, flops_per_token, peak, dev)
+        def spy(*args, **kw):
+            prof = real(*args, **kw)
             seen["model"] = prof.model
             return prof
 

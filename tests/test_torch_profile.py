@@ -15,8 +15,11 @@ import time
 import numpy as np
 import pytest
 
+from torchx_tpu.analyze import costmodel as jcost
+from torchx_tpu.analyze import plan as jplan
 from torchx_tpu.obs import metrics as jmetrics
 from torchx_tpu.obs import profile as jprofile
+from torchx_tpu_torch.analyze import costmodel as tcost
 from torchx_tpu_torch.examples import train_llama as ttrain
 from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.obs import metrics as tmetrics
@@ -117,12 +120,37 @@ def test_attribution_model_of_one_card():
           for k in ("flops_per_token", "tokens_per_step", "peak_flops", "param_count")}
     assert (tprofile.attribution_model(**kw).to_dict()
             == jprofile.attribution_model(**kw).to_dict())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tprofile.attribution_model(plan=object(), **kw)
+    # the model axes' traffic is not ported: a plan that sets one raises
+    tplan = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.llama_tiny()),
+                               sizes={"tp": 2})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tprofile.attribution_model(plan=tplan, **kw)
     assert tprofile.ASSUMED_MFU == __import__("torchx_tpu.tune.rank").tune.rank.ASSUMED_MFU
     assert tprofile.CORE_PHASES == jprofile.CORE_PHASES
     assert tprofile.PHASES == jprofile.PHASES
     assert tprofile.OPTIMIZER_FLOPS_PER_PARAM == jprofile.OPTIMIZER_FLOPS_PER_PARAM
+
+
+@pytest.mark.parametrize("config", ["llama3_1b", "tiny"])
+@pytest.mark.parametrize("dp,fsdp", [(1, 2), (2, 1), (2, 2), (1, 4)])
+def test_collective_bytes_are_the_cost_models(config, dp, fsdp):
+    """The data axes' bytes a step equal the JAX cost model's
+    ``collective_traffic``, byte for byte; over the card's link rate (the
+    CPU's the reference's CPU-sim figure) they are the attribution's
+    modeled grad_sync seconds a gang's records carry."""
+    sizes = {"dp": dp, "fsdp": fsdp}
+    jp = jplan.ParallelPlan(role="train", model=jplan.MODEL_SHAPES[config], mesh_spec="",
+                            sizes=sizes, batch=8, seq=128)
+    tp = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.get_config(config)),
+                            sizes=sizes)
+    want = {t.axis: t.bytes_per_step for t in jcost.collective_traffic(jp)}
+    got = {t.axis: t.bytes_per_step for t in tcost.collective_traffic(tp)}
+    assert got == want and set(got) == {a for a, n in sizes.items() if n > 1}
+    kw = {k: MODELS["one_card"][k]
+          for k in ("flops_per_token", "tokens_per_step", "peak_flops", "param_count")}
+    for gen, rate in (("cpu", 10e9), ("NVIDIA H100 80GB HBM3", 450e9)):
+        model = tprofile.attribution_model(plan=tp, generation=gen, **kw)
+        assert model.comm_axis_s == {a: b / rate for a, b in want.items()}
 
 
 #: The training instruments, by the name of the module attribute.

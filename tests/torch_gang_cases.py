@@ -10,19 +10,26 @@ cases in order and saves ``{case name: result}`` to ``dir/rank<r>.pt``.
 Kinds of case:
 
 * ``train``: ``train_llama.train`` on ``--config tiny``'s test shape (dim
-  128, 2/1 heads, ffn 256, 2 layers, f32) under ``mesh``, from the token
-  file ``data``; -> losses, gradient norms, the final shards.
+  128, 2/1 heads, ffn 256, 2 layers, f32), or the preset ``config``, under
+  ``mesh``, from the token file ``data``, with ``ckpt_dir`` and
+  ``ckpt_every`` where given; -> losses, gradient norms, the final shards,
+  the shards right after a restore, the checkpoint records, and the error
+  it raised (``None``; a case that names ``expect_error`` catches it).
 * ``step``: ``make_train_step`` under ``mesh`` on the parameters of
   ``init`` (an ``.npz`` of the JAX tree's leaves by path) and the global
   batches of ``batches`` (``tokens`` [steps, b, s+1], optional
   ``loss_mask``); -> the same.
 * ``sync``: ``overlap.bucketed_sync`` over the ``dp`` group of a ``dp``
   mesh, on seeded per-rank gradients, with ``bucket_mb`` and with one
-  fused sync; -> both results.
-* ``refuse_ckpt``: ``train`` with a ``ckpt_dir``; -> the error it raised.
+  fused sync, gathered in chunks of ``chunk_bytes``; -> both results.
+* ``moe_balance``: ``moe.moe_ffn`` on this rank's rows of the batch in
+  ``batches`` (``x`` [b, s, d]) and the MoE layer ``init`` (an ``.npz``
+  of ``moe_tiny``'s layer-0 leaves), its balance term averaged over the
+  data group; -> the aux vector.
 
 Not a test module itself: the tests that read the results are
-``tests/test_torch_fsdp.py`` and ``tests/test_torch_overlap.py``.
+``tests/test_torch_fsdp.py``, ``tests/test_torch_overlap.py``,
+``tests/test_torch_gang_ckpt.py`` and ``tests/test_torch_moe.py``.
 """
 
 import json
@@ -48,27 +55,40 @@ def tiny(kernels: str = "cuda") -> llama.LlamaConfig:
     return llama.llama_tiny(kernels=kernels, **SHAPE)
 
 
-def _final_capture():
-    box = {}
+def _capture():
+    """-> (boxes, on_state): the final parameter shards, and every entry
+    right after a restore."""
+    boxes = {"final": {}, "restored": {}}
 
     def on_state(event, state):  # noqa: ANN001, ANN202
-        if event == "final":
-            box.update({k: v.detach().clone() for k, v in state.items()
-                        if k.startswith("params.")})
+        boxes[event].update({k: v.detach().clone() for k, v in state.items()
+                             if event == "restored" or k.startswith("params.")})
 
-    return box, on_state
+    return boxes, on_state
 
 
 def run_train(case: dict) -> dict:
-    box, on_state = _final_capture()
-    out = train_llama.train(
-        tiny(), batch=case["batch"], seq=case["seq"], steps=case["steps"],
-        warmup=case["warmup"], data_path=case["data"], prefetch=0, kernels="cuda",
-        device="cpu", log_every=0, mesh=case["mesh"],
-        grad_bucket_mb=case.get("grad_bucket_mb", 0), on_state=on_state,
-    )
-    return {"losses": out["losses"], "grad_norms": out["grad_norms"], "params": box,
-            "world": out["world"], "mesh": out["mesh"], "grad_buckets": out["grad_buckets"]}
+    boxes, on_state = _capture()
+    cfg = llama.get_config(case["config"]) if "config" in case else tiny()
+    try:
+        out = train_llama.train(
+            cfg, batch=case["batch"], seq=case["seq"], steps=case["steps"],
+            warmup=case["warmup"], data_path=case["data"], prefetch=0, kernels="cuda",
+            device="cpu", log_every=case.get("log_every", 0), mesh=case["mesh"],
+            grad_bucket_mb=case.get("grad_bucket_mb", 0), on_state=on_state,
+            ckpt_dir=case.get("ckpt_dir"), ckpt_every=case.get("ckpt_every", 0),
+            profile=case.get("profile", False),
+        )
+    except Exception as e:  # noqa: BLE001 - the case's result
+        if not case.get("expect_error"):
+            raise
+        return {"error": f"{type(e).__name__}: {e}"}
+    return {"losses": out["losses"], "grad_norms": out["grad_norms"],
+            "params": boxes["final"], "restored": boxes["restored"],
+            "world": out["world"], "mesh": out["mesh"], "grad_buckets": out["grad_buckets"],
+            "resumed_from_step": out["resumed_from_step"], "final_step": out["final_step"],
+            "preempted": out["preempted"], "checkpoint": out["checkpoint"],
+            "profile": out["profile"], "error": None}
 
 
 def run_step(case: dict) -> dict:
@@ -108,6 +128,7 @@ def run_step(case: dict) -> dict:
 
 def run_sync(case: dict) -> dict:
     mesh = make_mesh(parse_mesh_spec(case["mesh"]))
+    overlap.GATHER_CHUNK_BYTES = case["chunk_bytes"]
     gen = torch.Generator().manual_seed(1000 + dist.get_rank())
     # leaves of mixed sizes, a bf16 one among them, some above the cap
     shapes = [(3, 5), (1024, 300), (7,), (64, 64), (2048, 129), (11, 13)]
@@ -123,18 +144,21 @@ def run_sync(case: dict) -> dict:
             "issued": [n_fused, n_bucketed]}
 
 
-def run_refuse_ckpt(case: dict) -> dict:
-    try:
-        train_llama.train(tiny(), batch=case["batch"], seq=case["seq"], steps=1,
-                          data_path=case["data"], device="cpu", log_every=0,
-                          ckpt_dir=case["dir"])
-    except NotImplementedError as e:
-        return {"error": f"NotImplementedError: {e}"}
-    return {"error": None}
+def run_moe_balance(case: dict) -> dict:
+    from torchx_tpu_torch.models import moe
+
+    cfg = moe.moe_tiny()
+    init = np.load(case["init"])
+    layer = {k: torch.from_numpy(init[k]) for k in init.files}
+    x = np.load(case["batches"])["x"]
+    mesh = make_mesh(parse_mesh_spec(case["mesh"]))
+    rows = mesh.batch_rows(x.shape[0])
+    _, aux = moe.moe_ffn(cfg, layer, torch.from_numpy(x[rows]), mesh.data_group)
+    return {"aux": aux}
 
 
 RUNNERS = {"train": run_train, "step": run_step, "sync": run_sync,
-           "refuse_ckpt": run_refuse_ckpt}
+           "moe_balance": run_moe_balance}
 
 
 def main() -> None:
@@ -196,9 +220,10 @@ def finish(procs: list, timeout: float = 240.0) -> list:
     return res
 
 
-def run_cases(tmp, nproc: int, cases: list):  # noqa: ANN001, ANN201
-    """Start a gang of ``nproc`` ranks on ``cases``; -> the Popen (read it
-    with :func:`finish`, then :func:`load_results`)."""
+def run_cases(tmp, nproc: int, cases: list, env: dict = None):  # noqa: ANN001, ANN201
+    """Start a gang of ``nproc`` ranks on ``cases`` (``env`` added to the
+    environment); -> the Popen (read it with :func:`finish`, then
+    :func:`load_results`)."""
     out = os.path.join(str(tmp), f"out{nproc}")
     os.makedirs(out, exist_ok=True)
     job = os.path.join(str(tmp), f"job{nproc}.json")
@@ -207,7 +232,7 @@ def run_cases(tmp, nproc: int, cases: list):  # noqa: ANN001, ANN201
     return start(["--nproc-per-node", str(nproc), "--port", str(free_port()),
                   "--timeout", "60", "--script", os.path.join(REPO, "tests",
                                                               "torch_gang_cases.py"),
-                  "--", job])
+                  "--", job], env)
 
 
 def load_results(tmp, nproc: int) -> list:  # noqa: ANN001

@@ -24,7 +24,8 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from typing import Iterator, Optional
+import time
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -151,6 +152,49 @@ def barrier() -> None:
         return
     dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dist.all_reduce(torch.zeros(1, device=dev))
+
+
+def any_rank(flag: bool) -> bool:
+    """``flag`` set on any rank of the default group (a MAX all-reduce, on
+    the card under NCCL); the flag itself without a group or at a world of
+    one. Ranks that must take one branch together (stop at a step, raise
+    on a failed restore) decide with it, so that none waits in a later
+    collective for a rank that took the other."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return flag
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([int(flag)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def broadcast_from_zero(obj: Any) -> Any:
+    """Rank 0's ``obj`` (picklable) on every rank of the default group;
+    ``obj`` itself without a group."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def poll_until(
+    ready: Callable[[], bool], timeout_s: float, what: str, interval_s: float = 0.05,
+) -> float:
+    """Wait until ``ready()``, polling every ``interval_s``. -> the seconds
+    waited; raises :class:`TimeoutError` naming ``what`` past ``timeout_s``.
+
+    Ranks coordinate through durable files on their shared disk with it
+    where a collective cannot serve: a checkpoint's commit runs on writer
+    threads while the step loop issues its own collectives on the same
+    group, and a c10d call from a second thread would interleave with
+    them. A rank that died leaves the waiter a timeout, never a hang."""
+    t0 = time.monotonic()
+    while not ready():
+        if time.monotonic() - t0 > timeout_s:
+            raise TimeoutError(f"{what}: not there after {timeout_s:.0f} s")
+        time.sleep(interval_s)
+    return time.monotonic() - t0
 
 
 @contextlib.contextmanager

@@ -46,10 +46,14 @@ is reduce-scattered over ``fsdp`` and summed over ``dp`` in
 ``--grad-bucket-mb`` buckets. Rank 0 prints the lines and the summary
 (tokens/s per card, MFU on the global tokens, the world, mesh, backend,
 buckets, and each rank's launches and peak memory). A preemption notice
-on any rank stops every rank after the same step. Not ported yet, and
-refused with the ROADMAP item named: ``tp``/``sp``/``ep``/``pp`` above 1,
-a MoE config under a mesh, ``--ckpt-dir`` at a world above 1, and the
-flags of ring attention and remat policies.
+on any rank stops every rank after the same step. With ``--ckpt-dir`` a
+gang checkpoints as one: each rank writes the blocks of the state it owns,
+rank 0 commits the step once every rank's file is durable, and a restore
+reads a step saved at any world into the current mesh, so that a gang
+resumed on fewer or more cards (``$TPX_MESH``) continues where it stopped
+(:mod:`torchx_tpu_torch.parallel.checkpoint`). Not ported yet, and refused
+with the ROADMAP item named: ``tp``/``sp``/``ep``/``pp`` above 1, a MoE
+config under a mesh, and the flags of ring attention and remat policies.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from torchx_tpu_torch import _build, distributed, settings
+from torchx_tpu_torch.analyze import costmodel
 from torchx_tpu_torch.examples.data import TokenDataset
 from torchx_tpu_torch.models import llama
 from torchx_tpu_torch.obs import metrics as obs_metrics
@@ -281,8 +286,8 @@ def checkpoint_state(
     """The trainer's state as the flat name -> tensor dict a checkpoint
     step holds: ``params.<path>``, ``opt.mu.<path>``, ``opt.nu.<path>``
     (views of the live tensors, so a restore into them lands in place and
-    the optimizer's references stay valid), and ``opt.count`` and ``step``
-    (int64 scalars)."""
+    the optimizer's references stay valid; under a mesh, this rank's
+    shards), and ``opt.count`` and ``step`` (int64 scalars)."""
     named = llama.named_leaves(params)
     state = {f"params.{name}": p.detach() for name, p in named}
     for (name, _), mu, nu in zip(named, optimizer.mu, optimizer.nu):
@@ -291,6 +296,17 @@ def checkpoint_state(
     state["opt.count"] = torch.tensor(optimizer.count, dtype=torch.int64)
     state["step"] = torch.tensor(step, dtype=torch.int64)
     return state
+
+
+def checkpoint_specs(cfg: llama.LlamaConfig) -> dict[str, tuple]:
+    """The mesh spec of each sharded entry of :func:`checkpoint_state`:
+    a parameter's from ``llama.param_specs``, and each moment its
+    parameter's (the scalars are replicated)."""
+    specs = {}
+    for name, spec in llama.named_leaves(llama.param_specs(cfg)):
+        for prefix in ("params.", "opt.mu.", "opt.nu."):
+            specs[prefix + name] = spec
+    return specs
 
 
 # -- launcher hooks: all no-ops unless the launcher traces this process ------
@@ -374,16 +390,19 @@ def _profile_enabled(flag: bool) -> bool:
 
 def _make_profiler(
     cfg: llama.LlamaConfig, tokens_per_step: int, flops_per_token: float,
-    peak: Optional[float], dev: torch.device,
+    peak: Optional[float], dev: torch.device, plan: Optional[costmodel.ParallelPlan] = None,
 ) -> StepProfiler:
-    """A :class:`StepProfiler` on this run's arithmetic. One card has no
-    mesh, so the collective terms are zero; without a known peak (the
-    CPU) the modeled slices and MFU are zero."""
+    """A :class:`StepProfiler` on this run's arithmetic. Under a mesh,
+    ``plan`` gives each data axis its modeled ``grad_sync`` seconds (the
+    cost model's bytes over the card's link rate); without one the
+    collective terms are zero. Without a known peak (the CPU) the modeled
+    optimizer slice and MFU are zero."""
     return StepProfiler(attribution_model(
         flops_per_token=flops_per_token,
         tokens_per_step=tokens_per_step,
         peak_flops=peak or 0.0,
         param_count=cfg.param_count(),
+        plan=plan,
         generation=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     ))
 
@@ -418,17 +437,6 @@ def _install_preempt_handler() -> tuple[Optional[threading.Event], Callable[[], 
             pass
 
     return evt, _restore
-
-
-def _any_rank(flag: bool, world: int, dev: torch.device) -> bool:
-    """``flag`` set on any rank of the world (a MAX all-reduce; the flag
-    itself at a world of one). Ranks that stop must stop at the same step:
-    the next step's collectives would wait for a rank that left."""
-    if world == 1:
-        return flag
-    t = torch.tensor([int(flag)], device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return bool(t.item())
 
 
 def _open_mesh(
@@ -555,11 +563,6 @@ def _train(
     _stage("backend_init", time.monotonic() - t0)
     world = dist.get_world_size() if m is not None else 1
     rank0 = m is None or dist.get_rank() == 0
-    if world > 1 and ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir at a world above 1: multi-process checkpoints, each rank"
-            " saving its own shard, are not ported yet (ROADMAP queue 1 item 2.4)"
-        )
     if grad_bucket_mb not in (0, "0", None, "") and m is None:
         raise ValueError("--grad-bucket-mb buckets the gang's gradient sync: give --mesh")
     if m is not None and dev.type == "cuda" and cfg.kernels == "cuda":
@@ -569,7 +572,9 @@ def _train(
     ckpt, latest = None, None
     if ckpt_dir:
         ckpt_every = ckpt_every or 100  # ckpt_dir alone must still checkpoint
-        ckpt = Checkpointer(ckpt_dir, save_interval_steps=ckpt_every)
+        # a gang's checkpointers: each rank writes the blocks it owns
+        ckpt = Checkpointer(ckpt_dir, save_interval_steps=ckpt_every, mesh=m,
+                            specs=checkpoint_specs(cfg) if m is not None else None)
         latest = ckpt.latest_step()  # a directory listing, no tensor IO
     resumed_step = latest or 0
 
@@ -649,7 +654,12 @@ def _train(
     window_t0, window_steps, window_wait = time.monotonic(), 0, 0.0
     profiler = None
     if _profile_enabled(profile) and rank0:
-        profiler = _make_profiler(cfg, tokens_per_step // world, flops_per_token, peak, dev)
+        plan = None
+        if m is not None:
+            plan = costmodel.ParallelPlan(model=costmodel.ModelShape.of(cfg),
+                                          sizes=dict(m.sizes))
+        profiler = _make_profiler(cfg, tokens_per_step // world, flops_per_token, peak, dev,
+                                  plan=plan)
         # per-next() waits credit the current step's data_wait
         batches.set_wait_observer(profiler.observe_wait)
     torch_prof = None
@@ -705,12 +715,14 @@ def _train(
             if ckpt is not None and i > warmup_steps and global_step % ckpt_every == 0:
                 with _phase("checkpoint"):
                     ckpt.save(global_step, checkpoint_state(params, optimizer, global_step))
-            if _any_rank(preempt_evt is not None and preempt_evt.is_set(), world, dev):
+            if distributed.any_rank(preempt_evt is not None and preempt_evt.is_set()):
                 preempted = True
                 if ckpt is not None:
                     ckpt.save(global_step, checkpoint_state(params, optimizer, global_step),
                               force=True)
-                    ckpt.wait()  # durable BEFORE the hard kill lands
+                    # durable BEFORE the hard kill lands; in a gang, every
+                    # rank waits here until rank 0 has committed the step
+                    ckpt.wait()
                 if rank0:
                     print(f"preemption notice: checkpointed step {global_step}, exiting",
                           flush=True)
@@ -755,10 +767,12 @@ def _train(
         profile_trace = os.path.join(profile_dir, f"trace-{os.getpid()}.json")
         torch_prof.export_chrome_trace(profile_trace)
         print(f"profile trace written to {profile_trace}", flush=True)
+    buffer_bytes = 0
     if ckpt is not None:
         if ckpt.latest_step() != global_step:  # the final state, any run length
             ckpt.save(global_step, checkpoint_state(params, optimizer, global_step),
                       force=True)
+        buffer_bytes = ckpt.buffer_bytes
         ckpt.close()
     profile_summary = None
     if profiler is not None:
@@ -775,17 +789,18 @@ def _train(
     step_s = sum(timed) / len(timed)
     tps = tokens_per_step / step_s
     peak_memory = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    by_rank = [(launches, peak_memory)]
-    if m is not None:
-        by_rank = [None] * world
-        dist.all_gather_object(by_rank, (launches, peak_memory))
     checkpoint = None
     if ckpt is not None:
         checkpoint = {
             "dir": ckpt.directory, "every": ckpt_every, "saves": ckpt.saves,
             "writes": ckpt.writes, "restores": ckpt.restores,
             "skipped": ckpt.skipped, "step_overlaps_write": overlaps,
+            "buffer_bytes": buffer_bytes,
         }
+    by_rank = [(launches, peak_memory, checkpoint)]
+    if m is not None:
+        by_rank = [None] * world
+        dist.all_gather_object(by_rank, (launches, peak_memory, checkpoint))
     return {
         "loss": losses[-1],
         "losses": losses,
@@ -824,6 +839,8 @@ def _train(
         **({"grad_bucket_trials": [t.to_dict() for t in bucket_trials]} if bucket_trials else {}),
         "launches_by_rank": [r[0] for r in by_rank],
         "peak_memory_bytes_by_rank": [r[1] for r in by_rank],
+        # each rank's saves, writes and restores (a gang writes a file a rank)
+        "checkpoint_by_rank": [r[2] for r in by_rank] if ckpt is not None else None,
         # per step, MoE configs only (the JAX trainer's log fields)
         **(router if is_moe else {}),
     }

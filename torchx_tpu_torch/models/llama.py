@@ -345,10 +345,14 @@ def shard_params(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
 # -- forward ---------------------------------------------------------------
 
 
-def ffn(cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def ffn(
+    cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor, data_group: Any = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """The FFN half of a layer: dense SwiGLU, or the GShard MoE dispatch
-    when the config carries experts. -> (down, aux). Shared by the
-    training forward and the decode paths, so the two never diverge."""
+    when the config carries experts (``data_group``: the ranks whose rows
+    the router's balance term averages over, ``moe.route``). -> (down,
+    aux). Shared by the training forward and the decode paths, so the two
+    never diverge."""
     if getattr(cfg, "n_experts", 0):
         if cfg.int8_matmuls:
             import warnings
@@ -367,7 +371,7 @@ def ffn(cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor) -> tuple[torch.Te
             )
         from torchx_tpu_torch.models.moe import moe_ffn
 
-        return moe_ffn(cfg, layer, mlp_in)
+        return moe_ffn(cfg, layer, mlp_in, data_group)
     i8 = cfg.int8_matmuls
     gate = F.silu(maybe_matmul(mlp_in, layer["w_gate"], int8_training=i8))
     up = maybe_matmul(mlp_in, layer["w_up"], int8_training=i8)
@@ -392,8 +396,9 @@ def _layer(
     sin: torch.Tensor,
     x: torch.Tensor,  # [b, s, d]
     *weights: torch.Tensor,  # one layer's slice, in _layer_keys order
+    data_group: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (x, aux)."""
+    """-> (x, aux). ``data_group``: see :func:`ffn`."""
     layer = dict(zip(_layer_keys(cfg), weights))
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -421,7 +426,7 @@ def _layer(
     else:
         x = x + attn_out
         mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    down, aux = ffn(cfg, layer, mlp_in)
+    down, aux = ffn(cfg, layer, mlp_in, data_group)
     return x + down, aux
 
 
@@ -431,7 +436,8 @@ def _sharded_layer(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`_layer` on one layer's weights gathered from this rank's
     shards (``specs``: each shard's spec, the layer axis dropped)."""
-    return _layer(cfg, cos, sin, x, *(mesh.unshard(w, sp) for w, sp in zip(shards, specs)))
+    return _layer(cfg, cos, sin, x, *(mesh.unshard(w, sp) for w, sp in zip(shards, specs)),
+                  data_group=mesh.data_group)
 
 
 def _unshard_top(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
@@ -565,9 +571,9 @@ def loss_and_aux(
         # this rank's share of the mean over the ranks the batch is split over
         return loss / mesh.data_size if mesh is not None else loss
 
-    # summed over the data group, the router term counts once. Its mean over
-    # ranks is not the whole batch's balance term (a product of per-expert
-    # means): MoE under a mesh is refused until ep is ported (ROADMAP 2.2)
+    # every rank computes the whole batch's balance term (moe.route averages
+    # its per-expert means over the data group): summed over the group, the
+    # shares count it once
     aux_term = mean_share(aux_term)
     b, s = targets.shape
     chunk = cfg.loss_chunk

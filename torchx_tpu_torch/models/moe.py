@@ -119,6 +119,7 @@ def moe_ffn(
     cfg: MoEConfig,
     layer: llama.Params,  # one layer's slice (with w_router/w_gate/w_up/w_down)
     x: torch.Tensor,  # [b, s, d]
+    data_group: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """GShard einsum dispatch: route -> dispatch to capacity slots ->
     per-expert SwiGLU -> combine.
@@ -129,8 +130,8 @@ def moe_ffn(
     mean_router_prob_e`` (scaled into the loss by ``router_aux_coef``),
     the mean router entropy over log(E), and the share of (token, choice)
     routings dropped for a full expert buffer; the last two carry no
-    gradient."""
-    dispatch, combine, aux = route(cfg, layer, x)
+    gradient. ``data_group``: see :func:`route`."""
+    dispatch, combine, aux = route(cfg, layer, x, data_group)
     # tokens -> expert capacity slots [b, E, C, d], and back, gate-weighted
     expert_in = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
     expert_out = experts(layer, expert_in)
@@ -139,11 +140,17 @@ def moe_ffn(
 
 
 def route(
-    cfg: MoEConfig, layer: llama.Params, x: torch.Tensor
+    cfg: MoEConfig, layer: llama.Params, x: torch.Tensor, data_group: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The router: -> (dispatch [b, s, E, C] 0/1, combine [b, s, E, C]
     gate-weighted, aux), both f32, with capacity ``max(1, int(cf * s * k /
-    E))`` per batch row."""
+    E))`` per batch row.
+
+    With ``data_group`` (the ranks that split the batch, ``x`` this rank's
+    rows), the balance term is the whole batch's, as the reference's under
+    its mesh: the per-expert fractions and mean probabilities are averaged
+    over the group before their product (a product of means is not the
+    mean of the ranks' products)."""
     b, s, _ = x.shape
     E, k = cfg.n_experts, cfg.top_k
     capacity = max(1, int(cfg.capacity_factor * s * k / E))
@@ -171,7 +178,13 @@ def route(
     # load balance: fraction of top-1 routings per expert x mean router
     # probability per expert (Switch Transformer eq. 4-6)
     top1_oh = choice_oh[:, :, 0, :]  # [b, s, E]
-    balance = E * torch.sum(top1_oh.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+    frac_routed, mean_prob = top1_oh.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+    if data_group is not None:
+        from torchx_tpu_torch.parallel.mesh import group_mean
+
+        frac_routed = group_mean(frac_routed, data_group)
+        mean_prob = group_mean(mean_prob, data_group)
+    balance = E * torch.sum(frac_routed * mean_prob)
     with torch.no_grad():  # health metrics only
         p_safe = torch.clamp(probs, min=1e-9)
         entropy = (-(p_safe * torch.log(p_safe)).sum(-1).mean()) / math.log(float(E))

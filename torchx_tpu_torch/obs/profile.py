@@ -23,11 +23,12 @@ to their modeled shares: an attribution model, not a hardware counter.
 equal the JAX trainer's for the same measured inputs and ``tpx profile``
 reads either.
 
-On one card there is no mesh, so the collective terms are zero and the
-overlap fraction is None. The reference's calibration fold
-(``feed_calibration``, ``modeled_collective_seconds``) comes with the
-port's cost model and calibration table (ROADMAP queue 1, the launcher
-layers); :meth:`StepProfiler.close` folds nothing.
+Without a mesh the collective terms are zero and the overlap fraction is
+None. Under one, :func:`modeled_collective_seconds` gives each data axis
+the cost model's bytes (:mod:`torchx_tpu_torch.analyze.costmodel`, the
+reference's) over the card's link rate. The reference's calibration fold
+(``feed_calibration``) comes with the port's calibration table (ROADMAP
+queue 1, the launcher layers); :meth:`StepProfiler.close` folds nothing.
 
 Records append to ``profile.jsonl`` in the obs session dir (fsync'd,
 single-line ``O_APPEND`` writes) next to ``trace.jsonl``; the reader keeps
@@ -123,6 +124,20 @@ class AttributionModel:
         }
 
 
+def modeled_collective_seconds(plan: Any, *, generation: str = "") -> dict[str, float]:
+    """Per-axis modeled serialized collective seconds for one step: the
+    cost model's bytes (``collective_traffic``) over the link rate of
+    ``generation`` (a card's name;
+    :func:`~torchx_tpu_torch.analyze.costmodel.link_bytes_per_s`)."""
+    from torchx_tpu_torch.analyze import costmodel
+
+    bw = costmodel.link_bytes_per_s(generation)
+    out: dict[str, float] = {}
+    for t in costmodel.collective_traffic(plan):
+        out[t.axis] = out.get(t.axis, 0.0) + t.bytes_per_step / bw
+    return out
+
+
 def attribution_model(
     *,
     flops_per_token: float,
@@ -134,18 +149,18 @@ def attribution_model(
 ) -> AttributionModel:
     """Build the :class:`AttributionModel` for one training run.
 
-    ``plan`` would supply the per-axis collective model; the port has no
-    mesh and no cost model yet, so a plan raises and the comm terms are
-    zero (a single card has nothing to overlap)."""
+    ``plan`` (a :class:`~torchx_tpu_torch.analyze.costmodel.ParallelPlan`)
+    supplies the per-axis collective model; without one the comm terms are
+    zero (single-device runs have nothing to overlap)."""
+    comm: dict[str, float] = {}
     if plan is not None:
-        raise NotImplementedError(
-            "collective attribution is not ported yet (ROADMAP queue 1: multi-GPU)"
-        )
+        comm = modeled_collective_seconds(plan, generation=generation)
     return AttributionModel(
         flops_per_token=float(flops_per_token),
         tokens_per_step=int(tokens_per_step),
         peak_flops=float(peak_flops),
         param_count=int(param_count),
+        comm_axis_s=comm,
         generation=generation,
     )
 

@@ -80,13 +80,8 @@ class Mesh:
 
     def parts(self, axes: Any) -> tuple[int, int]:
         """(number of shards, this rank's shard index) of a dimension that
-        a spec entry ``axes`` (None, an axis name or a tuple of them)
-        shards, the index taken over the named axes in the entry's order."""
-        names = () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
-        n, idx = 1, 0
-        for a in names:
-            n, idx = n * self.sizes[a], idx * self.sizes[a] + self.coords[a]
-        return n, idx
+        a spec entry ``axes`` shards (:func:`parts`)."""
+        return parts(axes, self.sizes, self.coords)
 
     def unshard(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
         """The whole parameter from this rank's shard ``x`` under ``spec``
@@ -105,6 +100,50 @@ class Mesh:
         if dim is None:
             return replicated_param(x, self.fsdp_group)
         return gather_param(x, dim, self.fsdp_group)
+
+
+def _axis_names(axes: Any) -> tuple[str, ...]:
+    return () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def parts(axes: Any, sizes: dict[str, int], coords: dict[str, int]) -> tuple[int, int]:
+    """(number of shards, shard index) of a dimension that a spec entry
+    ``axes`` (None, an axis name or a tuple of them) shards, for the rank at
+    ``coords`` of a mesh of ``sizes``: the index is taken over the named
+    axes in the entry's order, row-major."""
+    n, idx = 1, 0
+    for a in _axis_names(axes):
+        n, idx = n * sizes[a], idx * sizes[a] + coords[a]
+    return n, idx
+
+
+def shard_extent(
+    spec: tuple, shape: tuple, sizes: dict[str, int], coords: dict[str, int],
+) -> tuple[slice, ...]:
+    """The block of a whole tensor of ``shape`` that the rank at ``coords``
+    of a mesh of ``sizes`` holds under ``spec`` (one entry per dimension,
+    so a sharded last dimension is named as such): one slice a dimension.
+    A pure function of the layout, no process group: a checkpoint's writer
+    and its readers at another mesh compute each other's blocks with it."""
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} has {len(spec)} entries for a {len(shape)}-d shape")
+    out = []
+    for d, axes in enumerate(spec):
+        n, idx = parts(axes, sizes, coords)
+        if shape[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not split {n} ways")
+        step = shape[d] // n
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def holds_first_copy(spec: tuple, coords: dict[str, int]) -> bool:
+    """True where the rank at ``coords`` holds the first copy of its block
+    under ``spec``: its coordinate is 0 on every axis that does not shard
+    the tensor (the ``dp`` replicas of an ``fsdp`` shard; every rank but
+    rank 0 for a replicated tensor), so that each block has one owner."""
+    sharding = {a for axes in spec for a in _axis_names(axes)}
+    return all(c == 0 for a, c in coords.items() if a not in sharding)
 
 
 def make_mesh(config: Optional[MeshConfig] = None) -> Mesh:
@@ -142,13 +181,7 @@ def shard(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     """This rank's shard of the whole tensor ``x`` under ``spec`` (one
     entry per dimension: None, an axis name or a tuple of them), a fresh
     contiguous tensor."""
-    for d, axes in enumerate(spec):
-        n, idx = mesh.parts(axes)
-        if n > 1:
-            if x.shape[d] % n:
-                raise ValueError(f"dimension {d} of {tuple(x.shape)} does not split {n} ways")
-            x = x.chunk(n, dim=d)[idx]
-    return x.contiguous().clone()
+    return x[shard_extent(spec, tuple(x.shape), mesh.sizes, mesh.coords)].contiguous().clone()
 
 
 def _all_gather(shard_: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
@@ -202,6 +235,29 @@ class _ReplicatedParam(torch.autograd.Function):
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
+
+
+class _GroupMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Any) -> torch.Tensor:  # noqa: ANN001
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):  # noqa: ANN001, ANN205
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad / dist.get_world_size(ctx.group), None
+
+
+def group_mean(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group`` (each holding the
+    same number of rows of a batch, so the mean of their means is the
+    batch's), differentiably: every rank's output depends on every rank's
+    ``x``, so the gradient flows back summed over the group's outputs."""
+    return _GroupMean.apply(x, group)
 
 
 def gather_param(shard_: torch.Tensor, dim: int, group: Any) -> torch.Tensor:

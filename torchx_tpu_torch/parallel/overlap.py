@@ -7,14 +7,23 @@ the whole backward; split into size-capped buckets in reverse-layer order
 (the order the backward produces gradients), each bucket's ``all_reduce``
 could start as soon as its leaves exist.
 
-Here each bucket is one ``all_reduce`` of a flat buffer of its leaves,
-issued in the plan's order. A sum is leafwise, so any bucketing (one
-bucket for the whole tree included) gives the same per-leaf sums: bitwise
-so with two addends (``a + b == b + a``); above two ranks a ring's
-summation order follows an element's position in the buffer. The plan,
-the ladder of candidate caps and the auto choice are the JAX package's,
-over this rank's tensors: the buffers that the collective moves (with
-``fsdp`` > 1, the shards; the JAX package plans on the global shapes).
+Here each bucket is one flat buffer of its leaves, issued in the plan's
+order, and summed so that the result is bitwise the same for any
+bucketing (one bucket for the whole tree included), as the reference's
+contract says: the buffer is all-gathered and every rank adds the ranks'
+copies in rank order, so an element's summation order depends on nothing
+but the ranks. An ``all_reduce`` would not do: above two ranks a ring's
+summation order follows an element's position in the buffer, which the
+bucketing moves. At ``dp`` 2 the gather receives the bytes a ring
+all-reduce does; at ``dp`` d it receives d/2 times as many (each rank
+receives d - 1 copies of the buffer, a ring 2 (d - 1) / d). The gather
+goes in chunks of at most :data:`GATHER_CHUNK_BYTES`, so that besides the
+flat copy of its leaves a sync holds d chunks at once, not d copies of the
+whole bucket (for llama3_1b's fused sync at ``dp`` 4, about 10 GB a rank);
+the chunking moves no add. The plan, the
+ladder of candidate caps and the auto choice are the JAX package's, over
+this rank's tensors: the buffers that the collective moves (with ``fsdp``
+> 1, the shards; the JAX package plans on the global shapes).
 
 The buckets do not overlap the backward yet: the stacked layer leaves get
 their gradient only when the backward ends, and the buckets run one after
@@ -41,6 +50,10 @@ BUCKET_MB_CANDIDATES: Tuple[int, ...] = (4, 8, 16, 32, 64, 128)
 TARGET_BUCKETS = 8
 
 _MIB = 1024 * 1024
+
+#: Bytes of a sync's buffer gathered at once (:func:`rank_order_sum`): a
+#: rank's transient gather buffer holds ``dp`` times this many.
+GATHER_CHUNK_BYTES = 64 * _MIB
 
 
 def tree_leaves(tree: Any) -> list:
@@ -187,11 +200,13 @@ def resolve_bucket_mb(
 def bucketed_sync(
     grads: Sequence[torch.Tensor], plan: Optional[BucketPlan], group: Any
 ) -> int:
-    """Sum ``grads`` (in place) over ``group``: one ``all_reduce`` per
-    bucket of ``plan`` on a flat buffer of its leaves (one per dtype), in
-    the plan's order. ``plan`` None is the off switch: one fused sync of
-    every leaf. A group of one rank has nothing to sum and issues nothing.
-    -> the number of collectives issued."""
+    """Sum ``grads`` (in place) over ``group``: one all-gather per bucket
+    of ``plan`` of a flat buffer of its leaves (one per dtype), in the
+    plan's order, then the ranks' copies added in rank order
+    (:func:`rank_order_sum`). ``plan`` None is the off switch: one fused
+    sync of every leaf. A group of one rank has nothing to sum and issues
+    nothing. -> the number of syncs issued (one a bucket and dtype, each
+    gathered in chunks of :data:`GATHER_CHUNK_BYTES`)."""
     grads = list(grads)
     if dist.get_world_size(group) == 1:
         return 0
@@ -203,10 +218,31 @@ def bucketed_sync(
             by_dtype.setdefault(grads[i].dtype, []).append(grads[i])
         for leaves in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for g in leaves])
-            dist.all_reduce(flat, group=group)
+            rank_order_sum(flat, group)
             offset = 0
             for g in leaves:
                 g.copy_(flat[offset:offset + g.numel()].view_as(g))
                 offset += g.numel()
             issued += 1
     return issued
+
+
+def rank_order_sum(flat: torch.Tensor, group: Any) -> torch.Tensor:
+    """Sum the contiguous 1-d ``flat`` over ``group`` in place, ``((x0 +
+    x1) + x2) + ...`` in rank order on every rank: an
+    ``all_gather_into_tensor`` of each chunk of at most
+    :data:`GATHER_CHUNK_BYTES`, then the adds in ``flat``'s dtype, each
+    element on its own, so that the result depends neither on where
+    ``flat`` lies in a buffer nor on the chunks. -> ``flat``."""
+    n = dist.get_world_size(group)
+    step = max(1, GATHER_CHUNK_BYTES // flat.element_size())
+    gathered = flat.new_empty(n * min(step, flat.numel()))
+    for lo in range(0, flat.numel(), step):
+        chunk = flat[lo:lo + step]
+        parts = gathered[:n * chunk.numel()]
+        dist.all_gather_into_tensor(parts, chunk, group=group)
+        parts = parts.view(n, chunk.numel())
+        chunk.copy_(parts[0])
+        for r in range(1, n):
+            chunk.add_(parts[r])
+    return flat
