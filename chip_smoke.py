@@ -90,6 +90,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
    restore's verify, read and H2D seconds, launch-to-first-step on resume,
    SIGTERM to exit against the 30 s notice, and the phase's own seconds
    by part.
+   tp — the model axes ``tp`` and ``sp``. On one card: llama3_1b at full
+   width cut to 2 layers, bf16, ``kernels="cuda"``, the train phase's
+   batch, 3 steps, at ``tp=2`` and then ``sp=2`` in one ``spmd_main``
+   launch of two gloo ranks sharing the card (NCCL refuses two ranks on
+   one card), each held to one process on the same global batch (the gang
+   phase's B run, or its own): losses within 1e-2 and gradient norms
+   within 5e-2, every rank's launches one process's (the wgmma flash
+   kernels on ``n_heads / tp`` heads over the whole sequence, the norm
+   kernels on ``b x s / sp`` rows, no simt). Prints each rank's peak
+   memory, the profiled step time, rank 0's collectives by group (the
+   port's ``collective:<axes>`` ranges: host and device milliseconds a
+   step) and the cost model's bytes a step by axis beside them. With four
+   cards or more (``--phases build,train,gang,tp``; not in the default
+   run's one-card form): NCCL at full depth, 6 steps, llama3_1b at
+   ``fsdp=4``, ``tp=4``, ``fsdp=2,tp=2`` and ``dp=2,sp=2`` (losses within
+   1e-2 of ``fsdp=4``'s) and llama3_8b at ``fsdp=2,tp=2``, each with its
+   step time, tokens/s a card, MFU, peak memory a rank, collectives by
+   group and modeled bytes.
 5. serve — ``generate_server`` in-process on 127.0.0.1 (continuous engine,
    8 slots, block size 16, the default pool) with llama3_1b at full width
    and depth, bf16, seeded random weights: 8 concurrent ``/v1/generate``
@@ -109,26 +127,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
    TTFT, TPOT, the decode-step time with all 8 slots busy, tokens/s, peak
    memory and the pool's geometry. The serving path launches none of the
    kernels of the kernels line, which the phase checks.
-6. ckpt — the trainer's checkpoint path at llama3_1b's full size, the
-   train phase's settings, fresh directories under ``$TMPDIR`` (the free
+6. ckpt — the trainer's checkpoint path at llama3_1b's full width cut to
+   2 layers (the gangckpt phase drills and resumes at full depth), the
+   train phase's batch, fresh directories under ``$TMPDIR`` (the free
    space is checked first), deleted at the end. A: ``train`` 3 steps with
    ``ckpt_dir`` d, ``ckpt_every`` 2 (the JAX trainer's policy leaves one
    forced save, step 3). B: 3 more steps on d: resumed from 3 to 6, its
    restored state bitwise A's, the kernels' launches over A and B those of
-   6 steps. Repeatability: where A's steps equal the train phase's first
-   three bitwise, B's must equal its last three bitwise, else within 1e-3
-   relative. Drill: the trainer's module in a subprocess (2 layers), SIGTERM
-   after its second step line: exit 0 within 30 s, ``preempted``, the
-   manifest naming the saved step, ``eval_main`` rc 0. Serve:
+   6 steps. Repeatability: where A's steps equal the first three of an
+   uninterrupted 6-step run bitwise, B's must equal its last three
+   bitwise, else within 1e-3 relative. Serve:
    ``generate_server --ckpt-dir d`` in-process, two greedy requests of 64
    tokens equal to an engine's on B's final in-memory parameters,
    ``/healthz`` ``ckpt_step`` 6, d's files and manifest unchanged. A copy
    of d's newest step with one payload byte flipped: ``eval_main`` rc 1.
    Overlap: 31 steps saving at step 16 (one periodic save), the step times
-   during the background write against the others. Prints the checkpoint's
-   bytes, the stall of each save, each write's seconds (serialization,
-   fsync, digest), the restore's verify, read and H2D seconds, SIGTERM to
-   exit and the server's load seconds.
+   during the background write against the others. Drill: the trainer's
+   module in a subprocess saving every 2 steps, SIGTERM after its step-7
+   line while step 6's write is in flight: exit 0 within 30 s,
+   ``preempted``, the step it saved durable (the manifest's newest, its
+   digest verified), ``eval_main`` rc 0. Prints the checkpoint's bytes,
+   the stall of each save, each write's seconds (serialization, fsync,
+   digest), the restore's verify, read and H2D seconds, SIGTERM to exit
+   and the server's load seconds.
 
 7. moe — the MoE family at Mixtral-8x7B's published width (dim 4096,
    32/8 heads, head_dim 128, ffn 14336, 8 experts, top-2, vocab 32000).
@@ -194,10 +215,7 @@ phase then drives the same burst through a prefill and a decode replica
 decode``): greedy tokens equal the unified server's, a re-send is a prefix
 hit on the prefill replica, ``/v1/kv`` answers 400 for a body that is no
 payload and 503 at the prefill role; TTFT and TPOT beside the unified
-numbers, the handoff's bytes and seconds by stage. The ckpt phase ends
-with the drill at full depth (16 layers, saves every 2 steps, SIGTERM
-after the step-7 line while step 6's write is in flight): exit 0 with the
-saved step durable, SIGTERM to exit printed against the 30 s notice.
+numbers, the handoff's bytes and seconds by stage.
 
 ``--phases build,sweep`` times the RMSNorm backward kernel over its launch
 settings (``ops.norms.BWD_CONFIG``). ``--phases build,profile`` profiles a
@@ -225,14 +243,16 @@ build,gangparts`` splits the world-1 sharded step's cost in this process:
 single-device, sharded, and sharded with its collectives swapped for
 local copies, in turns.
 
-Prints the kernels line, the card's name and power limit, and as its last
-line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
+Prints the kernels line, the card's name and power limit, an ``end`` line
+with the run's seconds and each phase's, and as its last line ``{"ok":
+true, "device": {...}}``. Exits non-zero, printing no result,
 where no CUDA device is present or the port cannot be imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import json
 import math
@@ -243,8 +263,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "train", "reference", "gang", "gangckpt", "serve", "ckpt", "moe",
-          "int8")
+PHASES = ("build", "kernels", "train", "reference", "gang", "gangckpt", "tp", "serve", "ckpt",
+          "moe", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
@@ -288,6 +308,11 @@ KERNEL_INFO.update({f"{name}_d128": KERNEL_INFO[name]
                     for name in ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")})
 KERNEL_INFO.update({f"{name}_d4096": KERNEL_INFO[name]
                     for name in ("norm_res_fwd", "rms_norm_bwd")})
+#: The same kernels at a tp or sp rank's local shapes (the tp phase's path).
+KERNEL_INFO.update({f"{name}_tp2": KERNEL_INFO[name]
+                    for name in ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")})
+KERNEL_INFO.update({f"{name}_sp2": KERNEL_INFO[name]
+                    for name in ("norm_res_fwd", "rms_norm_bwd")})
 #: The int8-weight matmul of weight-only serving: no Pallas kernel in the
 #: JAX package (XLA lowers its dot_general), the port's own kernel.
 KERNEL_INFO.update({name: ("cuda", "torchx_tpu_torch/csrc/int8_matmul.cu",
@@ -300,6 +325,10 @@ NORM = dict(n=4 * 2048, d=2048)
 # the moe phase's: Mixtral-8x7B attention (head_dim 128) and dim 4096
 ATTN_MOE = dict(b=4, s=2048, h=32, kvh=8, d=128)
 NORM_MOE = dict(n=4 * 2048, d=4096)
+# the tp phase's, a rank's local shapes: llama3_1b attention at tp=2 (16/4
+# heads over the whole sequence) and the norm rows at sp=2
+ATTN_TP = dict(b=4, s=2048, h=16, kvh=4, d=64)
+NORM_SP = dict(n=4 * 2048 // 2, d=2048)
 EPS = 1e-5
 #: Packed documents of the segment checks: lengths drawn in [1, 1024], so
 #: that boundaries fall inside the kernels' 32- to 128-row tiles.
@@ -433,7 +462,7 @@ def _flash_case(b, s, h, kvh, d, causal, dtype, gen, variants, seg=None):  # noq
 def family(name: str) -> str:
     """A kernel's name without its shape, its mask and its variant: the
     key of its tolerance (both variants compute the same function)."""
-    name = re.sub(r"_d\d+$", "", name).removesuffix("_seg")
+    name = re.sub(r"_(d|tp|sp)\d+$", "", name).removesuffix("_seg")
     return name.removesuffix("_wgmma").removesuffix("_simt")
 
 
@@ -989,7 +1018,12 @@ def phase_kernels() -> list[dict]:
                     *ATTN_MOE.values(), True, torch.bfloat16, gen, ("wgmma",)).items()},
                 **{f"{k}_d4096": e for k, e in _norm_case(
                     NORM_MOE["n"], NORM_MOE["d"], torch.bfloat16, gen).items()}}
-    checks = [("main", name, rel) for name, (rel, _) in {**bf16, **bf16_moe}.items()]
+    bf16_tp = {**{f"{k}_tp2": e for k, e in _flash_case(
+                   *ATTN_TP.values(), True, torch.bfloat16, gen, ("wgmma",)).items()},
+               **{f"{k}_sp2": e for k, e in _norm_case(
+                   NORM_SP["n"], NORM_SP["d"], torch.bfloat16, gen).items()}}
+    checks = [("main", name, rel)
+              for name, (rel, _) in {**bf16, **bf16_moe, **bf16_tp}.items()]
     for case in BF16_WGMMA_CASES:
         checks += [(case, name, rel) for name, (rel, _) in _flash_case(
             *case, torch.bfloat16, gen, ("wgmma",)).items()]
@@ -1038,6 +1072,9 @@ def phase_kernels() -> list[dict]:
     rows += _flash_rows(ATTN_MOE, ("wgmma",), "_d128", gen, bf16_moe)
     rows += _norm_rows(NORM_MOE, "_d4096", gen,
                        {k.removesuffix("_d4096"): e for k, e in bf16_moe.items()})
+    rows += _flash_rows(ATTN_TP, ("wgmma",), "_tp2", gen, bf16_tp)
+    rows += _norm_rows(NORM_SP, "_sp2", gen,
+                       {k.removesuffix("_sp2"): e for k, e in bf16_tp.items()})
     rows += _int8_rows(gen)
     for row in rows:
         row["f32_rel_err"] = f32_err.get(row["name"], row["f32_rel_err"])
@@ -1568,6 +1605,8 @@ def phase_gang_ranks(cards: int) -> dict:
            "loss_rtol": REF_LOSS_RTOL, "grad_norms": final["grad_norms"],
            "one_process_grad_norms": one["grad_norms"], "grad_norm_max_rel_diff": gn_rel,
            "grad_norm_rtol": REF_GRAD_NORM_RTOL, "step_time_s": final["step_time_s"],
+           "one_process_step_time_s": one["step_time_s"],
+           "one_process_peak_memory_bytes": one["peak_memory_bytes"],
            "launches_by_rank": final["launches_by_rank"], "expected_launches": expected}
     emit(res)
     want_mesh = mesh_sizes_spec(parse_mesh_spec(mesh).resolve(ranks))
@@ -1906,6 +1945,213 @@ def phase_gang_ckpt(gang_a: dict | None) -> dict:
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the tp phase: the model axes tp and sp
+# ---------------------------------------------------------------------------
+
+#: One card: llama3_1b at full width cut to ``layers`` layers, ``steps``
+#: steps on the train phase's batch, each mesh of ``meshes`` on two gloo
+#: ranks sharing the card (NCCL refuses two ranks on one card), all in one
+#: ``spmd_main`` launch. Four cards or more: NCCL at full depth, ``steps4``
+#: steps, llama3_1b at each mesh of ``meshes4`` (``fsdp=4`` the one the
+#: others are held to) and llama3_8b at ``mesh8b``.
+TP = dict(layers=2, steps=3, meshes=("tp=2", "sp=2"), steps4=6,
+          meshes4=("fsdp=4", "tp=4", "fsdp=2,tp=2", "dp=2,sp=2"), mesh8b="fsdp=2,tp=2")
+
+#: The runs' script under ``spmd_main``: each run of the JSON in argv[1]
+#: (config, layers or null for full depth, mesh, steps) through
+#: ``train_llama.train`` with the step profiler and its torch.profiler
+#: trace; rank 0 prints every run's results on one ``final:`` line.
+_TP_SCRIPT = """import json, os, sys
+import torch.distributed as dist
+from torchx_tpu_torch.examples import train_llama
+from torchx_tpu_torch.models import llama
+job = json.loads(sys.argv[1])
+out = []
+for run in job["runs"]:
+    kw = {{"n_layers": run["layers"]}} if run["layers"] else {{}}
+    cfg = getattr(llama, run["config"])(**kw)
+    res = train_llama.train(cfg, job["batch"], job["seq"], run["steps"], kernels="cuda",
+                            device="cuda", warmup=1, log_every=0, mesh=run["mesh"],
+                            profile=True, profile_dir=os.path.join(job["root"], run["name"]))
+    out.append({{k: res[k] for k in ("losses", "grad_norms", "step_times_s", "step_time_s",
+                                   "tokens_per_sec_per_card", "mfu", "world", "mesh",
+                                   "backend", "launches_by_rank", "peak_memory_bytes_by_rank",
+                                   "profile_trace")}})
+    out[-1]["comm_modeled_axis_s"] = res["profile"]["meta"]["comm_modeled_axis_s"] \
+        if res["profile"] else None
+if dist.get_rank() == 0:
+    print("final:" + json.dumps(out), flush=True)
+"""
+
+
+def collectives_by_group(events: list[dict], steps: int) -> dict:
+    """The collectives of a torch.profiler Chrome trace by group: the
+    port's ``collective:<axes>`` ranges (``parallel/mesh.py``
+    ``collective_range``), each group's host milliseconds a step (the
+    ranges' own durations) and device milliseconds a step (the GPU events
+    launched inside them, matched by correlation id: NCCL's kernels, or
+    gloo's copies between the card and the host)."""
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"], e["name"][len("collective:"):])
+             for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("collective:")]
+    host: dict[str, float] = {}
+    for _, a, b, name in spans:
+        host[name] = host.get(name, 0.0) + (b - a) / 1e3 / steps
+    by_corr: dict[int, str] = {}
+    for e in events:
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver") or \
+                "correlation" not in e.get("args", {}):
+            continue
+        around = [(b - a, n) for tid, a, b, n in spans if tid == e["tid"] and a <= e["ts"] <= b]
+        if around:
+            by_corr[e["args"]["correlation"]] = min(around)[1]
+    device: dict[str, float] = {}
+    for e in events:
+        name = by_corr.get(e.get("args", {}).get("correlation"))
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and name is not None:
+            device[name] = device.get(name, 0.0) + e["dur"] / 1e3 / steps
+    return {"host_ms_per_step": host, "device_ms_per_step": device,
+            "ranges": len(spans) // max(steps, 1)}
+
+
+def _tp_runs(runs: list[dict], ranks: int, backend: str) -> list[dict]:
+    """``runs`` in one ``spmd_main`` launch of ``ranks`` ranks on
+    ``backend``; each run's results with its collectives by group (rank
+    0's trace) and the cost model's bytes a step by axis."""
+    import shutil
+    import tempfile
+
+    from torchx_tpu_torch.analyze import costmodel
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.parallel.mesh_config import parse_mesh_spec
+
+    root = tempfile.mkdtemp(prefix="tpx_tp_smoke_")
+    try:
+        script = os.path.join(root, "tp_runs.py")
+        with open(script, "w") as f:
+            f.write(_TP_SCRIPT.format())
+        job = {"runs": runs, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "root": root}
+        finals, _ = _spmd(["--nproc-per-node", str(ranks), "--backend", backend],
+                          ["--script", script, "--", json.dumps(job)], {}, "tp")
+        for run, final in zip(runs, finals):
+            with open(final.pop("profile_trace")) as f:
+                events = json.load(f)["traceEvents"]
+            final["collectives"] = collectives_by_group(events, run["steps"] - 1)
+            kw = {"n_layers": run["layers"]} if run["layers"] else {}
+            cfg = getattr(llama, run["config"])(**kw)
+            plan = costmodel.ParallelPlan(
+                model=costmodel.ModelShape.of(cfg), batch=TRAIN["batch"], seq=TRAIN["seq"],
+                sizes=parse_mesh_spec(run["mesh"]).resolve(ranks))
+            final["modeled_bytes_per_step"] = {
+                t.axis: t.bytes_per_step for t in costmodel.collective_traffic(plan)}
+        return finals
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tp(one: dict | None) -> dict:
+    """The model axes (module docstring). ``one``: the one-process run of
+    llama3_1b at ``TP["layers"]`` layers and ``TP["steps"]`` steps on the
+    train phase's batch (the ``one_process_*`` entries of the gang phase's
+    B line), made here when None."""
+    import torch
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.parallel.mesh_config import mesh_sizes_spec, parse_mesh_spec
+
+    t0 = time.monotonic()
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        return phase_tp_cards()
+    cfg = llama.llama3_1b(n_layers=TP["layers"])
+    if one is None:
+        free_card()
+        run = train(cfg, TRAIN["batch"], TRAIN["seq"], TP["steps"], kernels="cuda",
+                    device="cuda", warmup=1, log_every=0)
+        one = {"one_process_" + k: run[k] for k in
+               ("losses", "grad_norms", "step_time_s", "peak_memory_bytes")}
+    free_card()
+    runs = [{"name": m.replace("=", ""), "config": "llama3_1b", "layers": TP["layers"],
+             "mesh": m, "steps": TP["steps"]} for m in TP["meshes"]]
+    finals = _tp_runs(runs, 2, "gloo")
+    expected = expected_launches(cfg, TP["steps"])
+    out = {}
+    for run, final in zip(runs, finals):
+        loss_rel = _rel_diff(final["losses"], one["one_process_losses"])
+        gn_rel = _rel_diff(final["grad_norms"], one["one_process_grad_norms"])
+        res = {"phase": "tp", "mesh": final["mesh"], "config": "llama3_1b",
+               "n_layers": TP["layers"], "steps": TP["steps"], "cards": cards,
+               "ranks_share_a_card": True, "backend": final["backend"],
+               "world": final["world"], "losses": final["losses"], **one,
+               "loss_max_rel_diff": loss_rel, "loss_rtol": REF_LOSS_RTOL,
+               "grad_norms": final["grad_norms"], "grad_norm_max_rel_diff": gn_rel,
+               "grad_norm_rtol": REF_GRAD_NORM_RTOL,
+               "profiled_step_times_s": final["step_times_s"],
+               "profiled_step_time_s": final["step_time_s"],
+               "peak_memory_bytes_by_rank": final["peak_memory_bytes_by_rank"],
+               "collectives_rank0": final["collectives"],
+               "modeled_bytes_per_step": final["modeled_bytes_per_step"],
+               "modeled_grad_sync_s_per_step": final["comm_modeled_axis_s"],
+               "launches_by_rank": final["launches_by_rank"], "expected_launches": expected}
+        emit(res)
+        want = mesh_sizes_spec(parse_mesh_spec(run["mesh"]).resolve(2))
+        if (final["world"], final["backend"], final["mesh"]) != (2, "gloo", want):
+            fail("tp", f"{run['mesh']} ran {final['world']} ranks on {final['backend']} as"
+                 f" {final['mesh']}")
+        if loss_rel > REF_LOSS_RTOL or gn_rel > REF_GRAD_NORM_RTOL:
+            fail("tp", f"{run['mesh']}: {final['losses']} / {final['grad_norms']} against one"
+                 f" process {one['one_process_losses']} / {one['one_process_grad_norms']}")
+        if any(launches != expected for launches in final["launches_by_rank"]):
+            fail("tp", f"{run['mesh']}: launches {final['launches_by_rank']} != {expected}")
+        out[run["mesh"]] = res
+    emit({"phase": "tp", "run": "seconds", "seconds": time.monotonic() - t0})
+    return out
+
+
+def phase_tp_cards() -> dict:
+    """Four cards or more: NCCL at full depth, one rank a card on four.
+    llama3_1b at each mesh of ``TP["meshes4"]`` (losses within
+    REF_LOSS_RTOL of ``fsdp=4``'s on the same batches) and llama3_8b at
+    ``TP["mesh8b"]``; for each the step time, tokens/s a card, MFU, peak
+    memory a rank, the collectives by group and the modeled bytes."""
+    t0 = time.monotonic()
+    free_card()
+    runs = [{"name": m.replace("=", "").replace(",", "_"), "config": "llama3_1b",
+             "layers": None, "mesh": m, "steps": TP["steps4"]} for m in TP["meshes4"]]
+    runs.append({"name": "llama3_8b", "config": "llama3_8b", "layers": None,
+                 "mesh": TP["mesh8b"], "steps": TP["steps4"]})
+    finals = _tp_runs(runs, 4, "nccl")
+    base = finals[0]
+    out = {}
+    for run, final in zip(runs, finals):
+        same_model = run["config"] == "llama3_1b"
+        rel = _rel_diff(final["losses"], base["losses"]) if same_model else None
+        res = {"phase": "tp", "cards": 4, "config": run["config"], "mesh": final["mesh"],
+               "backend": final["backend"], "world": final["world"],
+               "losses": final["losses"], "grad_norms": final["grad_norms"],
+               "loss_max_rel_diff_vs_fsdp4": rel,
+               "profiled_step_times_s": final["step_times_s"],
+               "profiled_step_time_s": final["step_time_s"],
+               "tokens_per_sec_per_card": final["tokens_per_sec_per_card"], "mfu": final["mfu"],
+               "peak_memory_bytes_by_rank": final["peak_memory_bytes_by_rank"],
+               "collectives_rank0": final["collectives"],
+               "modeled_bytes_per_step": final["modeled_bytes_per_step"],
+               "launches_by_rank": final["launches_by_rank"]}
+        emit(res)
+        if final["backend"] != "nccl" or final["world"] != 4:
+            fail("tp", f"{run['mesh']} ran {final['world']} ranks on {final['backend']}")
+        if not all(math.isfinite(x) for x in final["losses"]):
+            fail("tp", f"{run['config']} {run['mesh']}: non-finite loss {final['losses']}")
+        if same_model and rel > REF_LOSS_RTOL:
+            fail("tp", f"{run['mesh']} losses {final['losses']} against fsdp=4's"
+                 f" {base['losses']}")
+        out[f"{run['config']} {run['mesh']}"] = res
+    emit({"phase": "tp", "run": "seconds", "seconds": time.monotonic() - t0})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2569,20 +2815,21 @@ def phase_serve_disagg(unified: dict) -> dict:
 # phase 6: checkpoint, preempt, resume, serve and evaluate what was saved
 # ---------------------------------------------------------------------------
 
-#: A trains ``steps`` steps saving every ``every`` (the JAX trainer's policy
-#: saves none of them but the forced last one), B resumes for ``steps``
-#: more; the drill runs at llama3_1b's width with ``drill_layers`` layers
-#: and must exit within ``notice_s`` of its SIGTERM; the overlap run saves
+#: Every run of the phase is llama3_1b at full width cut to ``layers``
+#: layers: the gangckpt phase drills and resumes at full depth. A trains
+#: ``steps`` steps saving every ``every`` (the JAX trainer's policy saves
+#: none of them but the forced last one), B resumes for ``steps`` more; the
+#: drill must exit within ``notice_s`` of its SIGTERM; the overlap run saves
 #: at step ``overlap_every`` and steps on to ``overlap_steps``, through the
 #: background write and past it.
-CKPT = dict(steps=3, every=2, drill_layers=2, notice_s=30.0, overlap_every=16,
+CKPT = dict(layers=2, steps=3, every=2, notice_s=30.0, overlap_every=16,
             overlap_steps=31, prompts=(24, 40), new_tokens=64)
-#: The drill at full depth with a write in flight: saves every ``every``
-#: steps (the first periodic save is step 6: none on the first step and the
-#: three warm-up steps), SIGTERM after the line of step ``term_after``, while
-#: step 6's write is in flight; the notice then lands on step 8's periodic
-#: save and its forced save. ``limit_s`` bounds the wait for the exit, which
-#: is printed against ``notice_s``.
+#: The drill with a write in flight: saves every ``every`` steps (the first
+#: periodic save is step 6: none on the first step and the three warm-up
+#: steps), SIGTERM after the line of step ``term_after``, while step 6's
+#: write is in flight; the notice then lands on step 8's periodic save and
+#: its forced save. ``limit_s`` bounds the wait for the exit, which is
+#: printed against ``notice_s``.
 FULL_DRILL = dict(every=2, term_after=7, limit_s=150.0)
 #: Option (a) of a save during a write, for the ``notice`` phase's
 #: comparison: join the write in flight, then write the new step (the
@@ -2622,7 +2869,7 @@ def _rel_diff(a: list[float], b: list[float]) -> float:
     return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
 
 
-def _drill(d2: str, n_layers: int = CKPT["drill_layers"], every: int = 0,
+def _drill(d2: str, n_layers: int = CKPT["layers"], every: int = 0,
            term_after: int = 2, limit_s: float = CKPT["notice_s"], patch: str = "") -> dict:
     """The trainer's module run as ``__main__`` (``runpy``, as ``python -m``
     does) in a subprocess, with the llama3_1b preset cut to ``n_layers``
@@ -2679,9 +2926,26 @@ def _drill(d2: str, n_layers: int = CKPT["drill_layers"], every: int = 0,
             "checkpoint": final["checkpoint"]}
 
 
-def phase_ckpt(train_out: dict | None) -> dict:
-    """The trainer's checkpoint path at llama3_1b's full width and depth
-    (module docstring, phase 6). -> the summary line's numbers."""
+@contextlib.contextmanager
+def _cut_preset(n_layers: int):  # noqa: ANN202
+    """The ``llama3_1b`` preset cut to ``n_layers`` layers in this process
+    (for a server that loads a checkpoint of the cut model by name)."""
+    import functools
+
+    from torchx_tpu_torch.models import llama
+
+    whole = llama.CONFIGS["llama3_1b"]
+    llama.CONFIGS["llama3_1b"] = functools.partial(llama.llama3_1b, n_layers=n_layers)
+    try:
+        yield
+    finally:
+        llama.CONFIGS["llama3_1b"] = whole
+
+
+def phase_ckpt() -> dict:
+    """The trainer's checkpoint path at llama3_1b's full width, cut to
+    ``CKPT["layers"]`` layers (module docstring, phase 6). -> the summary
+    line's numbers."""
     import shutil
     import tempfile
     import threading
@@ -2695,12 +2959,11 @@ def phase_ckpt(train_out: dict | None) -> dict:
     from torchx_tpu_torch.models import llama
     from torchx_tpu_torch.serve.engine import ServeEngine
 
-    cfg = llama.llama3_1b()
+    cfg = llama.llama3_1b(n_layers=CKPT["layers"])
     kw = dict(kernels="cuda", device="cuda", warmup=1, log_every=1)
     step_bytes = 3 * cfg.param_count() * 2  # params, mu, nu in bf16
-    drill_bytes = 3 * llama.llama3_1b(n_layers=CKPT["drill_layers"]).param_count() * 2
     # d's two steps and the flipped copy of one, beside the drill's up to two
-    need = 3 * step_bytes + 2 * drill_bytes
+    need = 5 * step_bytes
     root = tempfile.mkdtemp(prefix="tpx_ckpt_smoke_")
     try:
         free = shutil.disk_usage(root).free
@@ -2708,13 +2971,12 @@ def phase_ckpt(train_out: dict | None) -> dict:
               "step_bytes_expected": step_bytes})
         if free < need:
             fail("ckpt", f"{free / 1e9:.1f} GB free under {root}; the phase needs"
-                 f" {need / 1e9:.1f} GB (two llama3_1b steps of {step_bytes / 1e9:.2f} GB,"
+                 f" {need / 1e9:.1f} GB (two steps of {step_bytes / 1e9:.2f} GB,"
                  " a copy of one and the drill's)")
-        if train_out is None:  # the uninterrupted six steps to compare with
-            torch.cuda.empty_cache()
-            train_out = train(cfg, TRAIN["batch"], TRAIN["seq"], 2 * CKPT["steps"], **kw)
-        whole_losses = train_out["losses"][: 2 * CKPT["steps"]]
-        whole_norms = train_out["grad_norms"][: 2 * CKPT["steps"]]
+        # the uninterrupted six steps to compare with
+        torch.cuda.empty_cache()
+        whole_run = train(cfg, TRAIN["batch"], TRAIN["seq"], 2 * CKPT["steps"], **kw)
+        whole_losses, whole_norms = whole_run["losses"], whole_run["grad_norms"]
 
         # A, then B resuming from A's last step
         d = os.path.join(root, "d")
@@ -2793,30 +3055,16 @@ def phase_ckpt(train_out: dict | None) -> dict:
         if max(b_vs_whole["loss_max_rel_diff"], b_vs_whole["grad_norm_max_rel_diff"]) > RESUME_RTOL:
             fail("ckpt", f"steps 4-6 after the resume: {b_vs_whole} > {RESUME_RTOL}")
 
-        # the preemption drill, in a subprocess
-        d2 = os.path.join(root, "d2")
-        drill = _drill(d2)
-        d2_manifest = _manifest(d2)
-        drill["manifest_latest_step"] = d2_manifest["latest_step"]
-        drill["eval_main_rc"] = eval_main.main(
-            ["--ckpt", d2, "--out", os.path.join(root, "d2_score.json")])
-        emit({"phase": "ckpt", "run": "drill", "n_layers": CKPT["drill_layers"], **drill})
-        if not (drill["preempted"] and drill["notice_printed"]
-                and drill["manifest_latest_step"] == drill["saved_step"]
-                and str(drill["saved_step"]) in d2_manifest["steps"]
-                and drill["eval_main_rc"] == 0):
-            fail("ckpt", f"drill: {drill}")
-        shutil.rmtree(d2)
-
         # serve what B saved, and compare with an engine on B's own params
         listing, manifest_bytes = _listing(d), open(os.path.join(d, "MANIFEST.json"), "rb").read()
         rng = np.random.default_rng(SERVE["seed"])
         prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)] for n in CKPT["prompts"]]
         torch.cuda.empty_cache()
         t0 = time.monotonic()
-        server = generate_server.serve(
-            "llama3_1b", port=0, ckpt_dir=d, device="cuda",
-            max_batch=SERVE["max_batch"], block_size=SERVE["block_size"])
+        with _cut_preset(CKPT["layers"]):
+            server = generate_server.serve(
+                "llama3_1b", port=0, ckpt_dir=d, device="cuda",
+                max_batch=SERVE["max_batch"], block_size=SERVE["block_size"])
         load_s = time.monotonic() - t0
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
@@ -2895,8 +3143,10 @@ def phase_ckpt(train_out: dict | None) -> dict:
             fail("ckpt", f"overlap run: {len(during)} steps during a write, {len(clear)} clear")
         shutil.rmtree(os.path.join(root, "d3"))
 
-        full = _full_drill(os.path.join(root, "d4"), step_bytes)
-        emit({"phase": "ckpt", "run": "drill_full_depth", **full})
+        # the preemption drill, in a subprocess, with a write in flight
+        drill = _full_drill(os.path.join(root, "d4"), step_bytes, n_layers=CKPT["layers"],
+                            eval_gate=True)
+        emit({"phase": "ckpt", "run": "drill", **drill})
 
         restore = b_ck["restores"][0]
         summary = {
@@ -2910,7 +3160,6 @@ def phase_ckpt(train_out: dict | None) -> dict:
             "step_s_during_write": overlap["step_s_during_write"],
             "step_s_clear": overlap["step_s_clear"],
             "sigterm_to_exit_s": drill["sigterm_to_exit_s"],
-            "sigterm_to_exit_full_depth_s": full["sigterm_to_exit_s"],
             "server_load_s": load_s,
             "resume_bitwise": b_vs_whole["bitwise"],
         }
@@ -2920,19 +3169,23 @@ def phase_ckpt(train_out: dict | None) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _full_drill(d: str, step_bytes: int, patch: str = "") -> dict:
-    """The drill at llama3_1b's full depth with step 6's write in flight
-    when SIGTERM lands (``FULL_DRILL``): exit 0 with the step it saved
-    durable (in the manifest, its digest verified). -> the drill's numbers,
-    SIGTERM to exit beside the notice."""
+def _full_drill(d: str, step_bytes: int, patch: str = "", n_layers: int = 16,
+                eval_gate: bool = False) -> dict:
+    """The drill at llama3_1b's width and ``n_layers`` layers (the notice
+    phase: full depth) with step 6's write in flight when SIGTERM lands
+    (``FULL_DRILL``): exit 0 with the step it saved durable (in the
+    manifest, its digest verified) and, with ``eval_gate``, passing
+    ``eval_main``. -> the drill's numbers, SIGTERM to exit beside the
+    notice."""
     import shutil
 
+    from torchx_tpu_torch.apps import eval_main
     from torchx_tpu_torch.parallel.checkpoint import Checkpointer
 
     free = shutil.disk_usage(os.path.dirname(d)).free
     if free < 3 * step_bytes:
-        fail("ckpt", f"{free / 1e9:.1f} GB free for the full-depth drill's two steps")
-    drill = _drill(d, n_layers=16, every=FULL_DRILL["every"],
+        fail("ckpt", f"{free / 1e9:.1f} GB free for the drill's two steps")
+    drill = _drill(d, n_layers=n_layers, every=FULL_DRILL["every"],
                    term_after=FULL_DRILL["term_after"], limit_s=FULL_DRILL["limit_s"],
                    patch=patch)
     saved = drill["saved_step"]
@@ -2940,7 +3193,7 @@ def _full_drill(d: str, step_bytes: int, patch: str = "") -> dict:
     durable = (_manifest(d)["latest_step"] == saved
                and Checkpointer(d, read_only=True).verify_step(saved) is True)
     ck = drill.pop("checkpoint")
-    out = {"n_layers": 16, "every": FULL_DRILL["every"],
+    out = {"n_layers": n_layers, "every": FULL_DRILL["every"],
            "term_after_step": FULL_DRILL["term_after"], **drill,
            "notice_s": CKPT["notice_s"],
            "within_notice": drill["sigterm_to_exit_s"] <= CKPT["notice_s"],
@@ -2948,11 +3201,16 @@ def _full_drill(d: str, step_bytes: int, patch: str = "") -> dict:
            "saves": ck["saves"], "writes": ck["writes"],
            # step term_after + 1 started after the SIGTERM
            "write_in_flight_at_notice": ck["step_overlaps_write"][FULL_DRILL["term_after"]]}
+    if eval_gate:
+        out["eval_main_rc"] = eval_main.main(["--ckpt", d, "--out", d + "_score.json"])
+        if out["eval_main_rc"] != 0 or not out["within_notice"]:
+            fail("ckpt", f"drill: eval_main refused its step, or no exit within the notice:"
+                 f" {out}")
     shutil.rmtree(d, ignore_errors=True)
     if not (drill["preempted"] and drill["notice_printed"] and durable):
-        fail("ckpt", f"full-depth drill: {out}")
+        fail("ckpt", f"drill with a write in flight: {out}")
     if saved <= FULL_DRILL["term_after"] or not out["write_in_flight_at_notice"]:
-        fail("ckpt", f"full-depth drill: step {saved} saved, or no write in flight: {out}")
+        fail("ckpt", f"drill: step {saved} saved, or no write in flight: {out}")
     return out
 
 
@@ -4107,19 +4365,32 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "start", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
-    build_s = _build.build()
+    seconds: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def timed(name: str):  # noqa: ANN202 - each phase's wall seconds
+        t = time.monotonic()
+        try:
+            yield
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + time.monotonic() - t
+
+    with timed("build"):
+        build_s = _build.build()
     emit({"phase": "build", "ok": True, "seconds": build_s,
           "library": _build.build_info.get("library"),
           "ptxas": ptxas_summary(_build.build_info.get("log", ""))})
 
-    kernel_rows = phase_kernels() if "kernels" in phases else []
+    with timed("kernels"):
+        kernel_rows = phase_kernels() if "kernels" in phases else []
     for row in kernel_rows:
         emit({"phase": "kernels", **row})
     # each row's launches: the llama3_1b rows from the train phase's run,
     # the Mixtral-shape rows from the moe phase's, the masked rows from the
     # packed-document attention of the kernels phase
     if "train" in phases:
-        counts, expected, train_out = phase_train()
+        with timed("train"):
+            counts, expected, train_out = phase_train()
         for row in kernel_rows:
             if (row["name"] in counts and not row["name"].endswith("_seg")
                     and not row["name"].startswith("int8_matmul")):
@@ -4129,22 +4400,46 @@ def main(argv: list[str] | None = None) -> int:
         # the simt flash kernels are off the bf16 main path (expected 0)
         if any(row["launches"] == 0 for row in kernel_rows if expected.get(row["name"])):
             fail("train", "a kernel of the path was never launched")
-        train_profiled = phase_train_profiled(train_out, counts)
+        with timed("train"):
+            train_profiled = phase_train_profiled(train_out, counts)
     if "reference" in phases:
-        phase_reference()
+        with timed("reference"):
+            phase_reference()
     gang_out = None
     if "gang" in phases:
         if "train" not in phases:
             fail("gang", "the gang phase compares with the train phase: add train")
-        gang_out = phase_gang(train_out, train_profiled)
+        with timed("gang"):
+            gang_out = phase_gang(train_out, train_profiled)
     if "gangckpt" in phases:
-        phase_gang_ckpt(gang_out["A_final"] if gang_out else None)
+        with timed("gangckpt"):
+            phase_gang_ckpt(gang_out["A_final"] if gang_out else None)
+    if "tp" in phases:
+        b = gang_out["B"] if gang_out else None
+        with timed("tp"):
+            tp_out = phase_tp(
+                {k: v for k, v in b.items() if k.startswith("one_process_")}
+                if b and (b["n_layers"], b["steps"]) == (TP["layers"], TP["steps"]) else None)
+        # the local-shape rows' launches: rank 0's in the tp phase's run
+        for row in kernel_rows:
+            suffix = {"_tp2": "tp=2", "_sp2": "sp=2"}.get(row["name"][-4:])
+            if suffix is None or suffix not in tp_out:
+                continue
+            base = row["name"][:-4]
+            row["launches"] = tp_out[suffix]["launches_by_rank"][0][base]
+            row["launches_per_step"] = row["launches"] / TP["steps"]
+            row["launches_from"] = f"tp phase, rank 0 of {suffix}, llama3_1b at 2 layers"
+            if not row["launches"]:
+                fail("tp", f"{row['name']}: the {suffix} step never launched it")
     if "serve" in phases:
-        phase_serve_disagg(phase_serve())
+        with timed("serve"):
+            phase_serve_disagg(phase_serve())
     if "ckpt" in phases:
-        phase_ckpt(train_out if "train" in phases else None)
+        with timed("ckpt"):
+            phase_ckpt()
     if "moe" in phases:
-        moe_train = phase_moe_train()
+        with timed("moe"):
+            moe_train = phase_moe_train()
         for row in kernel_rows:
             base = re.sub(r"_d\d+$", "", row["name"])
             if base != row["name"]:
@@ -4153,11 +4448,13 @@ def main(argv: list[str] | None = None) -> int:
                 row["launches_from"] = "moe phase, mixtral_8x7b at 2 layers"
                 if not row["launches"]:
                     fail("moe", f"{row['name']}: the MoE step never launched it")
-        phase_moe_reference()
-        phase_moe_serve()
+        with timed("moe"):
+            phase_moe_reference()
+            phase_moe_serve()
     if "int8" in phases:
-        phase_int8_train(train_out if "train" in phases else None)
-        int8_serve = phase_int8_serve()
+        with timed("int8"):
+            phase_int8_train(train_out if "train" in phases else None)
+            int8_serve = phase_int8_serve()
         per_call = int8_serve["int8_launches_per_call"]
         for row in kernel_rows:
             if row["name"].startswith("int8_matmul"):
@@ -4168,27 +4465,19 @@ def main(argv: list[str] | None = None) -> int:
                     row["launches_per_decode_step"] = row["launches_per_prefill"] = per_call
                     if not row["launches"]:
                         fail("int8", f"{row['name']}: the int8 serve burst never launched it")
-    if "profile" in phases:
-        phase_profile()
-    if "sweep" in phases:
-        phase_sweep()
-    if "notice" in phases:
-        phase_notice()
-    if "moeprofile" in phases:
-        phase_moe_profile()
-    if "int8profile" in phases:
-        phase_int8_profile()
-    if "int8sweep" in phases:
-        phase_int8_sweep()
-    if "int8parts" in phases:
-        phase_int8_parts()
-    if "gangparts" in phases:
-        phase_gang_parts()
+    extra = {"profile": phase_profile, "sweep": phase_sweep, "notice": phase_notice,
+             "moeprofile": phase_moe_profile, "int8profile": phase_int8_profile,
+             "int8sweep": phase_int8_sweep, "int8parts": phase_int8_parts,
+             "gangparts": phase_gang_parts}
+    for name, run in extra.items():
+        if name in phases:
+            with timed(name):
+                run()
 
     if kernel_rows:
         print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
-    emit({"phase": "end", "seconds": time.monotonic() - t0})
+    emit({"phase": "end", "seconds": time.monotonic() - t0, "phase_seconds": seconds})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -268,15 +268,16 @@ def test_world_one_mesh_is_bitwise_the_single_device_step():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": "tp=2"}, "item 2.2"),
-    ({"mesh": "sp=2"}, "item 2.2"),
-    ({"mesh": "ep=2"}, "item 2.2"),
-    ({"mesh": "pp=2"}, "item 2.6"),
-    ({"mesh": "fsdp=-1", "config": "moe_tiny"}, "item 2.2"),
+    ({"mesh": "tp=3"}, "item 1.2"),  # the tiny config's 2 KV heads
+    ({"mesh": "sp=3"}, "item 1.2"),  # a 16-token sequence
+    ({"mesh": "tp=2", "int8": True}, "item 1.2"),
+    ({"mesh": "ep=2"}, "item 1.2"),
+    ({"mesh": "pp=2"}, "item 1.4"),
+    ({"mesh": "fsdp=-1", "config": "moe_tiny"}, "item 1.2"),
     ({"grad_bucket_mb": 4}, "give --mesh"),
 ])
 def test_what_is_not_ported_raises(kw, match):
-    cfg = tllama.get_config(kw.pop("config", "tiny"))
+    cfg = ttrain.int8_config(tllama.get_config(kw.pop("config", "tiny")), kw.pop("int8", False))
     with pytest.raises((NotImplementedError, ValueError), match=match):
         ttrain.train(cfg, batch=2, seq=16, steps=1, device="cpu", log_every=0, **kw)
     assert not torch.distributed.is_initialized()

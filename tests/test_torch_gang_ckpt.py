@@ -9,15 +9,19 @@ restores bitwise into ``fsdp=1`` (one process) and ``fsdp=4``, whose
 continued losses stay within 1e-4 of one process (the gang tolerance of
 ``tests/test_torch_fsdp.py``); at ``dp=2,fsdp=2`` each block is written
 once; a corrupt newest step raises on both ranks and no rank falls back;
-the JAX launcher's readers and the port's server read a gang's step. The
-world-2 gang also runs the MoE router's balance term over two ranks
-against the JAX package's on the whole batch, and the world-4 gang a
-profiled ``dp=2,fsdp=2`` run whose ``grad_sync`` slices carry the JAX cost
-model's bytes.
+the JAX launcher's readers and the port's server read a gang's step. A
+step saved at ``fsdp=1,tp=2`` holds each rank's ``tp`` blocks and every
+leaf whole over ``tp`` once, and restores bitwise at world 1, at
+``fsdp=2`` and at ``tp=2``, where the resumed losses are the uninterrupted
+run's bitwise. The world-2 gang also runs the MoE router's balance term
+over two ranks against the JAX package's on the whole batch, and the
+world-4 gang a profiled ``dp=2,fsdp=2`` run whose ``grad_sync`` slices
+carry the JAX cost model's bytes.
 
-The drill's gang runs first; then one world-2 and one world-4 gang run
-all their cases side by side, each on its own copy of the drill's
-directory (``tests/torch_gang_cases.py``), killed past a deadline.
+The drill's gang runs first, the ``tp`` gang beside it; then one world-2
+and one world-4 gang run all their cases side by side, each on its own
+copy of a saved directory (``tests/torch_gang_cases.py``), killed past a
+deadline.
 """
 
 import json
@@ -48,6 +52,8 @@ from torchx_tpu_torch.parallel.mesh_config import AXES, parse_mesh_spec
 
 TRAIN = dict(kind="train", config="tiny", batch=4, seq=16, warmup=1)
 TOL = 1e-4
+#: the tp gang: fsdp 1, two tp ranks, saving its last step
+TP_MESH, TP_STEPS = "fsdp=1,tp=2", 3
 #: the balance term over two ranks against the whole batch's, f32
 MOE_TOL = 1e-6
 
@@ -109,12 +115,21 @@ def _write_moe(tmp):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("gangckpt")
     data = _token_file(tmp / "tokens.bin")
+    # a tp=2 gang saving its last step, beside the drill
+    tp_dir = str(tmp / "ck_tp")
+    tp_proc = gang.run_cases(tmp / "j_tp", 2, [dict(
+        name="tp", mesh=TP_MESH, data=data, steps=TP_STEPS, ckpt_dir=tp_dir, **TRAIN)])
     drill_dir, drill_out, drill = _drill(tmp, data)
+    (rc, out, err), = gang.finish([tp_proc])
+    assert rc == 0, (out[-3000:], err[-3000:])
     n = drill[0]["drill"]["final_step"]
     copies = {}
     for name in ("resume", "corrupt", "fsdp4", "one", "contract"):
         copies[name] = str(tmp / f"ck_{name}")
         shutil.copytree(drill_dir, copies[name])
+    for name in ("tp_one", "tp_fsdp2", "tp_tp2"):
+        copies[name] = str(tmp / f"ck_{name}")
+        shutil.copytree(tp_dir, copies[name])
     _flip_byte(os.path.join(copies["corrupt"], str(n), "shard-1.pt"))
     corrupt_before = _listing(copies["corrupt"])
     moe_layer, moe_x = _write_moe(tmp)
@@ -131,6 +146,11 @@ def runs(tmp_path_factory):
              expect_error=True, **TRAIN),
         dict(name="moe", kind="moe_balance", mesh="fsdp=2", init=str(tmp / "moe_layer.npz"),
              batches=str(tmp / "moe_x.npz")),
+        dict(name="tp_ref", mesh=TP_MESH, data=data, steps=2 * TP_STEPS, **TRAIN),
+        dict(name="tp_fsdp2", mesh="fsdp=2", data=data, steps=1,
+             ckpt_dir=copies["tp_fsdp2"], **TRAIN),
+        dict(name="tp_tp2", mesh=TP_MESH, data=data, steps=TP_STEPS,
+             ckpt_dir=copies["tp_tp2"], **TRAIN),
     ]
     cases4 = [
         dict(name="fsdp=4", mesh="fsdp=4", data=data, steps=3, ckpt_dir=copies["fsdp4"],
@@ -143,7 +163,8 @@ def runs(tmp_path_factory):
                                                              {"TPX_OBS_DIR": obs})]
     for rc, out, err in gang.finish(procs):
         assert rc == 0, (out[-3000:], err[-3000:])
-    return {"tmp": tmp, "data": data, "n": n, "drill_dir": drill_dir,
+    return {"tmp": tmp, "data": data, "n": n, "drill_dir": drill_dir, "tp_dir": tp_dir,
+            "tp": gang.load_results(tmp / "j_tp", 2),
             "drill_out": drill_out, "drill": drill, "copies": copies,
             "corrupt_before": corrupt_before, "moe": (moe_layer, moe_x), "obs": obs,
             2: gang.load_results(tmp, 2), 4: gang.load_results(tmp, 4)}
@@ -351,3 +372,70 @@ def test_a_gangs_profile_has_a_grad_sync_slice_per_data_axis(runs):
             records += [json.loads(x) for x in open(os.path.join(root, "profile.jsonl"))]
     steps = [r for r in records if r["kind"] == "step"]
     assert steps and all(set(r["grad_sync"]) == {"dp", "fsdp"} for r in steps)
+
+
+def _cover(index):
+    """Each entry's pieces counted over its whole shape, and the files
+    holding them."""
+    out = {}
+    for name, e in index["entries"].items():
+        cover = np.zeros(e["shape"], dtype=np.int64)
+        for p in e["pieces"]:
+            cover[tuple(slice(a, b) for a, b in zip(p["start"], p["stop"]))] += 1
+        out[name] = (cover, {p["file"] for p in e["pieces"]})
+    return out
+
+
+def test_a_step_saved_at_tp2_holds_each_block_once(runs):
+    """At fsdp=1,tp=2 each rank writes a file of its tp blocks, a leaf
+    whole over tp is written once (rank 0's), rank 0 commits the manifest,
+    each rank's final shards are the step's blocks bitwise, and the JAX
+    launcher's readers accept the step."""
+    d = runs["tp_dir"]
+    step = jsup.latest_checkpoint_step(d)
+    assert step == TP_STEPS and jeval.verify_checkpoint(d)[0] == step
+    assert sorted(os.listdir(os.path.join(d, str(step)))) == \
+        ["index.json", "shard-0.pt", "shard-1.pt"]
+    index = json.load(open(os.path.join(d, str(step), ckpt_mod.INDEX)))
+    assert index["world"] == 2 and index["mesh"]["tp"] == 2
+    specs = _specs()
+    for name, (cover, files) in _cover(index).items():
+        assert (cover == 1).all(), name
+        tp_sharded = "tp" in specs.get(name, ())
+        assert files == ({"shard-0.pt", "shard-1.pt"} if tp_sharded else {"shard-0.pt"}), name
+    whole = _whole(d, step)
+    for rank, r in enumerate(runs["tp"]):
+        assert r["tp"]["final_step"] == step
+        for name, got in r["tp"]["params"].items():
+            assert torch.equal(got, _block(whole, name, TP_MESH, 2, rank)), (rank, name)
+
+
+@pytest.mark.parametrize("spec,world", [("fsdp=1", 1), ("fsdp=2", 2), (TP_MESH, 2)])
+def test_a_step_saved_at_tp2_restores_at_another_mesh(runs, spec, world):
+    """Every restored block is bitwise its slice of the unsharded state, at
+    world 1 (one process), fsdp=2 and tp=2; resumed at tp=2 the gang
+    continues the uninterrupted tp=2 run's losses bitwise."""
+    whole = _whole(runs["tp_dir"], TP_STEPS)
+    if world == 1:
+        box = {}
+        out = ttrain.train(tllama.llama_tiny(), TRAIN["batch"], TRAIN["seq"], 1,
+                           warmup=TRAIN["warmup"], data_path=runs["data"], prefetch=0,
+                           kernels="cuda", device="cpu", log_every=0,
+                           ckpt_dir=runs["copies"]["tp_one"],
+                           on_state=lambda e, st: box.update(
+                               {k: v.clone() for k, v in st.items()})
+                           if e == "restored" else None)
+        results = [{"restored": box, "resumed_from_step": out["resumed_from_step"]}]
+    else:
+        results = [r["tp_fsdp2" if spec == "fsdp=2" else "tp_tp2"] for r in runs[2]]
+    for rank, res in enumerate(results):
+        assert res["resumed_from_step"] == TP_STEPS
+        assert set(res["restored"]) == set(whole)
+        for name, got in res["restored"].items():
+            assert torch.equal(got, _block(whole, name, spec, world, rank)), (rank, name)
+    if spec == TP_MESH:
+        ref = runs[2][0]["tp_ref"]["losses"]
+        assert runs["tp"][0]["tp"]["losses"] == ref[:TP_STEPS]
+        for res in results:
+            assert res["losses"] == ref[TP_STEPS:]
+

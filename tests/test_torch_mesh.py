@@ -6,6 +6,8 @@ batch's rows against ``BATCH_SPEC``'s, and ``make_mesh`` with the
 collectives of a parameter at a world of one (gloo, in this process).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -98,7 +100,7 @@ def test_param_specs_is_the_jax_tree(tie):
 
 
 def test_param_specs_refuses_moe():
-    with pytest.raises(NotImplementedError, match="item 2.2"):
+    with pytest.raises(NotImplementedError, match="item 1.2"):
         tllama.param_specs(tllama.get_config("moe_tiny"))
 
 
@@ -189,10 +191,21 @@ def test_unshard_at_world_one(world_one, spec):
     assert torch.equal(x.grad, g)
 
 
-def test_unshard_refuses_model_axes():
-    m = _mesh_at(tmc.MeshConfig(fsdp=1, tp=2).resolve(2), 0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        m.unshard(torch.zeros(4, 4), (None, "tp"))
+def test_unshard_refuses_model_axes(world_one):
+    """A tp block stays local: at fsdp 1 the unshard of a spec naming tp
+    on one dimension and fsdp on another is the block itself (its gradient
+    too); an axis beside fsdp and tp (ep) still raises."""
+    m = dataclasses.replace(tmesh.make_mesh(), sizes=tmc.MeshConfig(fsdp=1, tp=2).resolve(2))
+    x = torch.randn(6, 4, requires_grad=True)
+    for spec in ((None, "tp"), ("fsdp", "tp"), ("tp", "fsdp")):
+        y = m.unshard(x, spec)
+        assert torch.equal(y, x) and y.shape == x.shape
+    g = torch.randn(6, 4)
+    (y * g).sum().backward()
+    assert torch.equal(x.grad, g)
+    m = dataclasses.replace(m, sizes=tmc.MeshConfig(fsdp=1, ep=2).resolve(2))
+    with pytest.raises(NotImplementedError, match="queue 1 item 1.2"):
+        m.unshard(torch.zeros(4, 4), (None, "ep"))
 
 
 def test_make_mesh_needs_a_group():

@@ -120,9 +120,9 @@ def test_attribution_model_of_one_card():
           for k in ("flops_per_token", "tokens_per_step", "peak_flops", "param_count")}
     assert (tprofile.attribution_model(**kw).to_dict()
             == jprofile.attribution_model(**kw).to_dict())
-    # the model axes' traffic is not ported: a plan that sets one raises
+    # ep's and pp's traffic is not ported: a plan that sets one raises
     tplan = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.llama_tiny()),
-                               sizes={"tp": 2})
+                               sizes={"ep": 2}, batch=8, seq=128)
     with pytest.raises(NotImplementedError, match="not ported"):
         tprofile.attribution_model(plan=tplan, **kw)
     assert tprofile.ASSUMED_MFU == __import__("torchx_tpu.tune.rank").tune.rank.ASSUMED_MFU
@@ -142,7 +142,7 @@ def test_collective_bytes_are_the_cost_models(config, dp, fsdp):
     jp = jplan.ParallelPlan(role="train", model=jplan.MODEL_SHAPES[config], mesh_spec="",
                             sizes=sizes, batch=8, seq=128)
     tp = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.get_config(config)),
-                            sizes=sizes)
+                            sizes=sizes, batch=8, seq=128)
     want = {t.axis: t.bytes_per_step for t in jcost.collective_traffic(jp)}
     got = {t.axis: t.bytes_per_step for t in tcost.collective_traffic(tp)}
     assert got == want and set(got) == {a for a, n in sizes.items() if n > 1}
@@ -151,6 +151,24 @@ def test_collective_bytes_are_the_cost_models(config, dp, fsdp):
     for gen, rate in (("cpu", 10e9), ("NVIDIA H100 80GB HBM3", 450e9)):
         model = tprofile.attribution_model(plan=tp, generation=gen, **kw)
         assert model.comm_axis_s == {a: b / rate for a, b in want.items()}
+
+
+@pytest.mark.parametrize("config", ["llama3_1b", "tiny"])
+@pytest.mark.parametrize("sizes", [dict(tp=2), dict(sp=2), dict(fsdp=2, tp=2),
+                                   dict(dp=2, sp=2)],
+                         ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_model_axes_bytes_are_the_cost_models(config, sizes):
+    """The tp and sp terms (and fsdp's and dp's beside them) equal the JAX
+    cost model's ``collective_traffic`` byte for byte, at llama3_1b's step
+    shape (batch 4, seq 2048) and the tiny test shape."""
+    batch, seq = (4, 2048) if config == "llama3_1b" else (4, 32)
+    jp = jplan.ParallelPlan(role="train", model=jplan.MODEL_SHAPES[config], mesh_spec="",
+                            sizes=sizes, batch=batch, seq=seq)
+    tp = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.get_config(config)),
+                            sizes=sizes, batch=batch, seq=seq)
+    want = {t.axis: t.bytes_per_step for t in jcost.collective_traffic(jp)}
+    got = {t.axis: t.bytes_per_step for t in tcost.collective_traffic(tp)}
+    assert got == want and set(got) == set(sizes)
 
 
 #: The training instruments, by the name of the module attribute.

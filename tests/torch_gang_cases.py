@@ -18,7 +18,12 @@ Kinds of case:
 * ``step``: ``make_train_step`` under ``mesh`` on the parameters of
   ``init`` (an ``.npz`` of the JAX tree's leaves by path) and the global
   batches of ``batches`` (``tokens`` [steps, b, s+1], optional
-  ``loss_mask``); -> the same.
+  ``loss_mask``), the model ``llama_tiny(**model)`` (default the test
+  shape); -> the same.
+* ``collectives``: the model axes' autograd functions of
+  ``parallel/mesh.py`` on a ``tp=2`` and an ``sp=2`` mesh of two ranks,
+  forward and backward on inputs seeded by rank (:func:`collective_inputs`);
+  -> each function's output and input gradient.
 * ``sync``: ``overlap.bucketed_sync`` over the ``dp`` group of a ``dp``
   mesh, on seeded per-rank gradients, with ``bucket_mb`` and with one
   fused sync, gathered in chunks of ``chunk_bytes``; -> both results.
@@ -29,7 +34,8 @@ Kinds of case:
 
 Not a test module itself: the tests that read the results are
 ``tests/test_torch_fsdp.py``, ``tests/test_torch_overlap.py``,
-``tests/test_torch_gang_ckpt.py`` and ``tests/test_torch_moe.py``.
+``tests/test_torch_gang_ckpt.py``, ``tests/test_torch_moe.py`` and
+``tests/test_torch_tp.py``.
 """
 
 import json
@@ -94,7 +100,7 @@ def run_train(case: dict) -> dict:
 def run_step(case: dict) -> dict:
     from torchx_tpu_torch import convert
 
-    cfg = tiny(case.get("kernels", "cuda"))
+    cfg = llama.llama_tiny(kernels=case.get("kernels", "cuda"), **case.get("model", SHAPE))
     init = np.load(case["init"])
     tree = {}
     for path in init.files:
@@ -106,10 +112,10 @@ def run_step(case: dict) -> dict:
     params = convert.params_from_jax(tree, cfg)
     mesh = make_mesh(parse_mesh_spec(case["mesh"]))
     params = llama.shard_params(params, cfg, mesh)
-    sharded = ["fsdp" in spec for spec in llama.leaves(llama.param_specs(cfg))]
+    counted, norm_group = train_llama.clip_norm_layout(cfg, mesh)
     opt = train_llama.make_optimizer(
-        llama.leaves(params), lr=case["lr"], warmup=case["warmup"], sharded=sharded,
-        norm_group=mesh.fsdp_group,
+        llama.leaves(params), lr=case["lr"], warmup=case["warmup"], counted=counted,
+        norm_group=norm_group,
     )
     step = train_llama.make_train_step(cfg, opt, mesh)
     data = np.load(case["batches"])
@@ -157,8 +163,47 @@ def run_moe_balance(case: dict) -> dict:
     return {"aux": aux}
 
 
+def collective_inputs(rank: int) -> dict:
+    """The ``collectives`` case's inputs on ``rank``: ``x`` and its upstream
+    gradient ``g`` per rank (``[4, 6, 3]``), and ``whole`` / ``g_block``,
+    a tensor every rank holds and the gradient of a rank's block of it."""
+    gen = torch.Generator().manual_seed(2000 + rank)
+    same = torch.Generator().manual_seed(1999)
+    return {"x": torch.randn(4, 6, 3, generator=gen),
+            "g": torch.randn(4, 6, 3, generator=gen),
+            "g_whole": torch.randn(4, 12, 3, generator=gen),
+            "g_block": torch.randn(4, 3, 3, generator=gen),
+            "whole": torch.randn(4, 6, 3, generator=same)}
+
+
+def run_collectives(case: dict) -> dict:
+    from torchx_tpu_torch.parallel import mesh as m
+
+    inp = collective_inputs(dist.get_rank())
+    # name -> (mesh, call, input, upstream gradient; None: no backward)
+    calls = {
+        "copy_to_tp": ("tp=2", lambda x, mesh: m.copy_to_tp(x, mesh), "x", "g"),
+        "reduce_from_tp": ("tp=2", lambda x, mesh: m.reduce_from_tp(x, mesh), "x", "g"),
+        "tp_block": ("tp=2", lambda x, mesh: m.tp_block(x, 1, mesh), "whole", "g_block"),
+        "max_over_tp": ("tp=2", lambda x, mesh: m.max_over_tp(x, mesh), "x", None),
+        "gather_sequence": ("sp=2", lambda x, mesh: m.gather_sequence(x, 1, mesh), "x",
+                            "g_whole"),
+        "sequence_block": ("sp=2", lambda x, mesh: m.sequence_block(x, 1, mesh), "whole",
+                           "g_block"),
+    }
+    meshes = {spec: make_mesh(parse_mesh_spec(spec)) for spec in ("tp=2", "sp=2")}
+    out = {}
+    for name, (spec, call, x_key, g_key) in calls.items():
+        x = inp[x_key].clone().requires_grad_(True)
+        y = call(x, meshes[spec])
+        if g_key is not None:
+            y.backward(inp[g_key])
+        out[name] = {"y": y.detach(), "grad": x.grad}
+    return out
+
+
 RUNNERS = {"train": run_train, "step": run_step, "sync": run_sync,
-           "moe_balance": run_moe_balance}
+           "moe_balance": run_moe_balance, "collectives": run_collectives}
 
 
 def main() -> None:

@@ -1,28 +1,40 @@
-"""Per-step collective bytes of a training plan: the data axes of
-:func:`torchx_tpu.analyze.costmodel.collective_traffic`.
+"""Per-step collective bytes of a training plan: the data axes and the
+dense model axes of :func:`torchx_tpu.analyze.costmodel.collective_traffic`.
 
-The port of the ``_ring`` factor and the ``fsdp`` and ``dp`` terms, over a
-copy of the few :class:`~torchx_tpu.analyze.plan.ParallelPlan` and
-:class:`~torchx_tpu.analyze.plan.ModelShape` fields they read. The bytes
-are the reference's to the byte (``tests/test_torch_profile.py``), so that
-a gang's ``grad_sync`` slices are modeled as the JAX trainer's are:
+The port of the ``_ring`` factor and the ``fsdp``, ``dp``, ``tp`` and ``sp``
+terms, over a copy of the few :class:`~torchx_tpu.analyze.plan.ParallelPlan`
+and :class:`~torchx_tpu.analyze.plan.ModelShape` fields they read. The
+bytes are the reference's to the byte (``tests/test_torch_profile.py``),
+so that a gang's ``grad_sync`` slices are modeled as the JAX trainer's
+are. With ``b`` the rows and ``s`` the positions a rank computes
+(``batch / (dp * fsdp)``, ``seq / sp``) and ``act`` = ``b * s`` times the
+parameter bytes:
 
 * ``fsdp``: ZeRO-3, every parameter gathered in the forward and again in
   the backward, and the gradient reduce-scattered: ``3 x ring(fsdp)``
-  times the parameter bytes;
+  times the bytes of a rank's ``tp`` block of the parameters;
 * ``dp``: the gradient all-reduced over the ``fsdp`` shard a rank holds:
-  ``2 x ring(dp)`` times its bytes.
+  ``2 x ring(dp)`` times its bytes;
+* ``tp``: two all-reduces a layer (after ``wo`` and ``w_down``) in the
+  forward and their mirrors in the backward, ``4 x layers x 2 x ring(tp)
+  x act x dim``;
+* ``sp``: each layer's K and V gathered over the sequence,
+  ``layers x 2 x ring(sp) x act x 2 x n_kv_heads x head_dim``.
 
-These are the ring algorithm's bytes. The port's ``dp`` sum all-gathers
-and sums in rank order (:mod:`torchx_tpu_torch.parallel.overlap`), which
-moves ``dp / 2`` times as many; the model keeps the reference's bytes.
-The model axes (``tp``, ``sp``, ``ep``, ``pp``) are not ported, and a plan
-that sets one raises.
+These are the reference's reckonings, not the port's traffic: the port's
+``dp`` x ``sp`` sum all-gathers and adds in rank order
+(:mod:`torchx_tpu_torch.parallel.overlap`), which moves ``d / 2`` times a
+ring's bytes over ``d`` ranks; its ``sp`` gather carries q with K and V;
+the remat recompute repeats the forward's ``tp`` all-reduces and ``sp``
+gathers; the vocab-parallel cross-entropy and the tied embedding's
+gradient add their own. ``ep`` and ``pp`` are not ported, and a plan that
+sets one raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 #: Bytes a second one card sends to its peers, by ``generation`` substring
@@ -33,7 +45,7 @@ LINK_BYTES_PER_S = {"h100": 450e9}
 #: (``torchx_tpu.tune.rank._DEFAULT_PERF``), arbitrary but consistent.
 DEFAULT_LINK_BYTES_PER_S = 10e9
 
-_MODEL_AXES = ("pp", "tp", "sp", "ep")
+_UNPORTED_AXES = ("pp", "ep")
 
 
 def link_bytes_per_s(generation: str) -> float:
@@ -47,10 +59,14 @@ def link_bytes_per_s(generation: str) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class ModelShape:
-    """The fields of the reference's ``ModelShape`` the data axes read."""
+    """The fields of the reference's ``ModelShape`` the ported axes read."""
 
     param_count: int
     dtype_bytes: int
+    n_layers: int
+    dim: int
+    n_kv_heads: int
+    head_dim: int
 
     @classmethod
     def of(cls, cfg: Any) -> "ModelShape":
@@ -58,16 +74,21 @@ class ModelShape:
         import torch
 
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-        return cls(param_count=int(cfg.param_count()), dtype_bytes=itemsize)
+        return cls(param_count=int(cfg.param_count()), dtype_bytes=itemsize,
+                   n_layers=cfg.n_layers, dim=cfg.dim, n_kv_heads=cfg.n_kv_heads,
+                   head_dim=cfg.head_dim)
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    """The fields of the reference's ``ParallelPlan`` the data axes read:
-    the model and the resolved axis sizes."""
+    """The fields of the reference's ``ParallelPlan`` the ported axes read:
+    the model, the resolved axis sizes, and the global batch and sequence
+    of a step."""
 
     model: ModelShape
     sizes: dict[str, int]
+    batch: int
+    seq: int
 
     def axis(self, name: str) -> int:
         """Resolved size of one mesh axis (1 when absent)."""
@@ -88,17 +109,28 @@ def _ring(k: int) -> float:
 
 
 def collective_traffic(plan: ParallelPlan) -> list[AxisTraffic]:
-    """Per-step, per-device collective bytes of every live data axis."""
-    model_axes = {a: plan.axis(a) for a in _MODEL_AXES if plan.axis(a) > 1}
-    if model_axes:
+    """Per-step, per-device collective bytes of every live ported axis, in
+    the reference's order (fsdp, dp, tp, sp)."""
+    unported = {a: plan.axis(a) for a in _UNPORTED_AXES if plan.axis(a) > 1}
+    if unported:
         raise NotImplementedError(
-            f"mesh axes {model_axes}: the model axes' traffic is not ported (ROADMAP"
-            " queue 1 item 1.3)")
-    fsdp, dp = plan.axis("fsdp"), plan.axis("dp")
-    param_slice = plan.model.param_count * plan.model.dtype_bytes
+            f"mesh axes {unported}: their traffic is not ported (ep: ROADMAP queue 1"
+            " item 1.2, pp: item 1.4)")
+    m = plan.model
+    fsdp, dp, tp, sp = (plan.axis(a) for a in ("fsdp", "dp", "tp", "sp"))
+    b = max(1, math.ceil(plan.batch / (dp * fsdp)))
+    s = max(1, math.ceil(plan.seq / sp))
+    act_tok = b * s * m.dtype_bytes
+    # the parameter bytes a rank sees un-fsdp-sharded (tp blocks stay local)
+    param_slice = m.param_count * m.dtype_bytes / tp
     out = []
     if fsdp > 1:
         out.append(AxisTraffic("fsdp", int(3 * _ring(fsdp) * param_slice)))
     if dp > 1:
         out.append(AxisTraffic("dp", int(2 * _ring(dp) * param_slice / fsdp)))
+    if tp > 1:
+        out.append(AxisTraffic("tp", int(4 * m.n_layers * 2 * _ring(tp) * act_tok * m.dim)))
+    if sp > 1:
+        kv_bytes = act_tok * 2 * m.n_kv_heads * m.head_dim
+        out.append(AxisTraffic("sp", int(m.n_layers * 2 * _ring(sp) * kv_bytes)))
     return out

@@ -1,6 +1,7 @@
 """Llama pretraining on GPUs: the port of
 :mod:`torchx_tpu.examples.train_llama`, dense and MoE on one card, dense
-across a gang of them (the ``dp`` and ``fsdp`` mesh axes).
+across a gang of them (the ``dp``, ``fsdp``, ``tp`` and ``sp`` mesh
+axes).
 
     python -m torchx_tpu_torch.examples.train_llama --config llama3_1b \\
         --batch 4 --seq 2048 --steps 10 --kernels cuda
@@ -52,8 +53,10 @@ rank 0 commits the step once every rank's file is durable, and a restore
 reads a step saved at any world into the current mesh, so that a gang
 resumed on fewer or more cards (``$TPX_MESH``) continues where it stopped
 (:mod:`torchx_tpu_torch.parallel.checkpoint`). Not ported yet, and refused
-with the ROADMAP item named: ``tp``/``sp``/``ep``/``pp`` above 1, a MoE
-config under a mesh, and the flags of ring attention and remat policies.
+with the ROADMAP item named: ``ep``/``pp`` above 1, a MoE config under a
+mesh, ``tp`` that does not divide the KV heads, the ffn width or the
+vocabulary, ``sp`` that does not divide the sequence, int8 matmuls under
+``tp``, and the flags of ring attention and remat policies.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ from torchx_tpu_torch.obs.profile import StepProfiler, attribution_model
 from torchx_tpu_torch.ops.fused import resolve_kernels
 from torchx_tpu_torch.parallel import overlap
 from torchx_tpu_torch.parallel.checkpoint import Checkpointer
-from torchx_tpu_torch.parallel.mesh import Mesh, make_mesh
+from torchx_tpu_torch.parallel.mesh import Mesh, collective_range, holds_first_copy, make_mesh
 from torchx_tpu_torch.parallel.mesh_config import MeshConfig, mesh_sizes_spec, parse_mesh_spec
 from torchx_tpu_torch.parallel.prefetch import Prefetcher, device_prefetch
 
@@ -154,38 +157,39 @@ class AdamW:
     operation order and casts. Updates the parameters in place and clears
     their ``.grad``.
 
-    Under a mesh the parameters are this rank's shards: ``sharded`` flags
-    the leaves split over ``norm_group`` (fsdp), whose squared sums the
-    global norm adds up over that group; the other leaves are whole on
-    every rank and count once."""
+    Under a mesh the parameters are this rank's shards: ``counted`` flags
+    the leaves whose block this rank counts in the global norm (its first
+    copy among the ranks of ``norm_group``, ``fsdp`` x ``tp``, which hold
+    each leaf's blocks once between them; :func:`clip_norm_layout`), and
+    the counted squared sums are added up over that group in one
+    all-reduce. The ``dp`` and ``sp`` copies compute the same norm."""
 
     B1, B2, EPS, MAX_NORM, DECAY_STEPS = 0.9, 0.95, 1e-8, 1.0, 100_000
 
     def __init__(
         self, params: list[torch.Tensor], lr: float, warmup: int, weight_decay: float,
-        sharded: Optional[list[bool]] = None, norm_group: Any = None,
+        counted: Optional[list[bool]] = None, norm_group: Any = None,
     ) -> None:
         self.params = params
         self.lr, self.warmup, self.weight_decay = lr, warmup, weight_decay
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
-        self.sharded, self.norm_group = sharded, norm_group
+        self.counted, self.norm_group = counted, norm_group
 
     def _squared_sums(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
         """Each leaf's sum of squares over the whole (unsharded) leaf: the
-        sharded leaves' local sums added up over ``norm_group`` in one
-        all-reduce (f32 on the wire; a group of one returns them exact)."""
+        counted blocks' local sums (zero for a block this rank does not
+        count) added up over ``norm_group`` in one all-reduce (f32 on the
+        wire; a group of one, or a sum with zeros, returns them exact)."""
         import torch.distributed as dist
 
         sq = [torch.sum(torch.square(g)) for g in grads]
-        idx = [i for i, s in enumerate(self.sharded) if s]
-        if idx:
-            part = torch.stack([sq[i].float() for i in idx])
+        part = torch.stack([s.float() if c else torch.zeros_like(s, dtype=torch.float32)
+                            for s, c in zip(sq, self.counted)])
+        with collective_range(self.norm_group):
             dist.all_reduce(part, group=self.norm_group)
-            for j, i in enumerate(idx):
-                sq[i] = part[j].to(sq[i].dtype)
-        return sq
+        return [part[i].to(s.dtype) for i, s in enumerate(sq)]
 
     def schedule(self, count: int) -> float:
         """Learning rate of update ``count`` (0-based; 0 at count 0)."""
@@ -200,7 +204,7 @@ class AdamW:
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise RuntimeError("AdamW.step: a parameter has no gradient")
-        if self.sharded is None:
+        if self.counted is None:
             sq = sum(torch.sum(torch.square(g)) for g in grads)
         else:
             sq = sum(self._squared_sums(grads))
@@ -230,12 +234,24 @@ class AdamW:
 
 def make_optimizer(
     params: list[torch.Tensor], lr: float = 3e-4, weight_decay: float = 0.1,
-    warmup: int = 100, sharded: Optional[list[bool]] = None, norm_group: Any = None,
+    warmup: int = 100, counted: Optional[list[bool]] = None, norm_group: Any = None,
 ) -> AdamW:
     """The JAX trainer's ``make_optimizer`` over ``params`` (this rank's
     shards under a mesh: see :class:`AdamW`)."""
     return AdamW(params, lr=lr, warmup=warmup, weight_decay=weight_decay,
-                 sharded=sharded, norm_group=norm_group)
+                 counted=counted, norm_group=norm_group)
+
+
+def clip_norm_layout(cfg: llama.LlamaConfig, mesh: Mesh) -> tuple[list[bool], Any]:
+    """(``counted``, ``norm_group``) of :class:`AdamW` under ``mesh``: a
+    leaf's block counts on the rank that holds its first copy among the
+    ``fsdp`` x ``tp`` ranks (coordinate 0 on each of those axes that does
+    not shard it), so that the all-reduce over them adds every block once:
+    an ``fsdp`` or ``tp`` shard on each of its ranks, a replicated leaf
+    (the norms; the embedding, whole over ``tp``) once."""
+    coords = {a: mesh.coords[a] for a in ("fsdp", "tp")}
+    return ([holds_first_copy(spec, coords) for spec in llama.leaves(llama.param_specs(cfg))],
+            mesh.shard_group)
 
 
 def make_train_step(
@@ -248,8 +264,9 @@ def make_train_step(
 
     Under ``mesh`` (``params`` this rank's shards, ``batch`` its rows) the
     backward leaves each shard's gradient summed over ``fsdp``; the step
-    then sums every gradient over ``dp`` (``grad_plan``'s buckets, or one
-    fused sync), and returns the loss of the whole batch."""
+    then sums every gradient over ``dp`` x ``sp`` (``grad_plan``'s
+    buckets, or one fused sync), and returns the loss of the whole batch,
+    the same on every rank."""
 
     def step(params: llama.Params, batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         loss, aux = llama.loss_and_aux(params, batch, cfg, mesh)
@@ -258,8 +275,10 @@ def make_train_step(
         if mesh is not None:
             import torch.distributed as dist
 
-            overlap.bucketed_sync([p.grad for p in optimizer.params], grad_plan, mesh.dp_group)
-            dist.all_reduce(loss, group=mesh.data_group)
+            overlap.bucketed_sync([p.grad for p in optimizer.params], grad_plan,
+                                  mesh.grad_group)
+            with collective_range(mesh.token_group):
+                dist.all_reduce(loss, group=mesh.token_group)
         grad_norm = optimizer.step()
         return {"loss": loss, "aux": aux.detach(), "grad_norm": grad_norm}
 
@@ -393,7 +412,7 @@ def _make_profiler(
     peak: Optional[float], dev: torch.device, plan: Optional[costmodel.ParallelPlan] = None,
 ) -> StepProfiler:
     """A :class:`StepProfiler` on this run's arithmetic. Under a mesh,
-    ``plan`` gives each data axis its modeled ``grad_sync`` seconds (the
+    ``plan`` gives each live axis its modeled ``grad_sync`` seconds (the
     cost model's bytes over the card's link rate); without one the
     collective terms are zero. Without a known peak (the CPU) the modeled
     optimizer slice and MFU are zero."""
@@ -439,6 +458,42 @@ def _install_preempt_handler() -> tuple[Optional[threading.Event], Callable[[], 
     return evt, _restore
 
 
+def check_model_axes(cfg: llama.LlamaConfig, sizes: dict[str, int], seq: int) -> None:
+    """Raise, naming the ROADMAP item, where the resolved mesh ``sizes``
+    asks for what is not ported: ``ep`` or ``pp`` above 1, a ``tp`` that
+    does not divide the KV heads (so the query heads), the ffn width or
+    the vocabulary, an ``sp`` that does not divide the sequence, int8
+    matmuls under ``tp``."""
+    model = {a: sizes[a] for a in ("ep", "pp") if sizes[a] > 1}
+    if model:
+        raise NotImplementedError(
+            f"mesh axes {model}: expert parallelism (ROADMAP queue 1 item 1.2) and"
+            " pipeline parallelism (item 1.4) are not ported yet; the port shards"
+            " over dp, fsdp, tp and sp"
+        )
+    tp, sp = sizes["tp"], sizes["sp"]
+    if tp > 1:
+        widths = {"n_kv_heads": cfg.n_kv_heads, "ffn_dim": cfg.ffn_dim,
+                  "vocab_size": cfg.vocab_size}
+        odd = {k: v for k, v in widths.items() if v % tp}
+        if odd:
+            raise NotImplementedError(
+                f"tp={tp} does not divide {odd}: each tp rank computes whole KV heads,"
+                " ffn columns and vocab rows (ROADMAP queue 1 item 1.2)"
+            )
+        if cfg.int8_matmuls:
+            raise NotImplementedError(
+                f"int8 matmuls under tp={tp} are not ported: AQT scales along the"
+                " contracting axis, which wo and w_down split over tp (ROADMAP queue 1"
+                " item 1.2)"
+            )
+    if seq % sp:
+        raise NotImplementedError(
+            f"sp={sp} does not divide the sequence {seq}: each sp rank computes an"
+            " equal block of positions (ROADMAP queue 1 item 1.2)"
+        )
+
+
 def _open_mesh(
     mesh: Optional[str | MeshConfig], cfg: llama.LlamaConfig, dev: torch.device,
 ) -> Optional[Mesh]:
@@ -446,28 +501,21 @@ def _open_mesh(
     without a process group; else ``mesh`` (a ``--mesh`` spec or a
     :class:`MeshConfig`; default ``fsdp=-1``, the JAX trainer's) over the
     group, which a world of one initializes here (NCCL on the card, gloo
-    on the CPU). What is not ported raises, naming its ROADMAP item."""
+    on the CPU). What is not ported raises, naming its ROADMAP item
+    (:func:`check_model_axes`), before a group is initialized where the
+    spec alone shows it."""
     if mesh is None and not dist.is_initialized():
         return None
     config = parse_mesh_spec(mesh) if isinstance(mesh, str) else mesh or MeshConfig()
     if getattr(cfg, "n_experts", 0):
         raise NotImplementedError(
             "a MoE config under a mesh is not ported yet (expert parallelism, the ep"
-            " axis: ROADMAP queue 1 item 2.2)"
+            " axis: ROADMAP queue 1 item 1.2)"
         )
-
-    def refuse_model_axes(sizes: dict[str, int]) -> None:
-        model = {a: sizes[a] for a in ("tp", "sp", "ep", "pp") if sizes[a] not in (1, -1)}
-        if model:
-            raise NotImplementedError(
-                f"mesh axes {model}: tensor, sequence and expert parallelism (ROADMAP"
-                " queue 1 item 2.2) and pipeline parallelism (item 2.6) are not ported"
-                " yet; the port shards over dp and fsdp"
-            )
-
-    refuse_model_axes(dataclasses.asdict(config))
+    given = {a: max(v, 1) for a, v in dataclasses.asdict(config).items()}
+    check_model_axes(cfg, given, cfg.max_seq)
     distributed.init_from_env(backend="gloo" if dev.type == "cpu" else "nccl")
-    refuse_model_axes(config.resolve(dist.get_world_size()))  # a -1 on a model axis
+    check_model_axes(cfg, config.resolve(dist.get_world_size()), cfg.max_seq)  # a -1
     return make_mesh(config)
 
 
@@ -583,14 +631,13 @@ def _train(
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = llama.init_params(cfg, gen, dev)
-        sharded, norm_group = None, None
+        counted, norm_group = None, None
         if m is not None:
             # every rank draws the whole seeded init and keeps its shards
             params = llama.shard_params(params, cfg, m)
-            specs = llama.leaves(llama.param_specs(cfg))
-            sharded, norm_group = ["fsdp" in spec for spec in specs], m.fsdp_group
+            counted, norm_group = clip_norm_layout(cfg, m)
         optimizer = make_optimizer(llama.leaves(params), lr=lr, warmup=warmup,
-                                   sharded=sharded, norm_group=norm_group)
+                                   counted=counted, norm_group=norm_group)
         if ckpt is not None:  # the pinned snapshot buffers, once
             ckpt.prepare(checkpoint_state(params, optimizer, 0))
     _stage("init_state", time.monotonic() - t0)
@@ -657,7 +704,7 @@ def _train(
         plan = None
         if m is not None:
             plan = costmodel.ParallelPlan(model=costmodel.ModelShape.of(cfg),
-                                          sizes=dict(m.sizes))
+                                          sizes=dict(m.sizes), batch=batch, seq=seq)
         profiler = _make_profiler(cfg, tokens_per_step // world, flops_per_token, peak, dev,
                                   plan=plan)
         # per-next() waits credit the current step's data_wait
@@ -914,8 +961,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     )
     parser.add_argument(
         "--mesh", default=None,
-        help="axis sizes pp/dp/fsdp/ep/tp/sp, e.g. dp=2,fsdp=-1 (only dp and fsdp"
-        " may exceed 1); $TPX_MESH overrides it. Default: the single-device"
+        help="axis sizes pp/dp/fsdp/ep/tp/sp, e.g. dp=2,fsdp=-1 or fsdp=2,tp=2 (ep"
+        " and pp must stay 1); $TPX_MESH overrides it. Default: the single-device"
         " step, or fsdp=-1 inside a process group (spmd_main)",
     )
     parser.add_argument(
@@ -927,7 +974,9 @@ def main(argv: Optional[list[str]] = None) -> None:
     for arg in unknown:
         flag = arg.split("=", 1)[0]
         if flag in NOT_PORTED_FLAGS:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP queue 1)")
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP queue 1 item"
+                f" {'1.4' if flag == '--ring-attention' else '1.3'})")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.log_every is not None and args.log_every < 1:

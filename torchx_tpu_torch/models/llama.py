@@ -24,13 +24,25 @@ call takes it.
 Under a :class:`~torchx_tpu_torch.parallel.mesh.Mesh` (``mesh=`` of
 :func:`forward_features` and :func:`loss_and_aux`) the parameters are this
 rank's shards (:func:`param_specs`, :func:`shard_params`, the JAX
-package's ``fsdp`` layout) and the tokens its rows of the batch: each layer
-gathers its weights inside the checkpointed layer, so the remat recompute
-gathers them again and no more than one layer's whole weights live at a
-time (ZeRO-3); the embedding is gathered once a step. Only the data axes
-(``dp``, ``fsdp``) are ported; ring attention, pipeline parallelism and the
-model axes are not (ROADMAP, queue 1), and the config fields that would
-select them raise ``NotImplementedError``.
+package's layout) and the tokens its rows of the batch:
+
+* ``fsdp``: each layer gathers its weights inside the checkpointed layer,
+  so the remat recompute gathers them again and no more than one layer's
+  whole weights live at a time (ZeRO-3); the embedding is gathered once a
+  step;
+* ``tp`` (Megatron): each rank computes ``n_heads / tp`` query heads,
+  ``n_kv_heads / tp`` KV heads and ``ffn_dim / tp`` ffn columns, with one
+  all-reduce after ``wo`` and one after ``w_down``; the logits stay
+  vocab-sharded, and the cross-entropy reduces its logsumexp and target
+  logit over ``tp``, so ``[b, c, vocab]`` logits never exist on one rank;
+* ``sp``: the residual stream, the norms and the cross-entropy run on this
+  rank's positions (RoPE at their global positions); attention gathers
+  q, k and v over ``sp`` and runs on the whole sequence, as the JAX
+  package's attention does under a mesh, then keeps this rank's rows.
+
+Ring attention, pipeline parallelism and ``ep`` are not ported (ROADMAP,
+queue 1 items 1.2 and 1.4), and the config fields that would select them
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from torchx_tpu_torch.ops.fused import flash_attention, rms_norm_residual
 from torchx_tpu_torch.ops.norms import rms_norm
 from torchx_tpu_torch.ops.quant import maybe_matmul
 from torchx_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from torchx_tpu_torch.parallel import mesh as mesh_ops
 
 Params = dict[str, Any]
 
@@ -102,11 +115,11 @@ class LlamaConfig:
         if self.remat_policy != "full":
             raise NotImplementedError(
                 f"remat_policy={self.remat_policy!r} is not ported yet"
-                " (ROADMAP queue 1: remat policies); use 'full'"
+                " (ROADMAP queue 1 item 1.3); use 'full'"
             )
         if self.use_ring_attention:
             raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP queue 1: multi-GPU)"
+                "ring attention is not ported yet (ROADMAP queue 1 item 1.4)"
             )
 
     @property
@@ -304,7 +317,7 @@ def param_specs(cfg: LlamaConfig) -> Params:
     if getattr(cfg, "n_experts", 0):
         raise NotImplementedError(
             "MoE parameters under a mesh are not ported yet (expert parallelism,"
-            " the ep axis: ROADMAP queue 1 item 2.2)"
+            " the ep axis: ROADMAP queue 1 item 1.2)"
         )
     specs: Params = {
         "embed": (None, "fsdp"),
@@ -397,26 +410,42 @@ def _layer(
     x: torch.Tensor,  # [b, s, d]
     *weights: torch.Tensor,  # one layer's slice, in _layer_keys order
     data_group: Any = None,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (x, aux). ``data_group``: see :func:`ffn`."""
+    """-> (x, aux). ``data_group``: see :func:`ffn`. Under ``mesh`` the
+    weights are this rank's ``tp`` blocks (whole over ``fsdp``), ``x`` its
+    positions of the sequence and ``cos``/``sin`` theirs."""
     layer = dict(zip(_layer_keys(cfg), weights))
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp = mesh.sizes["tp"] if mesh is not None else 1
+    sp = mesh.sizes["sp"] if mesh is not None else 1
+    h, kvh, hd = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
 
     i8_attn = cfg.int8_matmuls and cfg.int8_scope == "all"
     attn_in = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    if tp > 1:
+        attn_in = mesh_ops.copy_to_tp(attn_in, mesh)
     q = maybe_matmul(attn_in, layer["wq"], int8_training=i8_attn).reshape(b, s, h, hd)
     k = maybe_matmul(attn_in, layer["wk"], int8_training=i8_attn).reshape(b, s, kvh, hd)
     v = maybe_matmul(attn_in, layer["wv"], int8_training=i8_attn).reshape(b, s, kvh, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if sp > 1:
+        # the whole sequence's q, k and v in one gather (heads are the
+        # same on every sp rank)
+        qkv = mesh_ops.gather_sequence(torch.cat([q, k, v], dim=2), 1, mesh)
+        q, k, v = qkv.split([h, kvh, kvh], dim=2)
     attn_out = None
     if cfg.kernels != "reference":
         # None when the shape gate fails: the plain path below
         attn_out = flash_attention(q, k, v, causal=True, kernels=cfg.kernels)
     if attn_out is None:
         attn_out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    if sp > 1:
+        attn_out = mesh_ops.sequence_block(attn_out, 1, mesh)
     attn_out = maybe_matmul(attn_out.reshape(b, s, h * hd), layer["wo"], int8_training=i8_attn)
+    if tp > 1:
+        attn_out = mesh_ops.reduce_from_tp(attn_out, mesh)
     if cfg.kernels != "reference":
         # fused residual-add + RMSNorm: one pass yields the mlp input and
         # the continued stream (plain op sequence when the gate fails)
@@ -426,7 +455,11 @@ def _layer(
     else:
         x = x + attn_out
         mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    if tp > 1:
+        mlp_in = mesh_ops.copy_to_tp(mlp_in, mesh)
     down, aux = ffn(cfg, layer, mlp_in, data_group)
+    if tp > 1:
+        down = mesh_ops.reduce_from_tp(down, mesh)
     return x + down, aux
 
 
@@ -434,16 +467,17 @@ def _sharded_layer(
     mesh: Any, specs: tuple, cfg: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
     x: torch.Tensor, *shards: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_layer` on one layer's weights gathered from this rank's
-    shards (``specs``: each shard's spec, the layer axis dropped)."""
+    """:func:`_layer` on one layer's weights gathered over ``fsdp`` from
+    this rank's shards (``specs``: each shard's spec, the layer axis
+    dropped; ``tp`` blocks stay local)."""
     return _layer(cfg, cos, sin, x, *(mesh.unshard(w, sp) for w, sp in zip(shards, specs)),
-                  data_group=mesh.data_group)
+                  data_group=mesh.data_group, mesh=mesh)
 
 
 def _unshard_top(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
-    """``params`` with the leaves outside the layers whole: the embedding
-    (the tied head too) and an untied head gathered once, the final norm
-    marked replicated."""
+    """``params`` with the leaves outside the layers whole over ``fsdp``:
+    the embedding (the tied head too) and an untied head (its ``tp`` block)
+    gathered once, the final norm marked replicated."""
     specs = param_specs(cfg)
     out = dict(params)
     for key in ("embed", "lm_head", "final_norm"):
@@ -462,10 +496,17 @@ def forward_features(
 
     With ``mesh``, the layer leaves of ``params`` are this rank's shards,
     which each layer gathers inside the (checkpointed) layer; the leaves
-    outside the layers are whole (:func:`_unshard_top`)."""
+    outside the layers are whole (:func:`_unshard_top`); ``tokens`` are this
+    rank's rows and, under ``sp``, its positions of a sequence ``sp`` times
+    as long, whose hidden states it returns."""
     x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     s = x.shape[1]
-    cos, sin = rope_frequencies(cfg.head_dim, s, cfg.rope_theta, device=x.device)
+    sp = mesh.sizes["sp"] if mesh is not None else 1
+    # RoPE at the global positions of this rank's block
+    cos, sin = rope_frequencies(cfg.head_dim, s * sp, cfg.rope_theta, device=x.device)
+    if sp > 1:
+        pos = mesh.positions(s * sp)
+        cos, sin = cos[pos], sin[pos]
     keys = _layer_keys(cfg)
     # one unbind per stacked leaf: the backward stacks the layer grads once
     per_layer = [params["layers"][key].unbind(0) for key in keys]
@@ -503,23 +544,39 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Ten
 
 def _token_nll(
     x: torch.Tensor,  # [b, c, d] hidden states
-    head: torch.Tensor,  # [d, v]
+    head: torch.Tensor,  # [d, v], or this rank's [d, v / tp] block under tp
     targets: torch.Tensor,  # [b, c]
     f32_logits: bool = False,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """-> per-token negative log-likelihood [b, c] float32, as
     ``logsumexp(logits) - logits[target]``; logits stored in the model dtype
     unless ``f32_logits`` (f32 products and sums either way: an f32 matmul
-    of the upcast operands is exact for bf16 inputs)."""
+    of the upcast operands is exact for bf16 inputs).
+
+    Under a ``mesh`` with ``tp`` > 1, ``head`` is this rank's vocab block:
+    the logsumexp takes its maximum and its sum of exponentials over
+    ``tp``, the target logit comes from the rank whose block holds it, and
+    every ``tp`` rank returns the whole vocabulary's values."""
     logits = x.float() @ head.float() if f32_logits else x @ head
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
-    return lse - tgt
+    if mesh is None or mesh.sizes["tp"] == 1:
+        lse = torch.logsumexp(lf, dim=-1)
+        tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+        return lse - tgt
+    v = lf.shape[-1]
+    lo = mesh.coords["tp"] * v
+    m = mesh_ops.max_over_tp(lf.amax(dim=-1), mesh)
+    sumexp = mesh_ops.reduce_from_tp(torch.exp(lf - m[..., None]).sum(dim=-1), mesh)
+    local = targets.long() - lo
+    mine = (local >= 0) & (local < v)
+    tgt = torch.gather(lf, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    tgt = mesh_ops.reduce_from_tp(torch.where(mine, tgt, 0.0), mesh)
+    return m + torch.log(sumexp) - tgt
 
 
-def _chunk_nll_sum(x_c, head, t_c, f32, m_c=None):  # noqa: ANN001, ANN202
-    nll = _token_nll(x_c, head, t_c, f32)
+def _chunk_nll_sum(x_c, head, t_c, f32, m_c=None, mesh=None):  # noqa: ANN001, ANN202
+    nll = _token_nll(x_c, head, t_c, f32, mesh)
     return (nll * m_c).sum() if m_c is not None else nll.sum()
 
 
@@ -530,11 +587,12 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor], cfg: LlamaConfig) ->
 
 def _global_count(m: torch.Tensor, mesh: Any) -> torch.Tensor:
     """The kept targets of the whole batch: ``m.sum()`` summed over the
-    ranks that split the batch (a constant of the graph)."""
+    ranks that split the batch's tokens (a constant of the graph)."""
     import torch.distributed as dist
 
     n = m.sum().detach()
-    dist.all_reduce(n, group=mesh.data_group)
+    with mesh_ops.collective_range(mesh.token_group):
+        dist.all_reduce(n, group=mesh.token_group)
     return n
 
 
@@ -549,27 +607,40 @@ def loss_and_aux(
     ``loss_mask`` weights the targets. The loss adds ``router_aux_coef``
     times the balance term (``aux[AUX_BALANCE]``, 0 for dense models).
 
-    With ``mesh``, ``params`` are this rank's shards and ``batch`` its rows:
-    the loss is this rank's share of the whole batch's mean (its mean over
-    the data-group size; with a mask, its sum over the whole batch's kept
-    targets), so the shares summed over the data group give the mean."""
+    With ``mesh``, ``params`` are this rank's shards and ``batch`` its rows
+    (whole sequences; under ``sp`` the rank computes its positions of
+    them): the loss is this rank's share of the whole batch's mean (its
+    mean over the ``dp * fsdp * sp`` ranks that split the tokens; with a
+    mask, its sum over the whole batch's kept targets), so the shares
+    summed over those ranks give the mean. ``tp`` ranks compute the same
+    tokens and each returns the same share."""
     tokens = batch["tokens"]
+    mask = batch.get("loss_mask")
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    m = mask[:, 1:].float() if mask is not None else None
     if mesh is not None:
         params = _unshard_top(params, cfg, mesh)
-    x, aux = forward_features(params, tokens[:, :-1], cfg, mesh)
+        pos = mesh.positions(inputs.shape[1])
+        inputs, targets = inputs[:, pos], targets[:, pos]
+        if m is not None:
+            m = m[:, pos]
+    x, aux = forward_features(params, inputs, cfg, mesh)
     aux_term = getattr(cfg, "router_aux_coef", 0.0) * aux[AUX_BALANCE]
-    targets = tokens[:, 1:]
     head = lm_head(params, cfg)
-    mask = batch.get("loss_mask")
-    m = mask[:, 1:].float() if mask is not None else None
+    if mesh is not None and mesh.sizes["tp"] > 1:
+        # the head is column-parallel over the vocabulary: each rank's block
+        # gives its part of the hidden states' gradient
+        x = mesh_ops.copy_to_tp(x, mesh)
+        if cfg.tie_embeddings:  # whole on every tp rank: its vocab block
+            head = mesh_ops.tp_block(head, 1, mesh)
     f32 = cfg.ce_f32_logits
     count = None  # the kept targets of the whole batch
     if m is not None:
         count = _global_count(m, mesh) if mesh is not None else m.sum()
 
     def mean_share(loss: torch.Tensor) -> torch.Tensor:
-        # this rank's share of the mean over the ranks the batch is split over
-        return loss / mesh.data_size if mesh is not None else loss
+        # this rank's share of the mean over the ranks the tokens are split over
+        return loss / mesh.token_size if mesh is not None else loss
 
     # every rank computes the whole batch's balance term (moe.route averages
     # its per-expert means over the data group): summed over the group, the
@@ -586,12 +657,12 @@ def loss_and_aux(
             args = (x[:, sl], head, targets[:, sl], f32)
             if m is not None:
                 args += (m[:, sl],)
-            total = total + checkpoint(_chunk_nll_sum, *args, use_reentrant=False)
+            total = total + checkpoint(_chunk_nll_sum, *args, mesh=mesh, use_reentrant=False)
         if m is None:
             return mean_share(total / (b * s)) + aux_term, aux
         return total / torch.clamp(count, min=1.0) + aux_term, aux
 
-    nll = _token_nll(x, head, targets, f32)
+    nll = _token_nll(x, head, targets, f32, mesh)
     if m is not None:
         return (nll * m).sum() / torch.clamp(count, min=1.0) + aux_term, aux
     return mean_share(nll.mean()) + aux_term, aux

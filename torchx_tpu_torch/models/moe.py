@@ -11,7 +11,7 @@ them.
 
 On one card the experts are not sharded (expert parallelism ``ep=1``):
 the JAX package's ``param_specs`` / ``shard_params`` come with the
-port's meshes (ROADMAP queue 1, multi-GPU). Parameters keep the JAX
+port's meshes (ROADMAP queue 1 item 1.2, ``ep``). Parameters keep the JAX
 layout leaf for leaf (:mod:`torchx_tpu_torch.convert`): the dense model's
 leaves with ``w_gate``/``w_up`` ``[L, E, d, f]``, ``w_down`` ``[L, E, f, d]``
 and a router ``w_router`` ``[L, d, E]``.

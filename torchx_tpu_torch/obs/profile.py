@@ -24,11 +24,12 @@ equal the JAX trainer's for the same measured inputs and ``tpx profile``
 reads either.
 
 Without a mesh the collective terms are zero and the overlap fraction is
-None. Under one, :func:`modeled_collective_seconds` gives each data axis
-the cost model's bytes (:mod:`torchx_tpu_torch.analyze.costmodel`, the
-reference's) over the card's link rate. The reference's calibration fold
-(``feed_calibration``) comes with the port's calibration table (ROADMAP
-queue 1, the launcher layers); :meth:`StepProfiler.close` folds nothing.
+None. Under one, :func:`modeled_collective_seconds` gives each live axis
+(``fsdp``, ``dp``, ``tp``, ``sp``) the cost model's bytes
+(:mod:`torchx_tpu_torch.analyze.costmodel`, the reference's) over the
+card's link rate. The reference's calibration fold (``feed_calibration``)
+comes with the port's calibration table (ROADMAP queue 1 item 2, the
+launcher layers); :meth:`StepProfiler.close` folds nothing.
 
 Records append to ``profile.jsonl`` in the obs session dir (fsync'd,
 single-line ``O_APPEND`` writes) next to ``trace.jsonl``; the reader keeps
@@ -347,7 +348,7 @@ class StepProfiler:
 
         ``calibrate`` is the reference's switch for folding measured
         collective seconds into its calibration table; the port has no
-        table yet (ROADMAP queue 1), so nothing is folded either way."""
+        table yet (ROADMAP queue 1 item 2), so nothing is folded either way."""
         summary = summarize(
             self._records,
             meta={"v": SCHEMA_VERSION, "kind": "meta", "model": self.model.to_dict()},

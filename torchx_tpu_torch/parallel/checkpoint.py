@@ -20,9 +20,10 @@ Layout, shared with the launcher's readers (``supervisor/api.py``'s
 
 In a gang each block is written once, by its first copy's rank
 (:func:`~torchx_tpu_torch.parallel.mesh.holds_first_copy`: the ``dp``
-replicas of an ``fsdp`` shard write nothing, a replicated entry is rank
-0's), into one staging directory whose name rank 0 broadcasts when the
-checkpointer is built. Each rank fsyncs its file and renames it to its
+and ``sp`` replicas of a block write nothing, each ``tp`` rank writes its
+``tp`` blocks, an entry whole on every rank is rank 0's), into one
+staging directory whose name rank 0 broadcasts when the checkpointer is
+built. Each rank fsyncs its file and renames it to its
 final name; rank 0 then waits (polling the files, with a timeout: a rank
 that died leaves an error, never a step that looks finished), renames the
 staging directory to the step, digests it and commits the manifest. No

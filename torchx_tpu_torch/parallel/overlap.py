@@ -40,6 +40,8 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from torchx_tpu_torch.parallel.mesh import collective_range
+
 #: Candidate bucket caps (MiB) tried by auto selection, small first —
 #: smaller buckets start overlapping earlier in the backward pass.
 BUCKET_MB_CANDIDATES: Tuple[int, ...] = (4, 8, 16, 32, 64, 128)
@@ -240,7 +242,8 @@ def rank_order_sum(flat: torch.Tensor, group: Any) -> torch.Tensor:
     for lo in range(0, flat.numel(), step):
         chunk = flat[lo:lo + step]
         parts = gathered[:n * chunk.numel()]
-        dist.all_gather_into_tensor(parts, chunk, group=group)
+        with collective_range(group):
+            dist.all_gather_into_tensor(parts, chunk, group=group)
         parts = parts.view(n, chunk.numel())
         chunk.copy_(parts[0])
         for r in range(1, n):
