@@ -175,6 +175,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``generate``'s for the 32- and 512-token prompts (each its prefill
    bucket's width, neither prefill overflowing an expert); pools and
    parameters on the card, no kernel launched.
+   ep — expert parallelism: mixtral_8x7b's width at 2 layers, the train
+   phase's batch, 3 steps. A world of one through ``spmd_main`` on NCCL,
+   its losses and gradient norms bitwise one process's (the moe phase's
+   first 3 steps, or a run of its own); then ``ep=2``, two gloo ranks
+   sharing the card (each holds half the experts and computes attention
+   and the router on the whole batch), profiled: losses within 1e-2 and
+   gradient norms within 5e-2 of one process, every rank's launches one
+   process's (the wgmma flash kernels at head_dim 128, the norm kernels at
+   dim 4096, no simt), the router's aux values finite, and a collective
+   over the expert group in rank 0's trace (in the default run the tp
+   phase's launch carries this run after its own). Prints each rank's peak
+   memory beside the parameters a rank holds, the profiled step time, rank
+   0's collectives by group (``ep,tp``: host and device milliseconds a
+   step) and the cost model's bytes a step by axis. With four cards or
+   more (``--phases build,ep``): NCCL, 8 layers, 6 steps, ``fsdp=4``,
+   ``ep=4`` and ``fsdp=2,ep=2`` at the same global batch (the first loss
+   within 1e-2 of ``fsdp=4``'s), each with its step time, tokens/s a card,
+   MFU on active parameters, peak memory a rank, collectives by group and
+   modeled bytes; then the three meshes in f32 with plain ops at 2 layers,
+   every loss within 1e-3 of ``fsdp=4``'s (bf16 trajectories part as
+   rounding flips near-tied router choices: ``EP_F32``).
 
 8. int8 — int8 train: ``train`` on llama3_1b in the train phase's
    setting under ``--int8-scope all`` and ``ffn`` (the trainer's own flag
@@ -264,7 +285,7 @@ import sys
 import time
 
 PHASES = ("build", "kernels", "train", "reference", "gang", "gangckpt", "tp", "serve", "ckpt",
-          "moe", "int8")
+          "moe", "ep", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
@@ -1961,10 +1982,13 @@ TP = dict(layers=2, steps=3, meshes=("tp=2", "sp=2"), steps4=6,
           meshes4=("fsdp=4", "tp=4", "fsdp=2,tp=2", "dp=2,sp=2"), mesh8b="fsdp=2,tp=2")
 
 #: The runs' script under ``spmd_main``: each run of the JSON in argv[1]
-#: (config, layers or null for full depth, mesh, steps) through
-#: ``train_llama.train`` with the step profiler and its torch.profiler
-#: trace; rank 0 prints every run's results on one ``final:`` line.
-_TP_SCRIPT = """import json, os, sys
+#: (config, layers or null for full depth, mesh, steps, and optionally
+#: ``profile``, default true, ``dtype`` and ``kernels``, default the
+#: config's and "cuda") through ``train_llama.train`` with the step profiler and
+#: its torch.profiler trace, the card's cache emptied after each; rank 0
+#: prints every run's results and seconds on one ``final:`` line.
+_TP_SCRIPT = """import gc, json, os, sys, time
+import torch
 import torch.distributed as dist
 from torchx_tpu_torch.examples import train_llama
 from torchx_tpu_torch.models import llama
@@ -1972,16 +1996,28 @@ job = json.loads(sys.argv[1])
 out = []
 for run in job["runs"]:
     kw = {{"n_layers": run["layers"]}} if run["layers"] else {{}}
-    cfg = getattr(llama, run["config"])(**kw)
-    res = train_llama.train(cfg, job["batch"], job["seq"], run["steps"], kernels="cuda",
+    if run.get("dtype"):
+        kw["dtype"] = getattr(torch, run["dtype"])
+    cfg = llama.all_configs()[run["config"]](**kw)
+    profiled = run.get("profile", True)
+    t0 = time.monotonic()
+    res = train_llama.train(cfg, job["batch"], job["seq"], run["steps"],
+                            kernels=run.get("kernels", "cuda"),
                             device="cuda", warmup=1, log_every=0, mesh=run["mesh"],
-                            profile=True, profile_dir=os.path.join(job["root"], run["name"]))
-    out.append({{k: res[k] for k in ("losses", "grad_norms", "step_times_s", "step_time_s",
-                                   "tokens_per_sec_per_card", "mfu", "world", "mesh",
-                                   "backend", "launches_by_rank", "peak_memory_bytes_by_rank",
-                                   "profile_trace")}})
+                            profile=profiled,
+                            profile_dir=os.path.join(job["root"], run["name"]) if profiled
+                            else None)
+    out.append({{k: res.get(k) for k in ("losses", "grad_norms", "step_times_s", "step_time_s",
+                                       "tokens_per_sec_per_card", "mfu", "world", "mesh",
+                                       "backend", "launches_by_rank", "peak_memory_bytes_by_rank",
+                                       "profile_trace", "router_aux", "router_entropy",
+                                       "router_overflow", "launch_breakdown")}})
     out[-1]["comm_modeled_axis_s"] = res["profile"]["meta"]["comm_modeled_axis_s"] \
         if res["profile"] else None
+    out[-1]["seconds"] = time.monotonic() - t0
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()  # the next run's model starts on a clean card
 if dist.get_rank() == 0:
     print("final:" + json.dumps(out), flush=True)
 """
@@ -2017,10 +2053,11 @@ def collectives_by_group(events: list[dict], steps: int) -> dict:
             "ranges": len(spans) // max(steps, 1)}
 
 
-def _tp_runs(runs: list[dict], ranks: int, backend: str) -> list[dict]:
+def _tp_runs(runs: list[dict], ranks: int, backend: str, phase: str = "tp") -> list[dict]:
     """``runs`` in one ``spmd_main`` launch of ``ranks`` ranks on
     ``backend``; each run's results with its collectives by group (rank
-    0's trace) and the cost model's bytes a step by axis."""
+    0's trace, for a profiled run) and the cost model's bytes a step by
+    axis."""
     import shutil
     import tempfile
 
@@ -2028,20 +2065,26 @@ def _tp_runs(runs: list[dict], ranks: int, backend: str) -> list[dict]:
     from torchx_tpu_torch.models import llama
     from torchx_tpu_torch.parallel.mesh_config import parse_mesh_spec
 
-    root = tempfile.mkdtemp(prefix="tpx_tp_smoke_")
+    root = tempfile.mkdtemp(prefix=f"tpx_{phase}_smoke_")
     try:
         script = os.path.join(root, "tp_runs.py")
         with open(script, "w") as f:
             f.write(_TP_SCRIPT.format())
         job = {"runs": runs, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "root": root}
         finals, _ = _spmd(["--nproc-per-node", str(ranks), "--backend", backend],
-                          ["--script", script, "--", json.dumps(job)], {}, "tp")
+                          ["--script", script, "--", json.dumps(job)], {}, phase)
         for run, final in zip(runs, finals):
-            with open(final.pop("profile_trace")) as f:
-                events = json.load(f)["traceEvents"]
-            final["collectives"] = collectives_by_group(events, run["steps"] - 1)
+            trace = final.pop("profile_trace")
+            if trace:
+                with open(trace) as f:
+                    events = json.load(f)["traceEvents"]
+                final["collectives"] = collectives_by_group(events, run["steps"] - 1)
             kw = {"n_layers": run["layers"]} if run["layers"] else {}
-            cfg = getattr(llama, run["config"])(**kw)
+            if run.get("dtype"):
+                import torch
+
+                kw["dtype"] = getattr(torch, run["dtype"])
+            cfg = llama.all_configs()[run["config"]](**kw)
             plan = costmodel.ParallelPlan(
                 model=costmodel.ModelShape.of(cfg), batch=TRAIN["batch"], seq=TRAIN["seq"],
                 sizes=parse_mesh_spec(run["mesh"]).resolve(ranks))
@@ -2052,11 +2095,13 @@ def _tp_runs(runs: list[dict], ranks: int, backend: str) -> list[dict]:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_tp(one: dict | None) -> dict:
+def phase_tp(one: dict | None, extra: list[dict] = ()) -> tuple[dict, list[dict]]:
     """The model axes (module docstring). ``one``: the one-process run of
     llama3_1b at ``TP["layers"]`` layers and ``TP["steps"]`` steps on the
     train phase's batch (the ``one_process_*`` entries of the gang phase's
-    B line), made here when None."""
+    B line), made here when None. ``extra``: runs of another phase that
+    share the launch of two gloo ranks (the ep phase's), after the tp
+    phase's own. -> (the tp lines by mesh, the extra runs' results)."""
     import torch
 
     from torchx_tpu_torch.examples.train_llama import train
@@ -2066,7 +2111,7 @@ def phase_tp(one: dict | None) -> dict:
     t0 = time.monotonic()
     cards = torch.cuda.device_count()
     if cards >= 4:
-        return phase_tp_cards()
+        return phase_tp_cards(), []
     cfg = llama.llama3_1b(n_layers=TP["layers"])
     if one is None:
         free_card()
@@ -2077,7 +2122,8 @@ def phase_tp(one: dict | None) -> dict:
     free_card()
     runs = [{"name": m.replace("=", ""), "config": "llama3_1b", "layers": TP["layers"],
              "mesh": m, "steps": TP["steps"]} for m in TP["meshes"]]
-    finals = _tp_runs(runs, 2, "gloo")
+    finals = _tp_runs(runs + list(extra), 2, "gloo")
+    finals, extra_finals = finals[:len(runs)], finals[len(runs):]
     expected = expected_launches(cfg, TP["steps"])
     out = {}
     for run, final in zip(runs, finals):
@@ -2108,8 +2154,9 @@ def phase_tp(one: dict | None) -> dict:
         if any(launches != expected for launches in final["launches_by_rank"]):
             fail("tp", f"{run['mesh']}: launches {final['launches_by_rank']} != {expected}")
         out[run["mesh"]] = res
-    emit({"phase": "tp", "run": "seconds", "seconds": time.monotonic() - t0})
-    return out
+    emit({"phase": "tp", "run": "seconds", "seconds": time.monotonic() - t0
+          - sum(f["seconds"] for f in extra_finals)})
+    return out, extra_finals
 
 
 def phase_tp_cards() -> dict:
@@ -3783,8 +3830,181 @@ def phase_moe_profile() -> None:
 
 
 # ---------------------------------------------------------------------------
-# main
+# phase 7b: ep -- expert parallelism, the MoE family as a gang
 # ---------------------------------------------------------------------------
+
+#: The ep phase: mixtral_8x7b's width cut to ``layers`` layers, ``steps``
+#: steps on the train phase's batch; on one card two gloo ranks sharing it
+#: at ``mesh`` (NCCL refuses two ranks on one card), against one process
+#: (the moe phase's run, or its own), and a world of one through spmd_main
+#: on NCCL against that process bitwise. Four cards or more: NCCL at
+#: ``layers4`` layers, ``steps4`` steps, each mesh of ``meshes4`` at the
+#: same global batch (``fsdp=4`` the one the others are held to). The whole
+#: model (32 layers, 46.7 B parameters, 373 GB at 8 B a parameter with its
+#: gradient and two bf16 moments) fits no four cards at any mesh.
+EP = dict(layers=2, steps=3, mesh="ep=2", layers4=8, steps4=6,
+          meshes4=("fsdp=4", "ep=4", "fsdp=2,ep=2"))
+#: The four-card trajectories are held to ``fsdp=4``'s in f32 at 2 layers
+#: with plain ops (the CPU tests' arithmetic, which equals the JAX step's
+#: at every mesh): in bf16 a rounding that differs between meshes flips a
+#: near-tied router choice, which moves the capacity slots of the row's
+#: later tokens, and the losses part by more than 1e-2 within 4 updates
+#: (fsdp=2,ep=2 1.6% at step 6 on four H100s, PERF.md §6), so the bf16
+#: runs, the speed cell, are held to fsdp=4's on the first step (the same
+#: weights) only.
+EP_F32 = dict(layers=2, kernels="reference", dtype="float32", profile=False)
+
+
+def rank_param_count(cfg, sizes: dict[str, int]) -> int:  # noqa: ANN001
+    """Parameters one rank holds under a mesh of ``sizes``: each leaf's
+    elements over the shards its spec splits it into."""
+    from torchx_tpu_torch import convert
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.parallel.mesh import parts
+
+    zero = dict.fromkeys(sizes, 0)
+    specs = dict(llama.named_leaves(llama.param_specs(cfg)))
+    return sum(math.prod(shape) // math.prod(parts(axes, sizes, zero)[0]
+                                             for axes in specs[name])
+               for name, shape in llama.named_leaves(convert.expected_shapes(cfg)))
+
+
+def _ep_line(run: dict, final: dict, cards: int) -> dict:
+    """The printed line of one ep run: its mesh, losses, router health,
+    step times, memory a rank beside the reckoned parameters a rank, rank
+    0's collectives by group beside the cost model's bytes."""
+    from torchx_tpu_torch.models import moe
+    from torchx_tpu_torch.parallel.mesh_config import parse_mesh_spec
+
+    cfg = moe.mixtral_8x7b_shape(n_layers=run["layers"])
+    sizes = parse_mesh_spec(run["mesh"]).resolve(final["world"])
+    held = rank_param_count(cfg, sizes)
+    return {"phase": "ep", "cards": cards, "config": "mixtral_8x7b",
+            "n_layers": run["layers"], "steps": run["steps"], "mesh": final["mesh"],
+            "backend": final["backend"], "world": final["world"],
+            "losses": final["losses"], "grad_norms": final["grad_norms"],
+            "router_aux": final["router_aux"], "router_overflow": final["router_overflow"],
+            "profiled_step_times_s": final["step_times_s"],
+            "profiled_step_time_s": final["step_time_s"],
+            "tokens_per_sec_per_card": final["tokens_per_sec_per_card"], "mfu": final["mfu"],
+            "params": cfg.param_count(), "params_per_rank": held,
+            "reckoned_state_bytes_per_rank": 8 * held,
+            "peak_memory_bytes_by_rank": final["peak_memory_bytes_by_rank"],
+            "collectives_rank0": final.get("collectives"),
+            "modeled_bytes_per_step": final["modeled_bytes_per_step"],
+            "launches_by_rank": final["launches_by_rank"]}
+
+
+def ep_run() -> dict:
+    """The ep phase's run of two gloo ranks sharing the card."""
+    return {"config": "mixtral_8x7b", "layers": EP["layers"], "steps": EP["steps"],
+            "name": "ep2", "mesh": EP["mesh"]}
+
+
+def phase_ep(moe_train: dict | None, final: dict | None = None) -> dict:
+    """Expert parallelism (module docstring). ``moe_train``: the moe
+    phase's one-process run at ``EP["layers"]`` layers on the train phase's
+    batch, whose first ``EP["steps"]`` steps the gangs are held to; made
+    here when None. ``final``: the results of :func:`ep_run` where the tp
+    phase's launch carried it, else it is launched here. -> the ep=2 run's
+    line, its ``launches_by_rank`` each rank's launches."""
+    import torch
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import moe
+    from torchx_tpu_torch.parallel.mesh_config import mesh_sizes_spec, parse_mesh_spec
+
+    t0 = time.monotonic()
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        return phase_ep_cards()
+    cfg = moe.mixtral_8x7b_shape(n_layers=EP["layers"])
+    n = EP["steps"]
+    if moe_train is None or moe_train["n_layers"] != EP["layers"]:
+        free_card()
+        moe_train = train(cfg, TRAIN["batch"], TRAIN["seq"], n, kernels="cuda",
+                          device="cuda", warmup=1, log_every=0)
+    one = {k: moe_train[k][:n] for k in ("losses", "grad_norms")}
+    free_card()
+    run = ep_run()
+    world1, = _tp_runs([{**run, "name": "world1", "mesh": "fsdp=-1", "profile": False}], 1,
+                       "nccl", "ep")
+    bitwise = (world1["losses"], world1["grad_norms"]) == (one["losses"], one["grad_norms"])
+    emit({"phase": "ep", "run": "world 1", "mesh": world1["mesh"], "backend": world1["backend"],
+          "losses": world1["losses"], "grad_norms": world1["grad_norms"],
+          "one_process_losses": one["losses"], "one_process_grad_norms": one["grad_norms"],
+          "bitwise": bitwise, "step_times_s": world1["step_times_s"],
+          "launch_breakdown": world1["launch_breakdown"], "run_seconds": world1["seconds"]})
+    if world1["world"] != 1 or not bitwise:
+        fail("ep", f"world 1 {world1['losses']} / {world1['grad_norms']} against one process"
+             f" {one['losses']} / {one['grad_norms']}")
+    if final is None:
+        final, = _tp_runs([run], 2, "gloo", "ep")
+    expected = expected_launches(cfg, n)
+    loss_rel = _rel_diff(final["losses"], one["losses"])
+    gn_rel = _rel_diff(final["grad_norms"], one["grad_norms"])
+    res = {**_ep_line(run, final, cards), "ranks_share_a_card": True,
+           "one_process_losses": one["losses"], "one_process_grad_norms": one["grad_norms"],
+           "one_process_params": cfg.param_count(),
+           "loss_max_rel_diff": loss_rel, "loss_rtol": REF_LOSS_RTOL,
+           "grad_norm_max_rel_diff": gn_rel, "grad_norm_rtol": REF_GRAD_NORM_RTOL,
+           "modeled_grad_sync_s_per_step": final["comm_modeled_axis_s"],
+           "run_seconds": final["seconds"], "expected_launches": expected}
+    emit(res)
+    want = mesh_sizes_spec(parse_mesh_spec(EP["mesh"]).resolve(2))
+    if (final["world"], final["backend"], final["mesh"]) != (2, "gloo", want):
+        fail("ep", f"{EP['mesh']} ran {final['world']} ranks on {final['backend']} as"
+             f" {final['mesh']}")
+    if loss_rel > REF_LOSS_RTOL or gn_rel > REF_GRAD_NORM_RTOL:
+        fail("ep", f"{EP['mesh']}: {final['losses']} / {final['grad_norms']} against one"
+             f" process {one['losses']} / {one['grad_norms']}")
+    if any(launches != expected for launches in final["launches_by_rank"]):
+        fail("ep", f"{EP['mesh']}: launches {final['launches_by_rank']} != {expected}")
+    if not all(math.isfinite(x) for k in ("router_aux", "router_overflow") for x in final[k]):
+        fail("ep", f"{EP['mesh']}: the router's aux values are not finite")
+    if "ep,tp" not in (final.get("collectives") or {}).get("host_ms_per_step", {}):
+        fail("ep", f"{EP['mesh']}: no collective over the expert group in rank 0's trace")
+    emit({"phase": "ep", "run": "seconds", "seconds": time.monotonic() - t0})
+    return res
+
+
+def phase_ep_cards() -> dict:
+    """Four cards or more: NCCL, one rank a card on four, mixtral_8x7b's
+    width at ``EP["layers4"]`` layers in bf16, each mesh of
+    ``EP["meshes4"]`` at the same global batch, its first loss within
+    REF_LOSS_RTOL of ``fsdp=4``'s; for each the step time, tokens/s a
+    card, MFU (active parameters), peak memory a rank, the collectives by
+    group and the modeled bytes. Then each mesh again in f32 (``EP_F32``),
+    its losses within GANG_LOSS_RTOL of ``fsdp=4``'s at every step."""
+    t0 = time.monotonic()
+    free_card()
+    runs = [{"name": m.replace("=", "").replace(",", "_"), "config": "mixtral_8x7b",
+             "layers": EP["layers4"], "mesh": m, "steps": EP["steps4"]} for m in EP["meshes4"]]
+    f32 = [{**run, **EP_F32, "name": run["name"] + "_f32"} for run in runs]
+    finals = _tp_runs(runs + f32, 4, "nccl", "ep")
+    finals, finals_f32 = finals[:len(runs)], finals[len(runs):]
+    out = {}
+    for run, final, exact in zip(runs, finals, finals_f32):
+        first = _rel_diff(final["losses"][:1], finals[0]["losses"][:1])
+        rel = _rel_diff(final["losses"], finals[0]["losses"])
+        rel_f32 = _rel_diff(exact["losses"], finals_f32[0]["losses"])
+        res = {**_ep_line(run, final, 4), "loss_max_rel_diff_vs_fsdp4": rel,
+               "first_loss_rel_diff_vs_fsdp4": first, "loss_rtol_first_step": REF_LOSS_RTOL,
+               "f32": {"n_layers": EP_F32["layers"], "kernels": EP_F32["kernels"],
+                       "losses": exact["losses"], "grad_norms": exact["grad_norms"],
+                       "router_overflow": exact["router_overflow"],
+                       "loss_max_rel_diff_vs_fsdp4": rel_f32, "loss_rtol": GANG_LOSS_RTOL}}
+        emit(res)
+        if final["backend"] != "nccl" or final["world"] != 4:
+            fail("ep", f"{run['mesh']} ran {final['world']} ranks on {final['backend']}")
+        if not all(math.isfinite(x) for x in final["losses"] + exact["losses"]):
+            fail("ep", f"{run['mesh']}: non-finite loss {final['losses']} {exact['losses']}")
+        if first > REF_LOSS_RTOL or rel_f32 > GANG_LOSS_RTOL:
+            fail("ep", f"{run['mesh']} losses {final['losses']} (f32 {exact['losses']})"
+                 f" against fsdp=4's {finals[0]['losses']} (f32 {finals_f32[0]['losses']})")
+        out[run["mesh"]] = res
+    emit({"phase": "ep", "run": "seconds", "seconds": time.monotonic() - t0})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4360,6 +4580,13 @@ def main(argv: list[str] | None = None) -> int:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
 
+    # The phases' subprocesses (gang ranks, drills) cache Python bytecode
+    # under the build directory: where the environment turns bytecode
+    # writing off, every new process would compile torch's modules again
+    # (a world-1 gang's first MoE step took 15.2 s in a fresh process, 1.1 s
+    # in a warm one on an H100 machine: PERF.md §6).
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ.setdefault("PYTHONPYCACHEPREFIX", str(_build.BUILD_DIR / "pycache"))
     t0 = time.monotonic()
     card = card_line()
     emit({"phase": "start", "card": card, "torch": torch.__version__,
@@ -4414,12 +4641,19 @@ def main(argv: list[str] | None = None) -> int:
     if "gangckpt" in phases:
         with timed("gangckpt"):
             phase_gang_ckpt(gang_out["A_final"] if gang_out else None)
+    ep_shared = None  # the ep phase's two-rank run, carried by the tp launch
     if "tp" in phases:
         b = gang_out["B"] if gang_out else None
+        extra = [ep_run()] if "ep" in phases and torch.cuda.device_count() < 4 else []
         with timed("tp"):
-            tp_out = phase_tp(
+            tp_out, extra_finals = phase_tp(
                 {k: v for k, v in b.items() if k.startswith("one_process_")}
-                if b and (b["n_layers"], b["steps"]) == (TP["layers"], TP["steps"]) else None)
+                if b and (b["n_layers"], b["steps"]) == (TP["layers"], TP["steps"]) else None,
+                extra)
+        if extra_finals:
+            ep_shared, = extra_finals
+            seconds["tp"] -= ep_shared["seconds"]  # booked to the ep phase
+            seconds["ep"] = ep_shared["seconds"]
         # the local-shape rows' launches: rank 0's in the tp phase's run
         for row in kernel_rows:
             suffix = {"_tp2": "tp=2", "_sp2": "sp=2"}.get(row["name"][-4:])
@@ -4451,6 +4685,19 @@ def main(argv: list[str] | None = None) -> int:
         with timed("moe"):
             phase_moe_reference()
             phase_moe_serve()
+    if "ep" in phases:
+        with timed("ep"):
+            ep_out = phase_ep(moe_train if "moe" in phases else None, ep_shared)
+        # each rank's launches of the Mixtral-shape rows' kernels in the ep
+        # phase's ep=2 run (the shapes of one process: tp 1)
+        if "launches_by_rank" in ep_out:
+            for row in kernel_rows:
+                base = re.sub(r"_d\d+$", "", row["name"])
+                if base == row["name"]:
+                    continue
+                row["launches_ep_by_rank"] = [r[base] for r in ep_out["launches_by_rank"]]
+                if not all(row["launches_ep_by_rank"]):
+                    fail("ep", f"{row['name']}: a rank of the ep=2 step never launched it")
     if "int8" in phases:
         with timed("int8"):
             phase_int8_train(train_out if "train" in phases else None)

@@ -514,7 +514,7 @@ def _mesh_at(spec, world, rank):
 
     sizes = parse_mesh_spec(spec).resolve(world)
     coords = np.unravel_index(rank, [sizes[a] for a in AXES])
-    return Mesh(None, sizes, {a: int(c) for a, c in zip(AXES, coords)}, None, None, None,
+    return Mesh(None, sizes, {a: int(c) for a, c in zip(AXES, coords)}, None, None,
                 "gloo")
 
 

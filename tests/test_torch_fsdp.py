@@ -3,7 +3,7 @@ heads, ffn 256, 2 layers, f32) trained by 2 and 4 gloo ranks through
 ``spmd_main`` under ``fsdp=2``, ``dp=2`` and ``dp=2,fsdp=2``, held to the
 single-device trainer on the same global batches (losses, gradient norms
 and every rank's shards within 1e-5 after 3 steps; one case with a
-``loss_mask``), and ``fsdp=2`` held to the JAX trainer's own ``fsdp=2``
+``loss_mask``, one on ``moe_tiny``), and ``fsdp=2`` held to the JAX trainer's own ``fsdp=2``
 step (``make_mesh(MeshConfig(fsdp=2))`` over two of conftest's 8 CPU
 devices) within 1e-4 after 4 steps, ``tests/test_torch_model.py``'s
 trajectory tolerance. Then ``$TPX_MESH`` over ``--mesh``, and what is not
@@ -82,6 +82,7 @@ def gangs(tmp_path_factory):
     step = dict(kind="step", init=str(tmp / "init.npz"), **STEP)
     cases2 = [
         dict(name="fsdp=2", mesh="fsdp=2", **train),
+        dict(name="moe fsdp=2", mesh="fsdp=2", config="moe_tiny", **train),
         dict(name="dp=2", mesh="dp=2", grad_bucket_mb=1, **train),
         dict(name="mask", mesh="fsdp=2", batches=str(tmp / "mask.npz"), **step),
         dict(name="jax", mesh="fsdp=2", batches=str(tmp / "jax.npz"), **step),
@@ -100,11 +101,11 @@ def _mesh_at(spec: str, world: int, rank: int) -> Mesh:
     sharding arithmetic needs no more)."""
     sizes = parse_mesh_spec(spec).resolve(world)
     coords = np.unravel_index(rank, [sizes[a] for a in AXES])
-    return Mesh(None, sizes, {a: int(c) for a, c in zip(AXES, coords)}, None, None, None,
+    return Mesh(None, sizes, {a: int(c) for a, c in zip(AXES, coords)}, None, None,
                 "gloo")
 
 
-def _single_device(data):
+def _single_device(data, cfg=None):
     box = {}
 
     def on_state(event, state):
@@ -112,13 +113,13 @@ def _single_device(data):
             box.update({k: v.detach().clone() for k, v in state.items()
                         if k.startswith("params.")})
 
-    out = ttrain.train(gang.tiny(), data_path=data, prefetch=0, kernels="cuda",
+    out = ttrain.train(cfg or gang.tiny(), data_path=data, prefetch=0, kernels="cuda",
                        device="cpu", log_every=0, on_state=on_state, **TRAIN)
     return out, box
 
 
-def _assert_shards_match(results, whole, spec_str, world, tol):
-    specs = dict(tllama.named_leaves(tllama.param_specs(gang.tiny())))
+def _assert_shards_match(results, whole, spec_str, world, tol, cfg=None):
+    specs = dict(tllama.named_leaves(tllama.param_specs(cfg or gang.tiny())))
     for rank, res in enumerate(results):
         mesh = _mesh_at(spec_str, world, rank)
         for name, got in res["params"].items():
@@ -142,6 +143,20 @@ def test_gang_trains_as_one_device(gangs, spec, world):
     _assert_shards_match(results, whole, spec, world, TOL)
     if spec != "fsdp=2":  # a dp axis: the buckets
         assert results[0]["grad_buckets"] >= 1
+
+
+def test_moe_under_fsdp_trains_as_one_device(gangs):
+    """moe_tiny at fsdp=2, refused before the ep axis was ported: each rank
+    routes its rows with the whole batch's balance term, and its losses,
+    gradient norms and shards after 3 steps are within 1e-5 of the
+    single-device trainer's."""
+    cfg = tllama.get_config("moe_tiny")
+    ref, whole = _single_device(gangs["data"], cfg)
+    results = [r["moe fsdp=2"] for r in gangs[2]]
+    for res in results:
+        np.testing.assert_allclose(res["losses"], ref["losses"], rtol=TOL)
+        np.testing.assert_allclose(res["grad_norms"], ref["grad_norms"], rtol=TOL)
+    _assert_shards_match(results, whole, "fsdp=2", 2, TOL, cfg)
 
 
 def _step_reference(case, p_j):
@@ -271,9 +286,9 @@ def test_world_one_mesh_is_bitwise_the_single_device_step():
     ({"mesh": "tp=3"}, "item 1.2"),  # the tiny config's 2 KV heads
     ({"mesh": "sp=3"}, "item 1.2"),  # a 16-token sequence
     ({"mesh": "tp=2", "int8": True}, "item 1.2"),
-    ({"mesh": "ep=2"}, "item 1.2"),
+    ({"mesh": "ep=4,tp=2", "config": "moe_tiny"}, "item 1.2"),  # 8 ranks for 4 experts
+    ({"mesh": "ep=3", "config": "moe_tiny"}, "item 1.2"),
     ({"mesh": "pp=2"}, "item 1.4"),
-    ({"mesh": "fsdp=-1", "config": "moe_tiny"}, "item 1.2"),
     ({"grad_bucket_mb": 4}, "give --mesh"),
 ])
 def test_what_is_not_ported_raises(kw, match):

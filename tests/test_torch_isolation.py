@@ -206,10 +206,10 @@ class TestDevice:
         assert final["kernels"] == "cuda" and len(final["losses"]) == 2
 
     def test_jax_only_flags_raise(self):
-        # the mesh's data axes, tp, sp and the gradient buckets are ported
-        # (their flags: tests/test_torch_fsdp.py, tests/test_torch_tp.py);
-        # ep, ring attention and remat policies are not
-        for flag in ("--mesh=ep=2", "--ring-attention", "--remat-policy=full"):
+        # the mesh's data axes, ep, tp, sp and the gradient buckets are
+        # ported (their flags: tests/test_torch_fsdp.py, tests/test_torch_tp.py,
+        # tests/test_torch_ep.py); pp, ring attention and remat policies are not
+        for flag in ("--mesh=pp=2", "--ring-attention", "--remat-policy=full"):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 train_llama.main(["--device", "cpu", flag])
         assert not {"--mesh", "--grad-bucket-mb"} & set(train_llama.NOT_PORTED_FLAGS)

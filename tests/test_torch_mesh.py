@@ -100,14 +100,22 @@ def test_param_specs_is_the_jax_tree(tie):
 
 
 def test_param_specs_refuses_moe():
-    with pytest.raises(NotImplementedError, match="item 1.2"):
-        tllama.param_specs(tllama.get_config("moe_tiny"))
+    """MoE specs were refused until the ep axis was ported: a MoE config's
+    specs are now the dense ones with the router over fsdp and the experts
+    over ("ep", "tp") (tests/test_torch_ep.py holds them to JAX's)."""
+    specs = tllama.param_specs(tllama.get_config("moe_tiny"))
+    dense = tllama.dense_param_specs(tllama.get_config("moe_tiny"))
+    assert specs["layers"].pop("w_router") == (None, "fsdp", None)
+    for key in ("w_gate", "w_up", "w_down"):
+        assert specs["layers"][key][1] == ("ep", "tp") != dense["layers"][key][1]
+        specs["layers"][key] = dense["layers"][key]
+    assert specs == dense
 
 
 def _mesh_at(sizes: dict, rank: int) -> tmesh.Mesh:
     coords = np.unravel_index(rank, [sizes[a] for a in AXES])
     return tmesh.Mesh(None, dict(sizes), {a: int(c) for a, c in zip(AXES, coords)},
-                      None, None, None, "gloo")
+                      None, None, "gloo")
 
 
 MESHES = [dict(fsdp=2), dict(fsdp=4), dict(dp=2, fsdp=2), dict(dp=2, fsdp=4), dict(dp=4, fsdp=2),
@@ -172,7 +180,7 @@ def test_make_mesh_at_world_one(world_one):
     assert m.sizes == dict.fromkeys(AXES, 1) and m.coords == dict.fromkeys(AXES, 0)
     assert m.device_mesh.mesh_dim_names == AXES and m.backend == "gloo"
     assert m.batch_rows(4) == slice(0, 4) and m.data_size == 1
-    for g in (m.dp_group, m.fsdp_group, m.data_group):
+    for g in (m.dp_group, m.fsdp_group, m.token_group, m.expert_group):
         assert dist.get_world_size(g) == 1
     with pytest.raises(ValueError):
         tmesh.make_mesh(tmc.MeshConfig(fsdp=2))
@@ -192,20 +200,23 @@ def test_unshard_at_world_one(world_one, spec):
 
 
 def test_unshard_refuses_model_axes(world_one):
-    """A tp block stays local: at fsdp 1 the unshard of a spec naming tp
-    on one dimension and fsdp on another is the block itself (its gradient
-    too); an axis beside fsdp and tp (ep) still raises."""
-    m = dataclasses.replace(tmesh.make_mesh(), sizes=tmc.MeshConfig(fsdp=1, tp=2).resolve(2))
+    """A tp, ep or (ep, tp) block stays local: at fsdp 1 the unshard of a
+    spec naming them on one dimension and fsdp on another is the block
+    itself (its gradient too); an axis beside fsdp, ep and tp (pp) still
+    raises."""
+    m = dataclasses.replace(tmesh.make_mesh(),
+                            sizes=tmc.MeshConfig(fsdp=1, ep=2, tp=2).resolve(4))
     x = torch.randn(6, 4, requires_grad=True)
-    for spec in ((None, "tp"), ("fsdp", "tp"), ("tp", "fsdp")):
+    for spec in ((None, "tp"), ("fsdp", "tp"), ("tp", "fsdp"), ("ep", "fsdp"),
+                 (("ep", "tp"), "fsdp")):
         y = m.unshard(x, spec)
         assert torch.equal(y, x) and y.shape == x.shape
     g = torch.randn(6, 4)
     (y * g).sum().backward()
     assert torch.equal(x.grad, g)
-    m = dataclasses.replace(m, sizes=tmc.MeshConfig(fsdp=1, ep=2).resolve(2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 1.2"):
-        m.unshard(torch.zeros(4, 4), (None, "ep"))
+    m = dataclasses.replace(m, sizes=tmc.MeshConfig(fsdp=1, pp=2).resolve(2))
+    with pytest.raises(NotImplementedError, match="queue 1 item 1.4"):
+        m.unshard(torch.zeros(4, 4), (None, "pp"))
 
 
 def test_make_mesh_needs_a_group():

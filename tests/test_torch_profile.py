@@ -120,9 +120,9 @@ def test_attribution_model_of_one_card():
           for k in ("flops_per_token", "tokens_per_step", "peak_flops", "param_count")}
     assert (tprofile.attribution_model(**kw).to_dict()
             == jprofile.attribution_model(**kw).to_dict())
-    # ep's and pp's traffic is not ported: a plan that sets one raises
+    # pp's traffic is not ported: a plan that sets it raises
     tplan = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.llama_tiny()),
-                               sizes={"ep": 2}, batch=8, seq=128)
+                               sizes={"pp": 2}, batch=8, seq=128)
     with pytest.raises(NotImplementedError, match="not ported"):
         tprofile.attribution_model(plan=tplan, **kw)
     assert tprofile.ASSUMED_MFU == __import__("torchx_tpu.tune.rank").tune.rank.ASSUMED_MFU
@@ -169,6 +169,25 @@ def test_model_axes_bytes_are_the_cost_models(config, sizes):
     want = {t.axis: t.bytes_per_step for t in jcost.collective_traffic(jp)}
     got = {t.axis: t.bytes_per_step for t in tcost.collective_traffic(tp)}
     assert got == want and set(got) == set(sizes)
+
+
+@pytest.mark.parametrize("config", ["mixtral_8x7b", "moe_tiny", "tiny"])
+@pytest.mark.parametrize("sizes", [dict(ep=2), dict(fsdp=2, ep=2), dict(ep=2, tp=2)],
+                         ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_ep_bytes_are_the_cost_models(config, sizes):
+    """The ep term of a MoE plan and its parameter slice (the fsdp bytes
+    divided by ep) equal the JAX cost model's ``collective_traffic`` byte
+    for byte, at mixtral_8x7b's step shape (batch 4, seq 2048) and the tiny
+    test shapes; a dense model under ep has no ep term and no ep slice."""
+    batch, seq = (4, 2048) if config == "mixtral_8x7b" else (4, 32)
+    jp = jplan.ParallelPlan(role="train", model=jplan.MODEL_SHAPES[config], mesh_spec="",
+                            sizes=sizes, batch=batch, seq=seq)
+    tp = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.get_config(config)),
+                            sizes=sizes, batch=batch, seq=seq)
+    want = {t.axis: t.bytes_per_step for t in jcost.collective_traffic(jp)}
+    got = {t.axis: t.bytes_per_step for t in tcost.collective_traffic(tp)}
+    assert got == want
+    assert ("ep" in got) == (config != "tiny")
 
 
 #: The training instruments, by the name of the module attribute.

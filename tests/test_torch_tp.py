@@ -138,7 +138,7 @@ def runs(tmp_path_factory):
 def _mesh_at(spec: str, world: int, rank: int) -> Mesh:
     sizes = parse_mesh_spec(spec).resolve(world)
     coords = np.unravel_index(rank, [sizes[a] for a in AXES])
-    return Mesh(None, sizes, {a: int(c) for a, c in zip(AXES, coords)}, None, None, None,
+    return Mesh(None, sizes, {a: int(c) for a, c in zip(AXES, coords)}, None, None,
                 "gloo")
 
 

@@ -15,11 +15,16 @@ Kinds of case:
   ``ckpt_every`` where given; -> losses, gradient norms, the final shards,
   the shards right after a restore, the checkpoint records, and the error
   it raised (``None``; a case that names ``expect_error`` catches it).
+  With ``after``, the case first waits for that file (another gang's
+  ``done`` marker) and rank 0 copies ``copy_from`` to ``ckpt_dir``; with
+  ``done``, rank 0 writes that file once the case has returned (its last
+  step committed).
 * ``step``: ``make_train_step`` under ``mesh`` on the parameters of
   ``init`` (an ``.npz`` of the JAX tree's leaves by path) and the global
   batches of ``batches`` (``tokens`` [steps, b, s+1], optional
   ``loss_mask``), the model ``llama_tiny(**model)`` (default the test
-  shape); -> the same.
+  shape), or the preset ``config`` with ``model``'s fields replaced;
+  -> the same, and each step's router aux vector.
 * ``collectives``: the model axes' autograd functions of
   ``parallel/mesh.py`` on a ``tp=2`` and an ``sp=2`` mesh of two ranks,
   forward and backward on inputs seeded by rank (:func:`collective_inputs`);
@@ -29,18 +34,21 @@ Kinds of case:
   fused sync, gathered in chunks of ``chunk_bytes``; -> both results.
 * ``moe_balance``: ``moe.moe_ffn`` on this rank's rows of the batch in
   ``batches`` (``x`` [b, s, d]) and the MoE layer ``init`` (an ``.npz``
-  of ``moe_tiny``'s layer-0 leaves), its balance term averaged over the
-  data group; -> the aux vector.
+  of ``moe_tiny``'s layer-0 leaves) under ``mesh``, its balance term
+  averaged over the token group; -> the aux vector.
 
 Not a test module itself: the tests that read the results are
 ``tests/test_torch_fsdp.py``, ``tests/test_torch_overlap.py``,
-``tests/test_torch_gang_ckpt.py``, ``tests/test_torch_moe.py`` and
-``tests/test_torch_tp.py``.
+``tests/test_torch_gang_ckpt.py``, ``tests/test_torch_moe.py``,
+``tests/test_torch_tp.py`` and ``tests/test_torch_ep.py``.
 """
 
+import dataclasses
 import json
 import os
+import shutil
 import sys
+import time
 
 import numpy as np
 import torch
@@ -73,7 +81,22 @@ def _capture():
     return boxes, on_state
 
 
+def _wait_and_copy(case: dict) -> None:
+    """``after``: wait for that file, then rank 0 copies ``copy_from`` to
+    ``ckpt_dir`` while the others wait at a barrier."""
+    deadline = time.monotonic() + 180
+    while not os.path.exists(case["after"]):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{case['after']} never appeared")
+        time.sleep(0.05)
+    if dist.get_rank() == 0:
+        shutil.copytree(case["copy_from"], case["ckpt_dir"])
+    dist.barrier()
+
+
 def run_train(case: dict) -> dict:
+    if "after" in case:
+        _wait_and_copy(case)
     boxes, on_state = _capture()
     cfg = llama.get_config(case["config"]) if "config" in case else tiny()
     try:
@@ -89,6 +112,8 @@ def run_train(case: dict) -> dict:
         if not case.get("expect_error"):
             raise
         return {"error": f"{type(e).__name__}: {e}"}
+    if "done" in case and dist.get_rank() == 0:
+        open(case["done"], "w").close()
     return {"losses": out["losses"], "grad_norms": out["grad_norms"],
             "params": boxes["final"], "restored": boxes["restored"],
             "world": out["world"], "mesh": out["mesh"], "grad_buckets": out["grad_buckets"],
@@ -100,7 +125,12 @@ def run_train(case: dict) -> dict:
 def run_step(case: dict) -> dict:
     from torchx_tpu_torch import convert
 
-    cfg = llama.llama_tiny(kernels=case.get("kernels", "cuda"), **case.get("model", SHAPE))
+    kernels = case.get("kernels", "cuda")
+    if "config" in case:
+        cfg = dataclasses.replace(llama.get_config(case["config"]), kernels=kernels,
+                                  **case.get("model", {}))
+    else:
+        cfg = llama.llama_tiny(kernels=kernels, **case.get("model", SHAPE))
     init = np.load(case["init"])
     tree = {}
     for path in init.files:
@@ -120,7 +150,7 @@ def run_step(case: dict) -> dict:
     step = train_llama.make_train_step(cfg, opt, mesh)
     data = np.load(case["batches"])
     rows = mesh.batch_rows(data["tokens"].shape[1])
-    losses, norms = [], []
+    losses, norms, auxes = [], [], []
     for i in range(data["tokens"].shape[0]):
         batch = {"tokens": torch.from_numpy(data["tokens"][i][rows])}
         if "loss_mask" in data.files:
@@ -128,8 +158,9 @@ def run_step(case: dict) -> dict:
         out = step(params, batch)
         losses.append(float(out["loss"]))
         norms.append(float(out["grad_norm"]))
+        auxes.append(out["aux"].tolist())
     shards = {f"params.{k}": v.detach().clone() for k, v in llama.named_leaves(params)}
-    return {"losses": losses, "grad_norms": norms, "params": shards}
+    return {"losses": losses, "grad_norms": norms, "auxes": auxes, "params": shards}
 
 
 def run_sync(case: dict) -> dict:
@@ -159,7 +190,7 @@ def run_moe_balance(case: dict) -> dict:
     x = np.load(case["batches"])["x"]
     mesh = make_mesh(parse_mesh_spec(case["mesh"]))
     rows = mesh.batch_rows(x.shape[0])
-    _, aux = moe.moe_ffn(cfg, layer, torch.from_numpy(x[rows]), mesh.data_group)
+    _, aux = moe.moe_ffn(cfg, layer, torch.from_numpy(x[rows]), mesh)
     return {"aux": aux}
 
 

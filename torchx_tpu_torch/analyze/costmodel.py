@@ -1,8 +1,8 @@
 """Per-step collective bytes of a training plan: the data axes and the
-dense model axes of :func:`torchx_tpu.analyze.costmodel.collective_traffic`.
+model axes of :func:`torchx_tpu.analyze.costmodel.collective_traffic`.
 
-The port of the ``_ring`` factor and the ``fsdp``, ``dp``, ``tp`` and ``sp``
-terms, over a copy of the few :class:`~torchx_tpu.analyze.plan.ParallelPlan`
+The port of the ``_ring`` factor and the ``fsdp``, ``dp``, ``tp``, ``sp``
+and ``ep`` terms, over a copy of the few :class:`~torchx_tpu.analyze.plan.ParallelPlan`
 and :class:`~torchx_tpu.analyze.plan.ModelShape` fields they read. The
 bytes are the reference's to the byte (``tests/test_torch_profile.py``),
 so that a gang's ``grad_sync`` slices are modeled as the JAX trainer's
@@ -12,14 +12,19 @@ parameter bytes:
 
 * ``fsdp``: ZeRO-3, every parameter gathered in the forward and again in
   the backward, and the gradient reduce-scattered: ``3 x ring(fsdp)``
-  times the bytes of a rank's ``tp`` block of the parameters;
+  times the bytes of a rank's ``tp`` block of the parameters (for a MoE
+  model, its ``tp`` x ``ep`` block: the reference divides every leaf by
+  ``ep``, the replicated ones too);
 * ``dp``: the gradient all-reduced over the ``fsdp`` shard a rank holds:
   ``2 x ring(dp)`` times its bytes;
 * ``tp``: two all-reduces a layer (after ``wo`` and ``w_down``) in the
   forward and their mirrors in the backward, ``4 x layers x 2 x ring(tp)
   x act x dim``;
 * ``sp``: each layer's K and V gathered over the sequence,
-  ``layers x 2 x ring(sp) x act x 2 x n_kv_heads x head_dim``.
+  ``layers x 2 x ring(sp) x act x 2 x n_kv_heads x head_dim``;
+* ``ep`` (a MoE model): the dispatch and combine all-to-alls forward and
+  backward, ``4 x ring(ep) x act x dim x top_k``: one layer's, since the
+  reference leaves out the layer count its ``tp`` term has.
 
 These are the reference's reckonings, not the port's traffic: the port's
 ``dp`` x ``sp`` sum all-gathers and adds in rank order
@@ -27,8 +32,10 @@ These are the reference's reckonings, not the port's traffic: the port's
 ring's bytes over ``d`` ranks; its ``sp`` gather carries q with K and V;
 the remat recompute repeats the forward's ``tp`` all-reduces and ``sp``
 gathers; the vocab-parallel cross-entropy and the tied embedding's
-gradient add their own. ``ep`` and ``pp`` are not ported, and a plan that
-sets one raises.
+gradient add their own; a MoE layer exchanges no token over ``ep`` and
+sums its output over ``ep`` x ``tp`` instead (an all-reduce a layer
+forward, again in the recompute, and the gradients of its input and gate
+weights backward). ``pp`` is not ported, and a plan that sets it raises.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ LINK_BYTES_PER_S = {"h100": 450e9}
 #: (``torchx_tpu.tune.rank._DEFAULT_PERF``), arbitrary but consistent.
 DEFAULT_LINK_BYTES_PER_S = 10e9
 
-_UNPORTED_AXES = ("pp", "ep")
+_UNPORTED_AXES = ("pp",)
 
 
 def link_bytes_per_s(generation: str) -> float:
@@ -67,16 +74,25 @@ class ModelShape:
     dim: int
     n_kv_heads: int
     head_dim: int
+    n_experts: int = 0  # 0: dense
+    top_k: int = 0
+
+    @property
+    def is_moe(self) -> bool:
+        """True when the FFN is a mixture-of-experts block."""
+        return self.n_experts > 0
 
     @classmethod
     def of(cls, cfg: Any) -> "ModelShape":
-        """The shape of a ``LlamaConfig`` (its exact parameter count)."""
+        """The shape of a ``LlamaConfig`` or ``MoEConfig`` (its exact
+        parameter count)."""
         import torch
 
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         return cls(param_count=int(cfg.param_count()), dtype_bytes=itemsize,
                    n_layers=cfg.n_layers, dim=cfg.dim, n_kv_heads=cfg.n_kv_heads,
-                   head_dim=cfg.head_dim)
+                   head_dim=cfg.head_dim, n_experts=getattr(cfg, "n_experts", 0),
+                   top_k=getattr(cfg, "top_k", 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,19 +126,20 @@ def _ring(k: int) -> float:
 
 def collective_traffic(plan: ParallelPlan) -> list[AxisTraffic]:
     """Per-step, per-device collective bytes of every live ported axis, in
-    the reference's order (fsdp, dp, tp, sp)."""
+    the reference's order (fsdp, dp, tp, sp, ep)."""
     unported = {a: plan.axis(a) for a in _UNPORTED_AXES if plan.axis(a) > 1}
     if unported:
         raise NotImplementedError(
-            f"mesh axes {unported}: their traffic is not ported (ep: ROADMAP queue 1"
-            " item 1.2, pp: item 1.4)")
+            f"mesh axes {unported}: their traffic is not ported (pp: ROADMAP queue 1"
+            " item 1.4)")
     m = plan.model
-    fsdp, dp, tp, sp = (plan.axis(a) for a in ("fsdp", "dp", "tp", "sp"))
+    fsdp, dp, tp, sp, ep = (plan.axis(a) for a in ("fsdp", "dp", "tp", "sp", "ep"))
     b = max(1, math.ceil(plan.batch / (dp * fsdp)))
     s = max(1, math.ceil(plan.seq / sp))
     act_tok = b * s * m.dtype_bytes
-    # the parameter bytes a rank sees un-fsdp-sharded (tp blocks stay local)
-    param_slice = m.param_count * m.dtype_bytes / tp
+    # the parameter bytes a rank sees un-fsdp-sharded (tp blocks and, for a
+    # MoE model, ep blocks stay local)
+    param_slice = m.param_count * m.dtype_bytes / (tp * (ep if m.is_moe else 1))
     out = []
     if fsdp > 1:
         out.append(AxisTraffic("fsdp", int(3 * _ring(fsdp) * param_slice)))
@@ -133,4 +150,6 @@ def collective_traffic(plan: ParallelPlan) -> list[AxisTraffic]:
     if sp > 1:
         kv_bytes = act_tok * 2 * m.n_kv_heads * m.head_dim
         out.append(AxisTraffic("sp", int(m.n_layers * 2 * _ring(sp) * kv_bytes)))
+    if ep > 1 and m.is_moe:
+        out.append(AxisTraffic("ep", int(4 * _ring(ep) * act_tok * m.dim * m.top_k)))
     return out

@@ -1,7 +1,7 @@
 """Llama pretraining on GPUs: the port of
-:mod:`torchx_tpu.examples.train_llama`, dense and MoE on one card, dense
-across a gang of them (the ``dp``, ``fsdp``, ``tp`` and ``sp`` mesh
-axes).
+:mod:`torchx_tpu.examples.train_llama`, dense and MoE, on one card and
+across a gang of them (the ``dp``, ``fsdp``, ``ep``, ``tp`` and ``sp``
+mesh axes).
 
     python -m torchx_tpu_torch.examples.train_llama --config llama3_1b \\
         --batch 4 --seq 2048 --steps 10 --kernels cuda
@@ -52,11 +52,13 @@ gang checkpoints as one: each rank writes the blocks of the state it owns,
 rank 0 commits the step once every rank's file is durable, and a restore
 reads a step saved at any world into the current mesh, so that a gang
 resumed on fewer or more cards (``$TPX_MESH``) continues where it stopped
-(:mod:`torchx_tpu_torch.parallel.checkpoint`). Not ported yet, and refused
-with the ROADMAP item named: ``ep``/``pp`` above 1, a MoE config under a
-mesh, ``tp`` that does not divide the KV heads, the ffn width or the
-vocabulary, ``sp`` that does not divide the sequence, int8 matmuls under
-``tp``, and the flags of ring attention and remat policies.
+(:mod:`torchx_tpu_torch.parallel.checkpoint`). A MoE config shards its
+experts over ``ep`` x ``tp`` (:mod:`torchx_tpu_torch.models.moe`). Not
+ported yet, and refused with the ROADMAP item named: ``pp`` above 1,
+``ep * tp`` that does not divide a MoE config's experts, ``tp`` that does
+not divide the KV heads, the ffn width (dense) or the vocabulary, ``sp``
+that does not divide the sequence, int8 matmuls under ``tp``, and the
+flags of ring attention and remat policies.
 """
 
 from __future__ import annotations
@@ -159,8 +161,9 @@ class AdamW:
 
     Under a mesh the parameters are this rank's shards: ``counted`` flags
     the leaves whose block this rank counts in the global norm (its first
-    copy among the ranks of ``norm_group``, ``fsdp`` x ``tp``, which hold
-    each leaf's blocks once between them; :func:`clip_norm_layout`), and
+    copy among the ranks of ``norm_group``, ``fsdp`` x ``ep`` x ``tp``,
+    which hold each leaf's blocks once between them;
+    :func:`clip_norm_layout`), and
     the counted squared sums are added up over that group in one
     all-reduce. The ``dp`` and ``sp`` copies compute the same norm."""
 
@@ -245,11 +248,12 @@ def make_optimizer(
 def clip_norm_layout(cfg: llama.LlamaConfig, mesh: Mesh) -> tuple[list[bool], Any]:
     """(``counted``, ``norm_group``) of :class:`AdamW` under ``mesh``: a
     leaf's block counts on the rank that holds its first copy among the
-    ``fsdp`` x ``tp`` ranks (coordinate 0 on each of those axes that does
-    not shard it), so that the all-reduce over them adds every block once:
-    an ``fsdp`` or ``tp`` shard on each of its ranks, a replicated leaf
-    (the norms; the embedding, whole over ``tp``) once."""
-    coords = {a: mesh.coords[a] for a in ("fsdp", "tp")}
+    ``fsdp`` x ``ep`` x ``tp`` ranks (coordinate 0 on each of those axes
+    that does not shard it), so that the all-reduce over them adds every
+    block once: an ``fsdp`` or ``tp`` shard or a block of experts on each
+    of its ranks, a replicated leaf (the norms; the embedding, whole over
+    ``tp``; every leaf but the experts over ``ep``) once."""
+    coords = {a: mesh.coords[a] for a in ("fsdp", "ep", "tp")}
     return ([holds_first_copy(spec, coords) for spec in llama.leaves(llama.param_specs(cfg))],
             mesh.shard_group)
 
@@ -319,8 +323,9 @@ def checkpoint_state(
 
 def checkpoint_specs(cfg: llama.LlamaConfig) -> dict[str, tuple]:
     """The mesh spec of each sharded entry of :func:`checkpoint_state`:
-    a parameter's from ``llama.param_specs``, and each moment its
-    parameter's (the scalars are replicated)."""
+    a parameter's from ``llama.param_specs`` (a MoE config's experts over
+    ``ep`` x ``tp``), and each moment its parameter's (the scalars are
+    replicated)."""
     specs = {}
     for name, spec in llama.named_leaves(llama.param_specs(cfg)):
         for prefix in ("params.", "opt.mu.", "opt.nu."):
@@ -460,21 +465,27 @@ def _install_preempt_handler() -> tuple[Optional[threading.Event], Callable[[], 
 
 def check_model_axes(cfg: llama.LlamaConfig, sizes: dict[str, int], seq: int) -> None:
     """Raise, naming the ROADMAP item, where the resolved mesh ``sizes``
-    asks for what is not ported: ``ep`` or ``pp`` above 1, a ``tp`` that
-    does not divide the KV heads (so the query heads), the ffn width or
-    the vocabulary, an ``sp`` that does not divide the sequence, int8
-    matmuls under ``tp``."""
-    model = {a: sizes[a] for a in ("ep", "pp") if sizes[a] > 1}
-    if model:
+    asks for what is not ported: ``pp`` above 1, an ``ep * tp`` that does
+    not divide a MoE config's experts, a ``tp`` that does not divide the
+    KV heads (so the query heads), the ffn width (a dense config's: a MoE
+    config's experts keep theirs whole) or the vocabulary, an ``sp`` that
+    does not divide the sequence, int8 matmuls under ``tp``."""
+    if sizes["pp"] > 1:
         raise NotImplementedError(
-            f"mesh axes {model}: expert parallelism (ROADMAP queue 1 item 1.2) and"
-            " pipeline parallelism (item 1.4) are not ported yet; the port shards"
-            " over dp, fsdp, tp and sp"
+            f"mesh axis pp={sizes['pp']}: pipeline parallelism is not ported yet (ROADMAP"
+            " queue 1 item 1.4); the port shards over dp, fsdp, ep, tp and sp"
         )
-    tp, sp = sizes["tp"], sizes["sp"]
+    ep, tp, sp = sizes["ep"], sizes["tp"], sizes["sp"]
+    n_experts = getattr(cfg, "n_experts", 0)
+    if n_experts and n_experts % (ep * tp):
+        raise NotImplementedError(
+            f"ep={ep} x tp={tp} does not divide the {n_experts} experts: each rank of"
+            " ep x tp computes whole experts (ROADMAP queue 1 item 1.2)"
+        )
     if tp > 1:
-        widths = {"n_kv_heads": cfg.n_kv_heads, "ffn_dim": cfg.ffn_dim,
-                  "vocab_size": cfg.vocab_size}
+        widths = {"n_kv_heads": cfg.n_kv_heads, "vocab_size": cfg.vocab_size}
+        if not n_experts:
+            widths["ffn_dim"] = cfg.ffn_dim
         odd = {k: v for k, v in widths.items() if v % tp}
         if odd:
             raise NotImplementedError(
@@ -507,11 +518,6 @@ def _open_mesh(
     if mesh is None and not dist.is_initialized():
         return None
     config = parse_mesh_spec(mesh) if isinstance(mesh, str) else mesh or MeshConfig()
-    if getattr(cfg, "n_experts", 0):
-        raise NotImplementedError(
-            "a MoE config under a mesh is not ported yet (expert parallelism, the ep"
-            " axis: ROADMAP queue 1 item 1.2)"
-        )
     given = {a: max(v, 1) for a, v in dataclasses.asdict(config).items()}
     check_model_axes(cfg, given, cfg.max_seq)
     distributed.init_from_env(backend="gloo" if dev.type == "cpu" else "nccl")
@@ -961,9 +967,9 @@ def main(argv: Optional[list[str]] = None) -> None:
     )
     parser.add_argument(
         "--mesh", default=None,
-        help="axis sizes pp/dp/fsdp/ep/tp/sp, e.g. dp=2,fsdp=-1 or fsdp=2,tp=2 (ep"
-        " and pp must stay 1); $TPX_MESH overrides it. Default: the single-device"
-        " step, or fsdp=-1 inside a process group (spmd_main)",
+        help="axis sizes pp/dp/fsdp/ep/tp/sp, e.g. dp=2,fsdp=-1, fsdp=2,tp=2 or"
+        " fsdp=2,ep=2 (pp must stay 1); $TPX_MESH overrides it. Default: the"
+        " single-device step, or fsdp=-1 inside a process group (spmd_main)",
     )
     parser.add_argument(
         "--grad-bucket-mb", default="0",

@@ -38,11 +38,15 @@ package's layout) and the tokens its rows of the batch:
 * ``sp``: the residual stream, the norms and the cross-entropy run on this
   rank's positions (RoPE at their global positions); attention gathers
   q, k and v over ``sp`` and runs on the whole sequence, as the JAX
-  package's attention does under a mesh, then keeps this rank's rows.
+  package's attention does under a mesh, then keeps this rank's rows;
+* ``ep`` (a MoE config): each rank of the expert group (``ep`` x ``tp``)
+  computes its ``n_experts / (ep * tp)`` experts on the group's tokens,
+  and their output is summed over the group (:mod:`.moe`); attention keeps
+  the dense ``tp`` split. A dense config is replicated over ``ep``.
 
-Ring attention, pipeline parallelism and ``ep`` are not ported (ROADMAP,
-queue 1 items 1.2 and 1.4), and the config fields that would select them
-raise ``NotImplementedError``.
+Ring attention and pipeline parallelism are not ported (ROADMAP, queue 1
+item 1.4), and the config fields that would select them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -311,14 +315,20 @@ def unflatten(flat: dict[str, torch.Tensor]) -> Params:
 def param_specs(cfg: LlamaConfig) -> Params:
     """The tree of :func:`init_params` with, for each leaf, the mesh axes
     that shard each of its dimensions (None: not sharded), as the JAX
-    package's ``param_specs`` (without pipeline stages): ``fsdp`` shards
-    the model dimension of every matrix (ZeRO-3), ``tp`` its heads or ffn
-    dimension; the norms are replicated."""
+    package's ``param_specs`` (without pipeline stages) through its
+    ``model_fns``: the dense model's (:func:`dense_param_specs`), or for a
+    MoE config ``moe.param_specs``."""
     if getattr(cfg, "n_experts", 0):
-        raise NotImplementedError(
-            "MoE parameters under a mesh are not ported yet (expert parallelism,"
-            " the ep axis: ROADMAP queue 1 item 1.2)"
-        )
+        from torchx_tpu_torch.models import moe
+
+        return moe.param_specs(cfg)
+    return dense_param_specs(cfg)
+
+
+def dense_param_specs(cfg: LlamaConfig) -> Params:
+    """The dense model's specs: ``fsdp`` shards the model dimension of
+    every matrix (ZeRO-3), ``tp`` its heads or ffn dimension; the norms are
+    replicated."""
     specs: Params = {
         "embed": (None, "fsdp"),
         "layers": {
@@ -359,11 +369,11 @@ def shard_params(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
 
 
 def ffn(
-    cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor, data_group: Any = None,
+    cfg: LlamaConfig, layer: Params, mlp_in: torch.Tensor, mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The FFN half of a layer: dense SwiGLU, or the GShard MoE dispatch
-    when the config carries experts (``data_group``: the ranks whose rows
-    the router's balance term averages over, ``moe.route``). -> (down,
+    when the config carries experts (under ``mesh``, this rank's experts,
+    their output summed over the expert group: ``moe.moe_ffn``). -> (down,
     aux). Shared by the training forward and the decode paths, so the two
     never diverge."""
     if getattr(cfg, "n_experts", 0):
@@ -384,7 +394,7 @@ def ffn(
             )
         from torchx_tpu_torch.models.moe import moe_ffn
 
-        return moe_ffn(cfg, layer, mlp_in, data_group)
+        return moe_ffn(cfg, layer, mlp_in, mesh)
     i8 = cfg.int8_matmuls
     gate = F.silu(maybe_matmul(mlp_in, layer["w_gate"], int8_training=i8))
     up = maybe_matmul(mlp_in, layer["w_up"], int8_training=i8)
@@ -409,12 +419,11 @@ def _layer(
     sin: torch.Tensor,
     x: torch.Tensor,  # [b, s, d]
     *weights: torch.Tensor,  # one layer's slice, in _layer_keys order
-    data_group: Any = None,
     mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (x, aux). ``data_group``: see :func:`ffn`. Under ``mesh`` the
-    weights are this rank's ``tp`` blocks (whole over ``fsdp``), ``x`` its
-    positions of the sequence and ``cos``/``sin`` theirs."""
+    """-> (x, aux). Under ``mesh`` the weights are this rank's ``tp``
+    blocks and experts (whole over ``fsdp``), ``x`` its rows and positions
+    of the sequence and ``cos``/``sin`` theirs."""
     layer = dict(zip(_layer_keys(cfg), weights))
     b, s, _ = x.shape
     tp = mesh.sizes["tp"] if mesh is not None else 1
@@ -455,10 +464,13 @@ def _layer(
     else:
         x = x + attn_out
         mlp_in = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    if tp > 1:
+    # a dense FFN is column- then row-parallel over tp; a MoE FFN splits its
+    # experts over ep x tp and sums over that group itself (moe.moe_ffn)
+    dense_tp = tp > 1 and not getattr(cfg, "n_experts", 0)
+    if dense_tp:
         mlp_in = mesh_ops.copy_to_tp(mlp_in, mesh)
-    down, aux = ffn(cfg, layer, mlp_in, data_group)
-    if tp > 1:
+    down, aux = ffn(cfg, layer, mlp_in, mesh)
+    if dense_tp:
         down = mesh_ops.reduce_from_tp(down, mesh)
     return x + down, aux
 
@@ -469,9 +481,9 @@ def _sharded_layer(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`_layer` on one layer's weights gathered over ``fsdp`` from
     this rank's shards (``specs``: each shard's spec, the layer axis
-    dropped; ``tp`` blocks stay local)."""
+    dropped; ``tp`` blocks and experts stay local)."""
     return _layer(cfg, cos, sin, x, *(mesh.unshard(w, sp) for w, sp in zip(shards, specs)),
-                  data_group=mesh.data_group, mesh=mesh)
+                  mesh=mesh)
 
 
 def _unshard_top(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
@@ -643,7 +655,7 @@ def loss_and_aux(
         return loss / mesh.token_size if mesh is not None else loss
 
     # every rank computes the whole batch's balance term (moe.route averages
-    # its per-expert means over the data group): summed over the group, the
+    # its per-expert means over the token group): summed over the group, the
     # shares count it once
     aux_term = mean_share(aux_term)
     b, s = targets.shape

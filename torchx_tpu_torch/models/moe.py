@@ -1,5 +1,5 @@
 """Sparse Mixture-of-Experts Llama variant: the port of
-:mod:`torchx_tpu.models.moe` on one card.
+:mod:`torchx_tpu.models.moe`, on one card and under a mesh.
 
 A Mixtral-style MoE FFN in the GShard/Switch **einsum dispatch** form, as
 the JAX package writes it: top-k routing materialised as one-hot dispatch
@@ -9,12 +9,17 @@ dropped (GShard semantics). The products are plain ``torch.einsum``
 calls: the JAX package leaves them to XLA, and no Pallas kernel computes
 them.
 
-On one card the experts are not sharded (expert parallelism ``ep=1``):
-the JAX package's ``param_specs`` / ``shard_params`` come with the
-port's meshes (ROADMAP queue 1 item 1.2, ``ep``). Parameters keep the JAX
-layout leaf for leaf (:mod:`torchx_tpu_torch.convert`): the dense model's
-leaves with ``w_gate``/``w_up`` ``[L, E, d, f]``, ``w_down`` ``[L, E, f, d]``
-and a router ``w_router`` ``[L, d, E]``.
+Expert parallelism: :func:`param_specs` shards the expert axis of the
+expert weights over ``("ep", "tp")`` combined, as the JAX package does.
+Tokens do not shard over ``ep``: the ranks of an expert group (``ep`` x
+``tp``) hold the same rows, each routes all of them, dispatches them to
+its own experts only and combines their outputs, and one sum over the
+group gives every rank the layer's output (where the JAX package's XLA
+places a token all-to-all, the port exchanges nothing before the sum).
+Parameters keep the JAX layout leaf for leaf
+(:mod:`torchx_tpu_torch.convert`): the dense model's leaves with
+``w_gate``/``w_up`` ``[L, E, d, f]``, ``w_down`` ``[L, E, f, d]`` and a
+router ``w_router`` ``[L, d, E]``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from torchx_tpu_torch.models import llama
+from torchx_tpu_torch.parallel import mesh as mesh_ops
+from torchx_tpu_torch.parallel.mesh import EXPERT_AXES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +119,21 @@ def init_params(
     return llama.init_params(cfg, generator, device)
 
 
+def param_specs(cfg: MoEConfig) -> llama.Params:
+    """The dense model's specs (:func:`llama.dense_param_specs`) with the
+    expert leaves' as the JAX package's ``moe.param_specs`` (without
+    pipeline stages): the router's model dimension over ``fsdp``, the
+    expert axis over ``("ep", "tp")`` combined (``tp`` splits the experts,
+    not their ffn width) and each expert's model dimension over ``fsdp``."""
+    specs = llama.dense_param_specs(cfg)
+    layers = specs["layers"]
+    layers["w_router"] = (None, "fsdp", None)
+    layers["w_gate"] = (None, EXPERT_AXES, "fsdp", None)
+    layers["w_up"] = (None, EXPERT_AXES, "fsdp", None)
+    layers["w_down"] = (None, EXPERT_AXES, None, "fsdp")
+    return specs
+
+
 # -- MoE FFN ----------------------------------------------------------------
 
 
@@ -119,7 +141,7 @@ def moe_ffn(
     cfg: MoEConfig,
     layer: llama.Params,  # one layer's slice (with w_router/w_gate/w_up/w_down)
     x: torch.Tensor,  # [b, s, d]
-    data_group: Any = None,
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """GShard einsum dispatch: route -> dispatch to capacity slots ->
     per-expert SwiGLU -> combine.
@@ -130,30 +152,50 @@ def moe_ffn(
     mean_router_prob_e`` (scaled into the loss by ``router_aux_coef``),
     the mean router entropy over log(E), and the share of (token, choice)
     routings dropped for a full expert buffer; the last two carry no
-    gradient. ``data_group``: see :func:`route`."""
-    dispatch, combine, aux = route(cfg, layer, x, data_group)
+    gradient.
+
+    Under ``mesh``, ``x`` is this rank's rows (and, under ``sp``, its
+    positions) and the expert leaves of ``layer`` this rank's experts
+    (:meth:`Mesh.experts`): ``x`` enters them through
+    :func:`~torchx_tpu_torch.parallel.mesh.copy_to_experts` and their
+    combined output is summed over the expert group, so every rank of the
+    group returns the whole output (:func:`route` for the rest)."""
+    dispatch, combine, aux = route(cfg, layer, x, mesh)
+    if mesh is not None:
+        x = mesh_ops.copy_to_experts(x, mesh)
     # tokens -> expert capacity slots [b, E, C, d], and back, gate-weighted
     expert_in = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
     expert_out = experts(layer, expert_in)
     out = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), expert_out)
+    if mesh is not None:
+        out = mesh_ops.reduce_from_experts(out, mesh)
     return out, aux
 
 
 def route(
-    cfg: MoEConfig, layer: llama.Params, x: torch.Tensor, data_group: Any = None,
+    cfg: MoEConfig, layer: llama.Params, x: torch.Tensor, mesh: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The router: -> (dispatch [b, s, E, C] 0/1, combine [b, s, E, C]
     gate-weighted, aux), both f32, with capacity ``max(1, int(cf * s * k /
     E))`` per batch row.
 
-    With ``data_group`` (the ranks that split the batch, ``x`` this rank's
-    rows), the balance term is the whole batch's, as the reference's under
-    its mesh: the per-expert fractions and mean probabilities are averaged
-    over the group before their product (a product of means is not the
-    mean of the ranks' products)."""
+    Under ``mesh``, the router's results are the whole batch's, as the
+    reference's under its mesh: ``s`` is the whole sequence's length and
+    the slots of this rank's positions follow the earlier ``sp`` ranks'
+    routings to each expert (:func:`~torchx_tpu_torch.parallel.mesh.earlier_sp_sum`),
+    so that capacity and drops are the whole row's; the balance term's
+    per-expert fractions and mean probabilities, the entropy and the
+    overflow are averaged over the token group (``dp`` x ``fsdp`` x ``sp``)
+    before use (a product of means is not the mean of the ranks'
+    products). The dispatch and combine tensors hold this rank's experts
+    only, and the gate weights enter the combine through
+    :func:`~torchx_tpu_torch.parallel.mesh.copy_to_experts`: the router
+    is replicated over the expert group, and each rank's combine gives its
+    experts' part of their gradient."""
     b, s, _ = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    capacity = max(1, int(cfg.capacity_factor * s * k / E))
+    sp = mesh.sizes["sp"] if mesh is not None else 1
+    capacity = max(1, int(cfg.capacity_factor * s * sp * k / E))
 
     # f32 logits: exact products of the inputs, f32 sums
     router_logits = x.float() @ layer["w_router"].float()  # [b, s, E]
@@ -166,29 +208,37 @@ def route(
     # the flattened (s, k) axis, per (b, E)
     flat = choice_oh.reshape(b, s * k, E)
     pos = torch.cumsum(flat, dim=1) - flat
+    if sp > 1:  # after the earlier sp ranks' positions of the row
+        pos = pos + mesh_ops.earlier_sp_sum(flat.sum(dim=1), mesh)[:, None, :]
     pos = (pos * flat).sum(-1).reshape(b, s, k).to(torch.int64)
     within = pos < capacity
     # jax.nn.one_hot of an out-of-range position is all zeros; F.one_hot
     # refuses it, so clamp and let ``within`` zero the row
     pos_oh = F.one_hot(pos.clamp(max=capacity - 1), capacity).float() * within[..., None]
 
-    dispatch = torch.einsum("bske,bskc->bsec", choice_oh, pos_oh)
-    combine = torch.einsum("bske,bskc,bsk->bsec", choice_oh, pos_oh, gate_vals)
+    mine = choice_oh
+    if mesh is not None:  # this rank's experts
+        gate_vals = mesh_ops.copy_to_experts(gate_vals, mesh)
+        mine = choice_oh[..., mesh.experts(E)]
+    dispatch = torch.einsum("bske,bskc->bsec", mine, pos_oh)
+    combine = torch.einsum("bske,bskc,bsk->bsec", mine, pos_oh, gate_vals)
 
     # load balance: fraction of top-1 routings per expert x mean router
     # probability per expert (Switch Transformer eq. 4-6)
     top1_oh = choice_oh[:, :, 0, :]  # [b, s, E]
     frac_routed, mean_prob = top1_oh.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
-    if data_group is not None:
-        from torchx_tpu_torch.parallel.mesh import group_mean
-
-        frac_routed = group_mean(frac_routed, data_group)
-        mean_prob = group_mean(mean_prob, data_group)
+    if mesh is not None:
+        frac_routed = mesh_ops.group_mean(frac_routed, mesh.token_group)
+        mean_prob = mesh_ops.group_mean(mean_prob, mesh.token_group)
     balance = E * torch.sum(frac_routed * mean_prob)
     with torch.no_grad():  # health metrics only
         p_safe = torch.clamp(probs, min=1e-9)
-        entropy = (-(p_safe * torch.log(p_safe)).sum(-1).mean()) / math.log(float(E))
-        overflow = 1.0 - within.float().mean()
+        health = torch.stack([(-(p_safe * torch.log(p_safe)).sum(-1).mean()),
+                              within.float().mean()])
+        if mesh is not None:
+            health = mesh_ops.group_mean(health, mesh.token_group)
+        entropy = health[0] / math.log(float(E))
+        overflow = 1.0 - health[1]
     return dispatch, combine, torch.stack([balance, entropy, overflow])
 
 

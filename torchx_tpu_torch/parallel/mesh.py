@@ -2,8 +2,8 @@
 collectives that move a sharded parameter, its gradient and the
 activations of the model axes.
 
-The port of :mod:`torchx_tpu.parallel.mesh`'s data axes and of the two
-model axes that shard a dense Llama (``tp``, ``sp``). JAX lays the 6-axis
+The port of :mod:`torchx_tpu.parallel.mesh`'s data axes and of the model
+axes (``tp``, ``sp`` and the MoE family's ``ep``). JAX lays the 6-axis
 mesh (pp, dp, fsdp, ep, tp, sp) over its devices and lets GSPMD insert the
 collectives; here :func:`make_mesh` lays the same axes, in the same order,
 over the ranks of the default process group (a ``DeviceMesh``), and the
@@ -24,6 +24,13 @@ model calls the collectives itself:
 * ``sp``: :func:`gather_sequence` all-gathers the sequence before
   attention (the backward reduce-scatters) and :func:`sequence_block`
   takes this rank's positions back (the backward pads with zeros);
+* ``ep``: a MoE layer's experts shard over the expert group (``ep`` x
+  ``tp``, :attr:`Mesh.expert_group`), whose ranks hold the same tokens:
+  :func:`copy_to_experts` marks what enters this rank's experts (identity;
+  the backward sums over the group) and :func:`reduce_from_experts` sums
+  their combined output (the backward is the identity), as ``tp`` does for
+  a dense FFN; :func:`earlier_sp_sum` gives the router the counts of the
+  earlier ``sp`` ranks' positions;
 * every gradient is summed over :attr:`Mesh.grad_group` (``dp`` x ``sp``:
   the ranks that hold the same shards and compute on other tokens) after
   the backward (:mod:`torchx_tpu_torch.parallel.overlap`).
@@ -31,11 +38,10 @@ model calls the collectives itself:
 Rank ``r``'s coordinates are ``r``'s index in the row-major
 ``[pp, dp, fsdp, ep, tp, sp]`` array of ranks, as device ``r`` is in the
 JAX mesh, so a shard here equals JAX's addressable shard on device ``r``.
-``ep`` and ``pp`` are laid out but must have size 1 (ROADMAP queue 1 items
-1.2 and 1.4).
+``pp`` is laid out but must have size 1 (ROADMAP queue 1 item 1.4).
 
 Order of collectives: a rank issues collectives over several subgroups
-(``fsdp``, ``tp``, ``sp``, the grad and token groups), and every rank of a
+(``fsdp``, ``tp``, ``sp``, the expert, grad and token groups), and every rank of a
 group must issue that group's collectives in the same order. The model
 guarantees it by running one program on every rank: the same layers, the
 same chunks, the same collectives, in program order. Under remat the
@@ -57,9 +63,9 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from torchx_tpu_torch.parallel.mesh_config import AXES, MeshConfig
 
-#: The axes a batch shards over, outermost first, as the JAX package's
-#: ``BATCH_SPEC`` = ``P(("dp", "fsdp"), None)`` shards it.
-DATA_AXES = ("dp", "fsdp")
+#: The axes a MoE layer's experts shard over, ``ep``-major, as the JAX
+#: package's ``moe.param_specs`` shards them.
+EXPERT_AXES = ("ep", "tp")
 
 #: The mesh axes of every group the meshes of this process made, by the
 #: group's id: the name of the profiler range around a collective over it.
@@ -86,9 +92,6 @@ class Mesh:
     #: ranks that differ only in their ``dp`` / ``fsdp`` coordinate
     dp_group: Any
     fsdp_group: Any
-    #: ranks that differ only in their data coordinates (dp and fsdp): the
-    #: ranks that split one batch's rows between them
-    data_group: Any
     backend: str
     #: ranks that differ only in their ``tp`` / ``sp`` coordinate
     tp_group: Any = None
@@ -99,11 +102,15 @@ class Mesh:
     #: tokens and never sum)
     grad_group: Any = None
     #: ``dp`` x ``fsdp`` x ``sp``: every rank that computes other tokens of
-    #: one batch (the loss's mean and a mask's count run over it)
+    #: one batch (the loss's mean, a mask's count and the router's means
+    #: run over it)
     token_group: Any = None
-    #: ``fsdp`` x ``tp``: the ranks among which each leaf's blocks lie (the
-    #: global gradient norm adds its blocks' squares over it)
+    #: ``fsdp`` x ``ep`` x ``tp``: the ranks among which each leaf's blocks
+    #: lie (the global gradient norm adds its blocks' squares over it)
     shard_group: Any = None
+    #: ``ep`` x ``tp``: the ranks that compute the same tokens and split a
+    #: MoE layer's experts between them
+    expert_group: Any = None
 
     @property
     def data_size(self) -> int:
@@ -117,7 +124,9 @@ class Mesh:
 
     @property
     def data_index(self) -> int:
-        """This rank's block of a batch, in ``DATA_AXES``' order."""
+        """This rank's block of a batch: ``dp``-major over ``dp`` x ``fsdp``,
+        as the JAX package's ``BATCH_SPEC`` = ``P(("dp", "fsdp"), None)``
+        shards it."""
         return self.coords["dp"] * self.sizes["fsdp"] + self.coords["fsdp"]
 
     def batch_rows(self, global_batch: int) -> slice:
@@ -145,20 +154,31 @@ class Mesh:
         a spec entry ``axes`` shards (:func:`parts`)."""
         return parts(axes, self.sizes, self.coords)
 
+    def experts(self, n_experts: int) -> slice:
+        """The experts of a ``n_experts``-expert layer this rank holds and
+        computes: block :attr:`expert_group` index of the expert axis, as
+        ``parts(EXPERT_AXES)`` lays it out."""
+        n, idx = self.parts(EXPERT_AXES)
+        if n_experts % n:
+            raise ValueError(f"{n_experts} experts do not split over the {n} ranks of ep x tp")
+        step = n_experts // n
+        return slice(idx * step, (idx + 1) * step)
+
     def unshard(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
         """The parameter this rank computes with, from its shard ``x``
         under ``spec`` (one entry per dimension of ``x``), differentiably: a
         gather over ``fsdp`` where the spec shards a dimension over it,
-        else the replicated marker. A ``tp`` block stays local: the model
-        computes on this rank's heads, ffn columns or vocab block."""
+        else the replicated marker. A block over ``tp``, ``ep`` or both
+        stays local: the model computes on this rank's heads, ffn columns,
+        vocab block or experts."""
         dim = None
         for d, axes in enumerate(spec):
             if axes == "fsdp" and dim is None:
                 dim = d
-            elif axes != "tp" and self.parts(axes)[0] > 1:
+            elif not set(_axis_names(axes)) <= set(EXPERT_AXES) and self.parts(axes)[0] > 1:
                 raise NotImplementedError(
-                    f"spec {spec}: one dimension over fsdp and one over tp are ported"
-                    " (ep: ROADMAP queue 1 item 1.2, pp: item 1.4)"
+                    f"spec {spec}: one dimension over fsdp and one over ep and tp are"
+                    " ported (pp: ROADMAP queue 1 item 1.4)"
                 )
         if dim is None:
             return replicated_param(x, self.fsdp_group)
@@ -235,7 +255,7 @@ def make_mesh(config: Optional[MeshConfig] = None) -> Mesh:
         "cuda" if backend == "nccl" else "cpu", ranks, mesh_dim_names=AXES
     )
     coords = {a: int(device_mesh.get_local_rank(a)) for a in AXES}
-    for a in ("dp", "fsdp", "tp", "sp"):
+    for a in ("dp", "fsdp", "ep", "tp", "sp"):
         _GROUP_AXES[id(device_mesh.get_group(a))] = a
     return Mesh(
         device_mesh=device_mesh,
@@ -243,13 +263,13 @@ def make_mesh(config: Optional[MeshConfig] = None) -> Mesh:
         coords=coords,
         dp_group=device_mesh.get_group("dp"),
         fsdp_group=device_mesh.get_group("fsdp"),
-        data_group=_subgroups(ranks, sizes, DATA_AXES),
         backend=backend,
         tp_group=device_mesh.get_group("tp"),
         sp_group=device_mesh.get_group("sp"),
         grad_group=_subgroups(ranks, sizes, ("dp", "sp")),
         token_group=_subgroups(ranks, sizes, ("dp", "fsdp", "sp")),
-        shard_group=_subgroups(ranks, sizes, ("fsdp", "tp")),
+        shard_group=_subgroups(ranks, sizes, ("fsdp", *EXPERT_AXES)),
+        expert_group=_subgroups(ranks, sizes, EXPERT_AXES),
     )
 
 
@@ -337,7 +357,10 @@ def group_mean(x: torch.Tensor, group: Any) -> torch.Tensor:
     """The mean of ``x`` over the ranks of ``group`` (each holding the
     same number of rows of a batch, so the mean of their means is the
     batch's), differentiably: every rank's output depends on every rank's
-    ``x``, so the gradient flows back summed over the group's outputs."""
+    ``x``, so the gradient flows back summed over the group's outputs.
+    Over a group of one rank, ``x`` itself."""
+    if dist.get_world_size(group) == 1:
+        return x
     return _GroupMean.apply(x, group)
 
 
@@ -361,7 +384,7 @@ def replicated_param(x: torch.Tensor, group: Any) -> torch.Tensor:
     return _ReplicatedParam.apply(x, group)
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, group: Any) -> torch.Tensor:  # noqa: ANN001
         out = x.contiguous().clone()
@@ -407,7 +430,7 @@ def reduce_from_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     ``tp`` rank's partial sum over its rows). Forward: ``x`` all-reduced
     (summed) over ``tp``. Backward: the identity, since every rank's
     partial sum receives the whole output's gradient."""
-    return _ReduceFromTP.apply(x, mesh.tp_group)
+    return _AllReduce.apply(x, mesh.tp_group)
 
 
 def tp_block(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
@@ -442,4 +465,39 @@ def max_over_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     out = x.detach().contiguous().clone()
     with collective_range(mesh.tp_group):
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.tp_group)
+    return out
+
+
+def copy_to_experts(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """What enters this rank's experts of a MoE layer (the layer's input,
+    the router's gate weights), which every rank of the expert group holds
+    whole. Forward: ``x`` itself. Backward: the gradient summed over the
+    group, since each rank's experts contribute their part of it (none over
+    a group of one rank)."""
+    return replicated_param(x, mesh.expert_group)
+
+
+def reduce_from_experts(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The MoE layer's output from this rank's experts, summed over the
+    expert group. Forward: an all-reduce. Backward: the identity, since
+    every rank's part receives the whole output's gradient. Over a group
+    of one rank, ``x`` itself."""
+    if dist.get_world_size(mesh.expert_group) == 1:
+        return x
+    return _AllReduce.apply(x, mesh.expert_group)
+
+
+def earlier_sp_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over the ``sp`` ranks before this one (coordinates
+    below this rank's; zeros on the first), out of the graph: one
+    all-gather over ``sp``. The router offsets each expert's slots by the
+    earlier positions' routings with it, so that a row's capacity slots are
+    the whole sequence's."""
+    n = mesh.sizes["sp"]
+    out = torch.zeros_like(x)
+    if n == 1:
+        return out
+    parts_ = _all_gather(x.detach(), 0, mesh.sp_group).view(n, *x.shape)
+    for i in range(mesh.coords["sp"]):  # in rank order, so every rank adds alike
+        out += parts_[i]
     return out
