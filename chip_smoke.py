@@ -47,12 +47,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
    after, checked against n_layers x (1 + remat recompute) per step for the
    forward kernels and n_layers for the backward ones: the bf16 step runs
    the ``wgmma`` flash kernels and no ``simt`` one.
+   remat — the remat policies on the train phase's setting: its run is
+   ``full``; ``dots``, ``dots_attn`` and remat off run 3 steps each. Each
+   prints step time, tokens/s, MFU, ``max_memory_allocated`` beside the
+   fit probe's traced peak (``parallel/aot_fit.py``: within 10%) and the
+   analytic ``hbm_fit``'s total, the flash forward's launches a step (2 x
+   16 under ``full`` and ``dots``, 16 under ``dots_attn`` and remat off)
+   and the losses (bitwise ``full``'s where the train phase's two runs
+   were, else within 1e-3). Then ``--remat-policy auto`` at 28 rows, where
+   the fit table refuses ``dots_attn`` and ``dots`` on the card: the table,
+   the policy the trainer resolves (the table's), 2 steps, and their peak
+   under 0.9 of the card's memory (which the phase prints: the port's H100
+   default budget).
 4. reference — one step of the same config at 2 layers with the kernels
    and with plain PyTorch ops, losses and gradient norms compared.
    gang — the trainer launched as a gang through ``spmd_main``. A: the train
    phase's run (llama3_1b at full width, 6 steps) as one replica, one
-   worker a card on NCCL, ``--mesh fsdp=-1 --grad-bucket-mb 32``,
-   unprofiled, then profiled as the train phase's profiled run: exit 0,
+   worker a card on NCCL, ``--mesh fsdp=-1 --grad-bucket-mb 32
+   --remat-policy dots`` (the bits and launches of the train phase's
+   ``full``), unprofiled, then profiled as the train phase's profiled run:
+   exit 0,
    every rank's kernel launches the train phase's, and at a world of one
    the losses the train phase's (bitwise where that phase's two runs were,
    else within 1e-3; on more cards within 1e-2). Prints the world, backend
@@ -161,11 +175,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
    remat) forward flash and norm_res launches a step, 2 of dq, dk/dv and
    the norm backward, all wgmma at head_dim 128; the router's aux,
    entropy and overflow each step; tokens/s, MFU on active parameters,
-   the executed FLOPs reckoned beside it, peak memory. Reference: one step
+   the executed FLOPs reckoned beside it, peak memory; then 3 steps under
+   ``--remat-policy dots_attn``: the losses the run's own, one flash
+   forward a layer a step, peak memory beside the fit probe's. Reference:
+   one step
    at 1 layer with the kernels and with plain ops, loss within 1e-2 and
    gradient norm within 5e-2. Serve: the serve phase's burst through
-   ``generate_server`` with ``mixtral_8x7b_shape(n_layers=16)`` (23.48 B
-   parameters, 46.96 GB), seeded random weights initialised one expert
+   ``generate_server`` with ``mixtral_8x7b_shape(n_layers=8)`` (11.87 B
+   parameters, 23.74 GB; 16 layers before the remat phase), seeded random weights
+   initialised one expert
    matrix at a time, without the prefix cache (a prefix hit prefills the
    rest of a prompt as its own chunk, whose expert capacity differs);
    greedy tokens teacher-forced through the plain KV-cache path in the
@@ -176,9 +194,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    bucket's width, neither prefill overflowing an expert); pools and
    parameters on the card, no kernel launched.
    ep — expert parallelism: mixtral_8x7b's width at 2 layers, the train
-   phase's batch, 3 steps. A world of one through ``spmd_main`` on NCCL,
-   its losses and gradient norms bitwise one process's (the moe phase's
-   first 3 steps, or a run of its own); then ``ep=2``, two gloo ranks
+   phase's batch, 3 steps. A world of one through ``spmd_main`` on NCCL
+   under ``--remat-policy auto`` (resolved once for the gang: rank 0's
+   probe in a subprocess), its losses and gradient norms bitwise one
+   process's (the moe phase's first 3 steps, or a run of its own); then
+   ``ep=2`` under ``--remat-policy dots``, two gloo ranks
    sharing the card (each holds half the experts and computes attention
    and the router on the whole batch), profiled: losses within 1e-2 and
    gradient norms within 5e-2 of one process, every rank's launches one
@@ -206,19 +226,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and two backward products; 7 projections a layer under ``all``, 3 under
    ``ffn``); step time, tokens/s, MFU (bf16 formula) and peak memory
    beside the bf16 run's. int8 serve: ``generate_server`` in-process with
-   llama3_8b at full width and depth (32 layers, 8.03 B parameters,
-   seeded weights), the serve phase's burst, first bf16 and then
-   ``--int8``, each freed before the next: every projection int8 with f32
-   scales and the embedding bf16; resident parameter bytes (allocated
-   after setup less the KV pools) within 1% of the reckoning (16.06 GB,
-   8.56 GB); each decode step and prefill chunk of the burst launches the
-   int8-weight matmul 7 x 32 + 1 times and the plain int8 path never runs
-   on the card; the int8 greedy tokens teacher-forced through the plain
-   int8 path in the engine's chunks, at least 90% of them within 5e-2 of
+   llama3_8b at full width cut to 16 of its 32 layers (4.54 B parameters,
+   seeded weights; full depth before the remat phase), the serve phase's burst, first
+   bf16 and then ``--int8``, each freed before the next: every projection
+   int8 with f32 scales and the embedding bf16; resident parameter bytes
+   (allocated after setup less the KV pools) within 1% of the reckoning
+   (9.08 GB, 5.07 GB); each decode step and prefill chunk of the burst
+   launches the int8-weight matmul 7 x 16 + 1 times and the plain int8
+   path never runs on the card; the int8 greedy tokens teacher-forced
+   through the plain int8 path in the engine's chunks, at least 90% of them
+   within 5e-2 of
    their row's maximum (the MoE cell's check; the tokens beyond are
    printed); int8 against bf16 logits on one token stream (the 257-token
    prompt and its bf16 completion): the mean relative gap is printed at
-   full depth, and held under 0.05 (tests/test_quant.py's criterion) at
+   the cell's depth, and held under 0.05 (tests/test_quant.py's criterion) at
    that test's depth, 2 layers, at llama3_8b's width: the gap grows with
    depth from the weights' rounding alone (PERF.md, PR 8). Prints
    TTFT, TPOT, the decode step, tokens/s, peak memory and one profiled
@@ -238,6 +259,16 @@ hit on the prefill replica, ``/v1/kv`` answers 400 for a body that is no
 payload and 503 at the prefill role; TTFT and TPOT beside the unified
 numbers, the handoff's bytes and seconds by stage.
 
+``--phases build,rematoom`` runs the policy the auto case's table refuses
+(``dots`` at 28 rows) in a subprocess, which must run out of memory.
+``--phases build,hostus`` times the host's microseconds to enqueue each
+kernel's entry point (flash attention, the fused residual-add + RMSNorm,
+the RMSNorm with the fused backward; forward, and forward with backward);
+``--package-root DIR`` imports the port from another tree (a parent
+commit's ``git archive``), so that one call compares the two. With four
+cards the tp and ep phases' four-card runs print the fit probe's rank-0
+peak (traced in a subprocess) and ``hbm_fit``'s total beside each rank's
+measured peak.
 ``--phases build,sweep`` times the RMSNorm backward kernel over its launch
 settings (``ops.norms.BWD_CONFIG``). ``--phases build,profile`` profiles a
 training step and a decode step, splits the trainer's own trace
@@ -284,12 +315,12 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "train", "reference", "gang", "gangckpt", "tp", "serve", "ckpt",
-          "moe", "ep", "int8")
+PHASES = ("build", "kernels", "train", "remat", "reference", "gang", "gangckpt", "tp", "serve",
+          "ckpt", "moe", "ep", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
-                "int8parts", "gangparts")
+                "int8parts", "gangparts", "rematoom", "hostus")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth; its L2 cache.
@@ -1298,6 +1329,246 @@ def phase_reference() -> None:
 
 
 # ---------------------------------------------------------------------------
+# the remat policies and the memory fit
+# ---------------------------------------------------------------------------
+
+#: The remat phase: each policy's run on the train phase's setting
+#: (``steps`` steps), and ``--remat-policy auto`` at ``auto_batch`` rows,
+#: where the fit table refuses ``dots_attn`` and ``dots`` on one H100 80GB
+#: and names ``full``; ``oom_policy`` at that batch is the rematoom phase's
+#: run out of memory.
+REMAT = dict(steps=3, auto_batch=28, auto_steps=2, oom_policy="dots")
+#: The fit probe's peak against the measured ``max_memory_allocated``: what
+#: it does not model is the allocator's slack and cuBLAS's workspace.
+REMAT_PEAK_RTOL = 0.10
+#: Flash forward launches a layer a step, by policy: the recompute runs it
+#: again under ``full`` and ``dots``.
+REMAT_FLASH_FWD = {"full": 2, "dots": 2, "dots_attn": 1, "off": 1}
+
+
+def _remat_cfg(policy: str):  # noqa: ANN202
+    import dataclasses
+
+    from torchx_tpu_torch.models import llama
+
+    base = dataclasses.replace(llama.llama3_1b(), kernels="cuda")
+    if policy == "off":
+        return dataclasses.replace(base, remat=False)
+    return dataclasses.replace(base, remat=True, remat_policy=policy)
+
+
+def _fit_estimates(cfg, batch: int, seq: int, total: int) -> dict:  # noqa: ANN001
+    """The fit probe's traced rank-0 step and the analytic ``hbm_fit`` of
+    ``cfg`` on one card of ``total`` bytes (the reference has no reckoning
+    for remat off: None there)."""
+    from torchx_tpu_torch.analyze import costmodel
+    from torchx_tpu_torch.parallel import aot_fit
+
+    r = aot_fit.trace_fit(cfg, None, batch, seq, hbm_bytes=total)
+    analytic = None
+    if cfg.remat:
+        plan = costmodel.ParallelPlan(
+            model=costmodel.ModelShape.of(cfg), sizes={}, batch=batch, seq=seq,
+            remat_policy=cfg.remat_policy, hbm_bytes_per_chip=total, hbm_source="device")
+        analytic = costmodel.hbm_fit(plan).total_bytes
+    return {"probe_args_bytes": r.args_bytes, "probe_temp_bytes": r.temp_bytes,
+            "probe_peak_bytes": r.peak_bytes, "probe_fits": r.fits,
+            "hbm_fit_total_bytes": analytic}
+
+
+def _profiled_busy(cfg, batch: int, seq: int, steps: int) -> dict:  # noqa: ANN001
+    """The device's busy milliseconds a step and idle share over the timed
+    steps of a run of ``cfg`` with the trainer's torch.profiler trace."""
+    import shutil
+    import tempfile
+
+    from torchx_tpu_torch.examples.train_llama import train
+
+    root = tempfile.mkdtemp(prefix="tpx_remat_smoke_")
+    try:
+        out = train(cfg, batch, seq, steps, kernels="cuda", device="cuda", warmup=1,
+                    log_every=0, profile_dir=root)
+        with open(out["profile_trace"]) as f:
+            return device_busy(json.load(f)["traceEvents"], steps - 1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_remat(train_out: dict, train_profiled: dict) -> dict:
+    """llama3_1b (16 layers, batch 4, seq 2048, bf16, the kernels) under
+    each remat policy: the train phase's run is ``full``; ``dots``,
+    ``dots_attn`` and remat off run ``REMAT["steps"]`` steps each. Per
+    policy: step time, tokens/s, MFU, the device's busy time a step and
+    idle share (a second run with a torch.profiler trace; ``full``'s from
+    the train phase's profiled run), ``max_memory_allocated`` beside the
+    fit probe's peak (within ``REMAT_PEAK_RTOL``) and ``hbm_fit``'s total,
+    the flash forward's launches a step (``REMAT_FLASH_FWD``), and the
+    losses against ``full``'s (bitwise where the train phase's two runs
+    were, else within GANG_LOSS_RTOL). Then ``--remat-policy auto`` at
+    ``REMAT["auto_batch"]`` rows: the fit table of the three candidates on
+    this card, the trainer's resolution (the policy the table names), its
+    steps, and its peak under the budget (``DEFAULT_HEADROOM`` of the
+    card)."""
+    import dataclasses
+
+    import torch
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.parallel import aot_fit, remat_auto
+
+    t0 = time.monotonic()
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "remat", "run": "card", "total_memory": total,
+          "default_bytes": aot_fit.H100_HBM_BYTES, "card": card_line()})
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], REMAT["steps"]
+    bitwise = train_out["losses"] == train_profiled["losses"]
+    rows = {}
+    for policy in ("full", "dots", "dots_attn", "off"):
+        cfg = _remat_cfg(policy)
+        if policy == "full":
+            out, busy = train_out, {k: train_profiled[k] for k in
+                                    ("device_busy_ms_per_step", "device_idle_share")}
+        else:
+            free_card()
+            out = train(cfg, b, s, steps, kernels="cuda", device="cuda", warmup=1, log_every=0)
+            busy = _profiled_busy(cfg, b, s, steps)
+        per_step = out["launches_per_step"]
+        row = {"phase": "remat", "policy": policy, "remat_policy": out["remat_policy"],
+               "steps": len(out["losses"]), "losses": out["losses"],
+               "step_time_s": out["step_time_s"], "tokens_per_sec": out["tokens_per_sec"],
+               "mfu": out["mfu"], "peak_memory_bytes": out["peak_memory_bytes"],
+               **_fit_estimates(cfg, b, s, total), "profiled": busy,
+               "flash_fwd_per_step": per_step["flash_fwd_wgmma"],
+               "norm_res_fwd_per_step": per_step["norm_res_fwd"],
+               "flash_bwd_per_step": [per_step["flash_dq_wgmma"], per_step["flash_dkv_wgmma"]]}
+        row["probe_peak_rel_gap"] = (row["probe_peak_bytes"] / row["peak_memory_bytes"]) - 1
+        want = full_losses = train_out["losses"][:len(out["losses"])]
+        row["losses_bitwise_full"] = out["losses"] == full_losses
+        row["loss_max_rel_diff_vs_full"] = _rel_diff(out["losses"], want)
+        emit(row)
+        rows[policy] = row
+        n = cfg.n_layers
+        if per_step["flash_fwd_wgmma"] != REMAT_FLASH_FWD[policy] * n:
+            fail("remat", f"{policy}: {per_step['flash_fwd_wgmma']} flash forward launches a"
+                 f" step, want {REMAT_FLASH_FWD[policy] * n}")
+        if (per_step["flash_dq_wgmma"], per_step["flash_dkv_wgmma"],
+                per_step["rms_norm_bwd"]) != (n, n, n):
+            fail("remat", f"{policy}: backward launches {per_step}")
+        if out["remat_policy"] != ("none" if policy == "off" else policy):
+            fail("remat", f"{policy}: the trainer ran {out['remat_policy']}")
+        if (not row["losses_bitwise_full"]) if bitwise else \
+                row["loss_max_rel_diff_vs_full"] > GANG_LOSS_RTOL:
+            fail("remat", f"{policy}: losses {out['losses']} against full's {full_losses}")
+        if abs(row["probe_peak_rel_gap"]) > REMAT_PEAK_RTOL:
+            fail("remat", f"{policy}: the probe's peak {row['probe_peak_bytes']} against the"
+                 f" measured {row['peak_memory_bytes']}")
+    # --remat-policy auto where the table refuses the first candidates
+    ab = REMAT["auto_batch"]
+    table = {p: _fit_estimates(_remat_cfg(p), ab, s, total) for p in remat_auto.POLICY_ORDER}
+    named = next((p for p in remat_auto.POLICY_ORDER if table[p]["probe_fits"]), "full")
+    emit({"phase": "remat", "run": "fit table", "batch": ab, "seq": s, "table": table,
+          "budget_bytes": int(total * aot_fit.DEFAULT_HEADROOM), "names": named})
+    if named == remat_auto.POLICY_ORDER[0]:
+        fail("remat", f"batch {ab}: the table accepts {named}, so auto selects nothing")
+    free_card()
+    out = train(dataclasses.replace(_remat_cfg("full"), remat_policy="auto"), ab, s,
+                REMAT["auto_steps"], kernels="cuda", device="cuda", warmup=1, log_every=1)
+    res = {"phase": "remat", "run": "auto", "batch": ab, "seq": s,
+           "remat_policy": out["remat_policy"], "remat_trials": out["remat_trials"],
+           "remat_select_s": out["launch_breakdown"]["remat_select"],
+           "losses": out["losses"], "step_time_s": out["step_time_s"],
+           "tokens_per_sec": out["tokens_per_sec"], "mfu": out["mfu"],
+           "peak_memory_bytes": out["peak_memory_bytes"],
+           "budget_bytes": int(total * aot_fit.DEFAULT_HEADROOM),
+           "probe_peak_bytes": table[named]["probe_peak_bytes"]}
+    emit(res)
+    if out["remat_policy"] != named:
+        fail("remat", f"auto resolved to {out['remat_policy']}, the table names {named}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail("remat", f"auto: non-finite loss {out['losses']}")
+    if out["peak_memory_bytes"] > res["budget_bytes"]:
+        fail("remat", f"auto: peak {out['peak_memory_bytes']} above the budget")
+    emit({"phase": "remat", "run": "seconds", "seconds": time.monotonic() - t0})
+    return rows
+
+
+def phase_remat_oom() -> None:
+    """The policy the auto case's table refuses (``REMAT["oom_policy"]`` at
+    ``REMAT["auto_batch"]`` rows) run anyway, in a subprocess: it must run
+    out of the card's memory, as the probe says (its peak beside)."""
+    import subprocess
+
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    policy, ab = REMAT["oom_policy"], REMAT["auto_batch"]
+    est = _fit_estimates(_remat_cfg(policy), ab, TRAIN["seq"], total)
+    free_card()
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchx_tpu_torch.examples.train_llama", "--config",
+         "llama3_1b", "--batch", str(ab), "--seq", str(TRAIN["seq"]), "--steps", "1",
+         "--kernels", "cuda", "--remat-policy", policy],
+        capture_output=True, text=True, timeout=600, check=False)
+    oom = "out of memory" in proc.stderr.lower()
+    emit({"phase": "rematoom", "policy": policy, "batch": ab, "rc": proc.returncode,
+          "out_of_memory": oom, "seconds": time.monotonic() - t0, "total_memory": total,
+          **est, "stderr_tail": proc.stderr[-400:]})
+    if proc.returncode == 0 or not oom:
+        fail("rematoom", f"{policy} at batch {ab}: rc {proc.returncode}, no out-of-memory error")
+
+
+#: Calls timed by the hostus phase: few enough that the launches of the
+#: slowest (the flash forward with its backward, ~10 launches) never fill
+#: the card's launch queue while it sleeps.
+HOSTUS_CALLS = 50
+
+
+def phase_hostus() -> None:
+    """Host microseconds a call of each kernel's entry point, the card busy
+    behind a sleep kernel: the flash attention forward and forward with
+    backward, the fused residual-add + RMSNorm likewise, and the RMSNorm
+    with the fused backward. Run it under ``--package-root`` of another
+    tree to compare two versions' wrappers in one call."""
+    import torch
+
+    from torchx_tpu_torch.ops import fused, norms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = _attn_inputs(**ATTN, dtype=torch.bfloat16, gen=gen)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    x = torch.randn((NORM["n"], NORM["d"]), generator=gen, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    r = torch.randn_like(x)
+    w = torch.ones(NORM["d"], device="cuda", dtype=torch.bfloat16, requires_grad=True)
+
+    def flash_fwd():  # noqa: ANN202
+        with torch.no_grad():
+            fused.flash_attention(q, k, v, True, "cuda")
+
+    def flash_fwd_bwd():  # noqa: ANN202
+        fused.flash_attention(q, k, v, True, "cuda").backward(do)
+
+    def norm_res_fwd():  # noqa: ANN202
+        with torch.no_grad():
+            fused.rms_norm_residual(x, r, w, EPS, kernels="cuda")
+
+    def norm_res_fwd_bwd():  # noqa: ANN202
+        y, s_ = fused.rms_norm_residual(x, r, w, EPS, kernels="cuda")
+        torch.autograd.backward((y, s_), (r, r))
+
+    def rms_norm_fused_fwd_bwd():  # noqa: ANN202
+        norms.rms_norm(x, w, EPS, fused="cuda").backward(r)
+
+    calls = {"flash_fwd": flash_fwd, "flash_fwd_bwd": flash_fwd_bwd,
+             "norm_res_fwd": norm_res_fwd, "norm_res_fwd_bwd": norm_res_fwd_bwd,
+             "rms_norm_fused_fwd_bwd": rms_norm_fused_fwd_bwd}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(fused.__file__)))
+    emit({"phase": "hostus", "package": root, "calls": HOSTUS_CALLS,
+          "host_us": {name: host_us(fn, HOSTUS_CALLS) for name, fn in calls.items()}})
+
+
+# ---------------------------------------------------------------------------
 # the gang: the trainer launched through spmd_main
 # ---------------------------------------------------------------------------
 
@@ -1305,7 +1576,7 @@ def phase_reference() -> None:
 #: worker a card, NCCL, ``--mesh fsdp=-1``, 32 MiB gradient buckets,
 #: profiled as the train phase's profiled run is); B, two or four ranks at
 #: 2 layers against one process on the same global batch (3 steps).
-GANG = dict(bucket_mb=32, timeout_s=420, b_layers=2, b_steps=3)
+GANG = dict(bucket_mb=32, timeout_s=420, b_layers=2, b_steps=3, remat_policy="dots")
 #: A's losses against the train phase's where that phase's runs were not
 #: bitwise repeatable (the ckpt phase's rule).
 GANG_LOSS_RTOL = 1e-3
@@ -1413,7 +1684,10 @@ def device_busy(events: list[dict], steps: int) -> dict:
 
 
 def _gang_a(cfg, root: str, profiled: bool) -> dict:  # noqa: ANN001
-    """The train phase's run through ``spmd_main`` (module docstring); with
+    """The train phase's run through ``spmd_main`` (module docstring) under
+    ``--remat-policy dots`` (``GANG["remat_policy"]``: the same bits and
+    launches as the train phase's ``full``, so a remat policy runs through
+    ``spmd_main`` on the card); with
     ``profiled``, as the train phase's profiled run (the step profiler and
     the trainer's torch.profiler trace, read here)."""
     extra = ["--profile", "--profile-dir", os.path.join(root, "trace")] if profiled else []
@@ -1421,7 +1695,8 @@ def _gang_a(cfg, root: str, profiled: bool) -> dict:  # noqa: ANN001
         [], ["-m", "torchx_tpu_torch.examples.train_llama", "--", "--config", "llama3_1b",
              "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--steps",
              str(TRAIN["steps"]), "--kernels", "cuda", "--warmup", "1", "--mesh", "fsdp=-1",
-             "--grad-bucket-mb", str(GANG["bucket_mb"]), *extra],
+             "--grad-bucket-mb", str(GANG["bucket_mb"]), "--remat-policy", GANG["remat_policy"],
+             *extra],
         {"TPX_OBS_DIR": os.path.join(root, "obs")}, "gang")
     if profiled:
         with open(final["profile_trace"]) as f:
@@ -1983,8 +2258,9 @@ TP = dict(layers=2, steps=3, meshes=("tp=2", "sp=2"), steps4=6,
 
 #: The runs' script under ``spmd_main``: each run of the JSON in argv[1]
 #: (config, layers or null for full depth, mesh, steps, and optionally
-#: ``profile``, default true, ``dtype`` and ``kernels``, default the
-#: config's and "cuda") through ``train_llama.train`` with the step profiler and
+#: ``profile``, default true, ``dtype``, ``kernels`` and ``remat_policy``,
+#: default the config's, "cuda" and the config's) through
+#: ``train_llama.train`` with the step profiler and
 #: its torch.profiler trace, the card's cache emptied after each; rank 0
 #: prints every run's results and seconds on one ``final:`` line.
 _TP_SCRIPT = """import gc, json, os, sys, time
@@ -1998,6 +2274,8 @@ for run in job["runs"]:
     kw = {{"n_layers": run["layers"]}} if run["layers"] else {{}}
     if run.get("dtype"):
         kw["dtype"] = getattr(torch, run["dtype"])
+    if run.get("remat_policy"):
+        kw.update(remat=True, remat_policy=run["remat_policy"])
     cfg = llama.all_configs()[run["config"]](**kw)
     profiled = run.get("profile", True)
     t0 = time.monotonic()
@@ -2011,7 +2289,8 @@ for run in job["runs"]:
                                        "tokens_per_sec_per_card", "mfu", "world", "mesh",
                                        "backend", "launches_by_rank", "peak_memory_bytes_by_rank",
                                        "profile_trace", "router_aux", "router_entropy",
-                                       "router_overflow", "launch_breakdown")}})
+                                       "router_overflow", "launch_breakdown", "remat_policy",
+                                       "remat_trials")}})
     out[-1]["comm_modeled_axis_s"] = res["profile"]["meta"]["comm_modeled_axis_s"] \
         if res["profile"] else None
     out[-1]["seconds"] = time.monotonic() - t0
@@ -2053,11 +2332,14 @@ def collectives_by_group(events: list[dict], steps: int) -> dict:
             "ranges": len(spans) // max(steps, 1)}
 
 
-def _tp_runs(runs: list[dict], ranks: int, backend: str, phase: str = "tp") -> list[dict]:
+def _tp_runs(runs: list[dict], ranks: int, backend: str, phase: str = "tp",
+             probe: bool = False) -> list[dict]:
     """``runs`` in one ``spmd_main`` launch of ``ranks`` ranks on
     ``backend``; each run's results with its collectives by group (rank
     0's trace, for a profiled run) and the cost model's bytes a step by
-    axis."""
+    axis; with ``probe``, the fit probe's rank-0 peak (traced in a
+    subprocess, no card) and ``hbm_fit``'s total beside each rank's
+    measured peak."""
     import shutil
     import tempfile
 
@@ -2090,6 +2372,20 @@ def _tp_runs(runs: list[dict], ranks: int, backend: str, phase: str = "tp") -> l
                 sizes=parse_mesh_spec(run["mesh"]).resolve(ranks))
             final["modeled_bytes_per_step"] = {
                 t.axis: t.bytes_per_step for t in costmodel.collective_traffic(plan)}
+            final["hbm_fit_total_bytes"] = costmodel.hbm_fit(plan).total_bytes
+            run["cfg"] = cfg
+        if probe:
+            import dataclasses
+
+            from torchx_tpu_torch.parallel import aot_fit
+
+            requests = [aot_fit.probe_request(
+                dataclasses.replace(run.pop("cfg"), kernels=run.get("kernels", "cuda")),
+                run["mesh"], TRAIN["batch"], TRAIN["seq"], devices=ranks) for run in runs]
+            for final, r in zip(finals, aot_fit.run_probe(requests)):
+                final["probe_peak_bytes_rank0"] = r.get("peak_bytes", r.get("error"))
+        for run in runs:
+            run.pop("cfg", None)
         return finals
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2171,7 +2467,7 @@ def phase_tp_cards() -> dict:
              "layers": None, "mesh": m, "steps": TP["steps4"]} for m in TP["meshes4"]]
     runs.append({"name": "llama3_8b", "config": "llama3_8b", "layers": None,
                  "mesh": TP["mesh8b"], "steps": TP["steps4"]})
-    finals = _tp_runs(runs, 4, "nccl")
+    finals = _tp_runs(runs, 4, "nccl", probe=True)
     base = finals[0]
     out = {}
     for run, final in zip(runs, finals):
@@ -2185,6 +2481,8 @@ def phase_tp_cards() -> dict:
                "profiled_step_time_s": final["step_time_s"],
                "tokens_per_sec_per_card": final["tokens_per_sec_per_card"], "mfu": final["mfu"],
                "peak_memory_bytes_by_rank": final["peak_memory_bytes_by_rank"],
+               "probe_peak_bytes_rank0": final["probe_peak_bytes_rank0"],
+               "hbm_fit_total_bytes": final["hbm_fit_total_bytes"],
                "collectives_rank0": final["collectives"],
                "modeled_bytes_per_step": final["modeled_bytes_per_step"],
                "launches_by_rank": final["launches_by_rank"]}
@@ -3647,9 +3945,10 @@ def phase_sweep() -> None:
 #: (0.94 B elements) 1.88 GB each; the expert activations [b, E, C, f] in
 #: bf16 0.94 GB a tensor. 4 layers would come to ~75 GB of the card's 80.
 MOE_TRAIN = dict(n_layers=2, batch=4, seq=2048, steps=6)
-#: The serve cell's depth: 16 of 32 layers, 23.48 B parameters, 46.97 GB in
-#: bf16 (the whole model, 93 GB, does not fit on one card).
-MOE_SERVE_LAYERS = 16
+#: The serve cell's depth: 8 of 32 layers, 11.87 B parameters, 23.74 GB in
+#: bf16 (the whole model, 93 GB, does not fit on one card; 16 layers before
+#: the remat phase joined the default run, cut to pay for it).
+MOE_SERVE_LAYERS = 8
 #: The exact f32 check's prompts (by index into SERVE_REQUESTS): 32 and 512
 #: tokens, each its own prefill bucket's width, so that the engine's
 #: prefill and the dense generate's have one capacity per expert; the
@@ -3737,6 +4036,40 @@ def phase_moe_train() -> dict:
     return res
 
 
+def phase_moe_remat(moe_train: dict) -> None:
+    """The moe phase's run under ``dots_attn``, 3 steps (the ep phase runs
+    ``dots`` and ``auto``): the losses its own (bitwise expected; within
+    GANG_LOSS_RTOL), the flash forward launched once a layer a step, peak
+    memory beside the fit probe's."""
+    import dataclasses
+
+    import torch
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import moe
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    batch, seq = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    base = moe.mixtral_8x7b_shape(n_layers=MOE_TRAIN["n_layers"], kernels="cuda")
+    for policy in ("dots_attn",):
+        cfg = dataclasses.replace(base, remat=True, remat_policy=policy)
+        free_card()
+        out = train(cfg, batch, seq, REMAT["steps"], kernels="cuda", device="cuda", warmup=1,
+                    log_every=0)
+        want = moe_train["losses"][:len(out["losses"])]
+        rel = _rel_diff(out["losses"], want)
+        fwd = out["launches_per_step"]["flash_fwd_wgmma"]
+        emit({"phase": "moe", "run": "remat", "policy": out["remat_policy"],
+              "losses": out["losses"], "losses_bitwise_full": out["losses"] == want,
+              "loss_max_rel_diff_vs_full": rel, "step_time_s": out["step_time_s"],
+              "tokens_per_sec": out["tokens_per_sec"], "mfu": out["mfu"],
+              "peak_memory_bytes": out["peak_memory_bytes"],
+              **_fit_estimates(cfg, batch, seq, total), "flash_fwd_per_step": fwd})
+        if rel > GANG_LOSS_RTOL or fwd != REMAT_FLASH_FWD[policy] * cfg.n_layers:
+            fail("moe", f"{policy}: losses {out['losses']} against full's {want}, {fwd}"
+                 " flash forward launches a step")
+
+
 def phase_moe_reference() -> None:
     """One step of ``mixtral_8x7b_shape(n_layers=1)`` with the kernels and
     with plain ops: loss and gradient norm within the dense reference
@@ -3779,7 +4112,7 @@ def phase_moe_reference() -> None:
 
 def phase_moe_serve() -> dict:
     """The serve phase's burst through ``generate_server`` with
-    ``mixtral_8x7b_shape(n_layers=16)`` (the preset's depth cut in-process,
+    ``mixtral_8x7b_shape(n_layers=MOE_SERVE_LAYERS)`` (the preset's depth cut in-process,
     its width the published one), then the exact f32 check at 2 layers.
     Without the prefix cache: a prefix hit prefills the rest of a prompt as
     a chunk of its own, whose expert capacity differs from the cold
@@ -3896,9 +4229,10 @@ def _ep_line(run: dict, final: dict, cards: int) -> dict:
 
 
 def ep_run() -> dict:
-    """The ep phase's run of two gloo ranks sharing the card."""
+    """The ep phase's run of two gloo ranks sharing the card, under
+    ``--remat-policy dots`` (the launches and bits of ``full``)."""
     return {"config": "mixtral_8x7b", "layers": EP["layers"], "steps": EP["steps"],
-            "name": "ep2", "mesh": EP["mesh"]}
+            "name": "ep2", "mesh": EP["mesh"], "remat_policy": "dots"}
 
 
 def phase_ep(moe_train: dict | None, final: dict | None = None) -> dict:
@@ -3927,14 +4261,19 @@ def phase_ep(moe_train: dict | None, final: dict | None = None) -> dict:
     one = {k: moe_train[k][:n] for k in ("losses", "grad_norms")}
     free_card()
     run = ep_run()
-    world1, = _tp_runs([{**run, "name": "world1", "mesh": "fsdp=-1", "profile": False}], 1,
-                       "nccl", "ep")
+    # under --remat-policy auto: one resolution for the gang (rank 0's probe
+    # in a subprocess, the smallest card's budget), the same bits as full
+    world1, = _tp_runs([{**run, "name": "world1", "mesh": "fsdp=-1", "profile": False,
+                         "remat_policy": "auto"}], 1, "nccl", "ep")
     bitwise = (world1["losses"], world1["grad_norms"]) == (one["losses"], one["grad_norms"])
     emit({"phase": "ep", "run": "world 1", "mesh": world1["mesh"], "backend": world1["backend"],
           "losses": world1["losses"], "grad_norms": world1["grad_norms"],
           "one_process_losses": one["losses"], "one_process_grad_norms": one["grad_norms"],
           "bitwise": bitwise, "step_times_s": world1["step_times_s"],
+          "remat_policy": world1["remat_policy"], "remat_trials": world1["remat_trials"],
           "launch_breakdown": world1["launch_breakdown"], "run_seconds": world1["seconds"]})
+    if world1["remat_policy"] not in ("full", "dots", "dots_attn") or not world1["remat_trials"]:
+        fail("ep", f"world 1 under --remat-policy auto ran {world1['remat_policy']}")
     if world1["world"] != 1 or not bitwise:
         fail("ep", f"world 1 {world1['losses']} / {world1['grad_norms']} against one process"
              f" {one['losses']} / {one['grad_norms']}")
@@ -3944,6 +4283,7 @@ def phase_ep(moe_train: dict | None, final: dict | None = None) -> dict:
     loss_rel = _rel_diff(final["losses"], one["losses"])
     gn_rel = _rel_diff(final["grad_norms"], one["grad_norms"])
     res = {**_ep_line(run, final, cards), "ranks_share_a_card": True,
+           "remat_policy": final["remat_policy"],
            "one_process_losses": one["losses"], "one_process_grad_norms": one["grad_norms"],
            "one_process_params": cfg.param_count(),
            "loss_max_rel_diff": loss_rel, "loss_rtol": REF_LOSS_RTOL,
@@ -3981,7 +4321,7 @@ def phase_ep_cards() -> dict:
     runs = [{"name": m.replace("=", "").replace(",", "_"), "config": "mixtral_8x7b",
              "layers": EP["layers4"], "mesh": m, "steps": EP["steps4"]} for m in EP["meshes4"]]
     f32 = [{**run, **EP_F32, "name": run["name"] + "_f32"} for run in runs]
-    finals = _tp_runs(runs + f32, 4, "nccl", "ep")
+    finals = _tp_runs(runs + f32, 4, "nccl", "ep", probe=True)
     finals, finals_f32 = finals[:len(runs)], finals[len(runs):]
     out = {}
     for run, final, exact in zip(runs, finals, finals_f32):
@@ -3989,6 +4329,8 @@ def phase_ep_cards() -> dict:
         rel = _rel_diff(final["losses"], finals[0]["losses"])
         rel_f32 = _rel_diff(exact["losses"], finals_f32[0]["losses"])
         res = {**_ep_line(run, final, 4), "loss_max_rel_diff_vs_fsdp4": rel,
+               "probe_peak_bytes_rank0": final["probe_peak_bytes_rank0"],
+               "hbm_fit_total_bytes": final["hbm_fit_total_bytes"],
                "first_loss_rel_diff_vs_fsdp4": first, "loss_rtol_first_step": REF_LOSS_RTOL,
                "f32": {"n_layers": EP_F32["layers"], "kernels": EP_F32["kernels"],
                        "losses": exact["losses"], "grad_norms": exact["grad_norms"],
@@ -4027,6 +4369,10 @@ INT8_STREAM_PROMPT = 3
 #: Parameter bytes resident after the server's setup may miss the
 #: reckoning by this share.
 INT8_BYTES_RTOL = 0.01
+#: The int8 serve cell's depth: llama3_8b's width at 16 of its 32 layers
+#: (8.03 B parameters at full depth before the remat phase joined the
+#: default run, cut to pay for it).
+INT8_SERVE_LAYERS = 16
 #: The projection matrices weight-only int8 quantizes.
 INT8_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -4280,16 +4626,24 @@ def _int8_logits_check(stream: list[int], full_depth: dict) -> dict:
 
 
 def phase_int8_serve() -> dict:
-    """``generate_server`` in-process with llama3_8b at full width and
-    depth (32 layers, dim 4096, untied), seeded weights, the serve phase's
-    burst: first bf16, then ``--int8``, each freed before the next. ->
-    the int8 run's serve line."""
+    """``generate_server`` in-process with llama3_8b at full width (dim
+    4096, untied) cut to ``INT8_SERVE_LAYERS`` layers in-process, seeded
+    weights, the serve phase's burst: first bf16, then ``--int8``, each
+    freed before the next. -> the int8 run's serve line."""
+    from torchx_tpu_torch.models import llama
+
     shared: dict = {}
     runs = {}
-    for int8 in (False, True):
-        free_card()
-        runs[int8] = phase_serve("llama3_8b", "int8", int8=int8,
-                                 inspect=lambda run, int8=int8: _int8_inspect(run, shared, int8))
+    preset = llama.CONFIGS["llama3_8b"]
+    llama.CONFIGS["llama3_8b"] = lambda: preset(n_layers=INT8_SERVE_LAYERS)
+    try:
+        for int8 in (False, True):
+            free_card()
+            runs[int8] = phase_serve(
+                "llama3_8b", "int8", int8=int8,
+                inspect=lambda run, int8=int8: _int8_inspect(run, shared, int8))
+    finally:
+        llama.CONFIGS["llama3_8b"] = preset
     free_card()
     logits_check = _int8_logits_check(shared["stream"], {
         "n_layers": runs[True]["n_layers"], "mean_rel_gap": runs[True]["full_depth_logit_gap"],
@@ -4299,7 +4653,7 @@ def phase_int8_serve() -> dict:
             "resident_param_bytes")
     emit({"phase": "int8", "run": "serve summary", "config": "llama3_8b",
           "logit_gap": {"layers_2": logits_check["mean_rel_gap"],
-                        "layers_32": runs[True]["full_depth_logit_gap"]},
+                        f"layers_{INT8_SERVE_LAYERS}": runs[True]["full_depth_logit_gap"]},
           **{f"{k}": {"bf16": runs[False][k], "int8": runs[True][k]} for k in keys},
           "decode_device_ms": {
               name: {"bf16": runs[False]["decode_profile"][k],
@@ -4564,8 +4918,13 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
+    parser.add_argument("--package-root", default=None,
+                        help="import torchx_tpu_torch from this tree (another version's"
+                        " checkout, for the hostus phase's comparison)")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
     try:
         import torch
     except ImportError:
@@ -4629,6 +4988,11 @@ def main(argv: list[str] | None = None) -> int:
             fail("train", "a kernel of the path was never launched")
         with timed("train"):
             train_profiled = phase_train_profiled(train_out, counts)
+    if "remat" in phases:
+        if "train" not in phases:
+            fail("remat", "the remat phase's full row is the train phase's run: add train")
+        with timed("remat"):
+            phase_remat(train_out, train_profiled)
     if "reference" in phases:
         with timed("reference"):
             phase_reference()
@@ -4683,6 +5047,7 @@ def main(argv: list[str] | None = None) -> int:
                 if not row["launches"]:
                     fail("moe", f"{row['name']}: the MoE step never launched it")
         with timed("moe"):
+            phase_moe_remat(moe_train)
             phase_moe_reference()
             phase_moe_serve()
     if "ep" in phases:
@@ -4715,7 +5080,8 @@ def main(argv: list[str] | None = None) -> int:
     extra = {"profile": phase_profile, "sweep": phase_sweep, "notice": phase_notice,
              "moeprofile": phase_moe_profile, "int8profile": phase_int8_profile,
              "int8sweep": phase_int8_sweep, "int8parts": phase_int8_parts,
-             "gangparts": phase_gang_parts}
+             "gangparts": phase_gang_parts, "rematoom": phase_remat_oom,
+             "hostus": phase_hostus}
     for name, run in extra.items():
         if name in phases:
             with timed(name):

@@ -205,14 +205,20 @@ class TestDevice:
         final = json.loads(out.split("final:", 1)[1])
         assert final["kernels"] == "cuda" and len(final["losses"]) == 2
 
-    def test_jax_only_flags_raise(self):
+    def test_jax_only_flags_raise(self, capsys):
         # the mesh's data axes, ep, tp, sp and the gradient buckets are
         # ported (their flags: tests/test_torch_fsdp.py, tests/test_torch_tp.py,
-        # tests/test_torch_ep.py); pp, ring attention and remat policies are not
-        for flag in ("--mesh=pp=2", "--ring-attention", "--remat-policy=full"):
+        # tests/test_torch_ep.py); pp and ring attention are not
+        for flag in ("--mesh=pp=2", "--ring-attention"):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 train_llama.main(["--device", "cpu", flag])
         assert not {"--mesh", "--grad-bucket-mb"} & set(train_llama.NOT_PORTED_FLAGS)
+        # the remat policies run (tests/test_torch_remat.py)
+        assert "--remat-policy" not in train_llama.NOT_PORTED_FLAGS
+        for policy in ("full", "dots", "dots_attn", "auto"):
+            train_llama.main(["--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "16",
+                              f"--remat-policy={policy}"])
+        assert capsys.readouterr().out.count("final:") == 4
         with pytest.raises(ValueError, match="give --mesh"):
             train_llama.main(["--device", "cpu", "--grad-bucket-mb=4"])
         with pytest.raises(SystemExit):
@@ -221,9 +227,16 @@ class TestDevice:
         assert not {"--int8", "--int8-scope"} & set(train_llama.NOT_PORTED_FLAGS)
 
     def test_unported_model_options_raise(self):
-        for kw in ({"use_ring_attention": True}, {"remat_policy": "dots"}):
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                llama.llama_tiny(**kw)
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            llama.llama_tiny(use_ring_attention=True)
+        # the remat policies, which raised before they were ported, run
+        for policy in ("full", "dots", "dots_attn"):
+            cfg = llama.llama_tiny(remat=True, remat_policy=policy)
+            params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+            llama.loss_fn(params, {"tokens": torch.zeros((1, 9), dtype=torch.int64)},
+                          cfg).backward()
+        with pytest.raises(ValueError, match="remat_policy"):
+            llama.llama_tiny(remat_policy="selective")
         # int8 matmuls, which raised before int8 was ported, are a config
         assert llama.llama_tiny(int8_matmuls=True, int8_scope="ffn").int8_matmuls
         with pytest.raises(ValueError):

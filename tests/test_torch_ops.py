@@ -99,7 +99,11 @@ class TestXlaAttention:
 
     def test_flash_rejects_segment_ids(self):
         """impl='flash' off the CPU refuses ids its kernels cannot take
-        (meta tensors: no data, no card), before anything launches."""
+        (meta tensors: no data, no card), before anything launches. Good
+        ids on meta tensors trace the flash operator's fake implementation
+        (shapes only: the fit probe's path), which launches nothing; the
+        wrappers themselves still refuse meta tensors
+        (test_wrappers_raise_off_cpu_without_kernel)."""
         q = torch.zeros(1, 128, 2, 64, device="meta")
         for bad in (torch.zeros(1, 128, device="meta"),  # float
                     torch.zeros(1, 128, dtype=torch.int64, device="meta"),
@@ -107,8 +111,10 @@ class TestXlaAttention:
             with pytest.raises(ValueError, match="segment_ids must be int32"):
                 attention(q, q, q, segment_ids=bad, impl="flash")
         seg = torch.zeros(1, 128, dtype=torch.int32, device="meta")
-        with pytest.raises(ValueError, match="no kernel for device meta"):
-            attention(q, q, q, segment_ids=seg, impl="flash")
+        _build.reset_launches()
+        out = attention(q, q, q, segment_ids=seg, impl="flash")
+        assert out.device.type == "meta" and out.shape == q.shape
+        assert sum(_build.launch_counts().values()) == 0
 
     def test_flash_takes_segment_ids(self):
         """On CPU tensors impl='flash' with segment ids runs the kernels'
@@ -119,7 +125,7 @@ class TestXlaAttention:
         seg = torch.tensor(_packed_ids(rng, 2, 128, 50))
         _build.reset_launches()
         out = attention(q, k, v, segment_ids=seg, impl="flash")
-        assert out.grad_fn is not None and "Flash" in type(out.grad_fn).__name__
+        assert out.grad_fn is not None and "flash_fwd" in type(out.grad_fn).__name__
         assert sum(_build.launch_counts().values()) == 0
         _close(out.detach(), xla_attention(q, k, v, segment_ids=seg).detach(), 2e-5)
 

@@ -12,7 +12,9 @@ Kinds of case:
 * ``train``: ``train_llama.train`` on ``--config tiny``'s test shape (dim
   128, 2/1 heads, ffn 256, 2 layers, f32), or the preset ``config``, under
   ``mesh``, from the token file ``data``, with ``ckpt_dir`` and
-  ``ckpt_every`` where given; -> losses, gradient norms, the final shards,
+  ``ckpt_every`` where given, its fields replaced by ``model`` (such as
+  ``remat_policy``); -> losses, gradient norms, the final shards, the
+  remat policy it ran and ``"auto"``'s trials,
   the shards right after a restore, the checkpoint records, and the error
   it raised (``None``; a case that names ``expect_error`` catches it).
   With ``after``, the case first waits for that file (another gang's
@@ -99,6 +101,7 @@ def run_train(case: dict) -> dict:
         _wait_and_copy(case)
     boxes, on_state = _capture()
     cfg = llama.get_config(case["config"]) if "config" in case else tiny()
+    cfg = dataclasses.replace(cfg, **case.get("model", {}))
     try:
         out = train_llama.train(
             cfg, batch=case["batch"], seq=case["seq"], steps=case["steps"],
@@ -119,7 +122,8 @@ def run_train(case: dict) -> dict:
             "world": out["world"], "mesh": out["mesh"], "grad_buckets": out["grad_buckets"],
             "resumed_from_step": out["resumed_from_step"], "final_step": out["final_step"],
             "preempted": out["preempted"], "checkpoint": out["checkpoint"],
-            "profile": out["profile"], "error": None}
+            "profile": out["profile"], "remat_policy": out["remat_policy"],
+            "remat_trials": out["remat_trials"], "error": None}
 
 
 def run_step(case: dict) -> dict:

@@ -57,8 +57,16 @@ experts over ``ep`` x ``tp`` (:mod:`torchx_tpu_torch.models.moe`). Not
 ported yet, and refused with the ROADMAP item named: ``pp`` above 1,
 ``ep * tp`` that does not divide a MoE config's experts, ``tp`` that does
 not divide the KV heads, the ffn width (dense) or the vocabulary, ``sp``
-that does not divide the sequence, int8 matmuls under ``tp``, and the
-flags of ring attention and remat policies.
+that does not divide the sequence, int8 matmuls under ``tp``, and ring
+attention's flag.
+
+``--remat-policy`` picks what each checkpointed layer saves (``full``,
+``dots``, ``dots_attn``: :mod:`torchx_tpu_torch.models.llama`), or
+``auto``: the cheapest recompute whose step, traced on meta tensors
+(:mod:`torchx_tpu_torch.parallel.aot_fit`), fits the card's memory; a
+gang resolves it once, on the smallest card's budget
+(:func:`resolve_remat_policy`). It prints ``remat auto -> <policy>
+(<verdicts>)`` and reports the policy and the trials in its results.
 """
 
 from __future__ import annotations
@@ -106,7 +114,7 @@ PEAK_FLOPS = {
 }
 
 #: Flags of the JAX trainer this port does not have yet.
-NOT_PORTED_FLAGS = ("--ring-attention", "--remat-policy")
+NOT_PORTED_FLAGS = ("--ring-attention",)
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -525,6 +533,46 @@ def _open_mesh(
     return make_mesh(config)
 
 
+def resolve_remat_policy(
+    cfg: llama.LlamaConfig, m: Optional[Mesh], batch: int, seq: int, grad_bucket_mb: Any = 0,
+) -> tuple[str, list[Any]]:
+    """``remat_policy="auto"`` -> the policy whose traced step fits the
+    card, and the trials (:func:`~torchx_tpu_torch.parallel.remat_auto.choose_remat_policy`).
+    Without a mesh the probe traces in this process against this card's
+    memory. A gang resolves once: the smallest card's memory (a MIN
+    all-reduce), rank 0 traces every candidate on rank 0's shards in a
+    subprocess, where the gang's own process group is out of reach, and
+    broadcasts the answer, so that every rank runs one program. The probe
+    assumes one fused gradient sum unless ``grad_bucket_mb`` is a cap."""
+    from torchx_tpu_torch.parallel import aot_fit, remat_auto
+
+    if m is None:
+        return remat_auto.choose_remat_policy(cfg, None, batch, seq)
+    budget = torch.tensor([remat_auto.device_hbm_bytes()], dtype=torch.int64,
+                          device="cuda" if m.backend == "nccl" else "cpu")
+    dist.all_reduce(budget, op=dist.ReduceOp.MIN)
+    answer: list[Any] = [None, None]
+    if dist.get_rank() == 0:
+        cap = int(grad_bucket_mb) if str(grad_bucket_mb).isdigit() else 0
+        requests = [aot_fit.probe_request(
+            dataclasses.replace(cfg, remat=True, remat_policy=p), mesh_sizes_spec(m.sizes),
+            batch, seq, hbm_bytes=int(budget), devices=dist.get_world_size(),
+            grad_bucket_mb=cap) for p in remat_auto.POLICY_ORDER]
+        results = dict(zip(remat_auto.POLICY_ORDER, aot_fit.run_probe(requests)))
+
+        def fit_fn(c: llama.LlamaConfig) -> aot_fit.FitResult:
+            r = results[c.remat_policy]
+            if "error" in r:
+                raise RuntimeError(r["error"])
+            return aot_fit.FitResult(batch, seq, c.remat_policy, r["args_bytes"],
+                                     r["temp_bytes"], r["peak_bytes"], r["fits"])
+
+        answer = list(remat_auto.choose_remat_policy(cfg, None, batch, seq,
+                                                     hbm_bytes=int(budget), fit_fn=fit_fn))
+    dist.broadcast_object_list(answer, src=0)
+    return answer[0], answer[1]
+
+
 def train(
     cfg: llama.LlamaConfig,
     batch: int,
@@ -617,6 +665,25 @@ def _train(
     _stage("backend_init", time.monotonic() - t0)
     world = dist.get_world_size() if m is not None else 1
     rank0 = m is None or dist.get_rank() == 0
+    remat_trials = None
+    if cfg.remat_policy == "auto":
+        if cfg.remat:
+            # the cheapest recompute whose traced step fits the card
+            t0 = time.monotonic()
+            with _launch_span("launch.remat_select"):
+                policy, trials = resolve_remat_policy(cfg, m, batch, seq, grad_bucket_mb)
+            cfg = dataclasses.replace(cfg, remat_policy=policy)
+            _stage("remat_select", time.monotonic() - t0)
+            remat_trials = [dataclasses.asdict(t) for t in trials]
+            if rank0:
+                verdicts = ", ".join(f"{t.policy}={'fits' if t.fits else 'no'}" for t in trials)
+                print(f"remat auto -> {policy} ({verdicts})", flush=True)
+        else:
+            # remat off: the policy is never consulted, but "auto" must not
+            # reach the results as if it were one
+            cfg = dataclasses.replace(cfg, remat_policy="full")
+    # what the step does: "none" when remat is off
+    remat_policy_used = cfg.remat_policy if cfg.remat else "none"
     if grad_bucket_mb not in (0, "0", None, "") and m is None:
         raise ValueError("--grad-bucket-mb buckets the gang's gradient sync: give --mesh")
     if m is not None and dev.type == "cuda" and cfg.kernels == "cuda":
@@ -806,6 +873,7 @@ def _train(
                         mfu=round(tokens_per_step / world / window_dt * flops_per_token
                                   / peak, 4)
                         if peak else None,
+                        remat_policy=remat_policy_used,
                     )
             if prof is not None:
                 prof.end_step(global_step)
@@ -868,7 +936,9 @@ def _train(
         "launches": launches,
         "launches_per_step": {k: v / len(losses) for k, v in launches.items()},
         "kernels": cfg.kernels,
-        "remat_policy": cfg.remat_policy if cfg.remat else "none",
+        "remat_policy": remat_policy_used,
+        # "auto"'s candidates: each policy's traced rank-0 peak and verdict
+        "remat_trials": remat_trials,
         # the int8 training dot's scope, None when the projections run in bf16
         "int8_scope": cfg.int8_scope if cfg.int8_matmuls else None,
         "device": str(dev),
@@ -933,6 +1003,11 @@ def main(argv: Optional[list[str]] = None) -> None:
         " the same); default the plain PyTorch ops",
     )
     parser.add_argument(
+        "--remat-policy", default=None, choices=["full", "dots", "dots_attn", "auto"],
+        help="rematerialization policy (default: the config's own); 'auto' traces"
+        " each candidate's step and picks the cheapest recompute that fits the card",
+    )
+    parser.add_argument(
         "--int8", action="store_true",
         help="int8 training matmuls for the layer projections (AQT's numerics)",
     )
@@ -980,15 +1055,16 @@ def main(argv: Optional[list[str]] = None) -> None:
     for arg in unknown:
         flag = arg.split("=", 1)[0]
         if flag in NOT_PORTED_FLAGS:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1 item"
-                f" {'1.4' if flag == '--ring-attention' else '1.3'})")
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP queue 1 item 1.4)")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.log_every is not None and args.log_every < 1:
         parser.error("--log-every must be >= 1")
+    cfg = int8_config(llama.get_config(args.config), args.int8, args.int8_scope)
+    if args.remat_policy:
+        cfg = dataclasses.replace(cfg, remat_policy=args.remat_policy)
     metrics = train(
-        int8_config(llama.get_config(args.config), args.int8, args.int8_scope),
+        cfg,
         args.batch,
         args.seq,
         args.steps,

@@ -9,7 +9,18 @@ weights stacked on a leading ``L`` axis, matrices ``[in, out]`` applied as
 activations, f32 softmax, norms and cross-entropy reductions.
 
 ``remat=True`` recomputes each layer in the backward pass
-(``torch.utils.checkpoint`` per layer, the JAX ``"full"`` policy). The loss
+(``torch.utils.checkpoint`` per layer) under ``remat_policy``, the JAX
+package's policies: ``"full"`` saves each layer's input only; ``"dots"``
+also saves the products with no batch dimensions (``mm``, ``addmm`` and
+the int8 dot's ``_int_mm``: the q/k/v, ``wo``, gate and up projections
+and a MoE router's logits; the attention logits, the MoE dispatch,
+combine and expert products are batched and recomputed) through a
+selective-checkpoint policy; ``"dots_attn"`` also saves the attention
+operator's outputs (the flash forward's ``o`` and ``lse``, or the plain
+path's ``attn_out``). Everything else, the collectives included, runs
+again in the recompute, so every rank keeps one collective order.
+``"auto"`` is resolved before the forward
+(:func:`torchx_tpu_torch.parallel.remat_auto.choose_remat_policy`). The loss
 computes cross-entropy in sequence chunks (``loss_chunk``), each recomputed
 in the backward, so only ``[batch, chunk, vocab]`` logits ever exist, stored
 in bf16 unless ``ce_f32_logits``.
@@ -51,13 +62,17 @@ item 1.4), and the config fields that would select them raise
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import functools
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from torchx_tpu_torch.ops.attention import attention
 from torchx_tpu_torch.ops.fused import flash_attention, rms_norm_residual
@@ -75,6 +90,10 @@ AUX_LEN = 3
 
 KERNELS = ("reference", "cuda")
 
+#: The remat policies a layer runs under; ``"auto"`` resolves to one of
+#: them before the forward (the JAX package's ``_remat``).
+REMAT_POLICIES = ("full", "dots", "dots_attn")
+
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -90,8 +109,8 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
     remat: bool = True
-    # "full" recomputes each layer in the backward; other JAX policies
-    # are not ported yet
+    # what each remat'd layer saves: "full" | "dots" | "dots_attn", or
+    # "auto" (resolved by the trainer before the forward)
     remat_policy: str = "full"
     attn_impl: str = "auto"  # auto | xla | flash (ops/attention.py)
     use_ring_attention: bool = False
@@ -116,10 +135,10 @@ class LlamaConfig:
             )
         if self.kernels not in KERNELS:
             raise ValueError(f"kernels must be one of {KERNELS}, got {self.kernels!r}")
-        if self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} is not ported yet"
-                " (ROADMAP queue 1 item 1.3); use 'full'"
+        if self.remat_policy not in REMAT_POLICIES + ("auto",):
+            raise ValueError(
+                f"remat_policy must be one of {REMAT_POLICIES + ('auto',)},"
+                f" got {self.remat_policy!r}"
             )
         if self.use_ring_attention:
             raise NotImplementedError(
@@ -365,6 +384,56 @@ def shard_params(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
     return out
 
 
+# -- remat policies --------------------------------------------------------
+
+#: Products with no batch dimensions: what ``"dots"`` saves, as JAX's
+#: ``dots_with_no_batch_dims_saveable`` (the int8 dot's int32 product too).
+#: Batched products (``bmm``) are recomputed.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten._int_mm.default)
+#: What ``"dots_attn"`` adds: the attention operator's outputs.
+_ATTN_OPS = (torch.ops.tpx.flash_fwd.default, torch.ops.tpx.attn_out.default)
+
+_UNSAVED = contextvars.ContextVar("tpx_remat_unsaved", default=False)
+
+
+@contextlib.contextmanager
+def _unsaved() -> Iterator[None]:
+    """Products inside run again in the recompute under every policy: for
+    one whose output the backward never reads (the FFN's down projection,
+    consumed by the residual add), which JAX's checkpoint drops as a
+    residual while a selective checkpoint would keep every saved op's
+    output until the recompute."""
+    token = _UNSAVED.set(True)
+    try:
+        yield
+    finally:
+        _UNSAVED.reset(token)
+
+
+def _policy(saved: frozenset, ctx: Any, op: Any, *args: Any, **kwargs: Any) -> CheckpointPolicy:
+    if op in saved and not _UNSAVED.get():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_kwargs(cfg: LlamaConfig) -> dict[str, Any]:
+    """``torch.utils.checkpoint`` keywords of ``cfg.remat_policy``: none for
+    ``"full"``, a selective-checkpoint policy for ``"dots"`` and
+    ``"dots_attn"``. ``"auto"`` raises: it is resolved before the forward."""
+    if cfg.remat_policy == "auto":
+        raise ValueError(
+            "remat_policy='auto' must be resolved before tracing — call"
+            " torchx_tpu_torch.parallel.remat_auto.choose_remat_policy"
+            " (the trainer does this at launch)"
+        )
+    if cfg.remat_policy == "full":
+        return {}
+    saved = frozenset(_DOT_OPS + (_ATTN_OPS if cfg.remat_policy == "dots_attn" else ()))
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, functools.partial(_policy, saved))}
+
+
 # -- forward ---------------------------------------------------------------
 
 
@@ -398,10 +467,9 @@ def ffn(
     i8 = cfg.int8_matmuls
     gate = F.silu(maybe_matmul(mlp_in, layer["w_gate"], int8_training=i8))
     up = maybe_matmul(mlp_in, layer["w_up"], int8_training=i8)
-    return (
-        maybe_matmul(gate * up, layer["w_down"], int8_training=i8),
-        torch.zeros((AUX_LEN,), dtype=torch.float32, device=mlp_in.device),
-    )
+    with _unsaved():
+        down = maybe_matmul(gate * up, layer["w_down"], int8_training=i8)
+    return down, torch.zeros((AUX_LEN,), dtype=torch.float32, device=mlp_in.device)
 
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
@@ -526,11 +594,13 @@ def forward_features(
     if mesh is not None:
         specs = tuple(param_specs(cfg)["layers"][key][1:] for key in keys)
         layer_fn = functools.partial(_sharded_layer, mesh, specs)
+    remat = remat_kwargs(cfg) if cfg.remat else {}
     auxes = []
     for i in range(cfg.n_layers):
         weights = [w[i] for w in per_layer]
         if cfg.remat:
-            x, aux = checkpoint(layer_fn, cfg, cos, sin, x, *weights, use_reentrant=False)
+            x, aux = checkpoint(layer_fn, cfg, cos, sin, x, *weights, use_reentrant=False,
+                                **remat)
         else:
             x, aux = layer_fn(cfg, cos, sin, x, *weights)
         auxes.append(aux)

@@ -61,6 +61,23 @@ def xla_attention(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+@torch.library.custom_op("tpx::attn_out", mutates_args=())
+def name_attn_out(x: torch.Tensor) -> torch.Tensor:
+    """The plain attention's output as one operator's (a copy): the value
+    the ``"dots_attn"`` remat policy saves, as the JAX package's
+    ``checkpoint_name(attn_out, "attn_out")`` names it. The flash path
+    needs no name: its forward is an operator of its own."""
+    return x.clone()
+
+
+@name_attn_out.register_fake
+def _(x):  # noqa: ANN001, ANN202
+    return torch.empty_like(x)
+
+
+name_attn_out.register_autograd(lambda ctx, grad: grad)
+
+
 def _flash_auto_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
     """The JAX package's ``_pallas_ok`` gate, the shapes at which its
     ``auto`` picks the splash kernel."""
@@ -99,4 +116,5 @@ def attention(
                 f"impl='flash': shapes q={tuple(q.shape)} k={tuple(k.shape)}"
                 " fail the flash kernels' gate (flash_shapes_ok)"
             )
-    return xla_attention(q, k, v, causal=causal, segment_ids=segment_ids)
+    # one operator's output, as the flash path's is: "dots_attn" saves it
+    return name_attn_out(xla_attention(q, k, v, causal=causal, segment_ids=segment_ids))

@@ -2,9 +2,11 @@
 
 Port of :mod:`torchx_tpu.ops.fused`, the ``--kernels cuda`` hot path:
 
-* :func:`flash_attention` — an autograd Function over CUDA C++ kernels:
-  the forward (``lse`` and O saved in f32), and the standard two-kernel
-  backward, ``delta = rowsum(dO * O)`` computed outside the kernels, one
+* :func:`flash_attention` — two ``torch.library`` operators over CUDA C++
+  kernels, ``tpx::flash_fwd`` (O and ``lse`` in f32, the residuals the
+  backward reads) with its autograd formula, and ``tpx::flash_bwd``, the
+  standard two-kernel backward, ``delta = rowsum(dO * O)`` computed outside
+  the kernels, one
   kernel accumulating ``dq`` over kv tiles and one accumulating
   ``dk``/``dv`` over q tiles and over the query heads that share a KV head
   (native GQA: KV is never repeated). Each of the three comes in two
@@ -17,9 +19,15 @@ Port of :mod:`torchx_tpu.ops.fused`, the ``--kernels cuda`` hot path:
   packed documents: a query sees only keys of its own segment, in all
   three kernels, so pairs across documents get exactly zero gradient.
 * :func:`rms_norm_residual` — ``s = x + residual`` in the input dtype, then
-  ``y = rms_norm(s) * w`` in f32, one Triton pass returning ``(y, s)``. Its
-  backward runs the RMSNorm dx+dw kernel of :mod:`.norms` on ``s`` and
-  sends the ``s`` cotangent through both inputs.
+  ``y = rms_norm(s) * w`` in f32, one Triton pass returning ``(y, s)``
+  (the operator ``tpx::norm_res_fwd``). Its backward runs the RMSNorm dx+dw
+  kernel of :mod:`.norms` (``tpx::rms_norm_bwd``) on ``s`` and sends the
+  ``s`` cotangent through both inputs.
+
+Each operator has a fake implementation that allocates what its kernel
+allocates: meta tensors run it (the fit probe, :mod:`torchx_tpu_torch.parallel.aot_fit`),
+and a remat policy sees each forward as one operator (``"dots_attn"``
+saves the flash forward's outputs).
 
 The norm-residual kernel replaces ``_norm_res_kernel`` (launched by
 ``_norm_res_pallas``) of ``torchx_tpu/ops/fused.py``. On an H100 it is
@@ -43,7 +51,7 @@ import torch
 
 from torchx_tpu_torch import _build
 from torchx_tpu_torch.ops.attention import _repeat_kv
-from torchx_tpu_torch.ops.norms import _bwd, _check_rows, _rms_norm_fwd_math
+from torchx_tpu_torch.ops.norms import _check_rows, _rms_norm_fwd_math, rms_norm_bwd_op
 
 #: The "already softmax-dead" constant the plain attention uses.
 NEG_INF = -1e30
@@ -277,22 +285,61 @@ def _flash_delta(do, o_f32):  # noqa: ANN001, ANN202
     return (do.float() * o_f32).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, segment_ids):  # noqa: ANN001, ANN205
-        o, lse = _flash_fwd(q, k, v, causal, segment_ids)
-        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
-        ctx.causal = causal
-        return o.to(q.dtype)
+@torch.library.custom_op("tpx::flash_fwd", mutates_args=())
+def flash_fwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    segment_ids: Optional[torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as one operator: -> (o f32 [b, s, h, d], lse f32
+    [b, h, s]), the backward's residuals. A remat policy saves these two
+    outputs as one op's (``"dots_attn"``), and the fit probe traces the
+    op's fake implementation on meta tensors."""
+    return _flash_fwd(q, k, v, causal, segment_ids)
 
-    @staticmethod
-    def backward(ctx, do):  # noqa: ANN001, ANN205
-        q, k, v, o, lse, segment_ids = ctx.saved_tensors
-        do = do.contiguous()
-        delta = _flash_delta(do, o)
-        dq = _flash_dq(q, k, v, do, lse, delta, ctx.causal, segment_ids)
-        dk, dv = _flash_dkv(q, k, v, do, lse, delta, ctx.causal, segment_ids)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+@flash_fwd_op.register_fake
+def _(q, k, v, causal, segment_ids):  # noqa: ANN001, ANN202
+    b, s, h = q.shape[:3]
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty((b, h, s), dtype=torch.float32))
+
+
+@torch.library.custom_op("tpx::flash_bwd", mutates_args=())
+def flash_bwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, causal: bool, segment_ids: Optional[torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward as one operator: ``delta``, then the dq kernel
+    and the dk/dv kernel. -> (dq, dk, dv) f32."""
+    delta = _flash_delta(do, o)
+    dq = _flash_dq(q, k, v, do, lse, delta, causal, segment_ids)
+    dk, dv = _flash_dkv(q, k, v, do, lse, delta, causal, segment_ids)
+    return dq, dk, dv
+
+
+@flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, segment_ids):  # noqa: ANN001, ANN202
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            k.new_empty(k.shape, dtype=torch.float32),
+            v.new_empty(v.shape, dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):  # noqa: ANN001, ANN202
+    q, k, v, causal, segment_ids = inputs
+    ctx.save_for_backward(q, k, v, *output, segment_ids)
+    ctx.causal = causal
+    ctx.set_materialize_grads(False)  # lse gets no gradient
+
+
+def _flash_backward(ctx, do, _dlse):  # noqa: ANN001, ANN202
+    q, k, v, o, lse, segment_ids = ctx.saved_tensors
+    # the kernels take dO in q's dtype: the gradient of o's cast to it, back
+    do = do.to(q.dtype).contiguous()
+    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do, ctx.causal, segment_ids)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(
@@ -315,9 +362,11 @@ def flash_attention(
         return None
     if segment_ids is not None:
         segment_ids = segment_ids.contiguous()
-    return _FlashAttention.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal, segment_ids
-    )
+        # refused before the operator, whose fake implementation (meta
+        # tensors, the fit probe) checks nothing
+        _check_segments(segment_ids, q)
+    o, _ = flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), causal, segment_ids)
+    return o.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -385,24 +434,38 @@ def _norm_res_fwd(x2d, r2d, weight, eps):  # noqa: ANN001, ANN202
     return y, s
 
 
-class _RmsNormResidual(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, res, weight, eps):  # noqa: ANN001, ANN205
-        d = x.shape[-1]
-        y, s = _norm_res_fwd(x.reshape(-1, d), res.reshape(-1, d), weight, eps)
-        ctx.save_for_backward(s, weight)
-        ctx.eps = eps
-        return y.reshape(x.shape), s.reshape(x.shape)
+@torch.library.custom_op("tpx::norm_res_fwd", mutates_args=())
+def norm_res_fwd_op(
+    x: torch.Tensor, residual: torch.Tensor, weight: torch.Tensor, eps: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused residual-add + RMSNorm forward as one operator: -> (y, s)
+    in x's shape and dtype."""
+    d = x.shape[-1]
+    y, s = _norm_res_fwd(x.reshape(-1, d), residual.reshape(-1, d), weight, eps)
+    return y.reshape(x.shape), s.reshape(x.shape)
 
-    @staticmethod
-    def backward(ctx, dy, ds_out):  # noqa: ANN001, ANN205
-        s, weight = ctx.saved_tensors
-        d = s.shape[-1]
-        # the dx+dw kernel of ops/norms runs on the summed stream s; the
-        # extra ds_out cotangent (s is also an output) adds straight through
-        dx, dw = _bwd(s, dy.reshape(-1, d).contiguous(), weight, ctx.eps)
-        ds = dx.reshape(ds_out.shape).to(s.dtype) + ds_out
-        return ds, ds, dw.to(weight.dtype), None
+
+@norm_res_fwd_op.register_fake
+def _(x, residual, weight, eps):  # noqa: ANN001, ANN202
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+def _norm_res_setup(ctx, inputs, output):  # noqa: ANN001, ANN202
+    _, _, weight, eps = inputs
+    ctx.save_for_backward(output[1], weight)
+    ctx.eps = eps
+
+
+def _norm_res_backward(ctx, dy, ds_out):  # noqa: ANN001, ANN202
+    s, weight = ctx.saved_tensors
+    # the dx+dw kernel of ops/norms runs on the summed stream s; the extra
+    # ds_out cotangent (s is also an output) adds straight through
+    dx, dw = rms_norm_bwd_op(s, dy, weight, ctx.eps)
+    ds = dx.to(s.dtype) + ds_out
+    return ds, ds, dw.to(weight.dtype), None
+
+
+norm_res_fwd_op.register_autograd(_norm_res_backward, setup_context=_norm_res_setup)
 
 
 def rms_norm_residual(
@@ -417,9 +480,7 @@ def rms_norm_residual(
     Any gate failure takes the plain op sequence, with identical values."""
     if kernels != "cuda" or not norm_shapes_ok(x.shape[-1]):
         return _rms_norm_residual_math(x, residual, weight, eps)
-    return _RmsNormResidual.apply(
-        x.contiguous(), residual.contiguous(), weight, eps
-    )
+    return norm_res_fwd_op(x.contiguous(), residual.contiguous(), weight, eps)
 
 
 def resolve_kernels(requested: str) -> str:

@@ -177,8 +177,26 @@ def _bwd(x2d, dy2d, weight, eps: float, config=BWD_CONFIG):  # noqa: ANN001
     return dx, dw
 
 
+@torch.library.custom_op("tpx::rms_norm_bwd", mutates_args=())
+def rms_norm_bwd_op(
+    x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, eps: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dx+dw backward kernel as one operator, over x's last axis: ->
+    (dx in x's shape and dtype, dw [d] f32). The fit probe traces its fake
+    implementation on meta tensors."""
+    d = x.shape[-1]
+    dx, dw = _bwd(x.reshape(-1, d), dy.reshape(-1, d).contiguous(), weight, eps)
+    return dx.reshape(x.shape), dw
+
+
+@rms_norm_bwd_op.register_fake
+def _(x, dy, weight, eps):  # noqa: ANN001, ANN202
+    return torch.empty_like(x), x.new_empty((x.shape[-1],), dtype=torch.float32)
+
+
 class _RmsNormFused(torch.autograd.Function):
-    """RMSNorm whose backward is the fused dx+dw kernel."""
+    """RMSNorm whose backward is the fused dx+dw kernel (the forward is
+    plain ops, which a remat policy and the fit probe see as they are)."""
 
     @staticmethod
     def forward(ctx, x, weight, eps):  # noqa: ANN001, ANN205
@@ -189,11 +207,8 @@ class _RmsNormFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):  # noqa: ANN001, ANN205
         x, weight = ctx.saved_tensors
-        d = x.shape[-1]
-        dx, dw = _bwd(
-            x.reshape(-1, d), dy.reshape(-1, d).contiguous(), weight, ctx.eps
-        )
-        return dx.reshape(x.shape), dw.to(weight.dtype), None
+        dx, dw = rms_norm_bwd_op(x, dy, weight, ctx.eps)
+        return dx, dw.to(weight.dtype), None
 
 
 def rms_norm(
