@@ -216,6 +216,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
    modeled bytes; then the three meshes in f32 with plain ops at 2 layers,
    every loss within 1e-3 of ``fsdp=4``'s (bf16 trajectories part as
    rounding flips near-tied router choices: ``EP_F32``).
+   pp — pipeline stages and ring attention. On one card, in the tp phase's
+   launch of two gloo ranks sharing the card (or one of its own):
+   llama3_1b at full width cut to 2 layers, the train phase's batch, 3
+   steps, at ``pp=2`` (GPipe, 4 microbatches of one row, a layer a stage)
+   and at ``sp=2`` with ``--ring-attention``, each held to one process on
+   the same global batch (the tp phase's, or its own): losses within 1e-2
+   and gradient norms within 5e-2, every rank's launches the expected
+   count (under ``pp`` microbatches x a stage's layers x (1 + remat) flash
+   forwards and norm forwards a step; under the ring no flash launch, the
+   ring's products in its place, and the norm kernels on a rank's
+   positions). Prints each rank's peak memory, the profiled step time,
+   rank 0's collectives by group (``pp``, ``sp``: host and device
+   milliseconds a step) beside the cost model's bytes. Then
+   ``ring_attention`` and ``ulysses_attention`` in f32 at llama3_1b's
+   attention shape (b 4, s 2048, 32/8 heads, head_dim 64) over ``sp=2``,
+   each rank's output and dq against the plain whole-sequence attention
+   on the card (the JAX tests' tolerances: 2e-5 / 1e-4 for the ring, 1e-6
+   / 1e-5 for Ulysses). With four cards or more (``--phases build,pp``):
+   NCCL, llama3_1b at full depth, 4 steps, at ``pp=4``, ``pp=2,fsdp=2``,
+   ``pp=2,tp=2`` and ``pp=2,sp=2`` with ring attention, each held to one
+   process (losses within 1e-2), its peak memory a rank beside the fit
+   probe's; then the long sequence, b 1, s 16384, ``sp=4``, with ring
+   attention against the sequence gather: step time, peak memory a rank,
+   the ``sp`` collectives' device milliseconds beside the modeled bytes.
 
 8. int8 — int8 train: ``train`` on llama3_1b in the train phase's
    setting under ``--int8-scope all`` and ``ffn`` (the trainer's own flag
@@ -316,7 +340,7 @@ import sys
 import time
 
 PHASES = ("build", "kernels", "train", "remat", "reference", "gang", "gangckpt", "tp", "serve",
-          "ckpt", "moe", "ep", "int8")
+          "ckpt", "moe", "ep", "pp", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
@@ -1590,11 +1614,12 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _spmd(args: list[str], target: list[str], env: dict, phase: str) -> tuple[dict, str]:
+def _spmd(args: list[str], target: list[str], env: dict, phase: str,
+          timeout_s: float | None = None) -> tuple[dict, str]:
     """``python -m torchx_tpu_torch.apps.spmd_main ARGS TARGET`` as one
     replica of a gang (``TPX_REPLICA_ID`` 0 of 1 on 127.0.0.1), in a session
-    of its own that is killed past ``GANG["timeout_s"]``. -> (rank 0's final
-    summary, the output)."""
+    of its own that is killed past ``timeout_s`` (default
+    ``GANG["timeout_s"]``). -> (rank 0's final summary, the output)."""
     import signal
 
     full = dict(os.environ, PYTHONPATH=REPO, TPX_REPLICA_ID="0", TPX_NUM_REPLICAS="1",
@@ -1604,7 +1629,7 @@ def _spmd(args: list[str], target: list[str], env: dict, phase: str) -> tuple[di
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             env=full, cwd=REPO, start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=GANG["timeout_s"])
+        out, _ = proc.communicate(timeout=timeout_s or GANG["timeout_s"])
     except subprocess.TimeoutExpired:
         out = ""
     finally:
@@ -2258,11 +2283,13 @@ TP = dict(layers=2, steps=3, meshes=("tp=2", "sp=2"), steps4=6,
 
 #: The runs' script under ``spmd_main``: each run of the JSON in argv[1]
 #: (config, layers or null for full depth, mesh, steps, and optionally
-#: ``profile``, default true, ``dtype``, ``kernels`` and ``remat_policy``,
-#: default the config's, "cuda" and the config's) through
+#: ``profile``, default true, ``dtype``, ``kernels``, ``remat_policy``,
+#: ``ring`` (ring attention), ``batch`` and ``seq``, default the config's,
+#: "cuda", the config's, off and the job's) through
 #: ``train_llama.train`` with the step profiler and
-#: its torch.profiler trace, the card's cache emptied after each; rank 0
-#: prints every run's results and seconds on one ``final:`` line.
+#: its torch.profiler trace, the card's cache emptied after each; a run of
+#: ``kind`` ``attn`` is :data:`_ATTN_CHECK` instead. Rank 0 prints every
+#: run's results and seconds on one ``final:`` line.
 _TP_SCRIPT = """import gc, json, os, sys, time
 import torch
 import torch.distributed as dist
@@ -2270,16 +2297,23 @@ from torchx_tpu_torch.examples import train_llama
 from torchx_tpu_torch.models import llama
 job = json.loads(sys.argv[1])
 out = []
+{attn_check}
 for run in job["runs"]:
+    if run.get("kind") == "attn":
+        out.append(attn_check(run))
+        continue
     kw = {{"n_layers": run["layers"]}} if run["layers"] else {{}}
     if run.get("dtype"):
         kw["dtype"] = getattr(torch, run["dtype"])
     if run.get("remat_policy"):
         kw.update(remat=True, remat_policy=run["remat_policy"])
+    if run.get("ring"):
+        kw["use_ring_attention"] = True
     cfg = llama.all_configs()[run["config"]](**kw)
     profiled = run.get("profile", True)
     t0 = time.monotonic()
-    res = train_llama.train(cfg, job["batch"], job["seq"], run["steps"],
+    res = train_llama.train(cfg, run.get("batch", job["batch"]), run.get("seq", job["seq"]),
+                            run["steps"],
                             kernels=run.get("kernels", "cuda"),
                             device="cuda", warmup=1, log_every=0, mesh=run["mesh"],
                             profile=profiled,
@@ -2299,6 +2333,51 @@ for run in job["runs"]:
     torch.cuda.empty_cache()  # the next run's model starts on a clean card
 if dist.get_rank() == 0:
     print("final:" + json.dumps(out), flush=True)
+"""
+
+#: A run of ``kind`` ``attn`` in :data:`_TP_SCRIPT`: ``ring_attention`` and
+#: ``ulysses_attention`` in f32 over the run's mesh on seeded q, k, v of
+#: ``shape`` (b, s, heads, kv heads, head_dim), the same on every rank;
+#: each rank's positions of the output and of dq (the sum of the output's
+#: squares) against the plain whole-sequence attention on the card, every
+#: rank's maximum errors gathered, with each op's forward-and-backward
+#: seconds.
+_ATTN_CHECK = """def attn_check(run):
+    from torchx_tpu_torch.ops.attention import xla_attention
+    from torchx_tpu_torch.ops.ring_attention import ring_attention
+    from torchx_tpu_torch.ops.ulysses import ulysses_attention
+    from torchx_tpu_torch.parallel.mesh import make_mesh
+    from torchx_tpu_torch.parallel.mesh_config import parse_mesh_spec
+    t0 = time.monotonic()
+    mesh = make_mesh(parse_mesh_spec(run["mesh"]))
+    b, s, h, kvh, d = run["shape"]
+    gen = torch.Generator(device="cuda").manual_seed(run["seed"])
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda") for n in (h, kvh, kvh))
+    pos = mesh.positions(s)
+    whole = q.clone().requires_grad_(True)
+    ref = xla_attention(whole, k, v, causal=True)
+    (ref ** 2).sum().backward()
+    ref, ref_dq = ref.detach()[:, pos], whole.grad[:, pos]
+    del whole
+    mine = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        ql = q[:, pos].clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        o = fn(ql, k[:, pos].contiguous(), v[:, pos].contiguous(), mesh)
+        (o ** 2).sum().backward()
+        torch.cuda.synchronize()
+        mine[name] = {"max_abs_err": (o.detach() - ref).abs().max().item(),
+                      "dq_max_abs_err": (ql.grad - ref_dq).abs().max().item(),
+                      "fwd_bwd_s": time.monotonic() - t}
+        del o, ql
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, mine)
+    del q, k, v, ref, ref_dq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kind": "attn", "mesh": run["mesh"], "shape": run["shape"], "by_rank": by_rank,
+            "seconds": time.monotonic() - t0}
 """
 
 
@@ -2333,7 +2412,7 @@ def collectives_by_group(events: list[dict], steps: int) -> dict:
 
 
 def _tp_runs(runs: list[dict], ranks: int, backend: str, phase: str = "tp",
-             probe: bool = False) -> list[dict]:
+             probe: bool = False, timeout_s: float | None = None) -> list[dict]:
     """``runs`` in one ``spmd_main`` launch of ``ranks`` ranks on
     ``backend``; each run's results with its collectives by group (rank
     0's trace, for a profiled run) and the cost model's bytes a step by
@@ -2351,11 +2430,14 @@ def _tp_runs(runs: list[dict], ranks: int, backend: str, phase: str = "tp",
     try:
         script = os.path.join(root, "tp_runs.py")
         with open(script, "w") as f:
-            f.write(_TP_SCRIPT.format())
+            f.write(_TP_SCRIPT.format(attn_check=_ATTN_CHECK))
         job = {"runs": runs, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "root": root}
         finals, _ = _spmd(["--nproc-per-node", str(ranks), "--backend", backend],
-                          ["--script", script, "--", json.dumps(job)], {}, phase)
+                          ["--script", script, "--", json.dumps(job)], {}, phase,
+                          timeout_s=timeout_s)
         for run, final in zip(runs, finals):
+            if run.get("kind") == "attn":
+                continue
             trace = final.pop("profile_trace")
             if trace:
                 with open(trace) as f:
@@ -2366,10 +2448,13 @@ def _tp_runs(runs: list[dict], ranks: int, backend: str, phase: str = "tp",
                 import torch
 
                 kw["dtype"] = getattr(torch, run["dtype"])
-            cfg = llama.all_configs()[run["config"]](**kw)
+            batch, seq = run.get("batch", TRAIN["batch"]), run.get("seq", TRAIN["seq"])
+            cfg = llama.all_configs()[run["config"]](
+                **kw, use_ring_attention=bool(run.get("ring")), max_seq=seq)
             plan = costmodel.ParallelPlan(
-                model=costmodel.ModelShape.of(cfg), batch=TRAIN["batch"], seq=TRAIN["seq"],
-                sizes=parse_mesh_spec(run["mesh"]).resolve(ranks))
+                model=costmodel.ModelShape.of(cfg), batch=batch, seq=seq,
+                sizes=parse_mesh_spec(run["mesh"]).resolve(ranks),
+                ring_attention=bool(run.get("ring")))
             final["modeled_bytes_per_step"] = {
                 t.axis: t.bytes_per_step for t in costmodel.collective_traffic(plan)}
             final["hbm_fit_total_bytes"] = costmodel.hbm_fit(plan).total_bytes
@@ -2379,10 +2464,13 @@ def _tp_runs(runs: list[dict], ranks: int, backend: str, phase: str = "tp",
 
             from torchx_tpu_torch.parallel import aot_fit
 
+            trained = [(run, final) for run, final in zip(runs, finals)
+                       if run.get("kind") != "attn"]
             requests = [aot_fit.probe_request(
                 dataclasses.replace(run.pop("cfg"), kernels=run.get("kernels", "cuda")),
-                run["mesh"], TRAIN["batch"], TRAIN["seq"], devices=ranks) for run in runs]
-            for final, r in zip(finals, aot_fit.run_probe(requests)):
+                run["mesh"], run.get("batch", TRAIN["batch"]), run.get("seq", TRAIN["seq"]),
+                devices=ranks) for run, _ in trained]
+            for (_, final), r in zip(trained, aot_fit.run_probe(requests)):
                 final["probe_peak_bytes_rank0"] = r.get("peak_bytes", r.get("error"))
         for run in runs:
             run.pop("cfg", None)
@@ -4350,6 +4438,209 @@ def phase_ep_cards() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: pp -- pipeline stages, ring attention and Ulysses attention
+# ---------------------------------------------------------------------------
+
+#: One card: llama3_1b at full width cut to ``layers`` layers, ``steps``
+#: steps on the train phase's batch, at each mesh of ``meshes`` (those of
+#: ``ring`` with ring attention) on two gloo ranks sharing the card; the
+#: attention check at ``attn`` (b, s, heads, kv heads, head_dim) over
+#: ``sp=2`` within ``tols`` (forward, dq) by op, the JAX package's tests'
+#: (``tests/test_model_stack.py``). Four cards: NCCL at full depth,
+#: ``steps4`` steps at ``meshes4`` (``ring4`` with ring attention), then
+#: the long sequence ``long`` with ring attention and with the gather.
+PP = dict(layers=2, steps=3, meshes=("pp=2", "sp=2"), ring=("sp=2",),
+          attn=(4, 2048, 32, 8, 64), tols={"ring": (2e-5, 1e-4), "ulysses": (1e-6, 1e-5)},
+          steps4=4, meshes4=("pp=4", "pp=2,fsdp=2", "pp=2,tp=2", "pp=2,sp=2"),
+          ring4=("pp=2,sp=2",), long=dict(batch=1, seq=16384, mesh="sp=4"))
+
+
+def _run_name(prefix: str, mesh: str) -> str:
+    return prefix + mesh.replace("=", "").replace(",", "_")
+
+
+def pp_runs() -> list[dict]:
+    """The pp phase's runs on one card (two gloo ranks): its meshes, then
+    the attention check."""
+    runs = [{"name": _run_name("pp_", m), "config": "llama3_1b", "layers": PP["layers"],
+             "mesh": m, "steps": PP["steps"], "ring": m in PP["ring"]} for m in PP["meshes"]]
+    runs.append({"name": "attn", "kind": "attn", "mesh": "sp=2,fsdp=1",
+                 "shape": list(PP["attn"]), "seed": 11})
+    return runs
+
+
+def pp_launches(cfg, steps: int, sizes: dict[str, int], ring: bool,  # noqa: ANN001
+                batch: int) -> dict[str, int]:
+    """A rank's launches over ``steps`` steps of ``cfg`` under a mesh of
+    ``sizes``: :func:`expected_launches` with a stage's layers times the
+    pipeline's microbatches in place of the layers under ``pp``, and no
+    flash launch under ring attention over ``sp`` (the ring's products
+    take the kernels' place)."""
+    import dataclasses
+
+    from torchx_tpu_torch.parallel.pipeline import auto_microbatches
+
+    pp, n = sizes["pp"], cfg.n_layers
+    if pp > 1:
+        rows = batch // (sizes["dp"] * sizes["fsdp"])
+        n = cfg.n_layers // pp * auto_microbatches(cfg.pp_microbatches, pp, rows)
+    out = expected_launches(dataclasses.replace(cfg, n_layers=n), steps)
+    if ring and sizes["sp"] > 1:
+        out.update({k: 0 for k in out if k.startswith("flash_")})
+    return out
+
+
+def _pp_line(run: dict, final: dict, cards: int) -> dict:
+    return {"phase": "pp", "cards": cards, "config": run["config"],
+            "n_layers": run["layers"], "steps": run["steps"], "mesh": final["mesh"],
+            "ring_attention": bool(run.get("ring")), "backend": final["backend"],
+            "world": final["world"], "batch": run.get("batch", TRAIN["batch"]),
+            "seq": run.get("seq", TRAIN["seq"]), "losses": final["losses"],
+            "grad_norms": final["grad_norms"],
+            "profiled_step_times_s": final["step_times_s"],
+            "profiled_step_time_s": final["step_time_s"],
+            "tokens_per_sec_per_card": final["tokens_per_sec_per_card"], "mfu": final["mfu"],
+            "peak_memory_bytes_by_rank": final["peak_memory_bytes_by_rank"],
+            "probe_peak_bytes_rank0": final.get("probe_peak_bytes_rank0"),
+            "hbm_fit_total_bytes": final["hbm_fit_total_bytes"],
+            "collectives_rank0": final.get("collectives"),
+            "modeled_bytes_per_step": final["modeled_bytes_per_step"],
+            "launches_by_rank": final["launches_by_rank"], "run_seconds": final["seconds"]}
+
+
+def _check_attn(final: dict) -> None:
+    emit({"phase": "pp", "run": "attention", **final, "tols": PP["tols"]})
+    for rank, by_op in enumerate(final["by_rank"]):
+        for op, (fwd_tol, dq_tol) in PP["tols"].items():
+            err = by_op[op]
+            if not (err["max_abs_err"] <= fwd_tol and err["dq_max_abs_err"] <= dq_tol):
+                fail("pp", f"{op} on rank {rank}: {err} beyond {fwd_tol} / {dq_tol}")
+
+
+def phase_pp(one: dict | None, finals: list[dict] | None = None) -> dict:
+    """Pipeline stages and ring attention (module docstring). ``one``: the
+    one-process run of llama3_1b at ``PP["layers"]`` layers and
+    ``PP["steps"]`` steps on the train phase's batch (the tp phase's
+    ``one_process_*`` entries), made here when None. ``finals``: the
+    results of :func:`pp_runs` where the tp phase's launch carried them,
+    else they are launched here. -> the lines by mesh."""
+    import torch
+
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.parallel.mesh_config import mesh_sizes_spec, parse_mesh_spec
+
+    t0 = time.monotonic()
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        return phase_pp_cards()
+    cfg = llama.llama3_1b(n_layers=PP["layers"])
+    if one is None:
+        free_card()
+        run = train(cfg, TRAIN["batch"], TRAIN["seq"], PP["steps"], kernels="cuda",
+                    device="cuda", warmup=1, log_every=0)
+        one = {"one_process_" + k: run[k] for k in
+               ("losses", "grad_norms", "step_time_s", "peak_memory_bytes")}
+    runs = pp_runs()
+    if finals is None:
+        free_card()
+        finals = _tp_runs(runs, 2, "gloo", "pp")
+    out = {}
+    for run, final in zip(runs, finals):
+        if run.get("kind") == "attn":
+            _check_attn(final)
+            continue
+        sizes = parse_mesh_spec(run["mesh"]).resolve(2)
+        expected = pp_launches(cfg, PP["steps"], sizes, run["ring"], TRAIN["batch"])
+        loss_rel = _rel_diff(final["losses"], one["one_process_losses"])
+        gn_rel = _rel_diff(final["grad_norms"], one["one_process_grad_norms"])
+        res = {**_pp_line(run, final, cards), "ranks_share_a_card": True, **one,
+               "loss_max_rel_diff": loss_rel, "loss_rtol": REF_LOSS_RTOL,
+               "grad_norm_max_rel_diff": gn_rel, "grad_norm_rtol": REF_GRAD_NORM_RTOL,
+               "modeled_grad_sync_s_per_step": final["comm_modeled_axis_s"],
+               "expected_launches": expected}
+        emit(res)
+        if (final["world"], final["backend"], final["mesh"]) != (2, "gloo",
+                                                                 mesh_sizes_spec(sizes)):
+            fail("pp", f"{run['mesh']} ran {final['world']} ranks on {final['backend']} as"
+                 f" {final['mesh']}")
+        if loss_rel > REF_LOSS_RTOL or gn_rel > REF_GRAD_NORM_RTOL:
+            fail("pp", f"{run['mesh']}: {final['losses']} / {final['grad_norms']} against one"
+                 f" process {one['one_process_losses']} / {one['one_process_grad_norms']}")
+        if any(launches != expected for launches in final["launches_by_rank"]):
+            fail("pp", f"{run['mesh']}: launches {final['launches_by_rank']} != {expected}")
+        axis = "pp" if sizes["pp"] > 1 else "sp"
+        if axis not in (final.get("collectives") or {}).get("host_ms_per_step", {}):
+            fail("pp", f"{run['mesh']}: no collective:{axis} range in rank 0's trace")
+        out[run["mesh"]] = res
+    emit({"phase": "pp", "run": "seconds", "seconds": time.monotonic() - t0})
+    return out
+
+
+def phase_pp_cards() -> dict:
+    """Four cards or more: NCCL, one rank a card on four, llama3_1b at
+    full depth (module docstring)."""
+    from torchx_tpu_torch.examples.train_llama import train
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.parallel.mesh_config import parse_mesh_spec
+
+    t0 = time.monotonic()
+    free_card()
+    cfg = llama.llama3_1b()
+    one = train(cfg, TRAIN["batch"], TRAIN["seq"], PP["steps4"], kernels="cuda",
+                device="cuda", warmup=1, log_every=0)
+    emit({"phase": "pp", "run": "one process", "cards": 4, "losses": one["losses"],
+          "grad_norms": one["grad_norms"], "step_time_s": one["step_time_s"],
+          "peak_memory_bytes": one["peak_memory_bytes"]})
+    free_card()
+    runs = [{"name": _run_name("pp4_", m), "config": "llama3_1b", "layers": None, "mesh": m,
+             "steps": PP["steps4"], "ring": m in PP["ring4"]} for m in PP["meshes4"]]
+    long = PP["long"]
+    runs += [{"name": f"long_{kind}", "config": "llama3_1b", "layers": None,
+              "mesh": long["mesh"], "steps": PP["steps4"], "batch": long["batch"],
+              "seq": long["seq"], "ring": kind == "ring"} for kind in ("gather", "ring")]
+    finals = _tp_runs(runs, 4, "nccl", "pp", probe=True, timeout_s=1500)
+    out = {}
+    for run, final in zip(runs, finals):
+        sizes = parse_mesh_spec(run["mesh"]).resolve(4)
+        batch = run.get("batch", TRAIN["batch"])
+        expected = pp_launches(cfg, run["steps"], sizes, run["ring"], batch)
+        res = {**_pp_line(run, final, 4), "expected_launches": expected}
+        if "seq" not in run:
+            res["loss_max_rel_diff"] = _rel_diff(final["losses"], one["losses"])
+            res["one_process_losses"] = one["losses"]
+        emit(res)
+        if final["backend"] != "nccl" or final["world"] != 4:
+            fail("pp", f"{run['mesh']} ran {final['world']} ranks on {final['backend']}")
+        if not all(math.isfinite(x) for x in final["losses"]):
+            fail("pp", f"{run['name']}: non-finite loss {final['losses']}")
+        if res.get("loss_max_rel_diff", 0.0) > REF_LOSS_RTOL:
+            fail("pp", f"{run['mesh']}: losses {final['losses']} against one process"
+                 f" {one['losses']}")
+        if any(launches != expected for launches in final["launches_by_rank"]):
+            fail("pp", f"{run['name']}: launches {final['launches_by_rank']} != {expected}")
+        out[run["name"]] = res
+    gather, ring = out["long_gather"], out["long_ring"]
+    rel = _rel_diff(ring["losses"], gather["losses"])
+    emit({"phase": "pp", "run": "long sequence", "mesh": long["mesh"], "seq": long["seq"],
+          "ring_vs_gather_loss_max_rel_diff": rel,
+          "step_time_s": {"gather": gather["profiled_step_time_s"],
+                          "ring": ring["profiled_step_time_s"]},
+          "peak_memory_bytes_by_rank": {"gather": gather["peak_memory_bytes_by_rank"],
+                                        "ring": ring["peak_memory_bytes_by_rank"]},
+          "sp_device_ms_per_step": {
+              k: (v["collectives_rank0"] or {}).get("device_ms_per_step", {}).get("sp")
+              for k, v in (("gather", gather), ("ring", ring))},
+          "modeled_sp_bytes_per_step": {"gather": gather["modeled_bytes_per_step"].get("sp"),
+                                        "ring": ring["modeled_bytes_per_step"].get("sp")}})
+    if rel > REF_LOSS_RTOL:
+        fail("pp", f"the long sequence: ring {ring['losses']} against gather"
+             f" {gather['losses']}")
+    emit({"phase": "pp", "run": "seconds", "seconds": time.monotonic() - t0})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: int8 -- the trainer's int8 matmuls, weight-only llama3_8b serving
 # ---------------------------------------------------------------------------
 
@@ -5005,19 +5296,27 @@ def main(argv: list[str] | None = None) -> int:
     if "gangckpt" in phases:
         with timed("gangckpt"):
             phase_gang_ckpt(gang_out["A_final"] if gang_out else None)
-    ep_shared = None  # the ep phase's two-rank run, carried by the tp launch
+    # the ep and pp phases' two-rank runs, carried by the tp launch
+    ep_shared = pp_shared = tp_out = None
     if "tp" in phases:
         b = gang_out["B"] if gang_out else None
-        extra = [ep_run()] if "ep" in phases and torch.cuda.device_count() < 4 else []
+        one_card = torch.cuda.device_count() < 4
+        ep_extra = [ep_run()] if "ep" in phases and one_card else []
+        pp_extra = pp_runs() if "pp" in phases and one_card else []
         with timed("tp"):
             tp_out, extra_finals = phase_tp(
                 {k: v for k, v in b.items() if k.startswith("one_process_")}
                 if b and (b["n_layers"], b["steps"]) == (TP["layers"], TP["steps"]) else None,
-                extra)
-        if extra_finals:
-            ep_shared, = extra_finals
+                ep_extra + pp_extra)
+        if ep_extra:
+            ep_shared = extra_finals[0]
             seconds["tp"] -= ep_shared["seconds"]  # booked to the ep phase
             seconds["ep"] = ep_shared["seconds"]
+        if pp_extra:
+            pp_shared = extra_finals[len(ep_extra):]
+            pp_s = sum(f["seconds"] for f in pp_shared)
+            seconds["tp"] -= pp_s  # booked to the pp phase
+            seconds["pp"] = pp_s
         # the local-shape rows' launches: rank 0's in the tp phase's run
         for row in kernel_rows:
             suffix = {"_tp2": "tp=2", "_sp2": "sp=2"}.get(row["name"][-4:])
@@ -5063,6 +5362,21 @@ def main(argv: list[str] | None = None) -> int:
                 row["launches_ep_by_rank"] = [r[base] for r in ep_out["launches_by_rank"]]
                 if not all(row["launches_ep_by_rank"]):
                     fail("ep", f"{row['name']}: a rank of the ep=2 step never launched it")
+    if "pp" in phases:
+        # the tp phase's one-process run (the same layers and steps)
+        one = ({k: v for k, v in next(iter(tp_out.values())).items()
+                if k.startswith("one_process_")}
+               if tp_out and (TP["layers"], TP["steps"]) == (PP["layers"], PP["steps"])
+               else None)
+        with timed("pp"):
+            pp_out = phase_pp(one, pp_shared)
+        # each rank's launches of the llama3_1b rows' kernels in the pp=2 run
+        if "pp=2" in pp_out:
+            for row in kernel_rows:
+                if row["name"] in pp_out["pp=2"]["expected_launches"]:
+                    row["launches_pp_by_rank"] = [
+                        r[row["name"]] for r in pp_out["pp=2"]["launches_by_rank"]]
+                    row["launches_pp_from"] = "pp phase, each rank of pp=2, llama3_1b at 2 layers"
     if "int8" in phases:
         with timed("int8"):
             phase_int8_train(train_out if "train" in phases else None)

@@ -110,6 +110,9 @@ CASES = [
     ("llama3_1b", "fsdp=1", 4, 2048, "dots_attn", {}),
     ("llama3_8b", "fsdp=2,tp=2", 8, 4096, "dots", {}),
     ("llama3_1b", "dp=2,sp=2", 8, 2048, "dots_attn", {}),
+    ("llama3_1b", "pp=2", 4, 2048, "full", {}),
+    ("llama3_1b", "pp=2,fsdp=2", 8, 2048, "dots", {}),
+    ("mixtral_8x7b", "pp=2,ep=2", 4, 2048, "dots_attn", {}),
     ("mixtral_8x7b", "fsdp=2,ep=2", 4, 2048, "full", {}),
     ("moe_tiny", "ep=2,tp=2", 8, 64, "dots", {}),
     ("llama3_8b", "tp=2", 1, 8192, "full", dict(serve=True, max_batch=8)),
@@ -188,6 +191,32 @@ def test_fit_table(capsys):
     assert [r.split("|")[3].strip() for r in rows] == ["full", "dots"]
     assert aot_memory_fit.main(["--config", "tiny", "--mesh", "fsdp=1",
                                 "--cases", "4:64:full", "--hbm-bytes", "1000"]) == 1
+
+
+@pytest.mark.parametrize("mesh,ring", [("pp=2,fsdp=1", False), ("sp=2,fsdp=1", True),
+                                       ("pp=2,sp=2,fsdp=1", True)])
+def test_probe_traces_pp_and_ring_meshes(mesh, ring):
+    """Rank 0 of a pp or ring mesh traced on the fake process group (the
+    pipeline's and the ring's messages move nothing on meta tensors): its
+    resident state is its stage's layers and the leaves every stage holds,
+    plus both moments and the tokens, each storage rounded as the caching
+    allocator rounds it; the step's temporaries come on top."""
+    cfg = tllama.llama_tiny(remat=True, use_ring_attention=ring)
+    r = aot_fit.trace_fit(cfg, mesh, batch=4, seq=32)
+    sizes = parse_mesh_spec(mesh).resolve(int(np.prod([int(a.split("=")[1])
+                                                       for a in mesh.split(",")])))
+    specs = dict(tllama.named_leaves(tllama.param_specs(cfg, pp=sizes["pp"] > 1)))
+    shapes = {n: t.shape for n, t in tllama.named_leaves(tllama.init_params(cfg, None, "meta"))}
+    state = 0
+    for name, shape in shapes.items():
+        n = np.prod(shape) // (sizes["pp"] if specs[name][0] == "pp" else 1)
+        state += aot_fit.alloc_bytes(int(n) * 4)
+    assert r.args_bytes == 3 * state + aot_fit.alloc_bytes(4 * 33 * 8)
+    assert r.temp_bytes > 0 and r.fits
+    assert not dist.is_initialized()
+    rc = aot_memory_fit.main(["--config", "tiny", "--mesh", mesh, "--cases", "4:32:full"]
+                             + (["--ring-attention"] if ring else []))
+    assert rc == 0
 
 
 def test_north_star_and_model_state():

@@ -259,12 +259,16 @@ def test_a_moe_step_restores_bitwise_at_another_mesh(runs, saved, restored, tmp_
     _assert_blocks(results, whole, spec, "restored")
 
 
-@pytest.mark.parametrize("mesh,match", [("ep=4,tp=2", "item 1.2"), ("ep=3", "item 1.2"),
-                                        ("pp=2", "item 1.4")])
+@pytest.mark.parametrize("mesh,match", [
+    ("ep=4,tp=2", "item 1.2"), ("ep=3", "item 1.2"),
+    # pp is ported (tests/test_torch_pp.py): what it cannot split, moe_tiny's
+    # 2 layers over 4 stages, raises as the reference does
+    pytest.param("pp=4", "2 layers not divisible by 4 stages", id="pp=2-item 1.4")])
 def test_what_ep_cannot_split_raises(mesh, match):
-    """ep x tp must divide moe_tiny's 4 experts (8 and 3 do not); pp stays
-    refused. Each raises before a process group starts."""
-    with pytest.raises(NotImplementedError, match=match):
+    """ep x tp must divide moe_tiny's 4 experts (8 and 3 do not), and pp
+    its 2 layers (4 does not). Each raises before a process group
+    starts."""
+    with pytest.raises((NotImplementedError, ValueError), match=match):
         ttrain.train(tmoe.moe_tiny(), batch=2, seq=16, steps=1, device="cpu", log_every=0,
                      mesh=mesh)
     assert not torch.distributed.is_initialized()

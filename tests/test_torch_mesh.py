@@ -202,8 +202,8 @@ def test_unshard_at_world_one(world_one, spec):
 def test_unshard_refuses_model_axes(world_one):
     """A tp, ep or (ep, tp) block stays local: at fsdp 1 the unshard of a
     spec naming them on one dimension and fsdp on another is the block
-    itself (its gradient too); an axis beside fsdp, ep and tp (pp) still
-    raises."""
+    itself (its gradient too); so is a stage's block of layers over pp; an
+    axis no parameter shards over (sp) raises."""
     m = dataclasses.replace(tmesh.make_mesh(),
                             sizes=tmc.MeshConfig(fsdp=1, ep=2, tp=2).resolve(4))
     x = torch.randn(6, 4, requires_grad=True)
@@ -215,8 +215,10 @@ def test_unshard_refuses_model_axes(world_one):
     (y * g).sum().backward()
     assert torch.equal(x.grad, g)
     m = dataclasses.replace(m, sizes=tmc.MeshConfig(fsdp=1, pp=2).resolve(2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 1.4"):
-        m.unshard(torch.zeros(4, 4), (None, "pp"))
+    assert torch.equal(m.unshard(x, ("pp", None)), x)
+    m = dataclasses.replace(m, sizes=tmc.MeshConfig(fsdp=1, sp=2).resolve(2))
+    with pytest.raises(ValueError, match="model's layouts"):
+        m.unshard(torch.zeros(4, 4), (None, "sp"))
 
 
 def test_make_mesh_needs_a_group():

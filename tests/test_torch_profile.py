@@ -120,11 +120,15 @@ def test_attribution_model_of_one_card():
           for k in ("flops_per_token", "tokens_per_step", "peak_flops", "param_count")}
     assert (tprofile.attribution_model(**kw).to_dict()
             == jprofile.attribution_model(**kw).to_dict())
-    # pp's traffic is not ported: a plan that sets it raises
+    # pp's traffic is ported: a plan that sets it models the JAX cost
+    # model's stage_activations bytes over the link rate
     tplan = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.llama_tiny()),
                                sizes={"pp": 2}, batch=8, seq=128)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tprofile.attribution_model(plan=tplan, **kw)
+    jp = jplan.ParallelPlan(role="train", model=jplan.MODEL_SHAPES["tiny"], mesh_spec="",
+                            sizes={"pp": 2}, batch=8, seq=128)
+    want = {t.axis: t.bytes_per_step / 10e9 for t in jcost.collective_traffic(jp)}
+    assert tprofile.attribution_model(plan=tplan, **kw).comm_axis_s == want == {
+        "pp": want["pp"]}
     assert tprofile.ASSUMED_MFU == __import__("torchx_tpu.tune.rank").tune.rank.ASSUMED_MFU
     assert tprofile.CORE_PHASES == jprofile.CORE_PHASES
     assert tprofile.PHASES == jprofile.PHASES
@@ -188,6 +192,41 @@ def test_ep_bytes_are_the_cost_models(config, sizes):
     got = {t.axis: t.bytes_per_step for t in tcost.collective_traffic(tp)}
     assert got == want
     assert ("ep" in got) == (config != "tiny")
+
+
+@pytest.mark.parametrize("config", ["llama3_1b", "tiny", "mixtral_8x7b"])
+@pytest.mark.parametrize("sizes,ring", [
+    (dict(pp=2), False), (dict(pp=4), False), (dict(pp=2, fsdp=2), False),
+    (dict(pp=2, tp=2), False), (dict(pp=2, ep=2), False), (dict(sp=2), True),
+    (dict(sp=4), True), (dict(pp=2, sp=2), True), (dict(pp=2, sp=2), False)],
+    ids=lambda v: ",".join(f"{k}={n}" for k, n in v.items()) if isinstance(v, dict)
+    else ("ring" if v else "gather"))
+def test_pp_and_ring_bytes_are_the_cost_models(config, sizes, ring):
+    """The pp term (stage_activations), the ring's sp term (ring_kv_permute)
+    and every per-layer term at a stage's layers, ceil(n_layers / pp),
+    equal the JAX cost model's ``collective_traffic`` byte for byte, at the
+    presets' step shape (batch 4, seq 2048) and the tiny test shape."""
+    batch, seq = (4, 32) if config == "tiny" else (4, 2048)
+    jp = jplan.ParallelPlan(role="train", model=jplan.MODEL_SHAPES[config], mesh_spec="",
+                            sizes=sizes, batch=batch, seq=seq, ring_attention=ring)
+    tp = tcost.ParallelPlan(model=tcost.ModelShape.of(tllama.get_config(config)),
+                            sizes=sizes, batch=batch, seq=seq, ring_attention=ring)
+    want = {t.axis: t.bytes_per_step for t in jcost.collective_traffic(jp)}
+    got = {t.axis: t.bytes_per_step for t in tcost.collective_traffic(tp)}
+    assert got == want
+    assert ("pp" in got) == (sizes.get("pp", 1) > 1)
+
+
+def test_tp_bytes_count_a_stages_layers():
+    """At pp=2,tp=2 the tp term counts the 8 layers of a stage of
+    llama3_1b's 16, as the JAX term does: half the bytes of tp=2 alone."""
+    m = tcost.ModelShape.of(tllama.get_config("llama3_1b"))
+    traffic = {}
+    for sizes in (dict(tp=2), dict(pp=2, tp=2)):
+        plan = tcost.ParallelPlan(model=m, sizes=sizes, batch=4, seq=2048)
+        traffic[len(sizes)] = {t.axis: t.bytes_per_step for t in tcost.collective_traffic(plan)}
+    act = 4 * 2048 * 2 * 2048  # b x s x dtype bytes x dim
+    assert traffic[2]["tp"] == int(4 * 8 * 2 * 0.5 * act) == traffic[1]["tp"] // 2
 
 
 #: The training instruments, by the name of the module attribute.

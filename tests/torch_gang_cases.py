@@ -26,7 +26,9 @@ Kinds of case:
   batches of ``batches`` (``tokens`` [steps, b, s+1], optional
   ``loss_mask``), the model ``llama_tiny(**model)`` (default the test
   shape), or the preset ``config`` with ``model``'s fields replaced;
-  -> the same, and each step's router aux vector.
+  -> the same, and each step's router aux vector; under ``pp``, also each
+  step's leaves outside the layers (``replicated``: every stage holds
+  them whole).
 * ``collectives``: the model axes' autograd functions of
   ``parallel/mesh.py`` on a ``tp=2`` and an ``sp=2`` mesh of two ranks,
   forward and backward on inputs seeded by rank (:func:`collective_inputs`);
@@ -34,6 +36,15 @@ Kinds of case:
 * ``sync``: ``overlap.bucketed_sync`` over the ``dp`` group of a ``dp``
   mesh, on seeded per-rank gradients, with ``bucket_mb`` and with one
   fused sync, gathered in chunks of ``chunk_bytes``; -> both results.
+* ``ops``: the long-sequence and pipeline collectives' users under
+  ``mesh`` on the whole inputs of ``inputs`` (an ``.npz``):
+  ``ring_attention`` or ``ulysses_attention`` (``op`` ``ring`` /
+  ``ulysses``) on this rank's positions of ``q``, ``k``, ``v``, or
+  ``pipeline_apply`` (``pipeline``, ``pipeline_aux``) of the MLP layer
+  ``tanh(x @ w + b)`` on ``x`` with this stage's layers of ``w``, ``b``, in
+  ``n_micro`` microbatches; -> the output and, from the backward of the
+  sum of its squares (plus the aux for ``pipeline_aux``), the gradients of
+  this rank's inputs.
 * ``moe_balance``: ``moe.moe_ffn`` on this rank's rows of the batch in
   ``batches`` (``x`` [b, s, d]) and the MoE layer ``init`` (an ``.npz``
   of ``moe_tiny``'s layer-0 leaves) under ``mesh``, its balance term
@@ -42,7 +53,8 @@ Kinds of case:
 Not a test module itself: the tests that read the results are
 ``tests/test_torch_fsdp.py``, ``tests/test_torch_overlap.py``,
 ``tests/test_torch_gang_ckpt.py``, ``tests/test_torch_moe.py``,
-``tests/test_torch_tp.py`` and ``tests/test_torch_ep.py``.
+``tests/test_torch_tp.py``, ``tests/test_torch_ep.py``,
+``tests/test_torch_ring.py`` and ``tests/test_torch_pp.py``.
 """
 
 import dataclasses
@@ -154,7 +166,7 @@ def run_step(case: dict) -> dict:
     step = train_llama.make_train_step(cfg, opt, mesh)
     data = np.load(case["batches"])
     rows = mesh.batch_rows(data["tokens"].shape[1])
-    losses, norms, auxes = [], [], []
+    losses, norms, auxes, replicated = [], [], [], []
     for i in range(data["tokens"].shape[0]):
         batch = {"tokens": torch.from_numpy(data["tokens"][i][rows])}
         if "loss_mask" in data.files:
@@ -163,8 +175,12 @@ def run_step(case: dict) -> dict:
         losses.append(float(out["loss"]))
         norms.append(float(out["grad_norm"]))
         auxes.append(out["aux"].tolist())
+        if mesh.sizes["pp"] > 1:
+            replicated.append({k: v.detach().clone() for k, v in params.items()
+                               if k != "layers"})
     shards = {f"params.{k}": v.detach().clone() for k, v in llama.named_leaves(params)}
-    return {"losses": losses, "grad_norms": norms, "auxes": auxes, "params": shards}
+    return {"losses": losses, "grad_norms": norms, "auxes": auxes, "params": shards,
+            "replicated": replicated}
 
 
 def run_sync(case: dict) -> dict:
@@ -183,6 +199,39 @@ def run_sync(case: dict) -> dict:
     n_bucketed = overlap.bucketed_sync(bucketed, plan, mesh.dp_group)
     return {"local": grads, "fused": fused, "bucketed": bucketed, "n_buckets": plan.n_buckets,
             "issued": [n_fused, n_bucketed]}
+
+
+def run_ops(case: dict) -> dict:
+    from torchx_tpu_torch.ops.ring_attention import ring_attention
+    from torchx_tpu_torch.ops.ulysses import ulysses_attention
+    from torchx_tpu_torch.parallel.pipeline import pipeline_apply
+
+    mesh = make_mesh(parse_mesh_spec(case["mesh"]))
+    data = np.load(case["inputs"])
+    op = case["op"]
+    if op in ("ring", "ulysses"):
+        pos = mesh.positions(data["q"].shape[1])
+        args = [torch.from_numpy(data[k][:, pos]).requires_grad_(True) for k in "qkv"]
+        fn = ring_attention if op == "ring" else ulysses_attention
+        out = fn(*args, mesh)
+        loss = (out**2).sum()
+    else:
+        n = mesh.sizes["pp"]
+        layers = [torch.from_numpy(data[k]).chunk(n)[mesh.stage].clone().requires_grad_(True)
+                  for k in ("w", "b")]
+        args = [torch.from_numpy(data["x"]).requires_grad_(True), *layers]
+        with_aux = op == "pipeline_aux"
+
+        def body(h, weights):  # noqa: ANN001, ANN202
+            y = torch.tanh(h @ weights[0] + weights[1])
+            return (y, h.mean()) if with_aux else y
+
+        res = pipeline_apply(body, layers, args[0], mesh, case["n_micro"], with_aux=with_aux)
+        out, aux = res if with_aux else (res, None)
+        loss = (out**2).sum() + (aux.sum() if with_aux else 0)
+    loss.backward()
+    return {"out": out.detach(), "aux": None if op != "pipeline_aux" else aux.detach(),
+            "grads": [a.grad for a in args]}
 
 
 def run_moe_balance(case: dict) -> dict:
@@ -238,7 +287,7 @@ def run_collectives(case: dict) -> dict:
 
 
 RUNNERS = {"train": run_train, "step": run_step, "sync": run_sync,
-           "moe_balance": run_moe_balance, "collectives": run_collectives}
+           "moe_balance": run_moe_balance, "collectives": run_collectives, "ops": run_ops}
 
 
 def main() -> None:

@@ -12,30 +12,35 @@ reference's, component for component (``tests/test_torch_aot_fit.py``);
 the budget is the card's (``hbm_bytes_per_chip``: an H100 80GB's
 memory unless the caller reads the card's), never a TPU table's.
 
-The port of the ``_ring`` factor and the ``fsdp``, ``dp``, ``tp``, ``sp``
-and ``ep`` terms, over a copy of the few :class:`~torchx_tpu.analyze.plan.ParallelPlan`
-and :class:`~torchx_tpu.analyze.plan.ModelShape` fields they read. The
-bytes are the reference's to the byte (``tests/test_torch_profile.py``),
-so that a gang's ``grad_sync`` slices are modeled as the JAX trainer's
-are. With ``b`` the rows and ``s`` the positions a rank computes
-(``batch / (dp * fsdp)``, ``seq / sp``) and ``act`` = ``b * s`` times the
-parameter bytes:
+The port of the ``_ring`` factor and the ``fsdp``, ``dp``, ``tp``, ``sp``,
+``ep`` and ``pp`` terms, over a copy of the few
+:class:`~torchx_tpu.analyze.plan.ParallelPlan` and
+:class:`~torchx_tpu.analyze.plan.ModelShape` fields they read. The bytes
+are the reference's to the byte (``tests/test_torch_profile.py``), so that
+a gang's ``grad_sync`` slices are modeled as the JAX trainer's are. With
+``b`` the rows and ``s`` the positions a rank computes (``batch / (dp *
+fsdp)``, ``seq / sp``), ``layers`` a stage's (``ceil(n_layers / pp)``)
+and ``act`` = ``b * s`` times the parameter bytes:
 
 * ``fsdp``: ZeRO-3, every parameter gathered in the forward and again in
   the backward, and the gradient reduce-scattered: ``3 x ring(fsdp)``
-  times the bytes of a rank's ``tp`` block of the parameters (for a MoE
-  model, its ``tp`` x ``ep`` block: the reference divides every leaf by
-  ``ep``, the replicated ones too);
+  times the bytes of a rank's ``pp`` x ``tp`` block of the parameters (for
+  a MoE model, its ``pp`` x ``tp`` x ``ep`` block: the reference divides
+  every leaf by ``pp`` and ``ep``, the replicated ones too);
 * ``dp``: the gradient all-reduced over the ``fsdp`` shard a rank holds:
   ``2 x ring(dp)`` times its bytes;
 * ``tp``: two all-reduces a layer (after ``wo`` and ``w_down``) in the
   forward and their mirrors in the backward, ``4 x layers x 2 x ring(tp)
   x act x dim``;
 * ``sp``: each layer's K and V gathered over the sequence,
-  ``layers x 2 x ring(sp) x act x 2 x n_kv_heads x head_dim``;
+  ``layers x 2 x ring(sp) x act x 2 x n_kv_heads x head_dim``; with ring
+  attention the ``sp - 1`` hops of each layer's K/V block, ``layers x (sp
+  - 1) x act x 2 x n_kv_heads x head_dim``;
 * ``ep`` (a MoE model): the dispatch and combine all-to-alls forward and
   backward, ``4 x ring(ep) x act x dim x top_k``: one layer's, since the
-  reference leaves out the layer count its ``tp`` term has.
+  reference leaves out the layer count its ``tp`` term has;
+* ``pp``: a stage's activations to the next stage and their gradient
+  back, ``2 x act x dim x (pp - 1) / pp``.
 
 These are the reference's reckonings, not the port's traffic: the port's
 ``dp`` x ``sp`` sum all-gathers and adds in rank order
@@ -46,7 +51,10 @@ gathers; the vocab-parallel cross-entropy and the tied embedding's
 gradient add their own; a MoE layer exchanges no token over ``ep`` and
 sums its output over ``ep`` x ``tp`` instead (an all-reduce a layer
 forward, again in the recompute, and the gradients of its input and gate
-weights backward). ``pp`` is not ported, and a plan that sets it raises.
+weights backward); the ring's backward sends each K/V block's gradient
+back and its remat recompute sends the blocks again; the pipeline
+broadcasts the last stage's outputs and stage 0's input gradient to every
+stage.
 """
 
 from __future__ import annotations
@@ -64,9 +72,6 @@ LINK_BYTES_PER_S = {"h100": 450e9}
 #: Anywhere else (the CPU): the reference's CPU-sim figure
 #: (``torchx_tpu.tune.rank._DEFAULT_PERF``), arbitrary but consistent.
 DEFAULT_LINK_BYTES_PER_S = 10e9
-
-_UNPORTED_AXES = ("pp",)
-
 
 def link_bytes_per_s(generation: str) -> float:
     """The link rate of ``generation`` (a card's name), or the default."""
@@ -122,7 +127,8 @@ class ModelShape:
 class ParallelPlan:
     """The fields of the reference's ``ParallelPlan`` the ported axes and
     :func:`hbm_fit` read: the model, the resolved axis sizes, the global
-    batch and sequence of a step, the remat policy, and for a serving role
+    batch and sequence of a step, the remat policy, whether attention runs
+    as ring attention over ``sp``, and for a serving role
     its slots, int8 weights and prefix-cache reserve. The budget is a
     card's memory: ``hbm_source`` says whether it was read from the card
     (``"device"``), given (``"override"``) or is the H100 80GB default
@@ -133,6 +139,7 @@ class ParallelPlan:
     batch: int
     seq: int
     remat_policy: str = "full"
+    ring_attention: bool = False
     int8: bool = False
     serve: bool = False
     max_batch: int = 16  # serve decode slots
@@ -280,31 +287,32 @@ def _logits_bytes(plan: ParallelPlan, b: int, s: int) -> int:
 
 
 def collective_traffic(plan: ParallelPlan) -> list[AxisTraffic]:
-    """Per-step, per-device collective bytes of every live ported axis, in
-    the reference's order (fsdp, dp, tp, sp, ep)."""
-    unported = {a: plan.axis(a) for a in _UNPORTED_AXES if plan.axis(a) > 1}
-    if unported:
-        raise NotImplementedError(
-            f"mesh axes {unported}: their traffic is not ported (pp: ROADMAP queue 1"
-            " item 1.4)")
+    """Per-step, per-device collective bytes of every live axis, in the
+    reference's order (fsdp, dp, tp, sp, ep, pp)."""
     m = plan.model
-    fsdp, dp, tp, sp, ep = (plan.axis(a) for a in ("fsdp", "dp", "tp", "sp", "ep"))
+    pp, fsdp, dp, tp, sp, ep = (plan.axis(a) for a in ("pp", "fsdp", "dp", "tp", "sp", "ep"))
     b = max(1, math.ceil(plan.batch / (dp * fsdp)))
     s = max(1, math.ceil(plan.seq / sp))
+    layers = max(1, math.ceil(m.n_layers / pp))  # a stage's
     act_tok = b * s * m.dtype_bytes
-    # the parameter bytes a rank sees un-fsdp-sharded (tp blocks and, for a
-    # MoE model, ep blocks stay local)
-    param_slice = m.param_count * m.dtype_bytes / (tp * (ep if m.is_moe else 1))
+    # the parameter bytes a rank sees un-fsdp-sharded (pp stages, tp blocks
+    # and, for a MoE model, ep blocks stay local)
+    param_slice = m.param_count * m.dtype_bytes / (pp * tp * (ep if m.is_moe else 1))
     out = []
     if fsdp > 1:
         out.append(AxisTraffic("fsdp", int(3 * _ring(fsdp) * param_slice)))
     if dp > 1:
         out.append(AxisTraffic("dp", int(2 * _ring(dp) * param_slice / fsdp)))
     if tp > 1:
-        out.append(AxisTraffic("tp", int(4 * m.n_layers * 2 * _ring(tp) * act_tok * m.dim)))
+        out.append(AxisTraffic("tp", int(4 * layers * 2 * _ring(tp) * act_tok * m.dim)))
     if sp > 1:
         kv_bytes = act_tok * 2 * m.n_kv_heads * m.head_dim
-        out.append(AxisTraffic("sp", int(m.n_layers * 2 * _ring(sp) * kv_bytes)))
+        if plan.ring_attention:
+            out.append(AxisTraffic("sp", int(layers * (sp - 1) * kv_bytes)))
+        else:
+            out.append(AxisTraffic("sp", int(layers * 2 * _ring(sp) * kv_bytes)))
     if ep > 1 and m.is_moe:
         out.append(AxisTraffic("ep", int(4 * _ring(ep) * act_tok * m.dim * m.top_k)))
+    if pp > 1:
+        out.append(AxisTraffic("pp", int(2 * act_tok * m.dim * (pp - 1) / pp)))
     return out

@@ -9,6 +9,8 @@ estimate (:func:`torchx_tpu_torch.analyze.costmodel.hbm_fit`)::
     python -m torchx_tpu_torch.apps.aot_memory_fit                  # llama3_8b, fsdp=8,tp=2
     python -m torchx_tpu_torch.apps.aot_memory_fit --config llama3_1b --mesh fsdp=4 \\
         --cases 4:2048:full,4:2048:dots,4:2048:dots_attn
+    python -m torchx_tpu_torch.apps.aot_memory_fit --config llama3_1b --mesh pp=2,sp=2 \
+        --ring-attention --cases 4:8192:full
 
 Exits 1 when a case does not fit (or its trace fails).
 """
@@ -43,6 +45,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     parser.add_argument("--hbm-bytes", type=int, default=H100_HBM_BYTES,
                         help="a card's memory (default an H100 80GB's)")
     parser.add_argument("--headroom", type=float, default=DEFAULT_HEADROOM)
+    parser.add_argument("--ring-attention", action="store_true",
+                        help="attention under sp as ring attention (the trainer's flag)")
     args = parser.parse_args(argv)
 
     from torchx_tpu_torch.analyze import costmodel
@@ -53,6 +57,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     sizes = parse_mesh_spec(args.mesh).resolve(n)
     base = north_star_cfg() if args.config == "llama3_8b" else dataclasses.replace(
         llama.get_config(args.config), kernels="cuda")
+    base = dataclasses.replace(base, use_ring_attention=args.ring_attention)
     print(f"gang: {n} x H100, mesh {sizes}")
     print(f"budget: {args.hbm_bytes / GIB:.1f} GiB a card x {args.headroom} headroom")
     print("\n| batch | seq | remat | args GiB/card | temps GiB/card | peak GiB/card | fits"
@@ -64,7 +69,8 @@ def main(argv: Optional[list[str]] = None) -> int:
         cfg = dataclasses.replace(base, remat=True, remat_policy=policy)
         plan = costmodel.ParallelPlan(
             model=costmodel.ModelShape.of(cfg), sizes=sizes, batch=int(b), seq=int(s),
-            remat_policy=policy, hbm_bytes_per_chip=args.hbm_bytes, hbm_source="override")
+            remat_policy=policy, ring_attention=args.ring_attention,
+            hbm_bytes_per_chip=args.hbm_bytes, hbm_source="override")
         analytic = costmodel.hbm_fit(plan, args.headroom).total_bytes / GIB
         try:
             r = trace_fit(cfg, args.mesh, int(b), int(s), hbm_bytes=args.hbm_bytes,

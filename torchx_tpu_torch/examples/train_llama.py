@@ -1,7 +1,7 @@
 """Llama pretraining on GPUs: the port of
 :mod:`torchx_tpu.examples.train_llama`, dense and MoE, on one card and
-across a gang of them (the ``dp``, ``fsdp``, ``ep``, ``tp`` and ``sp``
-mesh axes).
+across a gang of them (the ``pp``, ``dp``, ``fsdp``, ``ep``, ``tp`` and
+``sp`` mesh axes).
 
     python -m torchx_tpu_torch.examples.train_llama --config llama3_1b \\
         --batch 4 --seq 2048 --steps 10 --kernels cuda
@@ -53,12 +53,17 @@ rank 0 commits the step once every rank's file is durable, and a restore
 reads a step saved at any world into the current mesh, so that a gang
 resumed on fewer or more cards (``$TPX_MESH``) continues where it stopped
 (:mod:`torchx_tpu_torch.parallel.checkpoint`). A MoE config shards its
-experts over ``ep`` x ``tp`` (:mod:`torchx_tpu_torch.models.moe`). Not
-ported yet, and refused with the ROADMAP item named: ``pp`` above 1,
-``ep * tp`` that does not divide a MoE config's experts, ``tp`` that does
-not divide the KV heads, the ffn width (dense) or the vocabulary, ``sp``
-that does not divide the sequence, int8 matmuls under ``tp``, and ring
-attention's flag.
+experts over ``ep`` x ``tp`` (:mod:`torchx_tpu_torch.models.moe`).
+``pp`` pipelines the layers over stages (GPipe,
+:mod:`torchx_tpu_torch.parallel.pipeline`), and ``--ring-attention`` runs
+attention under ``sp`` as ring attention
+(:mod:`torchx_tpu_torch.ops.ring_attention`). Refused, as the reference
+refuses them: layers that ``pp`` does not divide, and a rank's rows that
+the microbatches do not divide. Not ported yet, and refused with the
+ROADMAP item named: ``ep * tp`` that does not divide a MoE config's
+experts, ``tp`` that does not divide the KV heads, the ffn width (dense) or
+the vocabulary, ``sp`` that does not divide the sequence, and int8 matmuls
+under ``tp``.
 
 ``--remat-policy`` picks what each checkpointed layer saves (``full``,
 ``dots``, ``dots_attn``: :mod:`torchx_tpu_torch.models.llama`), or
@@ -113,8 +118,9 @@ PEAK_FLOPS = {
     "h100": 989e12,
 }
 
-#: Flags of the JAX trainer this port does not have yet.
-NOT_PORTED_FLAGS = ("--ring-attention",)
+#: Flags of the JAX trainer this port does not have yet: none since pp and
+#: ``--ring-attention`` were ported.
+NOT_PORTED_FLAGS: tuple[str, ...] = ()
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -169,8 +175,8 @@ class AdamW:
 
     Under a mesh the parameters are this rank's shards: ``counted`` flags
     the leaves whose block this rank counts in the global norm (its first
-    copy among the ranks of ``norm_group``, ``fsdp`` x ``ep`` x ``tp``,
-    which hold each leaf's blocks once between them;
+    copy among the ranks of ``norm_group``, ``pp`` x ``fsdp`` x ``ep`` x
+    ``tp``, which hold each leaf's blocks once between them;
     :func:`clip_norm_layout`), and
     the counted squared sums are added up over that group in one
     all-reduce. The ``dp`` and ``sp`` copies compute the same norm."""
@@ -256,14 +262,16 @@ def make_optimizer(
 def clip_norm_layout(cfg: llama.LlamaConfig, mesh: Mesh) -> tuple[list[bool], Any]:
     """(``counted``, ``norm_group``) of :class:`AdamW` under ``mesh``: a
     leaf's block counts on the rank that holds its first copy among the
-    ``fsdp`` x ``ep`` x ``tp`` ranks (coordinate 0 on each of those axes
-    that does not shard it), so that the all-reduce over them adds every
-    block once: an ``fsdp`` or ``tp`` shard or a block of experts on each
-    of its ranks, a replicated leaf (the norms; the embedding, whole over
-    ``tp``; every leaf but the experts over ``ep``) once."""
-    coords = {a: mesh.coords[a] for a in ("fsdp", "ep", "tp")}
-    return ([holds_first_copy(spec, coords) for spec in llama.leaves(llama.param_specs(cfg))],
-            mesh.shard_group)
+    ``pp`` x ``fsdp`` x ``ep`` x ``tp`` ranks (coordinate 0 on each of
+    those axes that does not shard it), so that the all-reduce over them
+    adds every block once: a stage's layers, an ``fsdp`` or ``tp`` shard or
+    a block of experts on each of its ranks, a replicated leaf (the norms;
+    the embedding, whole over ``tp``; the embedding, the final norm and the
+    head, whole on every stage; every leaf but the experts over ``ep``)
+    once."""
+    coords = {a: mesh.coords[a] for a in ("pp", "fsdp", "ep", "tp")}
+    return ([holds_first_copy(spec, coords)
+             for spec in llama.leaves(llama.mesh_param_specs(cfg, mesh))], mesh.shard_group)
 
 
 def make_train_step(
@@ -329,13 +337,13 @@ def checkpoint_state(
     return state
 
 
-def checkpoint_specs(cfg: llama.LlamaConfig) -> dict[str, tuple]:
+def checkpoint_specs(cfg: llama.LlamaConfig, pp: bool = False) -> dict[str, tuple]:
     """The mesh spec of each sharded entry of :func:`checkpoint_state`:
     a parameter's from ``llama.param_specs`` (a MoE config's experts over
-    ``ep`` x ``tp``), and each moment its parameter's (the scalars are
-    replicated)."""
+    ``ep`` x ``tp``; with ``pp`` the layers over the stages), and each
+    moment its parameter's (the scalars are replicated)."""
     specs = {}
-    for name, spec in llama.named_leaves(llama.param_specs(cfg)):
+    for name, spec in llama.named_leaves(llama.param_specs(cfg, pp=pp)):
         for prefix in ("params.", "opt.mu.", "opt.nu."):
             specs[prefix + name] = spec
     return specs
@@ -471,18 +479,27 @@ def _install_preempt_handler() -> tuple[Optional[threading.Event], Callable[[], 
     return evt, _restore
 
 
-def check_model_axes(cfg: llama.LlamaConfig, sizes: dict[str, int], seq: int) -> None:
-    """Raise, naming the ROADMAP item, where the resolved mesh ``sizes``
-    asks for what is not ported: ``pp`` above 1, an ``ep * tp`` that does
-    not divide a MoE config's experts, a ``tp`` that does not divide the
-    KV heads (so the query heads), the ffn width (a dense config's: a MoE
-    config's experts keep theirs whole) or the vocabulary, an ``sp`` that
-    does not divide the sequence, int8 matmuls under ``tp``."""
-    if sizes["pp"] > 1:
-        raise NotImplementedError(
-            f"mesh axis pp={sizes['pp']}: pipeline parallelism is not ported yet (ROADMAP"
-            " queue 1 item 1.4); the port shards over dp, fsdp, ep, tp and sp"
-        )
+def check_model_axes(cfg: llama.LlamaConfig, sizes: dict[str, int], seq: int,
+                     batch: Optional[int] = None) -> None:
+    """Raise where the resolved mesh ``sizes`` asks for what the reference
+    refuses: layers that ``pp`` does not divide, and (given the global
+    ``batch``) a rank's rows that the pipeline's microbatches do not divide
+    (the reference divides the global batch; a rank here splits its own
+    rows). Raise, naming the ROADMAP item, where it asks for what is not
+    ported: an ``ep * tp`` that does not divide a MoE config's experts, a
+    ``tp`` that does not divide the KV heads (so the query heads), the ffn
+    width (a dense config's: a MoE config's experts keep theirs whole) or
+    the vocabulary, an ``sp`` that does not divide the sequence, int8
+    matmuls under ``tp``."""
+    from torchx_tpu_torch.parallel import pipeline
+
+    pp, data = sizes["pp"], sizes["dp"] * sizes["fsdp"]
+    if pp > 1:
+        # no rows to split without the batch (or with one that dp x fsdp
+        # does not split, which the mesh refuses itself): the layers alone
+        rows = batch // data if batch and batch % data == 0 else 0
+        pipeline.validate(cfg.n_layers, pp, rows,
+                          pipeline.auto_microbatches(cfg.pp_microbatches, pp, rows))
     ep, tp, sp = sizes["ep"], sizes["tp"], sizes["sp"]
     n_experts = getattr(cfg, "n_experts", 0)
     if n_experts and n_experts % (ep * tp):
@@ -515,6 +532,7 @@ def check_model_axes(cfg: llama.LlamaConfig, sizes: dict[str, int], seq: int) ->
 
 def _open_mesh(
     mesh: Optional[str | MeshConfig], cfg: llama.LlamaConfig, dev: torch.device,
+    batch: Optional[int] = None,
 ) -> Optional[Mesh]:
     """The training mesh: None (the single-device path) without a mesh and
     without a process group; else ``mesh`` (a ``--mesh`` spec or a
@@ -529,7 +547,7 @@ def _open_mesh(
     given = {a: max(v, 1) for a, v in dataclasses.asdict(config).items()}
     check_model_axes(cfg, given, cfg.max_seq)
     distributed.init_from_env(backend="gloo" if dev.type == "cpu" else "nccl")
-    check_model_axes(cfg, config.resolve(dist.get_world_size()), cfg.max_seq)  # a -1
+    check_model_axes(cfg, config.resolve(dist.get_world_size()), cfg.max_seq, batch)  # a -1
     return make_mesh(config)
 
 
@@ -661,7 +679,7 @@ def _train(
         cfg = dataclasses.replace(cfg, max_seq=seq, kernels=resolve_kernels(kernels))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        m = _open_mesh(mesh, cfg, dev)
+        m = _open_mesh(mesh, cfg, dev, batch)
     _stage("backend_init", time.monotonic() - t0)
     world = dist.get_world_size() if m is not None else 1
     rank0 = m is None or dist.get_rank() == 0
@@ -695,7 +713,8 @@ def _train(
         ckpt_every = ckpt_every or 100  # ckpt_dir alone must still checkpoint
         # a gang's checkpointers: each rank writes the blocks it owns
         ckpt = Checkpointer(ckpt_dir, save_interval_steps=ckpt_every, mesh=m,
-                            specs=checkpoint_specs(cfg) if m is not None else None)
+                            specs=checkpoint_specs(cfg, m.sizes["pp"] > 1)
+                            if m is not None else None)
         latest = ckpt.latest_step()  # a directory listing, no tensor IO
     resumed_step = latest or 0
 
@@ -777,7 +796,8 @@ def _train(
         plan = None
         if m is not None:
             plan = costmodel.ParallelPlan(model=costmodel.ModelShape.of(cfg),
-                                          sizes=dict(m.sizes), batch=batch, seq=seq)
+                                          sizes=dict(m.sizes), batch=batch, seq=seq,
+                                          ring_attention=cfg.use_ring_attention)
         profiler = _make_profiler(cfg, tokens_per_step // world, flops_per_token, peak, dev,
                                   plan=plan)
         # per-next() waits credit the current step's data_wait
@@ -1008,6 +1028,11 @@ def main(argv: Optional[list[str]] = None) -> None:
         " each candidate's step and picks the cheapest recompute that fits the card",
     )
     parser.add_argument(
+        "--ring-attention", action="store_true",
+        help="attention under sp as ring attention: each rank's query block against"
+        " the K/V blocks passed around the sp ring, in place of the sequence gather",
+    )
+    parser.add_argument(
         "--int8", action="store_true",
         help="int8 training matmuls for the layer projections (AQT's numerics)",
     )
@@ -1042,8 +1067,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     )
     parser.add_argument(
         "--mesh", default=None,
-        help="axis sizes pp/dp/fsdp/ep/tp/sp, e.g. dp=2,fsdp=-1, fsdp=2,tp=2 or"
-        " fsdp=2,ep=2 (pp must stay 1); $TPX_MESH overrides it. Default: the"
+        help="axis sizes pp/dp/fsdp/ep/tp/sp, e.g. dp=2,fsdp=-1, fsdp=2,tp=2,"
+        " fsdp=2,ep=2 or pp=2,sp=2; $TPX_MESH overrides it. Default: the"
         " single-device step, or fsdp=-1 inside a process group (spmd_main)",
     )
     parser.add_argument(
@@ -1052,10 +1077,6 @@ def main(argv: Optional[list[str]] = None) -> None:
         " candidate ladder), or 0 for one fused sync",
     )
     args, unknown = parser.parse_known_args(argv)
-    for arg in unknown:
-        flag = arg.split("=", 1)[0]
-        if flag in NOT_PORTED_FLAGS:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP queue 1 item 1.4)")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.log_every is not None and args.log_every < 1:
@@ -1063,6 +1084,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     cfg = int8_config(llama.get_config(args.config), args.int8, args.int8_scope)
     if args.remat_policy:
         cfg = dataclasses.replace(cfg, remat_policy=args.remat_policy)
+    if args.ring_attention:
+        cfg = dataclasses.replace(cfg, use_ring_attention=True)
     metrics = train(
         cfg,
         args.batch,

@@ -49,15 +49,21 @@ package's layout) and the tokens its rows of the batch:
 * ``sp``: the residual stream, the norms and the cross-entropy run on this
   rank's positions (RoPE at their global positions); attention gathers
   q, k and v over ``sp`` and runs on the whole sequence, as the JAX
-  package's attention does under a mesh, then keeps this rank's rows;
+  package's attention does under a mesh, then keeps this rank's rows; with
+  ``use_ring_attention`` it runs on this rank's query block instead, the
+  K/V blocks passed around the ``sp`` ring
+  (:mod:`torchx_tpu_torch.ops.ring_attention`), so that no rank holds the
+  whole sequence's q, k and v;
 * ``ep`` (a MoE config): each rank of the expert group (``ep`` x ``tp``)
   computes its ``n_experts / (ep * tp)`` experts on the group's tokens,
   and their output is summed over the group (:mod:`.moe`); attention keeps
-  the dense ``tp`` split. A dense config is replicated over ``ep``.
-
-Ring attention and pipeline parallelism are not ported (ROADMAP, queue 1
-item 1.4), and the config fields that would select them raise
-``NotImplementedError``.
+  the dense ``tp`` split. A dense config is replicated over ``ep``;
+* ``pp``: each stage holds ``n_layers / pp`` layers (``param_specs(cfg,
+  pp=True)``) and runs them on the embedding's output in ``pp_microbatches``
+  microbatches (the reference's ``gcd(2 * pp, rows)`` when 0), GPipe
+  (:mod:`torchx_tpu_torch.parallel.pipeline`); the embedding, the final
+  norm and the head stay outside the pipeline, whole on every stage, which
+  all compute the loss on the last stage's outputs.
 """
 
 from __future__ import annotations
@@ -78,8 +84,10 @@ from torchx_tpu_torch.ops.attention import attention
 from torchx_tpu_torch.ops.fused import flash_attention, rms_norm_residual
 from torchx_tpu_torch.ops.norms import rms_norm
 from torchx_tpu_torch.ops.quant import maybe_matmul
+from torchx_tpu_torch.ops.ring_attention import ring_attention
 from torchx_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from torchx_tpu_torch.parallel import mesh as mesh_ops
+from torchx_tpu_torch.parallel.pipeline import auto_microbatches, pipeline_apply
 
 Params = dict[str, Any]
 
@@ -113,6 +121,8 @@ class LlamaConfig:
     # "auto" (resolved by the trainer before the forward)
     remat_policy: str = "full"
     attn_impl: str = "auto"  # auto | xla | flash (ops/attention.py)
+    # causal attention over sp by ring attention (ops/ring_attention.py) in
+    # place of the sequence gather; inert without sp
     use_ring_attention: bool = False
     # cross-entropy in sequence chunks of this size; 0 disables chunking
     loss_chunk: int = 512
@@ -124,6 +134,9 @@ class LlamaConfig:
     # "ffn" (gate/up/down only)
     int8_scope: str = "all"
     ce_f32_logits: bool = False
+    # microbatches of the pipeline on meshes with pp > 1; 0: the
+    # reference's gcd(2 * pp, a rank's rows)
+    pp_microbatches: int = 0
     # "reference" keeps the plain ops; "cuda" routes attention and the
     # residual-add + RMSNorm through the hand-written kernels (ops/fused.py)
     kernels: str = "reference"
@@ -139,10 +152,6 @@ class LlamaConfig:
             raise ValueError(
                 f"remat_policy must be one of {REMAT_POLICIES + ('auto',)},"
                 f" got {self.remat_policy!r}"
-            )
-        if self.use_ring_attention:
-            raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP queue 1 item 1.4)"
             )
 
     @property
@@ -331,35 +340,42 @@ def unflatten(flat: dict[str, torch.Tensor]) -> Params:
 # -- sharding --------------------------------------------------------------
 
 
-def param_specs(cfg: LlamaConfig) -> Params:
+def param_specs(cfg: LlamaConfig, pp: bool = False) -> Params:
     """The tree of :func:`init_params` with, for each leaf, the mesh axes
     that shard each of its dimensions (None: not sharded), as the JAX
-    package's ``param_specs`` (without pipeline stages) through its
-    ``model_fns``: the dense model's (:func:`dense_param_specs`), or for a
-    MoE config ``moe.param_specs``."""
+    package's ``param_specs`` through its ``model_fns``: the dense model's
+    (:func:`dense_param_specs`), or for a MoE config ``moe.param_specs``.
+    With ``pp`` the stacked layer axis shards over the pipeline stages."""
     if getattr(cfg, "n_experts", 0):
         from torchx_tpu_torch.models import moe
 
-        return moe.param_specs(cfg)
-    return dense_param_specs(cfg)
+        return moe.param_specs(cfg, pp=pp)
+    return dense_param_specs(cfg, pp=pp)
 
 
-def dense_param_specs(cfg: LlamaConfig) -> Params:
+def mesh_param_specs(cfg: LlamaConfig, mesh: Any) -> Params:
+    """:func:`param_specs` of ``mesh``: the layer axis over ``pp`` where the
+    mesh has stages."""
+    return param_specs(cfg, pp=mesh.sizes["pp"] > 1)
+
+
+def dense_param_specs(cfg: LlamaConfig, pp: bool = False) -> Params:
     """The dense model's specs: ``fsdp`` shards the model dimension of
-    every matrix (ZeRO-3), ``tp`` its heads or ffn dimension; the norms are
-    replicated."""
+    every matrix (ZeRO-3), ``tp`` its heads or ffn dimension, ``pp`` (with
+    ``pp``) the stacked layer axis; the norms are replicated."""
+    layer = "pp" if pp else None
     specs: Params = {
         "embed": (None, "fsdp"),
         "layers": {
-            "attn_norm": (None, None),
-            "wq": (None, "fsdp", "tp"),
-            "wk": (None, "fsdp", "tp"),
-            "wv": (None, "fsdp", "tp"),
-            "wo": (None, "tp", "fsdp"),
-            "mlp_norm": (None, None),
-            "w_gate": (None, "fsdp", "tp"),
-            "w_up": (None, "fsdp", "tp"),
-            "w_down": (None, "tp", "fsdp"),
+            "attn_norm": (layer, None),
+            "wq": (layer, "fsdp", "tp"),
+            "wk": (layer, "fsdp", "tp"),
+            "wv": (layer, "fsdp", "tp"),
+            "wo": (layer, "tp", "fsdp"),
+            "mlp_norm": (layer, None),
+            "w_gate": (layer, "fsdp", "tp"),
+            "w_up": (layer, "fsdp", "tp"),
+            "w_down": (layer, "tp", "fsdp"),
         },
         "final_norm": (None,),
     }
@@ -370,12 +386,12 @@ def dense_param_specs(cfg: LlamaConfig) -> Params:
 
 def shard_params(params: Params, cfg: LlamaConfig, mesh: Any) -> Params:
     """This rank's shard of every leaf of the whole tree ``params`` under
-    :func:`param_specs` (fresh tensors that require grad, as the leaves
-    of :func:`init_params`): rank ``r`` holds what JAX's ``shard_params``
-    puts on device ``r``."""
+    :func:`mesh_param_specs` (fresh tensors that require grad, as the
+    leaves of :func:`init_params`): rank ``r`` holds what JAX's
+    ``shard_params`` puts on device ``r``."""
     from torchx_tpu_torch.parallel.mesh import shard
 
-    specs = dict(named_leaves(param_specs(cfg)))
+    specs = dict(named_leaves(mesh_param_specs(cfg, mesh)))
     out = unflatten({
         name: shard(p.detach(), specs[name], mesh) for name, p in named_leaves(params)
     })
@@ -507,19 +523,23 @@ def _layer(
     v = maybe_matmul(attn_in, layer["wv"], int8_training=i8_attn).reshape(b, s, kvh, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if sp > 1:
-        # the whole sequence's q, k and v in one gather (heads are the
-        # same on every sp rank)
-        qkv = mesh_ops.gather_sequence(torch.cat([q, k, v], dim=2), 1, mesh)
-        q, k, v = qkv.split([h, kvh, kvh], dim=2)
-    attn_out = None
-    if cfg.kernels != "reference":
-        # None when the shape gate fails: the plain path below
-        attn_out = flash_attention(q, k, v, causal=True, kernels=cfg.kernels)
-    if attn_out is None:
-        attn_out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
-    if sp > 1:
-        attn_out = mesh_ops.sequence_block(attn_out, 1, mesh)
+    if sp > 1 and cfg.use_ring_attention:
+        # this rank's query block against every K/V block of the ring
+        attn_out = ring_attention(q, k, v, mesh)
+    else:
+        if sp > 1:
+            # the whole sequence's q, k and v in one gather (heads are the
+            # same on every sp rank)
+            qkv = mesh_ops.gather_sequence(torch.cat([q, k, v], dim=2), 1, mesh)
+            q, k, v = qkv.split([h, kvh, kvh], dim=2)
+        attn_out = None
+        if cfg.kernels != "reference":
+            # None when the shape gate fails: the plain path below
+            attn_out = flash_attention(q, k, v, causal=True, kernels=cfg.kernels)
+        if attn_out is None:
+            attn_out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        if sp > 1:
+            attn_out = mesh_ops.sequence_block(attn_out, 1, mesh)
     attn_out = maybe_matmul(attn_out.reshape(b, s, h * hd), layer["wo"], int8_training=i8_attn)
     if tp > 1:
         attn_out = mesh_ops.reduce_from_tp(attn_out, mesh)
@@ -578,7 +598,11 @@ def forward_features(
     which each layer gathers inside the (checkpointed) layer; the leaves
     outside the layers are whole (:func:`_unshard_top`); ``tokens`` are this
     rank's rows and, under ``sp``, its positions of a sequence ``sp`` times
-    as long, whose hidden states it returns."""
+    as long, whose hidden states it returns. Under ``pp`` the layers are
+    this stage's, pipelined over the stages, and every stage returns the
+    last stage's hidden states; the aux vector is then the reference's
+    pipelined one: summed over the layers, averaged over the microbatches,
+    its entropy and overflow divided by ``n_layers``."""
     x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     s = x.shape[1]
     sp = mesh.sizes["sp"] if mesh is not None else 1
@@ -588,21 +612,32 @@ def forward_features(
         pos = mesh.positions(s * sp)
         cos, sin = cos[pos], sin[pos]
     keys = _layer_keys(cfg)
-    # one unbind per stacked leaf: the backward stacks the layer grads once
-    per_layer = [params["layers"][key].unbind(0) for key in keys]
     layer_fn = _layer
     if mesh is not None:
         specs = tuple(param_specs(cfg)["layers"][key][1:] for key in keys)
         layer_fn = functools.partial(_sharded_layer, mesh, specs)
     remat = remat_kwargs(cfg) if cfg.remat else {}
+
+    def body(h: torch.Tensor, weights: list) -> tuple[torch.Tensor, torch.Tensor]:
+        if cfg.remat:
+            return checkpoint(layer_fn, cfg, cos, sin, h, *weights, use_reentrant=False,
+                              **remat)
+        return layer_fn(cfg, cos, sin, h, *weights)
+
+    if mesh is not None and mesh.sizes["pp"] > 1:
+        n_micro = auto_microbatches(cfg.pp_microbatches, mesh.sizes["pp"], x.shape[0])
+        x, aux = pipeline_apply(body, [params["layers"][key] for key in keys], x, mesh,
+                                n_micro, with_aux=True)
+        # stages sum the aux over their layers; the entropy and overflow are
+        # per-layer means, so the layer count comes back out
+        aux_total = torch.stack([aux[AUX_BALANCE], aux[AUX_ENTROPY] / cfg.n_layers,
+                                 aux[AUX_OVERFLOW] / cfg.n_layers])
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
+    # one unbind per stacked leaf: the backward stacks the layer grads once
+    per_layer = [params["layers"][key].unbind(0) for key in keys]
     auxes = []
     for i in range(cfg.n_layers):
-        weights = [w[i] for w in per_layer]
-        if cfg.remat:
-            x, aux = checkpoint(layer_fn, cfg, cos, sin, x, *weights, use_reentrant=False,
-                                **remat)
-        else:
-            x, aux = layer_fn(cfg, cos, sin, x, *weights)
+        x, aux = body(x, [w[i] for w in per_layer])
         auxes.append(aux)
     aux = torch.stack(auxes)
     aux_total = torch.stack(

@@ -119,18 +119,20 @@ def init_params(
     return llama.init_params(cfg, generator, device)
 
 
-def param_specs(cfg: MoEConfig) -> llama.Params:
+def param_specs(cfg: MoEConfig, pp: bool = False) -> llama.Params:
     """The dense model's specs (:func:`llama.dense_param_specs`) with the
-    expert leaves' as the JAX package's ``moe.param_specs`` (without
-    pipeline stages): the router's model dimension over ``fsdp``, the
-    expert axis over ``("ep", "tp")`` combined (``tp`` splits the experts,
-    not their ffn width) and each expert's model dimension over ``fsdp``."""
-    specs = llama.dense_param_specs(cfg)
+    expert leaves' as the JAX package's ``moe.param_specs``: the router's
+    model dimension over ``fsdp``, the expert axis over ``("ep", "tp")``
+    combined (``tp`` splits the experts, not their ffn width), each
+    expert's model dimension over ``fsdp``, and with ``pp`` the stacked
+    layer axis over the pipeline stages."""
+    layer = "pp" if pp else None
+    specs = llama.dense_param_specs(cfg, pp=pp)
     layers = specs["layers"]
-    layers["w_router"] = (None, "fsdp", None)
-    layers["w_gate"] = (None, EXPERT_AXES, "fsdp", None)
-    layers["w_up"] = (None, EXPERT_AXES, "fsdp", None)
-    layers["w_down"] = (None, EXPERT_AXES, None, "fsdp")
+    layers["w_router"] = (layer, "fsdp", None)
+    layers["w_gate"] = (layer, EXPERT_AXES, "fsdp", None)
+    layers["w_up"] = (layer, EXPERT_AXES, "fsdp", None)
+    layers["w_down"] = (layer, EXPERT_AXES, None, "fsdp")
     return specs
 
 

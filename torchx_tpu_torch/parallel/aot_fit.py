@@ -18,8 +18,11 @@ A mesh larger than the machine is traced in one process:
 :func:`gang_mesh` starts a fake process group (torch's ``fake`` backend
 over a ``FakeStore``, whose collectives move nothing) of the mesh's
 world, as rank 0, and the probe reckons rank 0's shards and collectives'
-buffers. It never touches a live process group and never allocates on a
-card: a trainer inside a gang runs it in a subprocess
+buffers; under ``pp`` rank 0 is stage 0, and the pipeline's and the
+ring's point-to-point messages, which the fake group refuses on meta
+tensors, move nothing (their receiving buffers are booked where the
+caller allocates them). It never touches a live process group and never
+allocates on a card: a trainer inside a gang runs it in a subprocess
 (:func:`probe_fits` through ``python -m torchx_tpu_torch.parallel.aot_fit``,
 a JSON list of requests on stdin, one JSON line of results on stdout).
 
@@ -213,7 +216,7 @@ def _trace_step(cfg: Any, mesh: Any, batch: int, seq: int, grad_bucket_mb: int) 
 
     rows = batch
     if mesh is not None:
-        check_model_axes(cfg, mesh.sizes, seq)
+        check_model_axes(cfg, mesh.sizes, seq, batch)
         mesh.batch_rows(batch)  # raises where the batch does not split
         rows = batch // mesh.data_size
     params, optimizer = abstract_train_state(cfg, mesh)

@@ -21,7 +21,9 @@ Layout, shared with the launcher's readers (``supervisor/api.py``'s
 In a gang each block is written once, by its first copy's rank
 (:func:`~torchx_tpu_torch.parallel.mesh.holds_first_copy`: the ``dp``
 and ``sp`` replicas of a block write nothing, each ``tp`` rank writes its
-``tp`` blocks, an entry whole on every rank is rank 0's), into one
+``tp`` blocks, each ``pp`` stage its layers' blocks, the stages' copies of
+the leaves outside the layers are stage 0's, an entry whole on every rank
+is rank 0's), into one
 staging directory whose name rank 0 broadcasts when the checkpointer is
 built. Each rank fsyncs its file and renames it to its
 final name; rank 0 then waits (polling the files, with a timeout: a rank

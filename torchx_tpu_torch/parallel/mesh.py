@@ -24,6 +24,14 @@ model calls the collectives itself:
 * ``sp``: :func:`gather_sequence` all-gathers the sequence before
   attention (the backward reduce-scatters) and :func:`sequence_block`
   takes this rank's positions back (the backward pads with zeros);
+* ``pp``: the stacked layer axis shards over the pipeline stages, each
+  rank holding its stage's layers; :func:`send_recv` moves a microbatch's
+  activations between neighbouring stages
+  (:mod:`torchx_tpu_torch.parallel.pipeline`);
+* ``sp`` without a gather: :func:`ppermute` rotates a tensor around a
+  group (ring attention's K/V blocks; the backward rotates back) and
+  :func:`all_to_all` re-shards one dimension for another (Ulysses'
+  sequence for heads; the backward is the inverse exchange);
 * ``ep``: a MoE layer's experts shard over the expert group (``ep`` x
   ``tp``, :attr:`Mesh.expert_group`), whose ranks hold the same tokens:
   :func:`copy_to_experts` marks what enters this rank's experts (identity;
@@ -38,7 +46,8 @@ model calls the collectives itself:
 Rank ``r``'s coordinates are ``r``'s index in the row-major
 ``[pp, dp, fsdp, ep, tp, sp]`` array of ranks, as device ``r`` is in the
 JAX mesh, so a shard here equals JAX's addressable shard on device ``r``.
-``pp`` is laid out but must have size 1 (ROADMAP queue 1 item 1.4).
+``pp`` is outermost: a stage's ranks are a contiguous block, and each keeps
+its ``dp`` / ``fsdp`` / ``ep`` / ``tp`` / ``sp`` groups inside its stage.
 
 Order of collectives: a rank issues collectives over several subgroups
 (``fsdp``, ``tp``, ``sp``, the expert, grad and token groups), and every rank of a
@@ -105,12 +114,25 @@ class Mesh:
     #: one batch (the loss's mean, a mask's count and the router's means
     #: run over it)
     token_group: Any = None
-    #: ``fsdp`` x ``ep`` x ``tp``: the ranks among which each leaf's blocks
-    #: lie (the global gradient norm adds its blocks' squares over it)
+    #: ``pp`` x ``fsdp`` x ``ep`` x ``tp``: the ranks among which each
+    #: leaf's blocks lie (the global gradient norm adds its blocks' squares
+    #: over it)
     shard_group: Any = None
     #: ``ep`` x ``tp``: the ranks that compute the same tokens and split a
     #: MoE layer's experts between them
     expert_group: Any = None
+    #: ranks that differ only in their ``pp`` coordinate: the stages, in
+    #: stage order
+    pp_group: Any = None
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage (its ``pp`` coordinate)."""
+        return self.coords["pp"]
+
+    @property
+    def n_stages(self) -> int:
+        return self.sizes["pp"]
 
     @property
     def data_size(self) -> int:
@@ -170,15 +192,17 @@ class Mesh:
         gather over ``fsdp`` where the spec shards a dimension over it,
         else the replicated marker. A block over ``tp``, ``ep`` or both
         stays local: the model computes on this rank's heads, ffn columns,
-        vocab block or experts."""
+        vocab block or experts; so does a stage's block of layers over
+        ``pp``."""
         dim = None
         for d, axes in enumerate(spec):
             if axes == "fsdp" and dim is None:
                 dim = d
-            elif not set(_axis_names(axes)) <= set(EXPERT_AXES) and self.parts(axes)[0] > 1:
-                raise NotImplementedError(
-                    f"spec {spec}: one dimension over fsdp and one over ep and tp are"
-                    " ported (pp: ROADMAP queue 1 item 1.4)"
+            elif (not set(_axis_names(axes)) <= {"pp", *EXPERT_AXES}
+                  and self.parts(axes)[0] > 1):
+                raise ValueError(
+                    f"spec {spec}: one dimension over fsdp, the layer axis over pp and"
+                    " one over ep and tp are the model's layouts"
                 )
         if dim is None:
             return replicated_param(x, self.fsdp_group)
@@ -255,8 +279,17 @@ def make_mesh(config: Optional[MeshConfig] = None) -> Mesh:
         "cuda" if backend == "nccl" else "cpu", ranks, mesh_dim_names=AXES
     )
     coords = {a: int(device_mesh.get_local_rank(a)) for a in AXES}
-    for a in ("dp", "fsdp", "ep", "tp", "sp"):
+    for a in AXES:
         _GROUP_AXES[id(device_mesh.get_group(a))] = a
+    pp_group = device_mesh.get_group("pp")
+    if backend == "nccl":
+        # the pipeline's and the ring's point-to-point exchanges pair ranks
+        # of these groups: their communicators are made here, by every rank
+        # of each group at once, and not by a batch of sends only some of
+        # the ranks issue
+        for a in ("pp", "sp"):
+            if sizes[a] > 1:
+                dist.all_reduce(torch.zeros(1, device="cuda"), group=device_mesh.get_group(a))
     return Mesh(
         device_mesh=device_mesh,
         sizes=sizes,
@@ -268,8 +301,9 @@ def make_mesh(config: Optional[MeshConfig] = None) -> Mesh:
         sp_group=device_mesh.get_group("sp"),
         grad_group=_subgroups(ranks, sizes, ("dp", "sp")),
         token_group=_subgroups(ranks, sizes, ("dp", "fsdp", "sp")),
-        shard_group=_subgroups(ranks, sizes, ("fsdp", *EXPERT_AXES)),
+        shard_group=_subgroups(ranks, sizes, ("pp", "fsdp", *EXPERT_AXES)),
         expert_group=_subgroups(ranks, sizes, EXPERT_AXES),
+        pp_group=pp_group,
     )
 
 
@@ -501,3 +535,119 @@ def earlier_sp_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     for i in range(mesh.coords["sp"]):  # in rank order, so every rank adds alike
         out += parts_[i]
     return out
+
+
+def _staged(t: torch.Tensor, group: Any) -> bool:
+    """True where ``t`` crosses ``group`` through the host: under gloo a
+    point-to-point message, an all-to-all and a broadcast of a tensor on
+    the card are copied to host memory and back by the port itself, not
+    left to gloo's CUDA support, which does not cover point-to-point
+    messages (the one-card machine runs its two-rank checks on gloo). NCCL
+    moves them on the card."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def broadcast(x: torch.Tensor, src: int, group: Any) -> None:
+    """``x`` of the rank of index ``src`` in ``group`` into ``x`` on every
+    rank of it, in place (through the host under gloo: :func:`_staged`)."""
+    host = x.cpu() if _staged(x, group) else x
+    with collective_range(group):
+        dist.broadcast(host, src=dist.get_global_rank(group, src), group=group)
+    if host is not x:
+        x.copy_(host)
+
+
+def send_recv(sends: list, recvs: list, group: Any) -> None:
+    """One batch of point-to-point messages over ``group``: each
+    ``(tensor, peer)`` of ``sends`` to the rank of index ``peer`` in the
+    group, and into each ``(buffer, peer)`` of ``recvs`` from that rank, in
+    one ``batch_isend_irecv``; returns once every message has landed. The
+    peers' batches must pair up: every send with the peer's receive of the
+    same shape. Under gloo, tensors on the card travel through the host
+    (:func:`_staged`). Tensors on the meta device (the fit probe's trace,
+    on a fake process group that refuses them here) move nothing: the
+    receiving buffers are the caller's, already booked."""
+    if any(t.is_meta for t, _ in [*sends, *recvs]):
+        return
+    ranks = dist.get_process_group_ranks(group)
+    staged = [(buf, torch.empty_like(buf, device="cpu") if _staged(buf, group) else buf)
+              for buf, _ in recvs]
+    ops = [dist.P2POp(dist.isend, t.detach().cpu().contiguous() if _staged(t, group)
+                      else t.detach().contiguous(), ranks[peer], group)
+           for t, peer in sends]
+    ops += [dist.P2POp(dist.irecv, host, ranks[peer], group)
+            for (_, host), (_, peer) in zip(staged, recvs)]
+    if not ops:
+        return
+    with collective_range(group):
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for buf, host in staged:
+        if host is not buf:
+            buf.copy_(host)
+
+
+def _rotate(x: torch.Tensor, group: Any, shift: int) -> torch.Tensor:
+    n, idx = dist.get_world_size(group), dist.get_group_rank(group, dist.get_rank())
+    out = torch.empty_like(x)
+    send_recv([(x, (idx + shift) % n)], [(out, (idx - shift) % n)], group)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Any, shift: int) -> torch.Tensor:  # noqa: ANN001
+        ctx.group, ctx.shift = group, shift
+        return _rotate(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):  # noqa: ANN001, ANN205
+        return _rotate(grad, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group: Any, shift: int = 1) -> torch.Tensor:
+    """``x`` of the rank ``shift`` places before this one in ``group``
+    (cyclic): each rank sends its ``x`` ``shift`` places on, as JAX's
+    ``ppermute`` with the permutation ``i -> i + shift``. Backward: the
+    gradient sent back the other way. Every rank of the group must call it
+    (each call sends and receives once); over a group of one rank, ``x``
+    itself."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _PPermute.apply(x, group, shift)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group: Any) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    chunks = torch.stack(x.chunk(n, dim=split_dim))  # [n, ...]: chunk j to rank j
+    src = chunks.cpu() if _staged(x, group) else chunks
+    out = torch.empty_like(src)
+    with collective_range(group):
+        dist.all_to_all_single(out, src, group=group)
+    out = out.to(x.device)
+    return torch.cat(out.unbind(0), dim=concat_dim)  # rank i's chunk at block i
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, split_dim: int, concat_dim: int,  # noqa: ANN001
+                group: Any) -> torch.Tensor:
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):  # noqa: ANN001, ANN205
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(grad, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group: Any) -> torch.Tensor:
+    """The tiled all-to-all of JAX's ``all_to_all(..., tiled=True)``: ``x``
+    split into ``n`` blocks along ``split_dim``, block ``j`` sent to rank
+    ``j`` of ``group``, and the blocks received from the ranks concatenated
+    along ``concat_dim`` in rank order (``[b, s/n, h, d]`` -> ``[b, s, h/n,
+    d]`` for ``split_dim`` 2, ``concat_dim`` 1). Backward: the inverse
+    exchange. Over a group of one rank, ``x`` itself."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
