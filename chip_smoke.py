@@ -13,8 +13,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (``ops.fused.flash_variant``): the CUDA-core ``simt`` kernels in f32 at
    the CPU tests' tolerances, and both variants in bf16 at the llama3_1b
    main-path shapes, the tensor-core ``wgmma`` ones also at head_dim 128
-   with n_rep 1 and 4, causal and full. The wgmma dq and dk/dv and the
-   norm backward's dw must be bitwise repeatable. Segment ids (packed
+   with n_rep 1 and 4, causal and full, each at the tile the default
+   table gives (``ops.fused.DEFAULT_TILES``; the kernels line names it),
+   and one other compiled tile of each wgmma kernel at llama3_1b's and
+   Mixtral's shapes. The wgmma dq and dk/dv and the norm backward's dw
+   must be bitwise repeatable. Segment ids (packed
    documents of 1-1024 tokens, the last row one document): the masked
    kernels of both variants (wgmma in bf16, simt in f32) at llama3_1b's
    and Mixtral-8x7B's attention shapes (head_dim 64 and 128), causal and
@@ -46,7 +49,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    seq 2048, synthetic tokens; launch counts reset just before and read just
    after, checked against n_layers x (1 + remat recompute) per step for the
    forward kernels and n_layers for the backward ones: the bf16 step runs
-   the ``wgmma`` flash kernels and no ``simt`` one.
+   the ``wgmma`` flash kernels and no ``simt`` one, at the preset's tiles
+   (``attn_block_q/kv`` 64/64). Then one step at ``attn_block_q=128,
+   attn_block_kv=128`` (``OTHER_TILE``): the same weights and batch, its loss
+   within 1e-2 of the run's first, the same launches.
    remat — the remat policies on the train phase's setting: its run is
    ``full``; ``dots``, ``dots_attn`` and remat off run 3 steps each. Each
    prints step time, tokens/s, MFU, ``max_memory_allocated`` beside the
@@ -294,7 +300,11 @@ cards the tp and ep phases' four-card runs print the fit probe's rank-0
 peak (traced in a subprocess) and ``hbm_fit``'s total beside each rank's
 measured peak.
 ``--phases build,sweep`` times the RMSNorm backward kernel over its launch
-settings (``ops.norms.BWD_CONFIG``). ``--phases build,profile`` profiles a
+settings (``ops.norms.BWD_CONFIG``), then every compiled tile of the three
+wgmma flash kernels at llama3_1b's and Mixtral's attention shapes, masked
+and not, each first held to the plain version: the source of
+``ops.fused.DEFAULT_TILES`` and of the presets' ``attn_block_q/kv``.
+``--phases build,profile`` profiles a
 training step and a decode step, splits the trainer's own trace
 (``--profile-dir``) of llama3_1b's step into kernel groups with the
 elementwise group split into the optimizer, casts, RoPE, cross-entropy and
@@ -354,15 +364,15 @@ L2_BYTES = 50e6
 
 #: Where each kernel lives in the repo, and the TPU kernel it replaces.
 KERNEL_INFO = {
-    "flash_fwd_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_fwd_wgmma.cu",
+    "flash_fwd_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_fwd_wgmma.cuh",
                         "torchx_tpu/ops/fused.py:87"),
     "flash_fwd_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
                        "torchx_tpu/ops/fused.py:87"),
-    "flash_dq_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dq_wgmma.cu",
+    "flash_dq_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dq_wgmma.cuh",
                        "torchx_tpu/ops/fused.py:167"),
     "flash_dq_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
                       "torchx_tpu/ops/fused.py:167"),
-    "flash_dkv_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dkv_wgmma.cu",
+    "flash_dkv_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dkv_wgmma.cuh",
                         "torchx_tpu/ops/fused.py:198"),
     "flash_dkv_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
                        "torchx_tpu/ops/fused.py:198"),
@@ -764,6 +774,8 @@ def _flash_rows(attn, variants, suffix, gen, errs, seg=None):  # noqa: ANN001, A
         for fn, (kern, plain, lib, lib_call) in calls.items():
             name = f"{fn}_{var}{suffix}"
             rows.append(_time_row(name, kern, plain, lib, lib_call, bounds[fn], errs[name]))
+            # the (block_q, block_kv) it ran with: the default table's
+            rows[-1]["tile"] = list(fused.fit_tile(fn, var, attn["d"], attn["s"]))
     return rows
 
 
@@ -1030,6 +1042,39 @@ def _segment_checks(gen, seg) -> dict:  # noqa: ANN001
     return f32_err
 
 
+def _other_tile_checks(gen) -> None:  # noqa: ANN001
+    """Beside the default table (every other check of the phase), one other
+    compiled tile of each wgmma kernel against the plain version, at
+    llama3_1b's and Mixtral's attention shapes (causal, bf16, at
+    ``BF16_TOL``); the full grid is the sweep phase's."""
+    import torch
+
+    from torchx_tpu_torch.ops import fused
+
+    for attn in (ATTN, ATTN_MOE):
+        d, s = attn["d"], attn["s"]
+        q, k, v, do = _attn_inputs(*attn.values(), torch.bfloat16, gen)
+        o_p, lse_p = fused._flash_fwd_plain(q, k, v, True)
+        args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), True)
+        want = {"flash_fwd": (o_p, lse_p), "flash_dq": (fused._flash_dq_plain(*args),),
+                "flash_dkv": fused._flash_dkv_plain(*args)}
+        for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+            q_tiles, kv_tiles = fused.WGMMA_TILES[(kernel, d)]
+            default = fused.fit_tile(kernel, "wgmma", d, s)
+            tile = next((bq, bk) for bq in q_tiles for bk in kv_tiles if (bq, bk) != default)
+            got = {"flash_fwd": lambda: fused._flash_fwd(q, k, v, True, tile=tile),
+                   "flash_dq": lambda: (fused._flash_dq(*args, tile=tile),),
+                   "flash_dkv": lambda: fused._flash_dkv(*args, tile=tile)}[kernel]()
+            err = max(rel_err(a, b) for a, b in zip(got, want[kernel]))
+            tol = BF16_TOL[kernel]
+            emit({"phase": "kernels", "check": f"{kernel}_wgmma", "dtype": "bfloat16",
+                  "shape": list(attn.values()), "tile": list(tile), "default": list(default),
+                  "err": err, "tol": tol})
+            if not err <= tol:
+                fail("kernels", f"{kernel}_wgmma tile {tile} at head_dim {d}: err {err} > {tol}")
+        del q, k, v, do, o_p, lse_p, args, want, got
+
+
 def _packed_attention_launches(seg) -> dict[str, int]:  # noqa: ANN001
     """The masked path through its entry point: ``attention(impl="flash",
     segment_ids=...)`` forward and backward at llama3_1b's shape, in bf16
@@ -1110,6 +1155,8 @@ def phase_kernels() -> list[dict]:
                   "shape": list(case), "err": rel, "tol": tol})
         if not rel <= tol:
             fail("kernels", f"{name} bf16 {case}: err {rel} > {tol}")
+
+    _other_tile_checks(gen)
 
     # segment ids (packed documents), then the masked path's launches
     seg = packed_segment_ids(ATTN["b"], ATTN["s"], SEG["max_len"], SEG["seed"])
@@ -1221,7 +1268,39 @@ def phase_train() -> tuple[dict, dict, dict]:
           "launches": counts, "expected_launches": expected})
     if counts != expected:
         fail("train", f"launch counts {counts} != expected {expected}")
+    phase_train_tile(cfg, losses[0])
     return counts, expected, out
+
+
+#: The train phase's step at another tile than the preset's (64/64).
+OTHER_TILE = dict(attn_block_q=128, attn_block_kv=128)
+
+
+def phase_train_tile(cfg, first_loss: float) -> None:  # noqa: ANN001
+    """One step of the train phase's run with ``OTHER_TILE`` in place of the
+    preset's tiles: the same weights and batch, so its loss is the run's
+    first within the bf16 step tolerance (``REF_LOSS_RTOL``), and the same
+    kernels launch as often."""
+    import dataclasses
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.examples.train_llama import train
+
+    other = dataclasses.replace(cfg, **OTHER_TILE)
+    free_card()
+    _build.reset_launches()
+    out = train(other, TRAIN["batch"], TRAIN["seq"], 1, kernels="cuda", device="cuda",
+                warmup=1, log_every=0)
+    counts = _build.launch_counts()
+    rel = abs(out["losses"][0] - first_loss) / abs(first_loss)
+    emit({"phase": "train", "run": "other tile", **OTHER_TILE,
+          "preset": [cfg.attn_block_q, cfg.attn_block_kv], "loss": out["losses"][0],
+          "preset_loss": first_loss, "rel": rel, "tol": REF_LOSS_RTOL,
+          "launches": {k: n for k, n in counts.items() if n}})
+    if not (math.isfinite(out["losses"][0]) and rel <= REF_LOSS_RTOL):
+        fail("train", f"the step at {OTHER_TILE}: loss {out['losses'][0]} vs {first_loss}")
+    if counts != expected_launches(cfg, 1):
+        fail("train", f"the step at {OTHER_TILE}: launches {counts}")
 
 
 #: A profiled step's measured phases may miss its wall time by this share
@@ -3982,11 +4061,119 @@ def _profile_decode() -> None:
 #: (1, 8, 2, 1, 128) is the design the kernel had before it took row blocks.
 SWEEP = dict(rows=(1, 2, 4, 8), warps=(4, 8, 16), per_sm=(1, 2, 4), stages=(1, 2),
              reduce_cols=(16, 32, 128))
+#: The flash tile sweep's cells: llama3_1b's attention (head_dim 64; the
+#: train phase's launches a step) and Mixtral-8x7B's (128; the moe phase's).
+TILE_SWEEP = {"llama3_1b": ATTN, "mixtral_8x7b": ATTN_MOE}
+#: The wgmma kernels' first tiles (before they were a setting), which a default
+#: replaces only where the sweep's fastest setting beats it by more than
+#: the kernels' spread between calls (PERF.md: 3%).
+FIRST_TILES = {("flash_fwd", 64): (128, 128), ("flash_fwd", 128): (128, 128),
+               ("flash_dq", 64): (128, 128), ("flash_dq", 128): (128, 64),
+               ("flash_dkv", 64): (64, 128), ("flash_dkv", 128): (32, 128)}
+TILE_SPREAD = 0.03
+
+
+def _cell_cfg(cell: str):  # noqa: ANN202
+    """The config whose launches a step the sweep's cell weighs tiles by."""
+    from torchx_tpu_torch.models import llama, moe
+
+    if cell == "mixtral_8x7b":
+        return moe.mixtral_8x7b_shape(n_layers=MOE_TRAIN["n_layers"])
+    return llama.llama3_1b()
+
+
+def _flash_tile_sweep(gen) -> None:  # noqa: ANN001
+    """Every compiled tile of the three wgmma flash kernels at each cell's
+    attention shape (causal, bf16), unmasked and with packed documents:
+    first held to the plain version (``BF16_TOL``; the phase fails if one
+    disagrees), then timed beside the bound, SDPA and the launches a step.
+    Then, from the unmasked times: the fastest tile per kernel and head dim
+    (the default table's source, where it beats the first design's tile by
+    more than ``TILE_SPREAD``) and the (block_q, block_kv) request whose
+    fits cost a step least (a preset's)."""
+    import itertools
+
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.ops import fused
+
+    bad = []
+    for cell, attn in TILE_SWEEP.items():
+        d, s = attn["d"], attn["s"]
+        per_step = expected_launches(_cell_cfg(cell), 1)
+        times: dict = {}
+        for masked in (False, True):
+            seg = packed_segment_ids(attn["b"], s, SEG["max_len"], SEG["seed"]) if masked else None
+            q, k, v, do = _attn_inputs(*attn.values(), torch.bfloat16, gen)
+            o_p, lse_p = fused._flash_fwd_plain(q, k, v, True, seg)
+            args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), True, seg)
+            want = {"flash_fwd": (o_p, lse_p), "flash_dq": (fused._flash_dq_plain(*args),),
+                    "flash_dkv": fused._flash_dkv_plain(*args)}
+            mask = None
+            if masked:
+                same = seg[:, :, None] == seg[:, None, :]
+                mask = (same & torch.ones_like(same).tril())[:, None]
+            sdpa_fwd, sdpa_bwd = _sdpa_calls(q, k, v, do, mask)
+            sdpa = {"flash_fwd": time_ms(sdpa_fwd), "backward": time_ms(sdpa_bwd)}
+            bounds = _bounds(attn=attn, pairs_per_head=kept_pairs(seg, True) if masked else None)
+            for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+                q_tiles, kv_tiles = fused.WGMMA_TILES[(kernel, d)]
+                call = {"flash_fwd": lambda t: fused._flash_fwd(q, k, v, True, seg, tile=t),
+                        "flash_dq": lambda t: (fused._flash_dq(*args, tile=t),),
+                        "flash_dkv": lambda t: fused._flash_dkv(*args, tile=t)}[kernel]
+                share = LIBRARY_SHARE.get(kernel, (1.0, None))[0]
+                library_ms = share * sdpa["flash_fwd" if kernel == "flash_fwd" else "backward"]
+                name = f"{kernel}_wgmma" + ("_seg" if masked else "")
+                for tile in itertools.product(q_tiles, kv_tiles):
+                    _build.reset_launches()
+                    err = max(rel_err(a, b) for a, b in zip(call(tile), want[kernel]))
+                    launched = _build.launch_counts()[name]
+                    ms = time_ms(lambda t=tile: call(t), iters=20)  # noqa: B023
+                    bound_ms, bound_by = bounds[kernel][:2]
+                    row = {"phase": "sweep", "kernel": name, "cell": cell, "head_dim": d,
+                           "tile": list(tile), "default": tile == fused.fit_tile(
+                               kernel, "wgmma", d, s), "err": err, "tol": BF16_TOL[kernel],
+                           "launched": launched, "ms": ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "share": bound_ms / ms,
+                           "library_ms": library_ms,
+                           "launches_per_step": per_step[f"{kernel}_wgmma"]}
+                    emit(row)
+                    if not (err <= BF16_TOL[kernel] and launched == 1):
+                        bad.append(f"{name} {cell} tile {tile}: err {err}, launches {launched}")
+                    if not masked:
+                        times[(kernel, tile)] = ms
+            del q, k, v, do, o_p, lse_p, args, want, sdpa_fwd, sdpa_bwd, mask, seg
+            free_card()
+        # the default table's candidates, and the request a preset names
+        for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+            mine = {t: ms for (kern, t), ms in times.items() if kern == kernel}
+            fastest = min(mine, key=mine.get)
+            first = FIRST_TILES[(kernel, d)]
+            pick = fastest if mine[fastest] < (1 - TILE_SPREAD) * mine[first] else first
+            emit({"phase": "sweep", "default_for": kernel, "head_dim": d, "cell": cell,
+                  "fastest": list(fastest), "fastest_ms": mine[fastest], "first": list(first),
+                  "first_ms": mine[first], "pick": list(pick),
+                  "table": list(fused.DEFAULT_TILES[(kernel, d)]),
+                  "table_is_pick": tuple(fused.DEFAULT_TILES[(kernel, d)]) == pick})
+        # a request's flash time a step (0, 0: the default table), a pair
+        # preferred where it ties the table
+        axes = sorted({t for (kern, tile) in times for t in tile})
+        cost = {req: sum(per_step[f"{kern}_wgmma"] * times[(kern, fused.fit_tile(
+                    kern, "wgmma", d, s, *req))] for kern in ("flash_fwd", "flash_dq", "flash_dkv"))
+                for req in [*itertools.product(axes, axes), (0, 0)]}
+        best = min(cost, key=lambda req: (cost[req], req == (0, 0)))
+        emit({"phase": "sweep", "preset_for": cell, "head_dim": d, "request": list(best),
+              "ms_per_step": cost[best],
+              "by_request": {f"{a},{b}": c for (a, b), c in sorted(cost.items())}})
+    if bad:
+        fail("sweep", "; ".join(bad))
 
 
 def phase_sweep() -> None:
     """Time the RMSNorm backward at the main-path shape over ``SWEEP``,
-    each setting checked against the plain version first."""
+    each setting checked against the plain version first; then every
+    compiled tile of the wgmma flash kernels (:func:`_flash_tile_sweep`)."""
     import itertools
 
     import torch
@@ -4021,6 +4208,9 @@ def phase_sweep() -> None:
           "bound_ms": bound_ms, "library_ms": library_ms, "results": results})
     if not all(r.get("ok", True) for r in results):
         fail("sweep", "a setting disagrees with the plain version")
+    del x, dy, w, dx_p, dw_p, xg, wg, out
+    free_card()
+    _flash_tile_sweep(gen)
 
 
 # ---------------------------------------------------------------------------
@@ -5009,11 +5199,19 @@ def phase_int8_profile() -> None:
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
-    """kernel<type,head_dim> -> ptxas's spill and register lines, from the
-    ``-Xptxas -v`` build log, and ptxas's warnings (such as a wgmma
-    serialised for want of registers)."""
+    """kernel<type,head_dim> (a wgmma flash kernel: <head_dim,block_q,
+    block_kv>) -> ptxas's spill and register lines, from the ``-Xptxas -v``
+    build log, and ptxas's warnings (such as a wgmma serialised for want of
+    registers)."""
     out, name = {}, None
     for line in log.splitlines():
+        if m := re.search(r"Compiling entry function .*?\d(flash_\w+_wgmma_kernel)"
+                          r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", line):
+            # flash_*_wgmma_kernel<head_dim,block_q,block_kv[,seg]>
+            seg = ",seg" if m.group(5) == "1" else ""
+            name = f"{m.group(1)}<{m.group(2)},{m.group(3)},{m.group(4)}{seg}>"
+            out[name] = ""
+            continue
         m = re.search(
             r"Compiling entry function .*?\d(flash_\w+?_kernel)I(\w*?)Li(\d+)E(Lb1E)?", line)
         if m:
@@ -5256,6 +5454,7 @@ def main(argv: list[str] | None = None) -> int:
         build_s = _build.build()
     emit({"phase": "build", "ok": True, "seconds": build_s,
           "library": _build.build_info.get("library"),
+          "file_seconds": _build.build_info.get("files"),
           "ptxas": ptxas_summary(_build.build_info.get("log", ""))})
 
     with timed("kernels"):

@@ -90,6 +90,49 @@ def test_wgmma_kernels_match_plain(gen, d, n_rep, causal):
         assert _rel(a, b_) <= 1e-3
 
 
+#: every compiled tile of the wgmma kernels (ops/fused.py WGMMA_TILES)
+TILE_CASES = [(kernel, d, bq, bk) for (kernel, d), (q_tiles, kv_tiles) in fused.WGMMA_TILES.items()
+              for bq in q_tiles for bk in kv_tiles]
+
+
+@pytest.mark.parametrize("kernel,d,bq,bk", TILE_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_every_wgmma_tile_matches_plain(gen, kernel, d, bq, bk, causal, masked):
+    """Each compiled tile of each wgmma kernel, with and without segment ids
+    (documents whose boundaries fall inside every tile), launched at that
+    tile, within chip_smoke.py's 1e-3 of the plain version; s 384 takes
+    every tile of the grid."""
+    b, s, kvh, n_rep = 2, 384, 2, 2
+    q = _randn(gen, b, s, kvh * n_rep, d, dtype=torch.bfloat16)
+    k = _randn(gen, b, s, kvh, d, dtype=torch.bfloat16)
+    v = _randn(gen, b, s, kvh, d, dtype=torch.bfloat16)
+    do = _randn(gen, *q.shape, dtype=torch.bfloat16)
+    seg = None
+    if masked:
+        lengths = [37, 100, 150, 97]
+        seg = torch.repeat_interleave(torch.arange(len(lengths)), torch.tensor(lengths))
+        seg = seg.to(torch.int32).expand(b, s).contiguous().cuda()
+    assert fused.fit_tile(kernel, "wgmma", d, s, bq, bk) == (bq, bk)
+    tile = (bq, bk)
+    o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal, seg)
+    args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), causal, seg)
+    name = f"{kernel}_wgmma" + ("_seg" if masked else "")
+    _build.reset_launches()
+    if kernel == "flash_fwd":
+        o_k, lse_k = fused._flash_fwd(q, k, v, causal, seg, variant="wgmma", tile=tile)
+        assert _rel(o_k, o_p) <= 1e-3 and _rel(lse_k, lse_p) <= 1e-3
+    elif kernel == "flash_dq":
+        got = fused._flash_dq(*args, variant="wgmma", tile=tile)
+        assert _rel(got, fused._flash_dq_plain(*args)) <= 1e-3
+    else:
+        for a, b_ in zip(fused._flash_dkv(*args, variant="wgmma", tile=tile),
+                         fused._flash_dkv_plain(*args)):
+            assert _rel(a, b_) <= 1e-3
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == 1
+
+
 def test_flash_dkv_wgmma_is_deterministic(gen):
     q, do = (_randn(gen, 2, 1024, 8, 64, dtype=torch.bfloat16) for _ in range(2))
     k, v = (_randn(gen, 2, 1024, 2, 64, dtype=torch.bfloat16) for _ in range(2))

@@ -7,7 +7,9 @@ held to the JAX package's pipeline and trainer.
   the input and of every stage's layers within 1e-5, the aux within 1e-5.
 * 4 steps of ``make_train_step`` from one JAX init at ``pp=2``,
   ``pp=2,fsdp=2``, ``pp=2,tp=2`` (``llama_tiny``, tied, f32) and for
-  ``moe_tiny`` at ``pp=2`` and ``pp=2,ep=2``: losses and every parameter
+  ``moe_tiny`` at ``pp=2``, ``pp=2,ep=2`` and ``pp=2,fsdp=2`` (capacity
+  factor 0.5: tokens dropped; each data rank computes its block of JAX's
+  microbatches, ``microbatch_rows``): losses and every parameter
   shard within 1e-4 of the JAX trainer's on the same mesh (the router's
   aux vector within 1e-5), the dense ones also of the port's single-device
   step (a MoE step's balance term is the microbatches' under ``pp``, as
@@ -65,7 +67,11 @@ FAMILIES = {"llama_tiny": (jllama.llama_tiny, tllama.llama_tiny, {"tie_embedding
 #: the steps held to JAX: name -> (family, mesh, world)
 STEPS = {"pp=2": ("llama_tiny", "pp=2", 2), "pp=2,fsdp=2": ("llama_tiny", "pp=2,fsdp=2", 4),
          "pp=2,tp=2": ("llama_tiny", "pp=2,tp=2", 4), "moe pp=2": ("moe_tiny", "pp=2", 2),
-         "moe pp=2,ep=2": ("moe_tiny", "pp=2,ep=2", 4)}
+         "moe pp=2,ep=2": ("moe_tiny", "pp=2,ep=2", 4),
+         "moe pp=2,fsdp=2": ("moe_tiny", "pp=2,fsdp=2", 4)}
+#: config fields of a step beside its family's (both sides): capacity
+#: factor 0.5 drops tokens
+STEP_FIELDS = {"moe pp=2,fsdp=2": {"capacity_factor": 0.5}}
 #: pipeline_apply cases: name -> (op, stages, layers, width, rows, microbatches)
 PIPES = {"mlp pp=2": ("pipeline", 2, 4, 8, 8, 4), "aux pp=2": ("pipeline_aux", 2, 8, 16, 16, 4),
          "mlp pp=4": ("pipeline", 4, 8, 16, 16, 4), "one microbatch pp=4": ("pipeline", 4, 4, 8, 4, 1),
@@ -222,6 +228,7 @@ def runs(tmp_path_factory):
                     init=str(tmp / f"{family}.npz"), batches=str(tmp / "batches.npz"), **STEP)
         if family == "moe_tiny":
             case["config"] = "moe_tiny"
+            case["model"] = {**STEP_FIELDS.get(name, {}), **model}
         else:
             case["model"] = {"tie_embeddings": True, **model}
         return case
@@ -246,13 +253,14 @@ def runs(tmp_path_factory):
             step("pp=2"), step("moe pp=2"), *remat, ops("mlp pp=2"), ops("aux pp=2"),
             dict(kind="train", name="auto pp=2", mesh="pp=2", batch=2, seq=64, steps=2,
                  warmup=1, data=None, model=dict(remat=True, remat_policy="auto"))],
-        4: [step("pp=2,fsdp=2"), step("pp=2,tp=2"), step("moe pp=2,ep=2"), ops("mlp pp=4"),
+        4: [step("pp=2,fsdp=2"), step("pp=2,tp=2"), step("moe pp=2,ep=2"),
+            step("moe pp=2,fsdp=2"), ops("mlp pp=4"),
             ops("one microbatch pp=4"), ops("aux pp=4")],
     }
     procs = [gang.run_cases(tmp, n, c) for n, c in cases.items()]
     with ThreadPoolExecutor(len(STEPS) + len(PIPES)) as pool:
         step_futures = {name: pool.submit(jax_steps, hosts[family], family, spec, world,
-                                          batches)
+                                          batches, STEP_FIELDS.get(name))
                         for name, (family, spec, world) in STEPS.items()}
         pipe_futures = {name: pool.submit(_jax_pipeline, case[0], case[1], case[5], pipes[name])
                         for name, case in PIPES.items()}
@@ -421,6 +429,23 @@ def test_an_fsdp_step_restores_bitwise_at_pp(runs):
         assert res["resumed_from_step"] == step
     assert_shards_match(results, whole, "pp=2", "llama_tiny", None, key="restored")
     assert jeval.verify_checkpoint(str(runs["tmp"] / "ck_fsdp2_at_pp2"))[0] == step + 1
+
+
+@pytest.mark.parametrize("rows,data_size,n_micro", [(2, 2, 2), (4, 2, 4), (6, 3, 2),
+                                                     (8, 4, 2), (4, 2, 1)])
+def test_microbatch_rows_are_blocks_of_the_reference_microbatches(rows, data_size, n_micro):
+    """Under pp a MoE step's data ranks compute the rows of
+    ``microbatch_rows``: every row of the batch once, and rank r's
+    microbatch m is block r of the reference's microbatch m, rows m * mb to
+    (m + 1) * mb of the whole batch."""
+    from torchx_tpu_torch.parallel.pipeline import microbatch_rows
+
+    by_rank = [microbatch_rows(rows, data_size, r, n_micro) for r in range(data_size)]
+    assert sorted(torch.cat(by_rank).tolist()) == list(range(rows * data_size))
+    mb = rows * data_size // n_micro
+    for m in range(n_micro):
+        blocks = [idx.chunk(n_micro)[m].tolist() for idx in by_rank]
+        assert sum(blocks, []) == list(range(m * mb, (m + 1) * mb))
 
 
 @pytest.mark.parametrize("spec,microbatches,match", [

@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
@@ -59,7 +60,8 @@ KERNELS = (
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _lib = None
-#: What the last build did: seconds, library path and nvcc's output.
+#: What the last build did: seconds, library path, nvcc's output and each
+#: source's seconds to its object (the nvcc calls run side by side).
 build_info: dict = {}
 
 
@@ -106,7 +108,7 @@ def _sources() -> list[Path]:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     # tensors..., the segment ids (or null), then batch, seq, heads,
-    # kv_heads, head_dim, causal, dtype, then the stream
+    # kv_heads, head_dim, causal, dtype, (the tile,) then the stream
     ints = [i] * 7
     fns = {
         "tpx_flash_fwd": 6, "tpx_flash_fwd_wgmma": 6, "tpx_flash_dq": 8,
@@ -114,7 +116,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     }
     for name, n_tensors in fns.items():
         fn = getattr(lib, name)
-        fn.argtypes = [p] * n_tensors + ints + [p]
+        # the wgmma kernels also take their tile: block_q, block_kv
+        tiles = [i, i] if name.endswith("_wgmma") else []
+        fn.argtypes = [p] * n_tensors + ints + tiles + [p]
         fn.restype = i
     # x, q, scale, y, the split-k workspace and tile counters (or null);
     # M, N, K, the path, block rows, f32 output, splits, k steps per split;
@@ -125,37 +129,41 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpx_cuda_error_string.restype = ctypes.c_char_p
 
 
-def _run(cmds: list[list[str]]) -> str:
-    """Run the commands side by side; raise if any fails. -> their output."""
-    procs = [
-        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for c in cmds
-    ]
-    outs = [proc.communicate()[0] for proc in procs]
-    for cmd, proc, out in zip(cmds, procs, outs):
+def _run(cmds: list[list[str]]) -> tuple[str, list[float]]:
+    """Run the commands side by side; raise if any fails. -> (their output,
+    each one's seconds)."""
+
+    def one(cmd: list[str]) -> tuple[subprocess.CompletedProcess, float]:
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, time.monotonic() - t0
+
+    with ThreadPoolExecutor(max(1, len(cmds))) as pool:
+        done = list(pool.map(one, cmds))
+    for cmd, (proc, _) in zip(cmds, done):
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out[-4000:]}"
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout[-4000:]}"
             )
-    return "".join(outs)
+    return "".join(p.stdout for p, _ in done), [t for _, t in done]
 
 
-def _compile_and_link(srcs: list[Path], so: Path, tag: str) -> tuple[float, str]:
+def _compile_and_link(srcs: list[Path], so: Path, tag: str) -> tuple[float, str, dict]:
     """One nvcc per ``.cu`` file, all at once, then one link into ``so``.
-    -> (seconds, nvcc's output)."""
+    -> (seconds, nvcc's output, each file's seconds to its object)."""
     t0 = time.monotonic()
     pid = os.getpid()
     cus = [s for s in srcs if s.suffix == ".cu"]
     objs = [BUILD_DIR / f"{s.stem}-{tag}.{pid}.o" for s in cus]
-    log = _run([
+    log, seconds = _run([
         [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(cus, objs)
     ])
     tmp = so.with_suffix(f".{pid}.tmp")
-    log += _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    log += _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])[0]
     os.replace(tmp, so)
     for o in objs:
         o.unlink()
-    return time.monotonic() - t0, log
+    return time.monotonic() - t0, log, {s.name: t for s, t in zip(cus, seconds)}
 
 
 def build() -> float:
@@ -176,8 +184,8 @@ def build() -> float:
         seconds = 0.0
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            seconds, log = _compile_and_link(srcs, so, tag)
-            build_info.update(seconds=seconds, log=log)
+            seconds, log, files = _compile_and_link(srcs, so, tag)
+            build_info.update(seconds=seconds, log=log, files=files)
         build_info["library"] = str(so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)

@@ -1,0 +1,8 @@
+// The flash dk/dv's tiles at head_dim 128 with block_kv 64
+// (flash_dkv_wgmma.cuh).
+
+#include "flash_dkv_wgmma.cuh"
+
+namespace tpx {
+TPX_FLASH_DKV_TILES_D128_KV64(TPX_FLASH_DKV_INSTANCE)
+}  // namespace tpx

@@ -1,0 +1,7 @@
+// The flash dq's tiles at head_dim 64 with block_q 128 (flash_dq_wgmma.cuh).
+
+#include "flash_dq_wgmma.cuh"
+
+namespace tpx {
+TPX_FLASH_DQ_TILES_D64_Q128(TPX_FLASH_DQ_INSTANCE)
+}  // namespace tpx

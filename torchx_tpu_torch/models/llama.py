@@ -87,7 +87,9 @@ from torchx_tpu_torch.ops.quant import maybe_matmul
 from torchx_tpu_torch.ops.ring_attention import ring_attention
 from torchx_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from torchx_tpu_torch.parallel import mesh as mesh_ops
-from torchx_tpu_torch.parallel.pipeline import auto_microbatches, pipeline_apply
+from torchx_tpu_torch.parallel.pipeline import (
+    auto_microbatches, pipeline_apply, reference_microbatches,
+)
 
 Params = dict[str, Any]
 
@@ -121,6 +123,10 @@ class LlamaConfig:
     # "auto" (resolved by the trainer before the forward)
     remat_policy: str = "full"
     attn_impl: str = "auto"  # auto | xla | flash (ops/attention.py)
+    # the flash kernels' tile (ops/fused.py fit_tile): query and kv rows,
+    # 0 = the card's default table
+    attn_block_q: int = 0
+    attn_block_kv: int = 0
     # causal attention over sp by ring attention (ops/ring_attention.py) in
     # place of the sequence gather; inert without sp
     use_ring_attention: bool = False
@@ -148,6 +154,11 @@ class LlamaConfig:
             )
         if self.kernels not in KERNELS:
             raise ValueError(f"kernels must be one of {KERNELS}, got {self.kernels!r}")
+        if self.attn_block_q < 0 or self.attn_block_kv < 0:
+            raise ValueError(
+                "attn_block_q and attn_block_kv must be >= 0 (0: the card's default),"
+                f" got {self.attn_block_q}, {self.attn_block_kv}"
+            )
         if self.remat_policy not in REMAT_POLICIES + ("auto",):
             raise ValueError(
                 f"remat_policy must be one of {REMAT_POLICIES + ('auto',)},"
@@ -190,7 +201,16 @@ def llama3_8b(**overrides: Any) -> LlamaConfig:
 
 
 def llama3_1b(**overrides: Any) -> LlamaConfig:
-    """Llama-3.2-1B shape (tied embeddings)."""
+    """Llama-3.2-1B shape (tied embeddings).
+
+    attn_block_q/kv 64/64 come from the H100 sweep (``chip_smoke.py
+    --phases build,sweep`` at b 4, s 2048, 32/8 heads, head_dim 64, causal,
+    bf16; H100 80GB HBM3, 700 W): each of the three wgmma flash kernels is
+    fastest at 64/64, forward 0.2783 ms, dq 0.2718, dk/dv 0.5195 against
+    0.3043 / 0.3127 / 0.5545 at their first tiles (128/128, 128/128,
+    64/128), 21.57 ms of flash a step (32 forwards under full remat, 16 of
+    each backward) against 23.61.
+    """
     defaults = dict(
         dim=2048,
         n_layers=16,
@@ -198,6 +218,8 @@ def llama3_1b(**overrides: Any) -> LlamaConfig:
         n_kv_heads=8,
         ffn_dim=8192,
         tie_embeddings=True,
+        attn_block_q=64,
+        attn_block_kv=64,
     )
     defaults.update(overrides)
     return LlamaConfig(**defaults)
@@ -535,9 +557,11 @@ def _layer(
         attn_out = None
         if cfg.kernels != "reference":
             # None when the shape gate fails: the plain path below
-            attn_out = flash_attention(q, k, v, causal=True, kernels=cfg.kernels)
+            attn_out = flash_attention(q, k, v, causal=True, kernels=cfg.kernels,
+                                       block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
         if attn_out is None:
-            attn_out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+            attn_out = attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                                 block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
         if sp > 1:
             attn_out = mesh_ops.sequence_block(attn_out, 1, mesh)
     attn_out = maybe_matmul(attn_out.reshape(b, s, h * hd), layer["wo"], int8_training=i8_attn)
@@ -733,6 +757,16 @@ def loss_and_aux(
     tokens and each returns the same share."""
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")
+    if (mesh is not None and getattr(cfg, "n_experts", 0) and mesh.sizes["pp"] > 1
+            and mesh.data_size > 1):
+        # the router's balance term is taken over a microbatch's rows of
+        # every data rank, and is nonlinear in them: each rank computes its
+        # block of the reference's microbatches (a dense loss sums the same
+        # rows either way)
+        n_micro = auto_microbatches(cfg.pp_microbatches, mesh.sizes["pp"], tokens.shape[0])
+        tokens = reference_microbatches(tokens, mesh, n_micro)
+        if mask is not None:
+            mask = reference_microbatches(mask, mesh, n_micro)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     m = mask[:, 1:].float() if mask is not None else None
     if mesh is not None:

@@ -8,8 +8,9 @@ Port of :mod:`torchx_tpu.ops.attention`. Selection (``impl``):
   The name is kept from the JAX package, whose plain path XLA compiled.
 * ``"flash"`` — the port's flash kernels (:func:`.fused.flash_attention`):
   GQA-native, O(seq) memory, masked by ``segment_ids`` where given (the
-  JAX package's ``"splash"`` with ``SegmentIds``). On a CUDA tensor they
-  launch or raise; a CPU tensor takes their plain versions.
+  JAX package's ``"splash"`` with ``SegmentIds``), tiled as ``block_q`` /
+  ``block_kv`` ask (the splash kernel's ``BlockSizes``). On a CUDA tensor
+  they launch or raise; a CPU tensor takes their plain versions.
 * ``"auto"`` — the flash kernels on a CUDA tensor wherever the JAX
   package's ``auto`` picks the splash kernel on a TPU (head_dim in
   {64, 128, 256}, both sequences multiples of 128, seq >= 512, no
@@ -93,8 +94,12 @@ def attention(
     causal: bool = True,
     segment_ids: Optional[torch.Tensor] = None,
     impl: str = "auto",
+    block_q: int = 0,
+    block_kv: int = 0,
 ) -> torch.Tensor:
-    """[b, s, heads, head_dim] x3 -> [b, s, heads, head_dim]."""
+    """[b, s, heads, head_dim] x3 -> [b, s, heads, head_dim].
+    ``block_q``/``block_kv`` tune the flash kernels' tiling (0: the card's
+    default; :func:`.fused.fit_tile`); the plain path has none."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     use_flash = impl == "flash" or (
@@ -107,7 +112,8 @@ def attention(
         from torchx_tpu_torch.ops.fused import flash_attention
 
         out = flash_attention(
-            q, k, v, causal=causal, kernels="cuda", segment_ids=segment_ids
+            q, k, v, causal=causal, kernels="cuda", segment_ids=segment_ids,
+            block_q=block_q, block_kv=block_kv,
         )
         if out is not None:
             return out

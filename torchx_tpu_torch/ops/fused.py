@@ -13,7 +13,11 @@ Port of :mod:`torchx_tpu.ops.fused`, the ``--kernels cuda`` hot path:
   variants, chosen by the static rule :func:`flash_variant`: ``wgmma``
   on the tensor cores (``csrc/flash_fwd_wgmma.cu``,
   ``csrc/flash_dq_wgmma.cu``, ``csrc/flash_dkv_wgmma.cu``) and ``simt``
-  on the CUDA cores (``csrc/flash_attn.cu``). Optional ``segment_ids``
+  on the CUDA cores (``csrc/flash_attn.cu``). The wgmma kernels take
+  their tile as a launch setting, ``block_q`` / ``block_kv`` as the JAX
+  package's Pallas grids name them (``LlamaConfig.attn_block_q/kv``),
+  each launch at the compiled tile :func:`fit_tile` gives (0: the card's
+  default, :data:`DEFAULT_TILES`). Optional ``segment_ids``
   (``[b, s]`` int32, one array for queries and keys, as the JAX package
   hands ``SegmentIds(q=seg, kv=seg)`` to the library splash kernel) mask
   packed documents: a query sees only keys of its own segment, in all
@@ -64,6 +68,39 @@ WGMMA_HEAD_DIMS = (64, 128)
 
 FLASH_VARIANTS = ("wgmma", "simt")
 
+#: The flash kernels' tiles, as the JAX package's Pallas grids name them
+#: (``torchx_tpu/ops/fused.py`` ``_flash_fwd`` / ``_flash_bwd``):
+#: ``block_q`` is the query rows a forward or dq CTA owns and the query rows
+#: a dk/dv step streams; ``block_kv`` the kv rows a forward or dq step
+#: streams and the kv rows a dk/dv CTA owns. The wgmma kernels' compiled
+#: tiles, ``(block_q values, block_kv values)`` by kernel and head dim, each
+#: pair an instance of ``csrc/flash_*_wgmma.cuh`` (``TPX_FLASH_*_TILES``;
+#: tests/test_torch_flash_tiles.py holds the two equal).
+WGMMA_TILES = {
+    ("flash_fwd", 64): ((64, 128), (64, 128)),
+    ("flash_fwd", 128): ((64, 128), (64, 128)),
+    ("flash_dq", 64): ((64, 128), (64, 128)),
+    ("flash_dq", 128): ((64, 128), (64, 128)),
+    ("flash_dkv", 64): ((32, 64), (64, 128)),
+    ("flash_dkv", 128): ((32,), (64, 128)),
+}
+#: The tile a request of 0 takes, by kernel and head dim: the fastest of
+#: ``chip_smoke.py --phases build,sweep`` at llama3_1b's attention shape
+#: (head_dim 64) and Mixtral's (128), b 4, s 2048, causal, where it beats
+#: the kernels' first tiles by more than their 3% spread between calls. On
+#: an H100 80GB HBM3 at 700 W (ms, first tiles in brackets): head_dim 64,
+#: forward 0.2783 (128, 128: 0.3043), dq 0.2718 (128, 128: 0.3127), dk/dv
+#: 0.5195 (64, 128: 0.5545); head_dim 128, forward 0.4183 (the first tile),
+#: dq 0.4624 (128, 64: 0.5107), dk/dv 0.9551 (32, 128: 1.0329).
+DEFAULT_TILES = {
+    ("flash_fwd", 64): (64, 64), ("flash_fwd", 128): (128, 128),
+    ("flash_dq", 64): (64, 64), ("flash_dq", 128): (128, 128),
+    ("flash_dkv", 64): (64, 64), ("flash_dkv", 128): (32, 64),
+}
+#: The simt kernels' one tile by head dim (``csrc/flash_attn.cu`` ``Tile``):
+#: every request fits to it.
+SIMT_TILES = {64: 64, 128: 64, 256: 32}
+
 #: The port's ``--kernels`` values.
 KERNEL_MODES = ("reference", "cuda")
 
@@ -98,6 +135,41 @@ def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
+
+
+def check_tiles(block_q: int, block_kv: int) -> None:
+    """A tile request is a row count, or 0 for the card's default."""
+    for name, v in (("block_q", block_q), ("block_kv", block_kv)):
+        if not isinstance(v, int) or v < 0:
+            raise ValueError(f"flash attention: {name} must be an int >= 0, got {v!r}")
+
+
+def _fit(requested: int, seq: int, tiles: tuple[int, ...]) -> int:
+    """The JAX package's ``_fit_block`` on the compiled tiles: the largest
+    one at most ``requested`` (clamped up to the smallest, as the JAX rule
+    clamps up to 128 lanes) that divides ``seq``."""
+    want = max(requested, tiles[0])
+    fits = [t for t in tiles if t <= want and seq % t == 0]
+    if not fits:
+        raise ValueError(f"flash attention: no tile of {tiles} divides sequence {seq}")
+    return fits[-1]
+
+
+def fit_tile(kernel: str, variant: str, head_dim: int, seq: int, block_q: int = 0,
+             block_kv: int = 0) -> tuple[int, int]:
+    """The tile ``(block_q, block_kv)`` that ``kernel`` ("flash_fwd",
+    "flash_dq" or "flash_dkv") of ``variant`` launches with at ``head_dim``
+    and sequence ``seq`` for a request (0: :data:`DEFAULT_TILES`' value on
+    that axis). Each axis takes the largest compiled tile at most the
+    request that divides ``seq`` (:func:`_fit`); nothing else changes a
+    tile. The simt kernels have one tile (:data:`SIMT_TILES`)."""
+    check_tiles(block_q, block_kv)
+    if variant == "simt":
+        t = SIMT_TILES[head_dim]
+        return t, t
+    q_tiles, kv_tiles = WGMMA_TILES[(kernel, head_dim)]
+    dq, dkv = DEFAULT_TILES[(kernel, head_dim)]
+    return _fit(block_q or dq, seq, q_tiles), _fit(block_kv or dkv, seq, kv_tiles)
 
 
 def norm_shapes_ok(d: int) -> bool:
@@ -205,8 +277,7 @@ def _check_segments(segment_ids, q):  # noqa: ANN001, ANN202
 
 def _dims(q, k, v, causal, *more):  # noqa: ANN001, ANN202
     b, s, h, kvh, d = _check_flash(q, k, v, *more)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    return [b, s, h, kvh, d, int(causal), _DTYPE_CODE[q.dtype], stream]
+    return [b, s, h, kvh, d, int(causal), _DTYPE_CODE[q.dtype]]
 
 
 def _pick_variant(variant, tensors):  # noqa: ANN001, ANN202
@@ -228,55 +299,68 @@ def _pick_variant(variant, tensors):  # noqa: ANN001, ANN202
     return variant
 
 
-def _launch(kernel, variant, inputs, outputs, causal, segment_ids=None):  # noqa: ANN001, ANN202
+def _launch(kernel, variant, inputs, outputs, causal, segment_ids=None, tile=(0, 0)):  # noqa: ANN001, ANN202
     """Launch ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv") of the
     chosen variant on CUDA tensors: inputs (q, k, v[, do, lse, delta]),
     then the outputs and the segment ids (null for none), all as pointers,
-    then the dims."""
+    then the dims and, for wgmma, the tile :func:`fit_tile` gives for the
+    request ``tile`` (block_q, block_kv)."""
     seg_ptr = None
     if segment_ids is not None:
         _check_segments(segment_ids, inputs[0])
         seg_ptr = segment_ids.data_ptr()
     dims = _dims(*inputs[:3], causal, *inputs[3:])
     variant = _pick_variant(variant, inputs)
+    q = inputs[0]
+    tile = fit_tile(kernel, variant, q.shape[-1], q.shape[1], *tile)
     lib = _build.cuda_lib()
-    fn = getattr(lib, f"tpx_{kernel}_wgmma" if variant == "wgmma" else f"tpx_{kernel}")
-    with torch.cuda.device(inputs[0].device):
+    if variant == "wgmma":
+        fn = getattr(lib, f"tpx_{kernel}_wgmma")
+        dims += tile
+    else:  # one tile: the launch names none
+        fn = getattr(lib, f"tpx_{kernel}")
+    dims.append(torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
         rc = fn(*(t.data_ptr() for t in (*inputs, *outputs)), seg_ptr, *dims)
     name = f"{kernel}_{variant}" + ("" if segment_ids is None else "_seg")
     _build.check(rc, name)
     _build.count_launch(name)
 
 
-def _flash_fwd(q, k, v, causal, segment_ids=None, variant=None):  # noqa: ANN001, ANN202
+def _flash_fwd(q, k, v, causal, segment_ids=None, variant=None, tile=(0, 0)):  # noqa: ANN001, ANN202
     """[b, s, h, d], [b, s, kvh, d] x2 (, int32 segment ids [b, s]) ->
-    (o f32 [b, s, h, d], lse f32 [b, h, s])."""
+    (o f32 [b, s, h, d], lse f32 [b, h, s]). ``tile``: the (block_q,
+    block_kv) request (:func:`fit_tile`); the plain version has none."""
     if q.device.type == "cpu":
+        check_tiles(*tile)
         return _flash_fwd_plain(q, k, v, causal, segment_ids)
     b, s, h = q.shape[:3]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", variant, (q, k, v), (o, lse), causal, segment_ids)
+    _launch("flash_fwd", variant, (q, k, v), (o, lse), causal, segment_ids, tile)
     return o, lse
 
 
-def _flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None, variant=None):  # noqa: ANN001, ANN202
+def _flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None, variant=None, tile=(0, 0)):  # noqa: ANN001, ANN202
     """-> dq f32 [b, s, h, d]."""
     if q.device.type == "cpu":
+        check_tiles(*tile)
         return _flash_dq_plain(q, k, v, do, lse, delta, causal, segment_ids)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch("flash_dq", variant, (q, k, v, do, lse, delta), (dq,), causal, segment_ids)
+    _launch("flash_dq", variant, (q, k, v, do, lse, delta), (dq,), causal, segment_ids, tile)
     return dq
 
 
-def _flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None, variant=None):  # noqa: ANN001, ANN202
+def _flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None, variant=None, tile=(0, 0)):  # noqa: ANN001, ANN202
     """-> (dk, dv) f32 [b, s, kvh, d], summed over each KV head's query
     heads."""
     if q.device.type == "cpu":
+        check_tiles(*tile)
         return _flash_dkv_plain(q, k, v, do, lse, delta, causal, segment_ids)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    _launch("flash_dkv", variant, (q, k, v, do, lse, delta), (dk, dv), causal, segment_ids)
+    _launch("flash_dkv", variant, (q, k, v, do, lse, delta), (dk, dv), causal, segment_ids,
+            tile)
     return dk, dv
 
 
@@ -288,17 +372,18 @@ def _flash_delta(do, o_f32):  # noqa: ANN001, ANN202
 @torch.library.custom_op("tpx::flash_fwd", mutates_args=())
 def flash_fwd_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-    segment_ids: Optional[torch.Tensor],
+    segment_ids: Optional[torch.Tensor], block_q: int, block_kv: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The flash forward as one operator: -> (o f32 [b, s, h, d], lse f32
     [b, h, s]), the backward's residuals. A remat policy saves these two
     outputs as one op's (``"dots_attn"``), and the fit probe traces the
-    op's fake implementation on meta tensors."""
-    return _flash_fwd(q, k, v, causal, segment_ids)
+    op's fake implementation on meta tensors. ``block_q``/``block_kv``:
+    the tile request (:func:`fit_tile`)."""
+    return _flash_fwd(q, k, v, causal, segment_ids, tile=(block_q, block_kv))
 
 
 @flash_fwd_op.register_fake
-def _(q, k, v, causal, segment_ids):  # noqa: ANN001, ANN202
+def _(q, k, v, causal, segment_ids, block_q, block_kv):  # noqa: ANN001, ANN202
     b, s, h = q.shape[:3]
     return (q.new_empty(q.shape, dtype=torch.float32),
             q.new_empty((b, h, s), dtype=torch.float32))
@@ -307,27 +392,30 @@ def _(q, k, v, causal, segment_ids):  # noqa: ANN001, ANN202
 @torch.library.custom_op("tpx::flash_bwd", mutates_args=())
 def flash_bwd_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    do: torch.Tensor, causal: bool, segment_ids: Optional[torch.Tensor],
+    do: torch.Tensor, causal: bool, segment_ids: Optional[torch.Tensor], block_q: int,
+    block_kv: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash backward as one operator: ``delta``, then the dq kernel
-    and the dk/dv kernel. -> (dq, dk, dv) f32."""
+    and the dk/dv kernel, each at the tile the request fits to. -> (dq,
+    dk, dv) f32."""
     delta = _flash_delta(do, o)
-    dq = _flash_dq(q, k, v, do, lse, delta, causal, segment_ids)
-    dk, dv = _flash_dkv(q, k, v, do, lse, delta, causal, segment_ids)
+    tile = (block_q, block_kv)
+    dq = _flash_dq(q, k, v, do, lse, delta, causal, segment_ids, tile=tile)
+    dk, dv = _flash_dkv(q, k, v, do, lse, delta, causal, segment_ids, tile=tile)
     return dq, dk, dv
 
 
 @flash_bwd_op.register_fake
-def _(q, k, v, o, lse, do, causal, segment_ids):  # noqa: ANN001, ANN202
+def _(q, k, v, o, lse, do, causal, segment_ids, block_q, block_kv):  # noqa: ANN001, ANN202
     return (q.new_empty(q.shape, dtype=torch.float32),
             k.new_empty(k.shape, dtype=torch.float32),
             v.new_empty(v.shape, dtype=torch.float32))
 
 
 def _flash_setup(ctx, inputs, output):  # noqa: ANN001, ANN202
-    q, k, v, causal, segment_ids = inputs
+    q, k, v, causal, segment_ids, block_q, block_kv = inputs
     ctx.save_for_backward(q, k, v, *output, segment_ids)
-    ctx.causal = causal
+    ctx.causal, ctx.tile = causal, (block_q, block_kv)
     ctx.set_materialize_grads(False)  # lse gets no gradient
 
 
@@ -335,8 +423,8 @@ def _flash_backward(ctx, do, _dlse):  # noqa: ANN001, ANN202
     q, k, v, o, lse, segment_ids = ctx.saved_tensors
     # the kernels take dO in q's dtype: the gradient of o's cast to it, back
     do = do.to(q.dtype).contiguous()
-    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do, ctx.causal, segment_ids)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do, ctx.causal, segment_ids, *ctx.tile)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
@@ -349,11 +437,16 @@ def flash_attention(
     causal: bool = True,
     kernels: str = "cuda",
     segment_ids: Optional[torch.Tensor] = None,  # [b, s] int32
+    block_q: int = 0,
+    block_kv: int = 0,
 ) -> Optional[torch.Tensor]:
     """Flash attention, or ``None`` when the gate says "use the plain path":
     ``kernels`` is not "cuda", the shapes fail :func:`flash_shapes_ok`, or
     the query heads are not a multiple of the KV heads. ``segment_ids``
-    masks packed documents (the kernels check their dtype and shape)."""
+    masks packed documents (the kernels check their dtype and shape).
+    ``block_q``/``block_kv`` request the kernels' tile (0: the card's
+    default), each kernel launching at the tile :func:`fit_tile` gives."""
+    check_tiles(block_q, block_kv)
     if kernels != "cuda":
         return None
     if not flash_shapes_ok(q.shape[1], k.shape[1], q.shape[-1]):
@@ -365,7 +458,8 @@ def flash_attention(
         # refused before the operator, whose fake implementation (meta
         # tensors, the fit probe) checks nothing
         _check_segments(segment_ids, q)
-    o, _ = flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), causal, segment_ids)
+    o, _ = flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), causal, segment_ids,
+                        block_q, block_kv)
     return o.to(q.dtype)
 
 

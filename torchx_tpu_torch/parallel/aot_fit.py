@@ -266,11 +266,18 @@ def trace_fit(
 def north_star_cfg() -> Any:
     """llama3_8b as the JAX package's north star trains it: bf16, ``"dots"``
     remat, chunked cross-entropy over 2048 positions; attention through the
-    flash kernels (``kernels="cuda"``). The JAX config's 512/512 attention
-    tiles have no counterpart yet (ROADMAP queue 2 A2)."""
+    flash kernels (``kernels="cuda"``) at the H100's tiles in place of the
+    JAX config's 512/512 TPU tiles: 0/0, the card's default table
+    (``ops.fused.DEFAULT_TILES``), which ``chip_smoke.py --phases
+    build,sweep`` chose at head_dim 128 (b 4, s 2048, causal, bf16; H100
+    80GB HBM3, 700 W). No one (block_q, block_kv) request reaches the three
+    kernels' fastest tiles there (the forward's and dq's stream 128 kv rows,
+    dk/dv's owns 64): the best, 128/128, costs 4.664 ms of flash for 4
+    forwards and 2 of each backward against the table's 4.508."""
     from torchx_tpu_torch.models import llama
 
-    return llama.llama3_8b(remat=True, remat_policy="dots", loss_chunk=2048, kernels="cuda")
+    return llama.llama3_8b(remat=True, remat_policy="dots", loss_chunk=2048, kernels="cuda",
+                           attn_block_q=0, attn_block_kv=0)
 
 
 def model_state_bytes_per_device(cfg: Any, n_devices: int) -> int:

@@ -329,6 +329,16 @@ def _all_gather(shard_: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
     return buf.view(n, *s).movedim(0, dim).reshape(*s[:dim], n * s[dim], *s[dim + 1:])
 
 
+def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole batch's rows from every rank's block ``x`` (its
+    :meth:`Mesh.batch_rows`), in :attr:`Mesh.data_index` order: gathered
+    over ``fsdp``, then over ``dp``. Not differentiable (tokens, masks)."""
+    for group in (mesh.fsdp_group, mesh.dp_group):
+        if dist.get_world_size(group) > 1:
+            x = _all_gather(x, 0, group)
+    return x
+
+
 def _reduce_scatter(full: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
     """The sum over ``group`` of ``full``, each rank keeping its block
     along ``dim`` (the inverse layout of :func:`_all_gather`)."""

@@ -60,6 +60,32 @@ def auto_microbatches(requested: int, n_stages: int, rows: int) -> int:
     return requested or math.gcd(2 * n_stages, rows)
 
 
+def microbatch_rows(rows: int, data_size: int, data_index: int, n_micro: int) -> torch.Tensor:
+    """The rows of the whole batch (``rows`` a rank, ``data_size`` ranks)
+    that data rank ``data_index`` computes so that its microbatch ``m`` is
+    its block of the reference's microbatch ``m``, a contiguous block of the
+    whole batch's rows: for each ``m``, block ``data_index`` of rows ``m *
+    mb`` to ``(m + 1) * mb`` (``mb = rows * data_size / n_micro``)."""
+    if rows % n_micro:
+        raise ValueError(f"batch {rows} not divisible by {n_micro} microbatches")
+    per = rows // n_micro
+    mb = per * data_size
+    return (torch.arange(n_micro)[:, None] * mb + data_index * per
+            + torch.arange(per)[None, :]).reshape(-1)
+
+
+def reference_microbatches(x: torch.Tensor, mesh: Any, n_micro: int) -> torch.Tensor:
+    """This rank's rows ``x`` (block :attr:`~torchx_tpu_torch.parallel.mesh.Mesh.data_index`
+    of the batch) exchanged over ``dp`` x ``fsdp`` for the rows of
+    :func:`microbatch_rows`: the reference pipelines the whole batch, so
+    its microbatch ``m`` is a contiguous block of the whole batch's rows,
+    split over the data ranks inside the stage. A statistic taken over a
+    microbatch's rows of every data rank (the MoE router's balance term) is
+    then the reference's. Not differentiable (tokens, masks)."""
+    idx = microbatch_rows(x.shape[0], mesh.data_size, mesh.data_index, n_micro)
+    return mesh_ops.gather_batch(x, mesh)[idx.to(x.device)]
+
+
 def _stage_apply(body: LayerBody, layers: list, h: torch.Tensor,
                  with_aux: bool) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """This stage's layers on one microbatch; with ``with_aux`` the layers'
