@@ -7,25 +7,35 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
-1. build — compile the CUDA kernels from ``torchx_tpu_torch/csrc``.
+1. build — compile the CUDA kernels from ``torchx_tpu_torch/csrc``; ptxas's
+   registers and spills by instance, and no mma instance may spill.
 2. kernels — each kernel of the training step against its plain PyTorch
-   version on the card. The flash forward, dq and dk/dv have two variants
-   (``ops.fused.flash_variant``): the CUDA-core ``simt`` kernels in f32 at
-   the CPU tests' tolerances, and both variants in bf16 at the llama3_1b
-   main-path shapes, the tensor-core ``wgmma`` ones also at head_dim 128
-   with n_rep 1 and 4, causal and full, each at the tile the default
-   table gives (``ops.fused.DEFAULT_TILES``; the kernels line names it),
-   and one other compiled tile of each wgmma kernel at llama3_1b's and
-   Mixtral's shapes. The wgmma dq and dk/dv and the norm backward's dw
-   must be bitwise repeatable. Segment ids (packed
-   documents of 1-1024 tokens, the last row one document): the masked
-   kernels of both variants (wgmma in bf16, simt in f32) at llama3_1b's
-   and Mixtral-8x7B's attention shapes (head_dim 64 and 128), causal and
-   full, against their masked plain versions at the unmasked tolerances;
-   the one-document row bitwise the unmasked kernels' output; the masked
-   wgmma dq and dk/dv bitwise repeatable; then ``attention(impl="flash",
-   segment_ids=...)`` forward and backward in bf16 and f32, whose launch
-   counts are the masked rows' launches. Times (CUDA events after
+   version on the card. The flash kernels by variant, per kernel
+   (``ops.fused.flash_variant``): the tensor-core ``wgmma`` ones for bf16
+   at head_dim 64 and 128; elsewhere the ``mma`` forward and dk/dv
+   (mma.sync, f32 in three TF32 passes) and the CUDA-core ``simt`` dq. In
+   f32 (``F32_ATTN_CASES``) at the CPU tests' tolerances; the wgmma ones in
+   bf16 at the llama3_1b main-path shapes and at head_dim 128 with n_rep 1
+   and 4, causal and full, each at the tile the default table gives
+   (``ops.fused.DEFAULT_TILES``; the kernels line names it), and one other
+   compiled tile of each wgmma kernel at llama3_1b's and Mixtral's shapes;
+   the mma and simt ones in bf16 at head_dim 256 (``BF16_D256_CASES``).
+   The wgmma dq and dk/dv, the mma dk/dv and the norm backward's dw must
+   be bitwise repeatable. Segment ids (packed documents of 1-1024 tokens,
+   the last row one document): the masked kernels of every variant (wgmma
+   in bf16; mma and simt in f32) at llama3_1b's and Mixtral-8x7B's
+   attention shapes, causal and full, against their masked plain versions
+   at the unmasked tolerances; the one-document row bitwise the unmasked
+   kernels' output; the masked wgmma dq and dk/dv and mma dk/dv bitwise
+   repeatable; then ``attention(impl="flash", segment_ids=...)`` forward
+   and backward in bf16 and f32, whose launch counts are the masked rows'
+   launches. On the
+   routes off the wgmma kernels (``ROUTES``: f32 at llama3_1b's attention
+   shape, f32 and bf16 at head_dim 256, b 4, s 2048, causal), unmasked and
+   masked, the rule's kernels timed beside SDPA in the same dtype (the
+   backend its dispatcher picks), their launches from
+   ``attention(impl="flash")`` forward and backward on the route, the f32
+   bound three TF32 passes over 495 TFLOP/s. Times (CUDA events after
    warm-up) of every kernel, the plain version and one PyTorch library
    call as a yardstick (for the masked ones SDPA with the boolean
    block-diagonal mask), and the least time the card could take
@@ -187,9 +197,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    one step
    at 1 layer with the kernels and with plain ops, loss within 1e-2 and
    gradient norm within 5e-2. Serve: the serve phase's burst through
-   ``generate_server`` with ``mixtral_8x7b_shape(n_layers=8)`` (11.87 B
-   parameters, 23.74 GB; 16 layers before the remat phase), seeded random weights
-   initialised one expert
+   ``generate_server`` with ``mixtral_8x7b_shape(n_layers=4)`` (6.07 B
+   parameters, 12.13 GB; 16 layers before the remat phase, 8 before the
+   mma kernels' checks), seeded random weights initialised one expert
    matrix at a time, without the prefix cache (a prefix hit prefills the
    rest of a prompt as its own chunk, whose expert capacity differs);
    greedy tokens teacher-forced through the plain KV-cache path in the
@@ -299,6 +309,13 @@ commit's ``git archive``), so that one call compares the two. With four
 cards the tp and ep phases' four-card runs print the fit probe's rank-0
 peak (traced in a subprocess) and ``hbm_fit``'s total beside each rank's
 measured peak.
+``--phases build,routes`` times the flash kernels that the package's own
+rule picks (``ops.fused.flash_variant``) on the routes that do not reach
+the wgmma kernels (``ROUTES``: f32 at llama3_1b's attention shape, f32 and
+bf16 at head_dim 256), each held to its plain version first, unmasked and
+masked, beside SDPA and the bound; with ``--package-root`` the same rows of
+another tree's kernels (the kernels phase prints this tree's among its
+rows).
 ``--phases build,sweep`` times the RMSNorm backward kernel over its launch
 settings (``ops.norms.BWD_CONFIG``), then every compiled tile of the three
 wgmma flash kernels at llama3_1b's and Mixtral's attention shapes, masked
@@ -354,11 +371,17 @@ PHASES = ("build", "kernels", "train", "remat", "reference", "gang", "gangckpt",
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
-                "int8parts", "gangparts", "rematoom", "hostus")
+                "int8parts", "gangparts", "rematoom", "hostus", "routes")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth; its L2 cache.
 PEAK_BF16_FLOPS = 989e12
+#: The f32 flash kernels' rate: f32 accuracy (2e-5) on this card's tensor
+#: cores takes three TF32 passes a product (hi*hi + hi*lo + lo*hi, each
+#: operand split into two TF32 parts: one pass keeps ~3 decimal digits), so
+#: an f32 bound is three times the operations over the TF32 peak.
+PEAK_TF32_FLOPS = 495e12
+F32_PASSES = 3
 PEAK_BYTES = 3.35e12
 L2_BYTES = 50e6
 
@@ -366,16 +389,16 @@ L2_BYTES = 50e6
 KERNEL_INFO = {
     "flash_fwd_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_fwd_wgmma.cuh",
                         "torchx_tpu/ops/fused.py:87"),
-    "flash_fwd_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
-                       "torchx_tpu/ops/fused.py:87"),
+    "flash_fwd_mma": ("cuda", "torchx_tpu_torch/csrc/flash_fwd_mma.cuh",
+                      "torchx_tpu/ops/fused.py:87"),
     "flash_dq_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dq_wgmma.cuh",
                        "torchx_tpu/ops/fused.py:167"),
     "flash_dq_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
                       "torchx_tpu/ops/fused.py:167"),
     "flash_dkv_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dkv_wgmma.cuh",
                         "torchx_tpu/ops/fused.py:198"),
-    "flash_dkv_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
-                       "torchx_tpu/ops/fused.py:198"),
+    "flash_dkv_mma": ("cuda", "torchx_tpu_torch/csrc/flash_dkv_mma.cuh",
+                      "torchx_tpu/ops/fused.py:198"),
     "norm_res_fwd": ("triton", "torchx_tpu_torch/ops/fused.py",
                      "torchx_tpu/ops/fused.py:361"),
     "rms_norm_bwd": ("triton", "torchx_tpu_torch/ops/norms.py",
@@ -387,8 +410,14 @@ KERNEL_INFO = {
 SPLASH = "torchx_tpu/ops/attention.py:148"
 KERNEL_INFO.update({
     f"{name}_seg": (KERNEL_INFO[name][0], KERNEL_INFO[name][1], SPLASH)
-    for name in ("flash_fwd_wgmma", "flash_fwd_simt", "flash_dq_wgmma", "flash_dq_simt",
-                 "flash_dkv_wgmma", "flash_dkv_simt")
+    for name in ("flash_fwd_wgmma", "flash_fwd_mma", "flash_dq_wgmma", "flash_dq_simt",
+                 "flash_dkv_wgmma", "flash_dkv_mma")
+})
+#: The CUDA-core forward and dk/dv that the mma kernels replaced, as a tree
+#: imported by ``--package-root`` still launches them (the routes phase).
+KERNEL_INFO.update({
+    "flash_fwd_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu", "torchx_tpu/ops/fused.py:87"),
+    "flash_dkv_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu", "torchx_tpu/ops/fused.py:198"),
 })
 KERNEL_INFO.update({f"{name}_d128": KERNEL_INFO[name]
                     for name in ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")})
@@ -511,10 +540,12 @@ def _attn_inputs(b, s, h, kvh, d, dtype, gen):  # noqa: ANN001, ANN202
 
 def _flash_case(b, s, h, kvh, d, causal, dtype, gen, variants, seg=None):  # noqa: ANN001, ANN202
     """Errors (relative, absolute) of the flash kernels of the given
-    variants against their plain versions, masked by the segment ids
-    ``seg`` where given (names end ``_seg`` then, and each variant's
-    ``one_doc_row_bitwise`` says whether its one-document row, the last,
-    equals the unmasked kernels' output bitwise)."""
+    variants (None: each kernel's by the package's rule,
+    ``ops.fused.flash_variant``) against their plain versions, masked by
+    the segment ids ``seg`` where given (names end ``_seg`` then, and
+    ``one_doc_row_bitwise_<variant or "rule">`` says whether the
+    one-document row, the last, equals the unmasked kernels' output
+    bitwise)."""
     import torch
 
     from torchx_tpu_torch.ops import fused
@@ -527,29 +558,33 @@ def _flash_case(b, s, h, kvh, d, causal, dtype, gen, variants, seg=None):  # noq
     dk_p, dv_p = fused._flash_dkv_plain(*args, seg)
     out, sfx = {}, "" if seg is None else "_seg"
     for var in variants:
+        name = {fn: f"{fn}_{var or fused.flash_variant(fn, dtype, d)}{sfx}"
+                for fn in fused.FLASH_KERNELS}
         o_k, lse_k = fused._flash_fwd(q, k, v, causal, seg, variant=var)
         dq_k = fused._flash_dq(*args, seg, variant=var)
         dk_k, dv_k = fused._flash_dkv(*args, seg, variant=var)
-        out[f"flash_fwd_{var}{sfx}"] = (max(rel_err(o_k, o_p), rel_err(lse_k, lse_p)),
-                                        max(max_err(o_k, o_p), max_err(lse_k, lse_p)))
-        out[f"flash_dq_{var}{sfx}"] = (rel_err(dq_k, dq_p), max_err(dq_k, dq_p))
-        out[f"flash_dkv_{var}{sfx}"] = (max(rel_err(dk_k, dk_p), rel_err(dv_k, dv_p)),
-                                        max(max_err(dk_k, dk_p), max_err(dv_k, dv_p)))
+        out[name["flash_fwd"]] = (max(rel_err(o_k, o_p), rel_err(lse_k, lse_p)),
+                                  max(max_err(o_k, o_p), max_err(lse_k, lse_p)))
+        out[name["flash_dq"]] = (rel_err(dq_k, dq_p), max_err(dq_k, dq_p))
+        out[name["flash_dkv"]] = (max(rel_err(dk_k, dk_p), rel_err(dv_k, dv_p)),
+                                  max(max_err(dk_k, dk_p), max_err(dv_k, dv_p)))
         if seg is not None:
             unmasked = (*fused._flash_fwd(q, k, v, causal, variant=var),
                         fused._flash_dq(*args, variant=var),
                         *fused._flash_dkv(*args, variant=var))
-            out[f"one_doc_row_bitwise_{var}"] = all(
+            out[f"one_doc_row_bitwise_{var or 'rule'}"] = all(
                 torch.equal(m[-1], u[-1])
                 for m, u in zip((o_k, lse_k, dq_k, dk_k, dv_k), unmasked))
     return out
 
 
 def family(name: str) -> str:
-    """A kernel's name without its shape, its mask and its variant: the
-    key of its tolerance (both variants compute the same function)."""
+    """A kernel's name without its shape or route, its mask and its
+    variant: the key of its tolerance (every variant computes the same
+    function)."""
+    name = re.sub(r"_(f32|bf16)_hd\d+$", "", name)
     name = re.sub(r"_(d|tp|sp)\d+$", "", name).removesuffix("_seg")
-    return name.removesuffix("_wgmma").removesuffix("_simt")
+    return re.sub(r"_(wgmma|mma|simt)$", "", name)
 
 
 def packed_segment_ids(b: int, s: int, max_len: int, seed: int):  # noqa: ANN201
@@ -612,9 +647,10 @@ F32_TOL = {"flash_fwd": 2e-5, "flash_dq": 5e-4, "flash_dkv": 5e-4,
            "norm_res_fwd": 1e-6, "rms_norm_bwd": 2e-5}
 #: bf16 tolerances at the main-path shapes, relative to the largest
 #: reference value. Kernel and plain version read the same bf16 values and
-#: sum in f32, so the simt flash kernels differ by summation order only and
-#: the wgmma ones also by the bf16 hi + lo split of P and dS (~1e-6, where
-#: one bf16 rounding would cost ~2e-3: tests/test_torch_flash_variants.py);
+#: sum in f32, so the simt dq differs by summation order only and the
+#: tensor-core kernels also by the bf16 hi + lo split of P and dS (~1e-6,
+#: where one bf16 rounding would cost ~2e-3:
+#: tests/test_torch_flash_variants.py);
 #: the norm kernels' bf16 outputs (y, dx) may differ by one bf16 rounding
 #: step (2**-8 relative) where the f32 sums round to either side.
 BF16_TOL = {"flash_fwd": 1e-3, "flash_dq": 1e-3, "flash_dkv": 1e-3,
@@ -633,6 +669,12 @@ BF16_WGMMA_CASES = [  # b, s, h, kvh, d, causal
     (2, 1024, 4, 4, 128, False), (2, 1024, 8, 2, 128, False),
     (2, 1024, 8, 2, 64, False),
 ]
+#: bf16 at head_dim 256 (the mma forward and dk/dv, the simt dq): n_rep 1
+#: and 2, causal and full
+BF16_D256_CASES = [  # b, s, h, kvh, d, causal
+    (2, 1024, 4, 4, 256, True), (2, 1024, 8, 4, 256, True),
+    (2, 1024, 4, 4, 256, False), (2, 1024, 8, 4, 256, False),
+]
 
 
 def _bounds(dtype_bytes: int = 2, attn: dict = ATTN, norm: dict = NORM,
@@ -643,7 +685,9 @@ def _bounds(dtype_bytes: int = 2, attn: dict = ATTN, norm: dict = NORM,
     means s(s+1)/2 query-key pairs per head and batch row need computing,
     a segment mask only the pairs it keeps (``pairs_per_head``, summed over
     the batch: :func:`kept_pairs`), and the kernels then also read the
-    int32 ids."""
+    int32 ids. Operations count at the bf16 peak, or for f32 (4-byte
+    elements: the flash kernels only) three times over the TF32 peak
+    (``F32_PASSES``)."""
     b, s, h, kvh, d = (attn[x] for x in ("b", "s", "h", "kvh", "d"))
     if pairs_per_head is None:
         pairs = b * h * s * (s + 1) / 2
@@ -672,7 +716,8 @@ def _bounds(dtype_bytes: int = 2, attn: dict = ATTN, norm: dict = NORM,
     }
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops = flops / PEAK_BF16_FLOPS
+        t_ops = (flops / PEAK_BF16_FLOPS if dtype_bytes == 2
+                 else F32_PASSES * flops / PEAK_TF32_FLOPS)
         t_bytes = nbytes / PEAK_BYTES
         out[name] = (
             1e3 * max(t_ops, t_bytes),
@@ -994,17 +1039,20 @@ def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
     return rows
 
 
-#: The segment checks: (variant, dtype name, shape) x causal and full.
+#: The segment checks: (variant, dtype name, shape) x causal and full;
+#: None is each kernel's variant by the package's rule (in f32 and at head
+#: dim 256: the mma forward and dk/dv, the simt dq).
 SEG_CASES = [("wgmma", "bfloat16", "llama3_1b"), ("wgmma", "bfloat16", "mixtral_8x7b"),
-             ("simt", "float32", "llama3_1b"), ("simt", "float32", "mixtral_8x7b")]
+             (None, "float32", "llama3_1b"), (None, "float32", "mixtral_8x7b")]
 
 
 def _segment_checks(gen, seg) -> dict:  # noqa: ANN001
-    """The masked kernels of both variants at llama3_1b's and Mixtral's
+    """The masked kernels of every variant at llama3_1b's and Mixtral's
     attention shapes, causal and full, against their masked plain versions
     at the unmasked tolerances; the one-document row bitwise the unmasked
-    kernels'; the masked wgmma dq and dk/dv bitwise repeatable. -> the f32
-    errors by kernel name."""
+    kernels'; the masked wgmma dq and dk/dv and mma dk/dv bitwise
+    repeatable (head_dim 256 masked: the route rows, and the card tests'
+    one-document rows). -> the f32 errors by kernel name."""
     import torch
 
     from torchx_tpu_torch.ops import fused
@@ -1016,7 +1064,7 @@ def _segment_checks(gen, seg) -> dict:  # noqa: ANN001
         tols = F32_TOL if dtype == torch.float32 else BF16_TOL
         for causal in (True, False):
             errs = _flash_case(*shapes[shape].values(), causal, dtype, gen, (variant,), seg)
-            one_doc = errs.pop(f"one_doc_row_bitwise_{variant}")
+            one_doc = errs.pop(f"one_doc_row_bitwise_{variant or 'rule'}")
             for name, (rel, _) in errs.items():
                 tol = tols[family(name)]
                 emit({"phase": "kernels", "check": name, "dtype": dtype_name, "shape": shape,
@@ -1028,17 +1076,24 @@ def _segment_checks(gen, seg) -> dict:  # noqa: ANN001
                 if dtype == torch.float32:
                     f32_err[name] = max(f32_err.get(name, 0.0), rel)
             if not one_doc:
-                fail("kernels", f"masked {variant} {shape} causal={causal}: the one-document"
-                                " row differs from the unmasked kernels' output")
-    q, k, v, do = _attn_inputs(*ATTN.values(), torch.bfloat16, gen)
-    o, lse = fused._flash_fwd(q, k, v, True, seg)
-    args = (q, k, v, do, lse, fused._flash_delta(do, o), True, seg)
-    if not (torch.equal(fused._flash_dq(*args), fused._flash_dq(*args))
-            and all(torch.equal(a, b) for a, b in zip(fused._flash_dkv(*args),
-                                                      fused._flash_dkv(*args)))):
-        fail("kernels", "masked wgmma dq or dk/dv: two calls differ")
-    emit({"phase": "kernels", "check": "bitwise repeatable",
-          "kernels": ["flash_dq_wgmma_seg", "flash_dkv_wgmma_seg"]})
+                fail("kernels", f"masked {variant or 'rule'} {dtype_name} {shape}"
+                                f" causal={causal}: the one-document row differs from the"
+                                " unmasked kernels' output")
+    for attn, dtype, names in ((ATTN, torch.bfloat16, ["flash_dq_wgmma_seg", "flash_dkv_wgmma_seg"]),
+                               (ATTN, torch.float32, ["flash_dkv_mma_seg"]),
+                               (ATTN_D256, torch.bfloat16, ["flash_dkv_mma_seg"])):
+        q, k, v, do = _attn_inputs(*attn.values(), dtype, gen)
+        o, lse = fused._flash_fwd(q, k, v, True, seg)
+        args = (q, k, v, do, lse, fused._flash_delta(do, o), True, seg)
+        same = all(torch.equal(a, b) for a, b in zip(fused._flash_dkv(*args),
+                                                      fused._flash_dkv(*args)))
+        if "flash_dq_wgmma_seg" in names:
+            same = same and torch.equal(fused._flash_dq(*args), fused._flash_dq(*args))
+        if not same:
+            fail("kernels", f"masked {names} ({dtype}, head_dim {attn['d']}): two calls differ")
+        emit({"phase": "kernels", "check": "bitwise repeatable", "kernels": names,
+              "dtype": str(dtype).removeprefix("torch."), "shape": list(attn.values())})
+        del q, k, v, do, o, lse, args
     return f32_err
 
 
@@ -1078,8 +1133,8 @@ def _other_tile_checks(gen) -> None:  # noqa: ANN001
 def _packed_attention_launches(seg) -> dict[str, int]:  # noqa: ANN001
     """The masked path through its entry point: ``attention(impl="flash",
     segment_ids=...)`` forward and backward at llama3_1b's shape, in bf16
-    (the wgmma kernels) and f32 (the simt ones), launch counts reset just
-    before and read just after."""
+    (the wgmma kernels) and f32 (the mma forward and dk/dv, the simt dq),
+    launch counts reset just before and read just after."""
     import torch
 
     from torchx_tpu_torch import _build
@@ -1102,6 +1157,164 @@ def _packed_attention_launches(seg) -> dict[str, int]:  # noqa: ANN001
     return counts
 
 
+#: Gemma-2-2B's attention (8 query heads over 4 KV heads of 256) at the
+#: train cell's batch and sequence: a head dim the wgmma kernels do not take.
+ATTN_D256 = dict(b=4, s=2048, h=8, kvh=4, d=256)
+#: The routes off the wgmma kernels, causal: f32 (the bf16 tensor-core path
+#: cannot take it) at llama3_1b's shape and at head_dim 256, and bf16 at
+#: head_dim 256. Row names end with the route's tag.
+ROUTES = (("f32_hd64", ATTN, "float32"), ("f32_hd256", ATTN_D256, "float32"),
+          ("bf16_hd256", ATTN_D256, "bfloat16"))
+
+
+def _sdpa_backend(q, k, v, mask) -> str:  # noqa: ANN001
+    """The backend SDPA's dispatcher picks for :func:`_sdpa_calls` on these
+    inputs (its backward runs the same backend's)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    choice = torch._fused_sdp_choice(qt, kt, vt, mask, 0.0, mask is None, enable_gqa=True)
+    return SDPBackend(choice).name.lower()
+
+
+def _route_launches(route: str, attn: dict, dtype, seg) -> dict[str, int]:  # noqa: ANN001
+    """The route's path through its entry point: ``attention(impl="flash")``
+    forward and backward, unmasked then with the segment ids, launch counts
+    reset just before and read just after."""
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for ids in (None, seg):
+        q, k, v, _ = (t.requires_grad_() for t in _attn_inputs(*attn.values(), dtype, gen))
+        out = attention(q, k, v, segment_ids=ids, impl="flash")
+        out.float().square().mean().backward()
+        if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
+            fail("kernels", f"{route} attention: non-finite gradient")
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in _build.launch_counts().items() if n}
+    emit({"phase": "kernels", "path": f"attention(impl='flash'), {route}, unmasked and masked",
+          "launches": counts})
+    return counts
+
+
+def _route_rows(gen) -> list[dict]:  # noqa: ANN001
+    """Timed rows of the flash kernels that the package's rule picks on each
+    of ``ROUTES``, unmasked and masked by packed documents: each kernel's
+    output first held to its plain version (f32 at ``F32_TOL``, bf16 at
+    ``BF16_TOL``), its name read from the launch it counted; beside it the
+    plain version, SDPA (``enable_gqa``, the same dtype and inputs; the
+    backend its dispatcher picks) and the bound (f32: three TF32 passes,
+    ``F32_PASSES``). Launches from :func:`_route_launches`."""
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.ops import fused
+
+    rows, seconds = [], {}
+    for route, attn, dtype_name in ROUTES:
+        t0 = time.monotonic()
+        dtype = getattr(torch, dtype_name)
+        tols = F32_TOL if dtype == torch.float32 else BF16_TOL
+        masks = packed_segment_ids(attn["b"], attn["s"], SEG["max_len"], SEG["seed"])
+        launches = _route_launches(route, attn, dtype, masks)
+        q, k, v, do = _attn_inputs(*attn.values(), dtype, gen)
+        for seg in (None, masks):
+            o_p, lse_p = fused._flash_fwd_plain(q, k, v, True, seg)
+            args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), True)
+            want = {"flash_fwd": (o_p, lse_p), "flash_dq": (fused._flash_dq_plain(*args, seg),),
+                    "flash_dkv": fused._flash_dkv_plain(*args, seg)}
+            calls = {
+                "flash_fwd": (lambda seg=seg: fused._flash_fwd(q, k, v, True, seg),
+                              lambda seg=seg: fused._flash_fwd_plain(q, k, v, True, seg)),
+                "flash_dq": (lambda seg=seg, a=args: (fused._flash_dq(*a, seg),),
+                             lambda seg=seg, a=args: fused._flash_dq_plain(*a, seg)),
+                "flash_dkv": (lambda seg=seg, a=args: fused._flash_dkv(*a, seg),
+                              lambda seg=seg, a=args: fused._flash_dkv_plain(*a, seg)),
+            }
+            mask = None
+            if seg is not None:
+                same = seg[:, :, None] == seg[:, None, :]
+                mask = (same & torch.ones_like(same).tril())[:, None]
+            sdpa_fwd, sdpa_bwd = _sdpa_calls(q, k, v, do, mask)
+            backend = _sdpa_backend(q, k, v, mask)
+            masked = "" if seg is None else " with the boolean block-diagonal causal attn_mask"
+            bounds = _bounds(dtype_bytes=torch.finfo(dtype).bits // 8, attn=attn,
+                             pairs_per_head=None if seg is None else kept_pairs(seg, True))
+            for fn, (kern, plain) in calls.items():
+                _build.reset_launches()
+                got = kern()
+                torch.cuda.synchronize()
+                launched = [n for n, c in _build.launch_counts().items() if c]
+                if len(launched) != 1:
+                    fail("kernels", f"{fn} {route}: launched {launched}, want one kernel")
+                base = launched[0]
+                if not launches.get(base):
+                    fail("kernels", f"{base} {route}: the route's attention never launched it")
+                rel = max(rel_err(a, b) for a, b in zip(got, want[fn]))
+                err = max(max_err(a, b) for a, b in zip(got, want[fn]))
+                emit({"phase": "kernels", "check": f"{base}_{route}", "dtype": dtype_name,
+                      "shape": list(attn.values()), "causal": True, "err": rel,
+                      "tol": tols[fn]})
+                if not rel <= tols[fn]:
+                    fail("kernels", f"{base} {route}: err {rel} > {tols[fn]}")
+                del got
+                lib, call = ((sdpa_fwd, f"F.scaled_dot_product_attention(enable_gqa=True)"
+                                        f"{masked}, forward")
+                             if fn == "flash_fwd" else
+                             (sdpa_bwd, f"SDPA{masked} backward: dq, dk and dv in one call"))
+                bound_ms, bound_by, flops, nbytes = bounds[fn]
+                ms = time_ms(kern, iters=5, warmup=1)
+                library_ms = time_ms(lib, iters=5, warmup=1)
+                share, share_of = LIBRARY_SHARE.get(fn, (None, None))
+                rows.append({
+                    "name": f"{base}_{route}", "route": "cuda",
+                    "source": KERNEL_INFO[base.removesuffix("_seg")][1],
+                    "replaces": SPLASH if seg is not None else KERNEL_INFO[
+                        base.removesuffix("_seg")][2],
+                    "launches": launches.get(base, 0),
+                    "launches_from": f"attention(impl='flash') fwd + bwd, {route},"
+                                     " unmasked and masked",
+                    "dtype": dtype_name, "shape": attn, "masked": seg is not None,
+                    "max_abs_err": err, "rel_err": rel, "tol": tols[fn],
+                    "f32_rel_err": rel if dtype == torch.float32 else None,
+                    "f32_tol": tols[fn] if dtype == torch.float32 else None,
+                    "ms": ms, "plain_ms": time_ms(plain, iters=2, warmup=0),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_basis": ("operations over 989 TFLOP/s (bf16)" if dtype_name == "bfloat16"
+                                    else f"{F32_PASSES} x operations over 495 TFLOP/s (TF32)")
+                                   + ", bytes over 3.35 TB/s",
+                    "library_ms": library_ms, "library_call": call,
+                    "library_backend": backend,
+                    "library_share_ms": share and share * library_ms, "library_share": share_of,
+                    "flops": flops, "bytes": nbytes, "roofline_share": bound_ms / ms,
+                })
+            del o_p, lse_p, args, want, calls, sdpa_fwd, sdpa_bwd, mask
+        del q, k, v, do
+        seconds[route] = time.monotonic() - t0
+    free_card()
+    emit({"phase": "kernels", "routes_seconds": seconds})
+    return rows
+
+
+def phase_routes() -> None:
+    """``--phases build,routes``: :func:`_route_rows` alone, one line a row."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for row in _route_rows(gen):
+        emit({"phase": "routes", **row})
+
+
 def phase_kernels() -> list[dict]:
     import torch
 
@@ -1117,7 +1330,7 @@ def phase_kernels() -> list[dict]:
     f32_err: dict[str, float] = {}
     for case in F32_ATTN_CASES:
         for name, (rel, _) in _flash_case(
-            *case, torch.float32, gen, ("simt",)
+            *case, torch.float32, gen, (None,)
         ).items():
             tol = F32_TOL[family(name)]
             emit({"phase": "kernels", "check": name, "dtype": "float32",
@@ -1131,9 +1344,10 @@ def phase_kernels() -> list[dict]:
         f32_err[name] = rel
     torch.cuda.synchronize()
 
-    # bf16: both flash variants at the main-path shapes, the wgmma ones at
-    # the other shapes they take and at Mixtral's, the norms at both widths
-    bf16 = {**_flash_case(*ATTN.values(), True, torch.bfloat16, gen, fused.FLASH_VARIANTS),
+    # bf16: the wgmma kernels at the main-path shapes, at the other shapes
+    # they take and at Mixtral's, the norms at both widths; the mma forward
+    # and dk/dv (with the simt dq) at head_dim 256
+    bf16 = {**_flash_case(*ATTN.values(), True, torch.bfloat16, gen, ("wgmma",)),
             **_norm_case(NORM["n"], NORM["d"], torch.bfloat16, gen)}
     bf16_moe = {**{f"{k}_d128": e for k, e in _flash_case(
                     *ATTN_MOE.values(), True, torch.bfloat16, gen, ("wgmma",)).items()},
@@ -1148,6 +1362,9 @@ def phase_kernels() -> list[dict]:
     for case in BF16_WGMMA_CASES:
         checks += [(case, name, rel) for name, (rel, _) in _flash_case(
             *case, torch.bfloat16, gen, ("wgmma",)).items()]
+    for case in BF16_D256_CASES:
+        checks += [(case, name, rel) for name, (rel, _) in _flash_case(
+            *case, torch.bfloat16, gen, (None,)).items()]
     for case, name, rel in checks:
         tol = BF16_TOL[family(name)]
         if case != "main":
@@ -1163,25 +1380,33 @@ def phase_kernels() -> list[dict]:
     f32_err.update(_segment_checks(gen, seg))
     seg_launches = _packed_attention_launches(seg)
 
-    # the wgmma backward kernels and the norm backward's dw own their sums
-    # (no atomics): two calls must agree bitwise
-    q, k, v, do = _attn_inputs(*ATTN.values(), torch.bfloat16, gen)
-    o, lse = fused._flash_fwd(q, k, v, True)
-    args = (q, k, v, do, lse, fused._flash_delta(do, o), True)
+    # the wgmma and mma backward kernels and the norm backward's dw own
+    # their sums (no atomics): two calls must agree bitwise
+    def backward_args(attn, dtype):  # noqa: ANN001, ANN202
+        q, k, v, do = _attn_inputs(*attn.values(), dtype, gen)
+        o, lse = fused._flash_fwd(q, k, v, True)
+        return q, k, v, do, lse, fused._flash_delta(do, o), True
+
+    args = backward_args(ATTN, torch.bfloat16)
+    f32_args = backward_args(ATTN, torch.float32)
+    d256_args = backward_args(ATTN_D256, torch.bfloat16)
     x = torch.randn((NORM["n"], NORM["d"]), generator=gen, device="cuda").to(torch.bfloat16)
     r = torch.randn_like(x)
     w = torch.ones((NORM["d"],), device="cuda", dtype=torch.bfloat16)
     repeat = {"flash_dq_wgmma": lambda: (fused._flash_dq(*args),),
               "flash_dkv_wgmma": lambda: fused._flash_dkv(*args),
+              "flash_dkv_mma_f32_hd64": lambda: fused._flash_dkv(*f32_args),
+              "flash_dkv_mma_bf16_hd256": lambda: fused._flash_dkv(*d256_args),
               "rms_norm_bwd": lambda: norms._bwd(x, r, w, EPS)}
     for name, fn in repeat.items():
         if not all(torch.equal(a, b) for a, b in zip(fn(), fn())):
             fail("kernels", f"{name}: two calls differ")
     emit({"phase": "kernels", "check": "bitwise repeatable", "kernels": list(repeat)})
-    del q, k, v, do, o, lse, args, x, r, w
+    del args, f32_args, d256_args, x, r, w
 
-    # timings: at the main-path shapes, then masked, then at Mixtral's
-    seg_errs = _flash_case(*ATTN.values(), True, torch.bfloat16, gen, fused.FLASH_VARIANTS, seg)
+    # timings: at the main-path shapes, then masked, then at Mixtral's, at
+    # the tp phase's local shapes, on the routes off the wgmma kernels
+    seg_errs = _flash_case(*ATTN.values(), True, torch.bfloat16, gen, ("wgmma",), seg)
     for name, val in seg_errs.items():
         if name.startswith("one_doc_row_bitwise") and not val:
             fail("kernels", f"bf16 masked {name.rsplit('_', 1)[1]}: the one-document row differs")
@@ -1189,15 +1414,16 @@ def phase_kernels() -> list[dict]:
             fail("kernels", f"{name} bf16 main: err {val[0]} > {BF16_TOL[family(name)]}")
     norm_errs = {**bf16, "f32_norm_res_fwd": f32_err["norm_res_fwd"],
                  "f32_rms_norm_bwd": f32_err["rms_norm_bwd"]}
-    rows = _flash_rows(ATTN, fused.FLASH_VARIANTS, "", gen, bf16)
+    rows = _flash_rows(ATTN, ("wgmma",), "", gen, bf16)
     rows += _norm_rows(NORM, "", gen, norm_errs)
-    rows += _flash_rows(ATTN, fused.FLASH_VARIANTS, "_seg", gen, seg_errs, seg=seg)
+    rows += _flash_rows(ATTN, ("wgmma",), "_seg", gen, seg_errs, seg=seg)
     rows += _flash_rows(ATTN_MOE, ("wgmma",), "_d128", gen, bf16_moe)
     rows += _norm_rows(NORM_MOE, "_d4096", gen,
                        {k.removesuffix("_d4096"): e for k, e in bf16_moe.items()})
     rows += _flash_rows(ATTN_TP, ("wgmma",), "_tp2", gen, bf16_tp)
     rows += _norm_rows(NORM_SP, "_sp2", gen,
                        {k.removesuffix("_sp2"): e for k, e in bf16_tp.items()})
+    rows += _route_rows(gen)
     rows += _int8_rows(gen)
     for row in rows:
         row["f32_rel_err"] = f32_err.get(row["name"], row["f32_rel_err"])
@@ -4223,10 +4449,11 @@ def phase_sweep() -> None:
 #: (0.94 B elements) 1.88 GB each; the expert activations [b, E, C, f] in
 #: bf16 0.94 GB a tensor. 4 layers would come to ~75 GB of the card's 80.
 MOE_TRAIN = dict(n_layers=2, batch=4, seq=2048, steps=6)
-#: The serve cell's depth: 8 of 32 layers, 11.87 B parameters, 23.74 GB in
+#: The serve cell's depth: 4 of 32 layers, 6.07 B parameters, 12.13 GB in
 #: bf16 (the whole model, 93 GB, does not fit on one card; 16 layers before
-#: the remat phase joined the default run, cut to pay for it).
-MOE_SERVE_LAYERS = 8
+#: the remat phase joined the default run, 8 before the mma flash kernels'
+#: checks and route rows did, each cut to pay for them).
+MOE_SERVE_LAYERS = 4
 #: The exact f32 check's prompts (by index into SERVE_REQUESTS): 32 and 512
 #: tokens, each its own prefill bucket's width, so that the engine's
 #: prefill and the dense generate's have one capacity per expert; the
@@ -4284,7 +4511,8 @@ def phase_moe_train() -> dict:
     res = {
         "phase": "moe", "run": "train", "config": "mixtral_8x7b",
         "n_layers": cfg.n_layers, "dim": cfg.dim, "heads": [cfg.n_heads, cfg.n_kv_heads],
-        "head_dim": cfg.head_dim, "flash_variant": flash_variant(torch.bfloat16, cfg.head_dim),
+        "head_dim": cfg.head_dim,
+        "flash_variant": flash_variant("flash_fwd", torch.bfloat16, cfg.head_dim),
         "ffn_dim": cfg.ffn_dim, "experts": [cfg.n_experts, cfg.top_k],
         "capacity_factor": cfg.capacity_factor, "vocab": cfg.vocab_size,
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
@@ -5200,9 +5428,10 @@ def phase_int8_profile() -> None:
 
 def ptxas_summary(log: str) -> dict[str, str]:
     """kernel<type,head_dim> (a wgmma flash kernel: <head_dim,block_q,
-    block_kv>) -> ptxas's spill and register lines, from the ``-Xptxas -v``
-    build log, and ptxas's warnings (such as a wgmma serialised for want of
-    registers)."""
+    block_kv>; an mma one: <type,head_dim,block_q,block_kv,warps along the
+    head dim>) -> ptxas's
+    spill and register lines, from the ``-Xptxas -v`` build log, and
+    ptxas's warnings (such as a wgmma serialised for want of registers)."""
     out, name = {}, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function .*?\d(flash_\w+_wgmma_kernel)"
@@ -5210,6 +5439,15 @@ def ptxas_summary(log: str) -> dict[str, str]:
             # flash_*_wgmma_kernel<head_dim,block_q,block_kv[,seg]>
             seg = ",seg" if m.group(5) == "1" else ""
             name = f"{m.group(1)}<{m.group(2)},{m.group(3)},{m.group(4)}{seg}>"
+            out[name] = ""
+            continue
+        if m := re.search(r"Compiling entry function .*?\d(flash_\w+_mma_kernel)I(f|13__nv_bfloat16)"
+                          r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", line):
+            # flash_*_mma_kernel<dtype,head_dim,block_q,block_kv,warps along d[,seg]>
+            dtype = "f32" if m.group(2) == "f" else "bf16"
+            seg = ",seg" if m.group(7) == "1" else ""
+            name = (f"{m.group(1)}<{dtype},{m.group(3)},{m.group(4)},{m.group(5)},"
+                    f"{m.group(6)}{seg}>")
             out[name] = ""
             continue
         m = re.search(
@@ -5452,10 +5690,16 @@ def main(argv: list[str] | None = None) -> int:
 
     with timed("build"):
         build_s = _build.build()
+    ptxas = ptxas_summary(_build.build_info.get("log", ""))
+    # the mma flash instances are kept only where ptxas spills nothing
+    mma_spills = sorted(name for name, line in ptxas.items()
+                        if "_mma_kernel" in name and re.search(r"[1-9]\d* bytes spill", line))
     emit({"phase": "build", "ok": True, "seconds": build_s,
           "library": _build.build_info.get("library"),
-          "file_seconds": _build.build_info.get("files"),
-          "ptxas": ptxas_summary(_build.build_info.get("log", ""))})
+          "file_seconds": _build.build_info.get("files"), "ptxas": ptxas,
+          "mma_spills": mma_spills})
+    if mma_spills:
+        fail("build", f"ptxas spilled in {mma_spills}")
 
     with timed("kernels"):
         kernel_rows = phase_kernels() if "kernels" in phases else []
@@ -5473,7 +5717,7 @@ def main(argv: list[str] | None = None) -> int:
                 row["launches"] = counts[row["name"]]
                 row["launches_per_step"] = counts[row["name"]] / TRAIN["steps"]
                 row["launches_from"] = "train phase, llama3_1b"
-        # the simt flash kernels are off the bf16 main path (expected 0)
+        # the mma and simt flash kernels are off the bf16 main path (expected 0)
         if any(row["launches"] == 0 for row in kernel_rows if expected.get(row["name"])):
             fail("train", "a kernel of the path was never launched")
         with timed("train"):
@@ -5594,7 +5838,7 @@ def main(argv: list[str] | None = None) -> int:
              "moeprofile": phase_moe_profile, "int8profile": phase_int8_profile,
              "int8sweep": phase_int8_sweep, "int8parts": phase_int8_parts,
              "gangparts": phase_gang_parts, "rematoom": phase_remat_oom,
-             "hostus": phase_hostus}
+             "hostus": phase_hostus, "routes": phase_routes}
     for name, run in extra.items():
         if name in phases:
             with timed(name):

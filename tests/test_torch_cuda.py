@@ -8,7 +8,10 @@ machine does not have, hence ``--noconftest``)::
 f32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32
 = False``), at the CPU parity tests' tolerances; the bf16 tensor-core
 (wgmma) flash kernels at chip_smoke.py's 1e-3, relative to the largest
-reference value.
+reference value. The mma flash forward and dk/dv (f32, and bf16 at head_dim
+256) alone::
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -k mma
 """
 
 import dataclasses
@@ -133,6 +136,54 @@ def test_every_wgmma_tile_matches_plain(gen, kernel, d, bq, bk, causal, masked):
     assert _build.launch_counts()[name] == 1
 
 
+#: every mma instance: (kernel, dtype, head_dim) of ops/fused.py MMA_TILES
+MMA_CASES = sorted({(kernel, dtype, d) for kernel, dtype, d in fused.MMA_TILES},
+                   key=lambda c: (c[0], str(c[1]), c[2]))
+
+
+@pytest.mark.parametrize("kernel,dtype,d", MMA_CASES, ids=lambda v: str(v).removeprefix("torch."))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_every_mma_instance_matches_plain(gen, kernel, dtype, d, causal, masked):
+    """Each mma instance, with and without segment ids (documents whose
+    boundaries fall inside every tile), launched once at its tile, against
+    the plain version: f32 within 2e-5 (forward) and 5e-4 (dk/dv), bf16
+    within 1e-3, relative to the largest reference value."""
+    b, s, kvh, n_rep = 2, 384, 2, 2
+    q = _randn(gen, b, s, kvh * n_rep, d, dtype=dtype)
+    k, v = (_randn(gen, b, s, kvh, d, dtype=dtype) for _ in range(2))
+    do = _randn(gen, *q.shape, dtype=dtype)
+    seg = None
+    if masked:
+        lengths = [37, 100, 150, 97]
+        seg = torch.repeat_interleave(torch.arange(len(lengths)), torch.tensor(lengths))
+        seg = seg.to(torch.int32).expand(b, s).contiguous().cuda()
+    o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal, seg)
+    _build.reset_launches()
+    if kernel == "flash_fwd":
+        got, want = fused._flash_fwd(q, k, v, causal, seg, variant="mma"), (o_p, lse_p)
+        tol = 2e-5 if dtype == torch.float32 else 1e-3
+    else:
+        args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), causal, seg)
+        got, want = fused._flash_dkv(*args, variant="mma"), fused._flash_dkv_plain(*args)
+        tol = 5e-4 if dtype == torch.float32 else 1e-3
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[f"{kernel}_mma" + ("_seg" if masked else "")] == 1
+    for a, b_ in zip(got, want):
+        assert _rel(a, b_) <= tol
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 256),
+                                     (torch.bfloat16, 256)])
+def test_flash_dkv_mma_is_deterministic(gen, dtype, d):
+    q, do = (_randn(gen, 2, 1024, 8, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, 2, 1024, 4, d, dtype=dtype) for _ in range(2))
+    o, lse = fused._flash_fwd(q, k, v, True)
+    args = (q, k, v, do, lse, fused._flash_delta(do, o), True)
+    first, second = fused._flash_dkv(*args), fused._flash_dkv(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_flash_dkv_wgmma_is_deterministic(gen):
     q, do = (_randn(gen, 2, 1024, 8, 64, dtype=torch.bfloat16) for _ in range(2))
     k, v = (_randn(gen, 2, 1024, 2, 64, dtype=torch.bfloat16) for _ in range(2))
@@ -161,7 +212,7 @@ def test_flash_autograd_bf16(gen):
     counts = _build.launch_counts()
     assert (counts["flash_fwd_wgmma"], counts["flash_dq_wgmma"], counts["flash_dkv_wgmma"]) == (
         1, 1, 1)
-    assert counts["flash_fwd_simt"] == counts["flash_dq_simt"] == counts["flash_dkv_simt"] == 0
+    assert counts["flash_fwd_mma"] == counts["flash_dq_simt"] == counts["flash_dkv_mma"] == 0
     assert out.dtype == torch.bfloat16 and k.grad.shape == k.shape
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
@@ -190,14 +241,16 @@ def _packed_ids(b, s, max_len, seed):
 
 
 @pytest.mark.parametrize("variant,dtype,d", [
-    ("simt", torch.float32, 64), ("simt", torch.float32, 256),
+    ("mma", torch.float32, 64), ("mma", torch.float32, 256), ("mma", torch.bfloat16, 256),
     ("wgmma", torch.bfloat16, 64), ("wgmma", torch.bfloat16, 128),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_masked_flash_kernels_match_plain(gen, variant, dtype, d, causal):
     """Segment-masked fwd, dq and dk/dv against their plain versions (f32
     at the CPU parity tolerances, bf16 at 1e-3 relative); the one-document
-    row bitwise the unmasked kernel's."""
+    row bitwise the unmasked kernel's. "mma": each kernel's variant by the
+    rule, the mma forward and dk/dv beside the simt dq."""
+    variant = None if variant == "mma" else variant
     b, s, kvh, n_rep = 3, 512, 2, 2
     seg = _packed_ids(b, s, 200, seed=d + causal)
     q = _randn(gen, b, s, kvh * n_rep, d, dtype=dtype)
@@ -301,7 +354,10 @@ def test_model_step_kernels_vs_reference(gen):
         cfg = dataclasses.replace(base, kernels=kernels, attn_impl=impl, max_seq=256)
         loss = llama.loss_fn(params, batch, cfg)
         results.append((loss, torch.autograd.grad(loss, llama.leaves(params))))
-    assert _build.launch_counts()["flash_dkv_simt"] == base.n_layers  # f32: simt
+    counts = _build.launch_counts()
+    # f32: the mma forward and dk/dv, the simt dq
+    assert counts["flash_dkv_mma"] == base.n_layers
+    assert counts["flash_dq_simt"] == base.n_layers
     torch.testing.assert_close(results[0][0], results[1][0], rtol=1e-5, atol=1e-5)
     for a, b in zip(results[0][1], results[1][1]):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)

@@ -249,10 +249,18 @@ def test_fit_agrees_with_the_jax_rule(kernel, d):
 
 
 def test_zero_takes_the_default_table_and_simt_its_one_tile():
+    """0 takes DEFAULT_TILES for wgmma; the simt dq and each mma instance
+    have one tile that every request fits to; no simt forward or dk/dv."""
     for (kernel, d), tile in fused.DEFAULT_TILES.items():
         assert fused.fit_tile(kernel, "wgmma", d, 2048) == tile
-    assert fused.fit_tile("flash_fwd", "simt", 256, 2048, 64, 128) == (32, 32)
-    assert fused.fit_tile("flash_dkv", "simt", 64, 2048) == (64, 64)
+    assert fused.fit_tile("flash_dq", "simt", 256, 2048, 64, 128) == (32, 32)
+    assert fused.fit_tile("flash_dq", "simt", 64, 2048) == (64, 64)
+    for (kernel, dtype, d), tile in fused.MMA_TILES.items():
+        assert fused.fit_tile(kernel, "mma", d, 2048, 128, 16, dtype=dtype) == tile
+    with pytest.raises(ValueError, match="no simt kernel for flash_fwd"):
+        fused.fit_tile("flash_fwd", "simt", 256, 2048)
+    with pytest.raises(ValueError, match="no mma kernel for flash_dq"):
+        fused.fit_tile("flash_dq", "mma", 64, 2048, dtype=torch.float32)
 
 
 def test_negative_tiles_raise():

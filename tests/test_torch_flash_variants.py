@@ -3,7 +3,9 @@ on the CPU.
 
 ``ops.fused.flash_variant`` sends bf16 at head_dim 64 and 128 to the wgmma
 kernels (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_dq_wgmma.cu``,
-``csrc/flash_dkv_wgmma.cu``) and the rest to the CUDA-core ones. The wgmma
+``csrc/flash_dkv_wgmma.cu``) and the rest, per kernel, to the mma.sync
+forward and dk/dv and the CUDA-core dq (tests/test_torch_flash_tf32.py
+emulates the mma kernels). The wgmma
 kernels cannot run here, so their arithmetic is emulated in f32 PyTorch
 step by step: bf16 inputs, exact products summed in f32, the scale applied
 to S in f32 in base 2, the forward's online softmax over 128-wide kv
@@ -189,25 +191,50 @@ def test_single_bf16_rounding_misses_tolerance_on_dq():
     assert errs["dq"] > BF16_TOL, errs
 
 
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv"])
 @pytest.mark.parametrize("head_dim", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-def test_flash_variant_rule(dtype, head_dim):
-    want = "wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128) else "simt"
-    assert fused.flash_variant(dtype, head_dim) == want
+def test_flash_variant_rule(dtype, head_dim, kernel):
+    """Per kernel: wgmma for bf16 at 64 and 128; elsewhere mma for the
+    forward and dk/dv, simt for dq."""
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        want = "wgmma"
+    else:
+        want = "simt" if kernel == "flash_dq" else "mma"
+    assert fused.flash_variant(kernel, dtype, head_dim) == want
 
 
 def test_pick_variant_refuses_what_wgmma_cannot_take():
+    """Each variant refuses the kernels, dtypes and head dims it has no
+    instance for: wgmma bf16 at 64/128 only, mma the forward and dk/dv in
+    f32 at 64/128/256 and bf16 at 256, simt dq only."""
     f32 = torch.zeros(1, 128, 2, 64)
     bf = f32.bfloat16()
-    assert fused._pick_variant(None, (f32,)) == "simt"
-    assert fused._pick_variant(None, (bf,)) == "wgmma"
-    assert fused._pick_variant("simt", (bf,)) == "simt"
+    bf256 = torch.zeros(1, 128, 2, 256).bfloat16()
+    assert fused._pick_variant("flash_fwd", None, (f32,)) == "mma"
+    assert fused._pick_variant("flash_dkv", None, (f32,)) == "mma"
+    assert fused._pick_variant("flash_dq", None, (f32,)) == "simt"
+    for kernel in fused.FLASH_KERNELS:
+        assert fused._pick_variant(kernel, None, (bf,)) == "wgmma"
+    assert fused._pick_variant("flash_fwd", None, (bf256,)) == "mma"
+    assert fused._pick_variant("flash_dq", None, (bf256,)) == "simt"
+    assert fused._pick_variant("flash_dq", "simt", (bf,)) == "simt"
     with pytest.raises(ValueError, match="wgmma kernels take bf16"):
-        fused._pick_variant("wgmma", (f32,))
+        fused._pick_variant("flash_fwd", "wgmma", (f32,))
     with pytest.raises(ValueError, match="wgmma kernels take bf16"):
-        fused._pick_variant("wgmma", (torch.zeros(1, 128, 2, 256).bfloat16(),))
+        fused._pick_variant("flash_dkv", "wgmma", (bf256,))
+    with pytest.raises(ValueError, match="mma kernels take the forward and dk/dv"):
+        fused._pick_variant("flash_dq", "mma", (f32,))
+    with pytest.raises(ValueError, match="mma kernels take the forward and dk/dv"):
+        fused._pick_variant("flash_fwd", "mma", (bf,))
+    with pytest.raises(ValueError, match="simt kernel is dq's"):
+        fused._pick_variant("flash_fwd", "simt", (f32,))
+    with pytest.raises(ValueError, match="simt kernel is dq's"):
+        fused._pick_variant("flash_dkv", "simt", (bf256,))
     with pytest.raises(ValueError, match="variant must be one of"):
-        fused._pick_variant("tensor", (bf,))
+        fused._pick_variant("flash_fwd", "tensor", (bf,))
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        fused.flash_variant("flash_bwd", torch.float32, 64)
 
 
 @pytest.mark.parametrize("wrapper", ["_flash_fwd", "_flash_dq", "_flash_dkv"])
@@ -231,3 +258,7 @@ def test_wrappers_pick_variant_before_launch(wrapper, monkeypatch):
         call(torch.zeros(1, 128, 2, 256, device="meta", dtype=torch.bfloat16), "wgmma")
     with pytest.raises(ValueError, match="variant must be one of"):
         call(f32.bfloat16(), "tensor")
+    # each wrapper refuses the variant that has no kernel of its own
+    other = "simt" if wrapper != "_flash_dq" else "mma"
+    with pytest.raises(ValueError, match="simt kernel is dq's|mma kernels take"):
+        call(f32, other)

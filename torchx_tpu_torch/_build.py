@@ -41,19 +41,21 @@ NVCC_FLAGS = [
 ]
 
 #: Kernel names, in the order of the training step's path. The flash
-#: forward, dq and dk/dv come as two variants (``ops.fused.flash_variant``):
-#: ``wgmma`` on the tensor cores, ``simt`` on the CUDA cores. A launch with
-#: segment ids counts under the name with ``_seg`` (the wgmma kernels are
-#: separate instances then; the simt ones take the ids at run time). The
+#: kernels by variant (``ops.fused.flash_variant``): ``wgmma`` on the tensor
+#: cores for bf16 at head_dim 64 and 128; elsewhere the forward and dk/dv
+#: as ``mma`` (tensor cores by mma.sync) and dq as ``simt`` (CUDA cores). A
+#: launch with segment ids counts under the name with ``_seg`` (the wgmma
+#: and mma kernels are separate instances then; the simt one takes the ids
+#: at run time). The
 #: int8-weight matmul of weight-only serving (``csrc/int8_matmul.cu``)
 #: counts as ``int8_matmul`` for bf16 activations (tensor cores: the wgmma
 #: kernel at prefill, the mma.sync one at decode) and as
 #: ``int8_matmul_simt`` for f32 ones (CUDA cores), one count a call.
 KERNELS = (
-    "flash_fwd_wgmma", "flash_fwd_simt", "flash_dq_wgmma", "flash_dq_simt",
-    "flash_dkv_wgmma", "flash_dkv_simt", "norm_res_fwd", "rms_norm_bwd",
-    "flash_fwd_wgmma_seg", "flash_fwd_simt_seg", "flash_dq_wgmma_seg",
-    "flash_dq_simt_seg", "flash_dkv_wgmma_seg", "flash_dkv_simt_seg",
+    "flash_fwd_wgmma", "flash_fwd_mma", "flash_dq_wgmma", "flash_dq_simt",
+    "flash_dkv_wgmma", "flash_dkv_mma", "norm_res_fwd", "rms_norm_bwd",
+    "flash_fwd_wgmma_seg", "flash_fwd_mma_seg", "flash_dq_wgmma_seg",
+    "flash_dq_simt_seg", "flash_dkv_wgmma_seg", "flash_dkv_mma_seg",
     "int8_matmul", "int8_matmul_simt",
 )
 
@@ -111,13 +113,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     # kv_heads, head_dim, causal, dtype, (the tile,) then the stream
     ints = [i] * 7
     fns = {
-        "tpx_flash_fwd": 6, "tpx_flash_fwd_wgmma": 6, "tpx_flash_dq": 8,
-        "tpx_flash_dq_wgmma": 8, "tpx_flash_dkv": 9, "tpx_flash_dkv_wgmma": 9,
+        "tpx_flash_fwd_wgmma": 6, "tpx_flash_fwd_mma": 6, "tpx_flash_dq": 8,
+        "tpx_flash_dq_wgmma": 8, "tpx_flash_dkv_wgmma": 9, "tpx_flash_dkv_mma": 9,
     }
     for name, n_tensors in fns.items():
         fn = getattr(lib, name)
-        # the wgmma kernels also take their tile: block_q, block_kv
-        tiles = [i, i] if name.endswith("_wgmma") else []
+        # the wgmma and mma kernels also take their tile: block_q, block_kv
+        tiles = [i, i] if name.endswith(("_wgmma", "_mma")) else []
         fn.argtypes = [p] * n_tensors + ints + tiles + [p]
         fn.restype = i
     # x, q, scale, y, the split-k workspace and tile counters (or null);
@@ -130,8 +132,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _run(cmds: list[list[str]]) -> tuple[str, list[float]]:
-    """Run the commands side by side; raise if any fails. -> (their output,
-    each one's seconds)."""
+    """Run the commands side by side; raise if any fails, with the end of
+    each failed command's output. -> (their output, each one's seconds)."""
 
     def one(cmd: list[str]) -> tuple[subprocess.CompletedProcess, float]:
         t0 = time.monotonic()
@@ -140,11 +142,10 @@ def _run(cmds: list[list[str]]) -> tuple[str, list[float]]:
 
     with ThreadPoolExecutor(max(1, len(cmds))) as pool:
         done = list(pool.map(one, cmds))
-    for cmd, (proc, _) in zip(cmds, done):
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout[-4000:]}"
-            )
+    failed = [f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout[-4000:]}"
+              for cmd, (proc, _) in zip(cmds, done) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return "".join(p.stdout for p, _ in done), [t for _, t in done]
 
 

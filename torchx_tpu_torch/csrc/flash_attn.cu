@@ -1,45 +1,37 @@
-// Flash attention for Hopper (sm_90a): the forward and the two-kernel
-// backward of the Llama training step, written by hand in CUDA C++.
+// Flash-attention dq on Hopper's CUDA cores (sm_90a), written by hand in
+// CUDA C++: the dq kernel of the two-kernel backward where the wgmma one
+// does not reach, f32 at head_dim 64, 128 and 256 and bf16 at 256.
 //
-// Replaces the Pallas TPU kernels of torchx_tpu/ops/fused.py:
-//   flash_fwd_kernel  <- _flash_fwd_kernel (launched by _flash_fwd)
+// Replaces the Pallas TPU kernel of torchx_tpu/ops/fused.py
 //   flash_dq_kernel   <- _flash_dq_kernel  (in _flash_bwd)
-//   flash_dkv_kernel  <- _flash_dkv_kernel (in _flash_bwd)
-// and the role of the library splash kernel (torchx_tpu/ops/attention.py
-// splash_attention): GQA is native here, and optional segment ids mask
-// packed documents.
+// on those routes, and the role of the library splash kernel
+// (torchx_tpu/ops/attention.py splash_attention) there: GQA is native, and
+// optional segment ids mask packed documents. The forward and dk/dv of these
+// routes run on the tensor cores (flash_fwd_mma.cuh, flash_dkv_mma.cuh).
 //
-// What bounds them on an H100: operations. At the llama3_1b shapes
-// (b=4, s=2048, 32 query heads over 8 KV heads, head_dim 64, causal) the
-// forward does 2*2*b*h*s*s*d/2 = 69 GFLOP over ~70 MB of q/k/v/o, some 1000
-// operations per byte, far above the card's ridge point (~295 bf16
-// operations per byte). The bound is the tensor-core rate.
+// What bounds it on an H100: operations. At the llama3_1b shapes (b=4,
+// s=2048, 32 query heads over 8 KV heads, head_dim 64, causal) dq does
+// 3*2*b*h*s*s*d/2 = 103 GFLOP over ~90 MB, far above the card's ridge point.
+// The bound is the tensor-core rate.
 //
 // What this design does about it, for now: it keeps the score matrix out of
-// device memory (online softmax over 64-wide kv tiles held in shared
-// memory, scores and statistics in registers, O(s) residuals: lse in f32,
-// O in f32 for delta), skips fully masked causal tiles, and reads each KV
-// head in place at h // n_rep instead of repeating it. The products are
-// plain f32 FMAs from shared memory (each thread a 4x4 micro-tile, operands
-// stored contraction-major so every read is a float4), so the kernels run
-// at the CUDA-core rate, not the tensor-core rate. Moving the products to
-// wgmma with TMA-fed tiles is later work, ordered by the numbers in PERF.md.
+// device memory (64-wide kv tiles held in shared memory, scores in
+// registers), skips fully masked causal tiles, and reads each KV head in
+// place at h // n_rep instead of repeating it. The products are plain f32
+// FMAs from shared memory (each thread a 4x4 micro-tile, operands stored
+// contraction-major so every read is a float4), so the kernel runs at the
+// CUDA-core rate, not the tensor-core rate: the mma.sync design of the
+// forward and dk/dv is its next step, ordered by the numbers in PERF.md.
 //
-// Layouts: q, do [b, s, h, d]; k, v [b, s, kvh, d]; o, dq f32 [b, s, h, d];
-// dk, dv f32 [b, s, kvh, d]; lse, delta f32 [b, h, s]. All contiguous.
-// Element types: float or bf16 (one type for q, k, v, do); every sum in f32.
-// The dkv kernel loops over the n_rep query heads that share its KV head
-// inside one CTA, so dk and dv are summed in a fixed order, without
-// atomics: the result is deterministic.
+// Layouts: q, do [b, s, h, d]; k, v [b, s, kvh, d]; dq f32 [b, s, h, d];
+// lse, delta f32 [b, h, s]. All contiguous. Element types: float or bf16
+// (one type for q, k, v, do); every sum in f32.
 //
 // Segment ids: seg is int32 [b, s] or null. Given, a query sees only keys
-// of its own segment: each tile's key (dq, fwd) or query (dkv) ids are
-// loaded into shared memory beside the tile, a thread's own rows' ids are
-// kept in registers, and every element whose ids differ gets kNegInf, on
-// every tile. A row whose first tiles are all masked takes a running max
-// of kNegInf: its sums so far are then scaled by exp(kNegInf - m) = 0 once
-// a key of its own segment arrives, which every row has (its own key), so
-// the finite kNegInf needs no guard.
+// of its own segment: each kv tile's ids are loaded into shared memory
+// beside the tile, a thread's own rows' ids are kept in registers, and every
+// element whose ids differ gets kNegInf, on every tile, so its probability
+// exp(kNegInf - lse) is 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,12 +48,11 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 
 // Square tiles of B query rows by B kv rows. B=64 keeps head_dim 64 and
 // 128 inside the 227 KB of shared memory a CTA may use; head_dim 256 takes
-// B=32 and, in dkv, accumulates dk/dv over two passes of 128 columns so the
-// accumulators stay in registers.
+// B=32.
 template <int D> struct Tile;
-template <> struct Tile<64> { static constexpr int B = 64, DACC = 64; };
-template <> struct Tile<128> { static constexpr int B = 64, DACC = 128; };
-template <> struct Tile<256> { static constexpr int B = 32, DACC = 128; };
+template <> struct Tile<64> { static constexpr int B = 64; };
+template <> struct Tile<128> { static constexpr int B = 64; };
+template <> struct Tile<256> { static constexpr int B = 32; };
 
 template <int D> constexpr int threads() { return (Tile<D>::B / 4) * (Tile<D>::B / 4); }
 
@@ -121,115 +112,6 @@ __device__ __forceinline__ void mm_acc(float (&acc)[4][NCH * 4], const float* A,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][m * 4 + j] = fmaf(av[i], vv[j], acc[i][m * 4 + j]);
     }
-  }
-}
-
-// Reductions over the TX threads that share a row (adjacent lanes).
-template <int TX>
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = TX / 2; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-template <int TX>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = TX / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ---------------------------------------------------------------------------
-// forward: one CTA per (q tile, batch*head); kv tiles in a loop.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(threads<D>())
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ seg, float* __restrict__ o, float* __restrict__ lse,
-                 int S, int H, int KVH, float scale, int causal) {
-  constexpr int B = Tile<D>::B, TX = B / 4, NT = TX * TX, P = B + 4, NCH = D / B;
-  extern __shared__ __align__(16) float smem[];
-  float* QT = smem;         // [D][P]  q * scale, transposed
-  float* KT = QT + D * P;   // [D][P]  k, transposed
-  float* Vn = KT + D * P;   // [B][D]  v
-  float* PT = Vn + B * D;   // [B][P]  probabilities, transposed
-  int* KS = reinterpret_cast<int*>(PT + B * P);  // [B] the kv tile's segment ids
-
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int r0 = ty * 4, c0 = tx * 4;
-  const int nq = S / B;
-  const int qt = nq - 1 - blockIdx.x;  // the longest causal rows first
-  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / (H / KVH);
-  const int qs = H * D, ks = KVH * D;
-
-  load_t<T, D, B, NT>(QT, q + ((int64_t)b * S + qt * B) * qs + h * D, qs, scale, tid);
-
-  float m[4], l[4], acc[4][NCH * 4];
-  int qid[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qid[i] = seg ? seg[(int64_t)b * S + qt * B + r0 + i] : 0;
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NCH * 4; ++c) acc[i][c] = 0.f;
-  }
-
-  const int nk = causal ? qt + 1 : S / B;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int64_t kv_off = ((int64_t)b * S + kt * B) * ks + hk * D;
-    load_t<T, D, B, NT>(KT, k + kv_off, ks, 1.f, tid);
-    load_n<T, D, B, NT>(Vn, v + kv_off, ks, tid);
-    if (seg)
-      for (int r = tid; r < B; r += NT) KS[r] = seg[(int64_t)b * S + kt * B + r];
-    __syncthreads();
-
-    float s[4][4] = {};
-    mm_tile<B, D>(s, QT, KT, r0, c0);
-    if (causal && kt == qt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c0 + j > r0 + i) s[i][j] = kNegInf;
-    }
-    if (seg) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (KS[c0 + j] != qid[i]) s[i][j] = kNegInf;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mx = row_max<TX>(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        PT[(c0 + j) * P + r0 + i] = p;
-      }
-      l[i] = l[i] * alpha + row_sum<TX>(rs);
-#pragma unroll
-      for (int c = 0; c < NCH * 4; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
-    mm_acc<B, NCH>(acc, PT, Vn, D, r0, c0);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = qt * B + r0 + i;
-    float* orow = o + ((int64_t)b * S + row) * qs + h * D;
-#pragma unroll
-    for (int mm = 0; mm < NCH; ++mm)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) orow[c0 + mm * B + j] = acc[i][mm * 4 + j] / l[i];
-    if (tx == 0) lse[((int64_t)b * H + h) * S + row] = m[i] + logf(l[i]);
   }
 }
 
@@ -313,125 +195,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// ---------------------------------------------------------------------------
-// dk, dv: one CTA per (kv tile, batch*kv_head); the n_rep query heads of
-// that KV head and their q tiles in a loop. Threads own kv rows (r0) and
-// query columns (c0) of the transposed score tile s^T = k (q*scale)^T.
-//   dv += p^T do,  dk += ds^T q * scale
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(threads<D>())
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, const int* __restrict__ seg,
-                 float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KVH,
-                 float scale, int causal) {
-  constexpr int B = Tile<D>::B, TX = B / 4, NT = TX * TX, P = B + 4;
-  constexpr int DACC = Tile<D>::DACC, NCH = DACC / B;
-  extern __shared__ __align__(16) float smem[];
-  float* KT = smem;          // [D][P]  k, transposed
-  float* VT = KT + D * P;    // [D][P]  v, transposed
-  float* QT = VT + D * P;    // [D][P]  q * scale, transposed
-  float* DOT = QT + D * P;   // [D][P]  do, transposed
-  float* Qn = DOT + D * P;   // [B][D]  q
-  float* DOn = Qn + B * D;   // [B][D]  do
-  float* PS = DOn + B * D;   // [B][P]  p, then ds, as [q][k]
-  float* LS = PS + B * P;    // [B]     lse of the q tile
-  float* DS = LS + B;        // [B]     delta of the q tile
-  int* QS = reinterpret_cast<int*>(DS + B);  // [B] segment ids of the q tile
-
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int r0 = ty * 4, c0 = tx * 4;
-  const int nt = S / B;
-  const int kt = blockIdx.x;  // low kv tiles see the most causal q tiles
-  const int b = blockIdx.y / KVH, hk = blockIdx.y % KVH;
-  const int n_rep = H / KVH;
-  const int qs = H * D, ks = KVH * D;
-
-  const int64_t kv_off = ((int64_t)b * S + kt * B) * ks + hk * D;
-  load_t<T, D, B, NT>(KT, k + kv_off, ks, 1.f, tid);
-  load_t<T, D, B, NT>(VT, v + kv_off, ks, 1.f, tid);
-  int kid[4];  // the segment ids of this thread's kv rows
-#pragma unroll
-  for (int i = 0; i < 4; ++i) kid[i] = seg ? seg[(int64_t)b * S + kt * B + r0 + i] : 0;
-
-  for (int pass = 0; pass < D / DACC; ++pass) {
-    const int cbase = pass * DACC;
-    float dk_acc[4][NCH * 4], dv_acc[4][NCH * 4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NCH * 4; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-    for (int rep = 0; rep < n_rep; ++rep) {
-      const int h = hk * n_rep + rep;
-      for (int qt = causal ? kt : 0; qt < nt; ++qt) {
-        const int64_t q_off = ((int64_t)b * S + qt * B) * qs + h * D;
-        load_t<T, D, B, NT>(QT, q + q_off, qs, scale, tid);
-        load_t<T, D, B, NT>(DOT, dout + q_off, qs, 1.f, tid);
-        load_n<T, D, B, NT>(Qn, q + q_off, qs, tid);
-        load_n<T, D, B, NT>(DOn, dout + q_off, qs, tid);
-        for (int r = tid; r < B; r += NT) {
-          const int64_t row = ((int64_t)b * H + h) * S + qt * B + r;
-          LS[r] = lse[row];
-          DS[r] = delta[row];
-          if (seg) QS[r] = seg[(int64_t)b * S + qt * B + r];
-        }
-        __syncthreads();
-
-        float st[4][4] = {}, dpt[4][4] = {}, ds[4][4];
-        mm_tile<B, D>(st, KT, QT, r0, c0);
-        mm_tile<B, D>(dpt, VT, DOT, r0, c0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            // kv row r0+i, query column c0+j: masked where query < key
-            const bool masked =
-                (causal && qt == kt && c0 + j < r0 + i) || (seg && QS[c0 + j] != kid[i]);
-            const float sij = masked ? kNegInf : st[i][j];
-            const float p = expf(sij - LS[c0 + j]);
-            ds[i][j] = p * (dpt[i][j] - DS[c0 + j]);
-            PS[(c0 + j) * P + r0 + i] = p;
-          }
-        __syncthreads();
-        mm_acc<B, NCH>(dv_acc, PS, DOn + cbase, D, r0, c0);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) PS[(c0 + j) * P + r0 + i] = ds[i][j];
-        __syncthreads();
-        mm_acc<B, NCH>(dk_acc, PS, Qn + cbase, D, r0, c0);
-        __syncthreads();
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t row = ((int64_t)b * S + kt * B + r0 + i) * ks + hk * D + cbase;
-#pragma unroll
-      for (int mm = 0; mm < NCH; ++mm)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dk[row + c0 + mm * B + j] = dk_acc[i][mm * 4 + j] * scale;
-          dv[row + c0 + mm * B + j] = dv_acc[i][mm * 4 + j];
-        }
-    }
-  }
-}
-
-template <int D> constexpr size_t fwd_smem() {
-  constexpr int B = Tile<D>::B, P = B + 4;
-  return sizeof(float) * (2 * D * P + B * D + B * P) + sizeof(int) * B;
-}
 template <int D> constexpr size_t dq_smem() {
   constexpr int B = Tile<D>::B, P = B + 4;
   return sizeof(float) * (4 * D * P + B * D + B * P) + sizeof(int) * B;
-}
-template <int D> constexpr size_t dkv_smem() {
-  constexpr int B = Tile<D>::B, P = B + 4;
-  return sizeof(float) * (4 * D * P + 2 * B * D + B * P + 2 * B) + sizeof(int) * B;
 }
 
 // Raise the dynamic shared-memory cap of a kernel once, then launch it.
@@ -446,16 +212,6 @@ cudaError_t launch(K kernel, dim3 grid, int nthreads, size_t smem, cudaStream_t 
 }
 
 template <typename T, int D>
-cudaError_t fwd_d(const void* q, const void* k, const void* v, void* o, void* lse,
-                  const void* seg, int B, int S, int H, int KVH, int causal, cudaStream_t st) {
-  dim3 grid(S / Tile<D>::B, B * H);
-  return launch(flash_fwd_kernel<T, D>, grid, threads<D>(), fwd_smem<D>(), st,
-                (const T*)q, (const T*)k, (const T*)v, (const int*)seg, (float*)o,
-                (float*)lse, S, H, KVH,
-                (float)(1.0 / sqrt((double)D)), causal);
-}
-
-template <typename T, int D>
 cudaError_t dq_d(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                  const void* delta, void* dq, const void* seg, int B, int S, int H, int KVH,
                  int causal, cudaStream_t st) {
@@ -465,17 +221,6 @@ cudaError_t dq_d(const void* q, const void* k, const void* v, const void* dout, 
                 (const float*)delta, (const int*)seg, (float*)dq, S, H, KVH,
                 (float)(1.0 / sqrt((double)D)),
                 causal);
-}
-
-template <typename T, int D>
-cudaError_t dkv_d(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dk, void* dv, const void* seg,
-                  int B, int S, int H, int KVH, int causal, cudaStream_t st) {
-  dim3 grid(S / Tile<D>::B, B * KVH);
-  return launch(flash_dkv_kernel<T, D>, grid, threads<D>(), dkv_smem<D>(), st, (const T*)q,
-                (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                (const float*)delta, (const int*)seg, (float*)dk, (float*)dv, S, H, KVH,
-                (float)(1.0 / sqrt((double)D)), causal);
 }
 
 // dtype: 0 = float32, 1 = bfloat16
@@ -494,26 +239,13 @@ cudaError_t dkv_d(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// The wrappers check shapes, dtypes and contiguity; S must be a multiple of
+// The wrapper checks shapes, dtypes and contiguity; S must be a multiple of
 // 64 (of 32 at head_dim 256) and H a multiple of KVH. seg: int32 [B, S]
 // segment ids, or null for none.
-int tpx_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                  const void* seg, int B, int S, int H, int KVH, int D, int causal, int dtype,
-                  void* stream) {
-  TPX_DISPATCH(fwd_d, q, k, v, o, lse, seg, B, S, H, KVH, causal, (cudaStream_t)stream)
-}
-
 int tpx_flash_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                  const void* delta, void* dq, const void* seg, int B, int S, int H, int KVH,
                  int D, int causal, int dtype, void* stream) {
   TPX_DISPATCH(dq_d, q, k, v, dout, lse, delta, dq, seg, B, S, H, KVH, causal,
-               (cudaStream_t)stream)
-}
-
-int tpx_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dk, void* dv, const void* seg,
-                  int B, int S, int H, int KVH, int D, int causal, int dtype, void* stream) {
-  TPX_DISPATCH(dkv_d, q, k, v, dout, lse, delta, dk, dv, seg, B, S, H, KVH, causal,
                (cudaStream_t)stream)
 }
 

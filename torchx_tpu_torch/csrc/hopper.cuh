@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels (the flash
-// kernels flash_fwd_wgmma.cu, flash_dq_wgmma.cu, flash_dkv_wgmma.cu, and the
-// prefill path of int8_matmul.cu), in raw PTX:
+// kernels flash_fwd_wgmma.cu, flash_dq_wgmma.cu, flash_dkv_wgmma.cu,
+// flash_fwd_mma.cuh, flash_dkv_mma.cuh, and the prefill path of
+// int8_matmul.cu), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a parity wait; a named barrier over part of a block;
@@ -11,9 +12,13 @@
 //     that TMA writes, fence / commit / wait, and the m64nNk16 bf16 products
 //     the kernels issue (A and B from shared memory, K-major or B MN-major,
 //     or A from registers);
-//   * the register math around them: the bf16 hi + lo split and exp2;
+//   * mma.sync: the m16n8k8 TF32 and m16n8k16 bf16 warp products, ldmatrix
+//     (plain and transposed) and the byte offset of an element in a
+//     128-byte-swizzled tile of any element size;
+//   * the register math around them: the bf16 and TF32 hi + lo splits and
+//     exp2;
 //   * the host side: 128-byte-swizzled tensor maps over a [rows, heads, d]
-//     bf16 tensor, and 2-D maps over a row-major matrix, encoded through
+//     bf16 or f32 tensor, and 2-D maps over a row-major matrix, encoded through
 //     the CUDA driver's entry point, which the runtime hands out, so the
 //     library links nothing but the CUDA runtime.
 //
@@ -183,6 +188,189 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// (x0, x1) ~= hi + lo as TF32 values (f32 bit patterns whose low 13 bits
+// are 0): hi = tf32(x) rounded to nearest, ties away (cvt.rna), lo =
+// tf32(x - hi), where x - hi is exact. hi keeps 11 significant bits, the
+// pair ~22: hi*hi + hi*lo + lo*hi leaves out lo*lo and the roundings of lo,
+// ~2**-21 of each product, where hi*hi alone misses by ~2**-11.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync: one warp's 16 x 8 products. Thread t (g = t / 4, c = t % 4):
+//   accumulator d[4]: rows g (d0, d1) and g + 8 (d2, d3), columns 2c, 2c + 1;
+//   TF32 m16n8k8: A a[4] = (g, c) (g + 8, c) (g, c + 4) (g + 8, c + 4),
+//                 B b[2] = (k c, n g) (k c + 4, n g);
+//   bf16 m16n8k16: A a[4] = rows g, g + 8, g, g + 8 at columns 2c, 2c + 1
+//                 (a0, a1) and 2c + 8, 2c + 9 (a2, a3), two bf16 a register;
+//                 B b[2] = (k 2c, 2c + 1, n g) (k 2c + 8, 2c + 9, n g).
+// ---------------------------------------------------------------------------
+
+// D[16 x 8] += A[16 x 8] * B[8 x 8], TF32 operands, f32 sums.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7},"
+      " {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D[16 x 8] += A[16 x 16] * B[16 x 8], bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7},"
+      " {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address
+// of row l % 8 of matrix l / 8 (16 bytes); r[i] holds matrix i as thread t
+// reads it: row t / 4, columns 2(t % 4), 2(t % 4) + 1 (plain), or the
+// transpose, rows 2(t % 4), 2(t % 4) + 1 of column t / 4 (trans).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Byte offset of element (r, c) in a tile of R rows of E-byte elements as
+// TMA writes it with the 128-byte swizzle: column blocks of 128 / E
+// elements, each [R][128 bytes], the 16-byte chunk of row r XORed with
+// r % 8 (R a multiple of 8, the tile 1024-byte aligned).
+template <int R, int E>
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  constexpr int W = 128 / E;
+  const uint32_t cb = c / W, byte = (c % W) * E;
+  return cb * R * 128 + r * 128 + ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15));
+}
+
+// One warp's tile products for the flash kernels that run on mma.sync
+// (flash_fwd_mma.cuh, flash_dkv_mma.cuh), on 128-byte-swizzled tiles of
+// float or bf16 elements in shared memory (R rows each, as TMA writes them).
+// For float every operand is split into TF32 hi + lo once it is in
+// registers and each product issued three times (lo*hi, hi*lo, hi*hi: f32
+// accuracy, split_tf32); bf16 operands are exact, read by ldmatrix.
+
+// f32 element (r, c) of a swizzled tile of R rows.
+template <int R>
+__device__ __forceinline__ float ld_sw_f32(const float* tile, int r, int c) {
+  return *reinterpret_cast<const float*>(reinterpret_cast<const uint8_t*>(tile) + sw128<R, 4>(r, c));
+}
+
+// acc[16 x N] += A[a0 .. a0 + 16, 0 .. D) * B[0 .. N, 0 .. D)^T, both read
+// K-major (their rows contiguous along D): A a tile of RA rows, B of RB.
+template <typename T, int D, int RA, int RB, int N>
+__device__ __forceinline__ void warp_mma_abt(float (&acc)[N / 8][4], const T* A, int a0,
+                                             const T* B, int lane) {
+  const int g = lane / 4, c = lane % 4;
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(ld_sw_f32<RA>(A, a0 + g, 8 * kk + c), ah[0], al[0]);
+      split_tf32(ld_sw_f32<RA>(A, a0 + g + 8, 8 * kk + c), ah[1], al[1]);
+      split_tf32(ld_sw_f32<RA>(A, a0 + g, 8 * kk + c + 4), ah[2], al[2]);
+      split_tf32(ld_sw_f32<RA>(A, a0 + g + 8, 8 * kk + c + 4), ah[3], al[3]);
+#pragma unroll
+      for (int nb = 0; nb < N / 8; ++nb) {
+        uint32_t bh[2], bl[2];
+        split_tf32(ld_sw_f32<RB>(B, 8 * nb + g, 8 * kk + c), bh[0], bl[0]);
+        split_tf32(ld_sw_f32<RB>(B, 8 * nb + g, 8 * kk + c + 4), bh[1], bl[1]);
+        mma_m16n8k8_tf32(acc[nb], al, bh);
+        mma_m16n8k8_tf32(acc[nb], ah, bl);
+        mma_m16n8k8_tf32(acc[nb], ah, bh);
+      }
+    }
+  } else {
+    static_assert(N % 16 == 0, "bf16 B fragments come two n8 blocks at a time");
+    const uint8_t* a_bytes = reinterpret_cast<const uint8_t*>(A);
+    const uint8_t* b_bytes = reinterpret_cast<const uint8_t*>(B);
+    const int mi = lane / 8, ri = lane % 8;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_bytes + sw128<RA, 2>(a0 + (mi & 1) * 8 + ri, 16 * kk + (mi >> 1) * 8));
+#pragma unroll
+      for (int nb = 0; nb < N / 8; nb += 2) {
+        uint32_t bb[4];
+        ldmatrix_x4(bb, b_bytes + sw128<RB, 2>(8 * nb + (mi >> 1) * 8 + ri, 16 * kk + (mi & 1) * 8));
+        const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
+        mma_m16n8k16_bf16(acc[nb], a, b0);
+        mma_m16n8k16_bf16(acc[nb + 1], a, b1);
+      }
+    }
+  }
+}
+
+// acc[16 x DN] += P[16 x K] * Y[0 .. K, y0 .. y0 + DN): P in registers as
+// the accumulators of a 16 x K product (p[K / 8][4]), Y a tile of K rows
+// read MN-major. f32: the TF32 A fragment of k8 block j takes the thread's
+// own columns 8j + 2c, 8j + 2c + 1 of P as its k c and c + 4, and Y's rows
+// are read in that order, so P needs no shuffle. bf16: P split into bf16
+// hi + lo (split_bf16x2), two products, Y by ldmatrix.trans.
+template <typename T, int K, int DN>
+__device__ __forceinline__ void warp_mma_pv(float (&acc)[DN / 8][4], const float (&p)[K / 8][4],
+                                            const T* Y, int y0, int lane) {
+  const int g = lane / 4, c = lane % 4;
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j) {
+      uint32_t ah[4], al[4];
+      split_tf32(p[j][0], ah[0], al[0]);
+      split_tf32(p[j][2], ah[1], al[1]);
+      split_tf32(p[j][1], ah[2], al[2]);
+      split_tf32(p[j][3], ah[3], al[3]);
+#pragma unroll
+      for (int nb = 0; nb < DN / 8; ++nb) {
+        uint32_t bh[2], bl[2];
+        split_tf32(ld_sw_f32<K>(Y, 8 * j + 2 * c, y0 + 8 * nb + g), bh[0], bl[0]);
+        split_tf32(ld_sw_f32<K>(Y, 8 * j + 2 * c + 1, y0 + 8 * nb + g), bh[1], bl[1]);
+        mma_m16n8k8_tf32(acc[nb], al, bh);
+        mma_m16n8k8_tf32(acc[nb], ah, bl);
+        mma_m16n8k8_tf32(acc[nb], ah, bh);
+      }
+    }
+  } else {
+    static_assert(K % 16 == 0 && DN % 16 == 0, "bf16 fragments come in pairs of n8 blocks");
+    const uint8_t* y_bytes = reinterpret_cast<const uint8_t*>(Y);
+    const int mi = lane / 8, ri = lane % 8;
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16x2(p[2 * kk][0], p[2 * kk][1], ph[0], pl[0]);
+      split_bf16x2(p[2 * kk][2], p[2 * kk][3], ph[1], pl[1]);
+      split_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int nb = 0; nb < DN / 8; nb += 2) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, y_bytes + sw128<K, 2>(16 * kk + (mi & 1) * 8 + ri,
+                                                    y0 + 8 * nb + (mi >> 1) * 8));
+        const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
+        mma_m16n8k16_bf16(acc[nb], ph, b0);
+        mma_m16n8k16_bf16(acc[nb], pl, b0);
+        mma_m16n8k16_bf16(acc[nb + 1], ph, b1);
+        mma_m16n8k16_bf16(acc[nb + 1], pl, b1);
+      }
+    }
+  }
+}
+
 // The products. An accumulator d[N/2] of a warpgroup's 64 x N tile holds, in
 // thread t (warp w = t / 32 of the warpgroup, lane l), for n8 block j:
 //   d[4j + 0, 1] = row 16w + l/4,     columns 8j + 2(l%4) + {0, 1}
@@ -339,18 +527,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a contiguous bf16 tensor [rows, heads, d] whose box is
-// 64 columns (128 bytes) of one head by box_rows rows, 128-byte swizzled.
-// Coordinates are (column, head, row). -> a CUDA error code.
+// A tensor map over a contiguous bf16 (elem_bytes 2) or f32 (4) tensor
+// [rows, heads, d] whose box is 128 bytes of columns (64 bf16 or 32 f32)
+// of one head by box_rows rows, 128-byte swizzled. Coordinates are
+// (column, head, row). -> a CUDA error code.
 inline cudaError_t make_row_map(CUtensorMap* map, const void* base, int d, int heads,
-                                int64_t rows, int box_rows) {
+                                int64_t rows, int box_rows, int elem_bytes = 2) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t eb = elem_bytes;
   cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)rows};
-  cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2};
-  cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+  cuuint64_t strides[2] = {(cuuint64_t)d * eb, (cuuint64_t)heads * d * eb};
+  cuuint32_t box[3] = {(cuuint32_t)(128 / eb), 1, (cuuint32_t)box_rows};
   cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type =
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

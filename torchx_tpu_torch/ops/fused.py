@@ -9,15 +9,19 @@ Port of :mod:`torchx_tpu.ops.fused`, the ``--kernels cuda`` hot path:
   the kernels, one
   kernel accumulating ``dq`` over kv tiles and one accumulating
   ``dk``/``dv`` over q tiles and over the query heads that share a KV head
-  (native GQA: KV is never repeated). Each of the three comes in two
-  variants, chosen by the static rule :func:`flash_variant`: ``wgmma``
-  on the tensor cores (``csrc/flash_fwd_wgmma.cu``,
-  ``csrc/flash_dq_wgmma.cu``, ``csrc/flash_dkv_wgmma.cu``) and ``simt``
-  on the CUDA cores (``csrc/flash_attn.cu``). The wgmma kernels take
-  their tile as a launch setting, ``block_q`` / ``block_kv`` as the JAX
-  package's Pallas grids name them (``LlamaConfig.attn_block_q/kv``),
-  each launch at the compiled tile :func:`fit_tile` gives (0: the card's
-  default, :data:`DEFAULT_TILES`). Optional ``segment_ids``
+  (native GQA: KV is never repeated). Each kernel comes in variants,
+  chosen per kernel by the static rule :func:`flash_variant`: ``wgmma``
+  on the tensor cores for bf16 at head_dim 64 and 128
+  (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_dq_wgmma.cu``,
+  ``csrc/flash_dkv_wgmma.cu``); elsewhere (f32, and bf16 at head_dim 256)
+  ``mma``, the forward and dk/dv on the tensor cores by mma.sync, f32 in
+  three TF32 passes (``csrc/flash_fwd_mma.cu``, ``csrc/flash_dkv_mma.cu``),
+  and ``simt``, dq on the CUDA cores (``csrc/flash_attn.cu``). The wgmma
+  kernels take their tile as a launch setting, ``block_q`` / ``block_kv``
+  as the JAX package's Pallas grids name them
+  (``LlamaConfig.attn_block_q/kv``), each launch at the compiled tile
+  :func:`fit_tile` gives (0: the card's default, :data:`DEFAULT_TILES`);
+  the mma and simt kernels have one tile each. Optional ``segment_ids``
   (``[b, s]`` int32, one array for queries and keys, as the JAX package
   hands ``SegmentIds(q=seg, kv=seg)`` to the library splash kernel) mask
   packed documents: a query sees only keys of its own segment, in all
@@ -66,7 +70,8 @@ FLASH_HEAD_DIMS = (64, 128, 256)
 #: Head dims of the tensor-core (wgmma) flash kernels.
 WGMMA_HEAD_DIMS = (64, 128)
 
-FLASH_VARIANTS = ("wgmma", "simt")
+FLASH_VARIANTS = ("wgmma", "mma", "simt")
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 #: The flash kernels' tiles, as the JAX package's Pallas grids name them
 #: (``torchx_tpu/ops/fused.py`` ``_flash_fwd`` / ``_flash_bwd``):
@@ -97,8 +102,24 @@ DEFAULT_TILES = {
     ("flash_dq", 64): (64, 64), ("flash_dq", 128): (128, 128),
     ("flash_dkv", 64): (64, 64), ("flash_dkv", 128): (32, 64),
 }
-#: The simt kernels' one tile by head dim (``csrc/flash_attn.cu`` ``Tile``):
-#: every request fits to it.
+#: The mma kernels' one tile ``(block_q, block_kv)`` by kernel, dtype and
+#: head dim, each an instance of ``csrc/flash_*_mma.cuh``
+#: (``TPX_FLASH_*_MMA_TILES``; tests/test_torch_flash_tf32.py holds the two
+#: equal): every request fits to it. Each picked from a grid that ptxas
+#: compiled (``nvcc -Xptxas -v``) among those without spills whose tiles
+#: and their two-stage ring fit a block's 227 KB; no sweep has timed them.
+MMA_TILES = {
+    ("flash_fwd", torch.float32, 64): (64, 64),
+    ("flash_fwd", torch.float32, 128): (64, 32),
+    ("flash_fwd", torch.float32, 256): (64, 32),
+    ("flash_fwd", torch.bfloat16, 256): (64, 32),
+    ("flash_dkv", torch.float32, 64): (32, 64),
+    ("flash_dkv", torch.float32, 128): (16, 64),
+    ("flash_dkv", torch.float32, 256): (32, 32),
+    ("flash_dkv", torch.bfloat16, 256): (32, 64),
+}
+#: The simt dq kernel's one tile by head dim (``csrc/flash_attn.cu``
+#: ``Tile``): every request fits to it.
 SIMT_TILES = {64: 64, 128: 64, 256: 32}
 
 #: The port's ``--kernels`` values.
@@ -120,21 +141,24 @@ def flash_shapes_ok(s_q: int, s_k: int, head_dim: int) -> bool:
     )
 
 
-def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels the flash forward, dq and dk/dv launch on a CUDA
-    tensor.
+def flash_variant(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv")
+    launches on a CUDA tensor.
 
     ``"wgmma"`` (tensor cores, TMA-fed) for bf16 at head_dim 64 and 128,
     the llama3_1b and llama3_8b shapes, where the three wgmma kernels build
     without spills (``nvcc -Xptxas -v``, printed by chip_smoke.py's build
-    phase); ``"simt"`` (the CUDA-core kernels of ``csrc/flash_attn.cu``)
-    for f32, whose products the bf16 tensor cores cannot take, and for
-    head_dim 256, whose O or dk/dv accumulators alone would take 256
-    registers a thread. A rule on dtype and shape alone: no launch is ever
-    retried on the other variant."""
+    phase). Elsewhere, f32 (whose products the bf16 tensor cores cannot
+    take) and bf16 at head_dim 256 (where a wgmma warpgroup's O or dK/dV
+    accumulators alone would take 256 registers a thread): ``"mma"`` for
+    the forward and dk/dv (mma.sync on the tensor cores, f32 in three TF32
+    passes) and ``"simt"`` for dq (the CUDA cores). A rule on kernel, dtype
+    and shape alone: no launch is ever retried on another variant."""
+    if kernel not in FLASH_KERNELS:
+        raise ValueError(f"flash attention: kernel must be one of {FLASH_KERNELS}")
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
-    return "simt"
+    return "simt" if kernel == "flash_dq" else "mma"
 
 
 def check_tiles(block_q: int, block_kv: int) -> None:
@@ -156,17 +180,25 @@ def _fit(requested: int, seq: int, tiles: tuple[int, ...]) -> int:
 
 
 def fit_tile(kernel: str, variant: str, head_dim: int, seq: int, block_q: int = 0,
-             block_kv: int = 0) -> tuple[int, int]:
+             block_kv: int = 0, dtype: Optional[torch.dtype] = None) -> tuple[int, int]:
     """The tile ``(block_q, block_kv)`` that ``kernel`` ("flash_fwd",
     "flash_dq" or "flash_dkv") of ``variant`` launches with at ``head_dim``
     and sequence ``seq`` for a request (0: :data:`DEFAULT_TILES`' value on
-    that axis). Each axis takes the largest compiled tile at most the
-    request that divides ``seq`` (:func:`_fit`); nothing else changes a
-    tile. The simt kernels have one tile (:data:`SIMT_TILES`)."""
+    that axis). For wgmma each axis takes the largest compiled tile at most
+    the request that divides ``seq`` (:func:`_fit`); nothing else changes a
+    tile. The mma kernels have one tile by ``dtype`` (:data:`MMA_TILES`),
+    the simt dq one by head dim (:data:`SIMT_TILES`)."""
     check_tiles(block_q, block_kv)
     if variant == "simt":
+        if kernel != "flash_dq":
+            raise ValueError(f"flash attention: no simt kernel for {kernel}")
         t = SIMT_TILES[head_dim]
         return t, t
+    if variant == "mma":
+        if (kernel, dtype, head_dim) not in MMA_TILES:
+            raise ValueError(f"flash attention: no mma kernel for {kernel} in {dtype} at"
+                             f" head_dim {head_dim}")
+        return MMA_TILES[(kernel, dtype, head_dim)]
     q_tiles, kv_tiles = WGMMA_TILES[(kernel, head_dim)]
     dq, dkv = DEFAULT_TILES[(kernel, head_dim)]
     return _fit(block_q or dq, seq, q_tiles), _fit(block_kv or dkv, seq, kv_tiles)
@@ -280,22 +312,30 @@ def _dims(q, k, v, causal, *more):  # noqa: ANN001, ANN202
     return [b, s, h, kvh, d, int(causal), _DTYPE_CODE[q.dtype]]
 
 
-def _pick_variant(variant, tensors):  # noqa: ANN001, ANN202
-    """The variant to launch: ``variant`` if given (chip_smoke.py and the
-    card tests run both on the same inputs), else :func:`flash_variant`.
-    The wgmma kernels' TMA needs bf16 and 16-byte aligned tensors."""
+def _pick_variant(kernel, variant, tensors):  # noqa: ANN001, ANN202
+    """The variant ``kernel`` launches: ``variant`` if given (chip_smoke.py
+    and the card tests name it), else :func:`flash_variant`; refused where
+    that variant has no kernel for the dtype and head dim. The wgmma and
+    mma kernels' TMA needs 16-byte aligned tensors."""
     q = tensors[0]
-    variant = variant or flash_variant(q.dtype, q.shape[-1])
+    dtype, d = q.dtype, q.shape[-1]
+    variant = variant or flash_variant(kernel, dtype, d)
     if variant not in FLASH_VARIANTS:
         raise ValueError(f"flash attention: variant must be one of {FLASH_VARIANTS}")
-    if variant == "wgmma":
-        if q.dtype != torch.bfloat16 or q.shape[-1] not in WGMMA_HEAD_DIMS:
-            raise ValueError(
-                f"flash attention: the wgmma kernels take bf16 at head_dim"
-                f" {WGMMA_HEAD_DIMS}, got {q.dtype} at {q.shape[-1]}"
-            )
-        if any(t.data_ptr() % 16 for t in tensors):
-            raise ValueError("flash attention: wgmma needs 16-byte aligned tensors")
+    if variant == "wgmma" and (dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS):
+        raise ValueError(
+            f"flash attention: the wgmma kernels take bf16 at head_dim"
+            f" {WGMMA_HEAD_DIMS}, got {dtype} at {d}"
+        )
+    if variant == "mma" and (kernel, dtype, d) not in MMA_TILES:
+        raise ValueError(
+            f"flash attention: the mma kernels take the forward and dk/dv in f32 at"
+            f" head_dim {FLASH_HEAD_DIMS} and bf16 at 256, got {kernel} in {dtype} at {d}"
+        )
+    if variant == "simt" and kernel != "flash_dq":
+        raise ValueError(f"flash attention: the simt kernel is dq's, got {kernel}")
+    if variant != "simt" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"flash attention: {variant} needs 16-byte aligned tensors")
     return variant
 
 
@@ -303,19 +343,19 @@ def _launch(kernel, variant, inputs, outputs, causal, segment_ids=None, tile=(0,
     """Launch ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv") of the
     chosen variant on CUDA tensors: inputs (q, k, v[, do, lse, delta]),
     then the outputs and the segment ids (null for none), all as pointers,
-    then the dims and, for wgmma, the tile :func:`fit_tile` gives for the
-    request ``tile`` (block_q, block_kv)."""
+    then the dims and, for wgmma and mma, the tile :func:`fit_tile` gives
+    for the request ``tile`` (block_q, block_kv)."""
     seg_ptr = None
     if segment_ids is not None:
         _check_segments(segment_ids, inputs[0])
         seg_ptr = segment_ids.data_ptr()
     dims = _dims(*inputs[:3], causal, *inputs[3:])
-    variant = _pick_variant(variant, inputs)
+    variant = _pick_variant(kernel, variant, inputs)
     q = inputs[0]
-    tile = fit_tile(kernel, variant, q.shape[-1], q.shape[1], *tile)
+    tile = fit_tile(kernel, variant, q.shape[-1], q.shape[1], *tile, dtype=q.dtype)
     lib = _build.cuda_lib()
-    if variant == "wgmma":
-        fn = getattr(lib, f"tpx_{kernel}_wgmma")
+    if variant in ("wgmma", "mma"):
+        fn = getattr(lib, f"tpx_{kernel}_{variant}")
         dims += tile
     else:  # one tile: the launch names none
         fn = getattr(lib, f"tpx_{kernel}")
