@@ -12,21 +12,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
 2. kernels — each kernel of the training step against its plain PyTorch
    version on the card. The flash kernels by variant, per kernel
    (``ops.fused.flash_variant``): the tensor-core ``wgmma`` ones for bf16
-   at head_dim 64 and 128; elsewhere the ``mma`` forward and dk/dv
-   (mma.sync, f32 in three TF32 passes) and the CUDA-core ``simt`` dq. In
+   at head_dim 64 and 128; elsewhere the ``mma`` forward, dq and dk/dv
+   (mma.sync, f32 in three TF32 passes). In
    f32 (``F32_ATTN_CASES``) at the CPU tests' tolerances; the wgmma ones in
    bf16 at the llama3_1b main-path shapes and at head_dim 128 with n_rep 1
    and 4, causal and full, each at the tile the default table gives
    (``ops.fused.DEFAULT_TILES``; the kernels line names it), and one other
    compiled tile of each wgmma kernel at llama3_1b's and Mixtral's shapes;
-   the mma and simt ones in bf16 at head_dim 256 (``BF16_D256_CASES``).
-   The wgmma dq and dk/dv, the mma dk/dv and the norm backward's dw must
+   the mma ones in bf16 at head_dim 256 (``BF16_D256_CASES``).
+   The wgmma and mma dq and dk/dv and the norm backward's dw must
    be bitwise repeatable. Segment ids (packed documents of 1-1024 tokens,
    the last row one document): the masked kernels of every variant (wgmma
-   in bf16; mma and simt in f32) at llama3_1b's and Mixtral-8x7B's
+   in bf16; mma in f32) at llama3_1b's and Mixtral-8x7B's
    attention shapes, causal and full, against their masked plain versions
    at the unmasked tolerances; the one-document row bitwise the unmasked
-   kernels' output; the masked wgmma dq and dk/dv and mma dk/dv bitwise
+   kernels' output; the masked wgmma and mma dq and dk/dv bitwise
    repeatable; then ``attention(impl="flash", segment_ids=...)`` forward
    and backward in bf16 and f32, whose launch counts are the masked rows'
    launches. On the
@@ -47,19 +47,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    mma.sync kernel, its k range split, one launch), 512 (a mid prefill
    bucket) and 2048 (the burst's largest prefill chunk: the wgmma
    kernel), the lm head with f32 output at 4 rows (a prefill's last rows)
-   and 8 (decode) and, off the serving path, 2048; bf16 activations, and
-   one f32 case (the CUDA-core kernel): within 1e-5 (f32 outputs) or one
-   bf16 rounding (8e-3) of its plain version, two calls bitwise equal;
-   timed beside its plain version and ``torch.matmul`` on the weight
-   dequantized to bf16 and held resident (for the head it writes bf16, the
-   kernel f32), with the host's time to issue a call, the device kernels
-   a call runs (torch.profiler) and the allocations a repeated call makes.
+   and 8 (decode) and, off the serving path, 2048; bf16 activations; f32
+   activations (the TF32 mma.sync kernel) at the five decode shapes (8
+   rows) and one ragged case (``INT8_F32_CASE``): within 1e-5 (f32
+   outputs) or one bf16 rounding (8e-3) of its plain version, two calls
+   bitwise equal; timed beside its plain version and ``torch.matmul`` on
+   the weight dequantized to x's dtype and held resident (for the bf16 head
+   it writes bf16, the kernel f32), with the host's time to issue a call,
+   the device kernels a call runs (torch.profiler) and the allocations a
+   repeated call makes.
 3. train — ``train`` on llama3_1b at full width (16 layers, dim 2048,
    32/8 heads, vocab 128256, tied), bf16, ``kernels="cuda"``, batch 4,
    seq 2048, synthetic tokens; launch counts reset just before and read just
    after, checked against n_layers x (1 + remat recompute) per step for the
    forward kernels and n_layers for the backward ones: the bf16 step runs
-   the ``wgmma`` flash kernels and no ``simt`` one, at the preset's tiles
+   the ``wgmma`` flash kernels and no ``mma`` one, at the preset's tiles
    (``attn_block_q/kv`` 64/64). Then one step at ``attn_block_q=128,
    attn_block_kv=128`` (``OTHER_TILE``): the same weights and batch, its loss
    within 1e-2 of the run's first, the same launches.
@@ -128,7 +130,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    phase's B run, or its own): losses within 1e-2 and gradient norms
    within 5e-2, every rank's launches one process's (the wgmma flash
    kernels on ``n_heads / tp`` heads over the whole sequence, the norm
-   kernels on ``b x s / sp`` rows, no simt). Prints each rank's peak
+   kernels on ``b x s / sp`` rows, no mma). Prints each rank's peak
    memory, the profiled step time, rank 0's collectives by group (the
    port's ``collective:<axes>`` ranges: host and device milliseconds a
    step) and the cost model's bytes a step by axis beside them. With four
@@ -219,7 +221,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and the router on the whole batch), profiled: losses within 1e-2 and
    gradient norms within 5e-2 of one process, every rank's launches one
    process's (the wgmma flash kernels at head_dim 128, the norm kernels at
-   dim 4096, no simt), the router's aux values finite, and a collective
+   dim 4096, no mma), the router's aux values finite, and a collective
    over the expert group in rank 0's trace (in the default run the tp
    phase's launch carries this run after its own). Prints each rank's peak
    memory beside the parameters a rank holds, the profiled step time, rank
@@ -315,7 +317,12 @@ the wgmma kernels (``ROUTES``: f32 at llama3_1b's attention shape, f32 and
 bf16 at head_dim 256), each held to its plain version first, unmasked and
 masked, beside SDPA and the bound; with ``--package-root`` the same rows of
 another tree's kernels (the kernels phase prints this tree's among its
-rows).
+rows). ``--phases build,int8f32`` does the same for the int8-weight
+matmul's f32-activation rows. ``--phases build,dqgrid`` builds the mma
+dq's candidate tiles by group (``csrc/flash_dq_mma.cuh``
+``TPX_FLASH_DQ_MMA_GRID_<n>``), prints ptxas's registers and spills for
+each, holds each candidate without spills to the plain dq and times it at
+its group's shape: the source of the dq rows of ``ops.fused.MMA_TILES``.
 ``--phases build,sweep`` times the RMSNorm backward kernel over its launch
 settings (``ops.norms.BWD_CONFIG``), then every compiled tile of the three
 wgmma flash kernels at llama3_1b's and Mixtral's attention shapes, masked
@@ -371,7 +378,7 @@ PHASES = ("build", "kernels", "train", "remat", "reference", "gang", "gangckpt",
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
-                "int8parts", "gangparts", "rematoom", "hostus", "routes")
+                "int8parts", "gangparts", "rematoom", "hostus", "routes", "int8f32", "dqgrid")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth; its L2 cache.
@@ -393,8 +400,8 @@ KERNEL_INFO = {
                       "torchx_tpu/ops/fused.py:87"),
     "flash_dq_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dq_wgmma.cuh",
                        "torchx_tpu/ops/fused.py:167"),
-    "flash_dq_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu",
-                      "torchx_tpu/ops/fused.py:167"),
+    "flash_dq_mma": ("cuda", "torchx_tpu_torch/csrc/flash_dq_mma.cuh",
+                     "torchx_tpu/ops/fused.py:167"),
     "flash_dkv_wgmma": ("cuda", "torchx_tpu_torch/csrc/flash_dkv_wgmma.cuh",
                         "torchx_tpu/ops/fused.py:198"),
     "flash_dkv_mma": ("cuda", "torchx_tpu_torch/csrc/flash_dkv_mma.cuh",
@@ -410,14 +417,18 @@ KERNEL_INFO = {
 SPLASH = "torchx_tpu/ops/attention.py:148"
 KERNEL_INFO.update({
     f"{name}_seg": (KERNEL_INFO[name][0], KERNEL_INFO[name][1], SPLASH)
-    for name in ("flash_fwd_wgmma", "flash_fwd_mma", "flash_dq_wgmma", "flash_dq_simt",
+    for name in ("flash_fwd_wgmma", "flash_fwd_mma", "flash_dq_wgmma", "flash_dq_mma",
                  "flash_dkv_wgmma", "flash_dkv_mma")
 })
-#: The CUDA-core forward and dk/dv that the mma kernels replaced, as a tree
-#: imported by ``--package-root`` still launches them (the routes phase).
+#: The CUDA-core kernels that the mma and TF32 kernels replaced, as a
+#: parent's tree imported by ``--package-root`` still launches them (the
+#: routes and int8f32 phases).
 KERNEL_INFO.update({
     "flash_fwd_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu", "torchx_tpu/ops/fused.py:87"),
+    "flash_dq_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu", "torchx_tpu/ops/fused.py:167"),
+    "flash_dq_simt_seg": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu", SPLASH),
     "flash_dkv_simt": ("cuda", "torchx_tpu_torch/csrc/flash_attn.cu", "torchx_tpu/ops/fused.py:198"),
+    "int8_matmul_simt": ("cuda", "torchx_tpu_torch/csrc/int8_matmul.cu", "torchx_tpu/ops/quant.py:63"),
 })
 KERNEL_INFO.update({f"{name}_d128": KERNEL_INFO[name]
                     for name in ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")})
@@ -432,7 +443,7 @@ KERNEL_INFO.update({f"{name}_sp2": KERNEL_INFO[name]
 #: JAX package (XLA lowers its dot_general), the port's own kernel.
 KERNEL_INFO.update({name: ("cuda", "torchx_tpu_torch/csrc/int8_matmul.cu",
                            "torchx_tpu/ops/quant.py:63")
-                    for name in ("int8_matmul", "int8_matmul_simt")})
+                    for name in ("int8_matmul", "int8_matmul_tf32")})
 
 # main-path shapes: llama3_1b attention and the [batch*seq, dim] norm rows
 ATTN = dict(b=4, s=2048, h=32, kvh=8, d=64)
@@ -647,8 +658,8 @@ F32_TOL = {"flash_fwd": 2e-5, "flash_dq": 5e-4, "flash_dkv": 5e-4,
            "norm_res_fwd": 1e-6, "rms_norm_bwd": 2e-5}
 #: bf16 tolerances at the main-path shapes, relative to the largest
 #: reference value. Kernel and plain version read the same bf16 values and
-#: sum in f32, so the simt dq differs by summation order only and the
-#: tensor-core kernels also by the bf16 hi + lo split of P and dS (~1e-6,
+#: sum in f32, so the kernels differ by summation order and by the bf16
+#: hi + lo split of P and dS (~1e-6,
 #: where one bf16 rounding would cost ~2e-3:
 #: tests/test_torch_flash_variants.py);
 #: the norm kernels' bf16 outputs (y, dx) may differ by one bf16 rounding
@@ -669,7 +680,7 @@ BF16_WGMMA_CASES = [  # b, s, h, kvh, d, causal
     (2, 1024, 4, 4, 128, False), (2, 1024, 8, 2, 128, False),
     (2, 1024, 8, 2, 64, False),
 ]
-#: bf16 at head_dim 256 (the mma forward and dk/dv, the simt dq): n_rep 1
+#: bf16 at head_dim 256 (the mma forward, dq and dk/dv): n_rep 1
 #: and 2, causal and full
 BF16_D256_CASES = [  # b, s, h, kvh, d, causal
     (2, 1024, 4, 4, 256, True), (2, 1024, 8, 4, 256, True),
@@ -870,14 +881,20 @@ INT8_SHAPES = [(4096, 4096, "wq_wo", False), (4096, 1024, "wk_wv", False),
 INT8_M = (8, 512, 2048)
 INT8_HEAD_M = (4, 8, 2048)
 INT8_OFF_PATH = {("lm_head", 2048)}
-#: The f32 case (the CUDA-core kernel): ragged N, K no multiple of the stage.
+#: The f32 case (the TF32 kernel): ragged N, K no multiple of the stage.
 INT8_F32_CASE = (17, 520, 1040)
+#: Rows of the f32 rows at llama3_8b's shapes: the decode step's 8 slots.
+INT8_F32_M = 8
 #: f32 outputs within 1e-5 of the largest value (the sums' order differs);
 #: bf16 outputs within one bf16 rounding of the f32 sum, elementwise.
 INT8_F32_TOL = 1e-5
 INT8_BF16_RTOL = 8e-3
 #: The int8 kernels' path names, by ``quant.Plan.path``.
-INT8_PATHS = {0: "simt", 1: "decode (mma.sync)", 2: "wgmma (TMA)"}
+#: (a parent's tree, under ``--package-root``, runs its CUDA-core kernel
+#: on path 0; the row's name says which).
+INT8_PATHS = {0: "f32 x", 1: "decode (mma.sync)", 2: "wgmma (TMA)"}
+#: TF32 products an f32-activation call issues a weight: x_hi q + x_lo q.
+INT8_F32_PASSES = 2
 
 
 def int8_row_name(k: int, n: int, m: int) -> str:
@@ -942,28 +959,32 @@ def _weight_pool(q, nbytes: int) -> list:  # noqa: ANN001
     return [q] + [q.clone() for _ in range(math.ceil(2 * L2_BYTES / nbytes) - 1)]
 
 
-def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
+def _int8_rows(gen, f32_only: bool = False) -> list[dict]:  # noqa: ANN001
     """The int8-weight matmul against its plain version on the same
     tensors at llama3_8b's shapes (decode, a mid and the largest prefill
-    chunk, bf16; the head at the rows it runs on) and one f32 case, two
-    calls bitwise equal; then the timed rows: the kernel, the plain
-    version, and ``torch.matmul`` on the weight dequantized to bf16 and
-    held resident (cuBLAS doing what the bf16 model does: the yardstick,
-    never called by the port); the host's time per call, the device
-    kernels a call runs and the allocations of a repeated call."""
+    chunk, bf16; the head at the rows it runs on), f32 activations at the
+    decode shapes (``INT8_F32_M`` rows) and one ragged f32 case, two calls
+    bitwise equal; then the timed rows: the kernel, the plain version, and
+    ``torch.matmul`` on the weight dequantized to x's dtype and held
+    resident (cuBLAS doing what the float model does: the yardstick, never
+    called by the port); the host's time per call, the device kernels a
+    call runs and the allocations of a repeated call. ``f32_only``: the f32
+    rows alone (``--phases build,int8f32``)."""
     import torch
 
     from torchx_tpu_torch.ops import quant
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = [(m, k, n, f32, tag) for k, n, tag, f32 in INT8_SHAPES
-             for m in (INT8_HEAD_M if tag == "lm_head" else INT8_M)]
-    cases.append((*INT8_F32_CASE, True, "f32_case"))
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [] if f32_only else [
+        (m, k, n, bf16, head_f32, tag) for k, n, tag, head_f32 in INT8_SHAPES
+        for m in (INT8_HEAD_M if tag == "lm_head" else INT8_M)]
+    cases += [(INT8_F32_M, k, n, f32, True, tag) for k, n, tag, _ in INT8_SHAPES]
+    cases.append((*INT8_F32_CASE, f32, True, "f32_case"))
     rows = []
-    for m, k, n, f32, tag in cases:
-        simt = tag == "f32_case"
-        dtype = torch.float32 if simt else torch.bfloat16
-        out = torch.float32 if f32 else None
+    for m, k, n, dtype, out_f32, tag in cases:
+        x_f32 = dtype == f32
+        out = f32 if out_f32 else None
         x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
         w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
         q, scale = quant.quantize(w)
@@ -973,13 +994,14 @@ def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
         rel, err, ok = _int8_check(y, want)
         repeat = torch.equal(y, quant.int8_matmul(x, q, scale, out_dtype=out))
         kernel = quant.kernel_name(dtype)
-        name = kernel if simt else int8_row_name(k, n, m)
-        plan = quant.launch_plan(m, n, k, simt, sms, f32 and not simt)
+        name = (int8_row_name(k, n, m) if not x_f32 else kernel if tag == "f32_case"
+                else f"{kernel}_{tag}_m{m}")
+        plan = quant.launch_plan(m, n, k, x_f32, sms, out_f32 and not x_f32)
         emit({"phase": "kernels", "check": name, "m": m, "k": k, "n": n,
-              "dtype": str(dtype).removeprefix("torch."), "out": "float32" if f32 else
-              str(dtype).removeprefix("torch."), "path": INT8_PATHS[plan.path],
+              "dtype": str(dtype).removeprefix("torch."),
+              "out": str(out or dtype).removeprefix("torch."), "path": INT8_PATHS[plan.path],
               "rel_err": rel, "max_abs_err": err,
-              "tol": INT8_F32_TOL if y.dtype == torch.float32 else INT8_BF16_RTOL,
+              "tol": INT8_F32_TOL if y.dtype == f32 else INT8_BF16_RTOL,
               "within_tol": ok, "bitwise_repeat": repeat})
         if not ok:
             fail("kernels", f"{name} ({m}, {k}, {n}): error {rel} beyond tolerance")
@@ -997,22 +1019,24 @@ def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
         def call():  # noqa: ANN202
             return quant.int8_matmul(x, q, scale, out_dtype=out)
 
-        x_bytes = 4 if simt else 2
-        out_bytes = 4 if (f32 or simt) else 2
-        nbytes = x_bytes * m * k + k * n + 4 * n + m * n * out_bytes
+        out_bytes = 4 if out_f32 else 2
+        nbytes = x.element_size() * m * k + k * n + 4 * n + m * n * out_bytes
         flops = 2 * m * k * n
-        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+        # f32 x: two TF32 products (x_hi q + x_lo q) at the TF32 rate
+        t_ops = (INT8_F32_PASSES * flops / PEAK_TF32_FLOPS if x_f32
+                 else flops / PEAK_BF16_FLOPS)
+        t_bytes = nbytes / PEAK_BYTES
         ms = time_ms(lambda: quant.int8_matmul(x, rotate("q", qs), scale, out_dtype=out))
         kernels = device_kernels(call)
         row = {
             "name": name, "route": "cuda", "source": KERNEL_INFO[kernel][1],
             "replaces": KERNEL_INFO[kernel][2], "launches": None,
             "shape": {"m": m, "k": k, "n": n, "x": str(dtype).removeprefix("torch."),
-                      "out": "float32" if (f32 or simt) else "bfloat16"},
+                      "out": "float32" if out_f32 else "bfloat16"},
             "path": INT8_PATHS[plan.path], "split_k": plan.splits,
-            "on_serving_path": (tag, m) not in INT8_OFF_PATH and not simt,
+            "on_serving_path": (tag, m) not in INT8_OFF_PATH and not x_f32,
             "max_abs_err": err, "rel_err": rel, "f32_rel_err": None, "f32_tol": None,
-            "tol": INT8_F32_TOL if (f32 or simt) else INT8_BF16_RTOL,
+            "tol": INT8_F32_TOL if out_f32 else INT8_BF16_RTOL,
             "ms": ms, "plain_ms": time_ms(lambda: quant._int8_matmul_plain(
                 x, rotate("q", qs), scale, out), iters=3),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -1026,8 +1050,9 @@ def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
             "device_kernels_per_call": len(kernels), "device_kernel_names": sorted(set(kernels)),
             "allocations_per_call": allocations(call),
             "library_call": "torch.matmul(x, w) on the weight dequantized to x's dtype,"
-                            " resident (cuBLAS)"
-                            + ("; it writes bf16, the kernel f32" if f32 and not simt else ""),
+                            " resident (cuBLAS" + (", TF32 off)" if x_f32 else ")")
+                            + ("; it writes bf16, the kernel f32" if out_f32 and not x_f32
+                               else ""),
             "flops": flops, "bytes": nbytes, "roofline_share": 1e3 * max(t_bytes, t_ops) / ms,
         }
         rows.append(row)
@@ -1036,12 +1061,13 @@ def _int8_rows(gen) -> list[dict]:  # noqa: ANN001
                             f" {row['allocations_per_call']} allocations a call (want 1 and 1)")
         del x, q, scale, qs, libs
     torch.cuda.synchronize()
+    free_card()
     return rows
 
 
 #: The segment checks: (variant, dtype name, shape) x causal and full;
 #: None is each kernel's variant by the package's rule (in f32 and at head
-#: dim 256: the mma forward and dk/dv, the simt dq).
+#: dim 256: the mma forward, dq and dk/dv).
 SEG_CASES = [("wgmma", "bfloat16", "llama3_1b"), ("wgmma", "bfloat16", "mixtral_8x7b"),
              (None, "float32", "llama3_1b"), (None, "float32", "mixtral_8x7b")]
 
@@ -1050,9 +1076,9 @@ def _segment_checks(gen, seg) -> dict:  # noqa: ANN001
     """The masked kernels of every variant at llama3_1b's and Mixtral's
     attention shapes, causal and full, against their masked plain versions
     at the unmasked tolerances; the one-document row bitwise the unmasked
-    kernels'; the masked wgmma dq and dk/dv and mma dk/dv bitwise
-    repeatable (head_dim 256 masked: the route rows, and the card tests'
-    one-document rows). -> the f32 errors by kernel name."""
+    kernels'; the masked wgmma and mma dq and dk/dv bitwise repeatable
+    (head_dim 256 masked: the route rows, and the card tests' one-document
+    rows). -> the f32 errors by kernel name."""
     import torch
 
     from torchx_tpu_torch.ops import fused
@@ -1080,15 +1106,14 @@ def _segment_checks(gen, seg) -> dict:  # noqa: ANN001
                                 f" causal={causal}: the one-document row differs from the"
                                 " unmasked kernels' output")
     for attn, dtype, names in ((ATTN, torch.bfloat16, ["flash_dq_wgmma_seg", "flash_dkv_wgmma_seg"]),
-                               (ATTN, torch.float32, ["flash_dkv_mma_seg"]),
-                               (ATTN_D256, torch.bfloat16, ["flash_dkv_mma_seg"])):
+                               (ATTN, torch.float32, ["flash_dq_mma_seg", "flash_dkv_mma_seg"]),
+                               (ATTN_D256, torch.bfloat16, ["flash_dq_mma_seg", "flash_dkv_mma_seg"])):
         q, k, v, do = _attn_inputs(*attn.values(), dtype, gen)
         o, lse = fused._flash_fwd(q, k, v, True, seg)
         args = (q, k, v, do, lse, fused._flash_delta(do, o), True, seg)
         same = all(torch.equal(a, b) for a, b in zip(fused._flash_dkv(*args),
                                                       fused._flash_dkv(*args)))
-        if "flash_dq_wgmma_seg" in names:
-            same = same and torch.equal(fused._flash_dq(*args), fused._flash_dq(*args))
+        same = same and torch.equal(fused._flash_dq(*args), fused._flash_dq(*args))
         if not same:
             fail("kernels", f"masked {names} ({dtype}, head_dim {attn['d']}): two calls differ")
         emit({"phase": "kernels", "check": "bitwise repeatable", "kernels": names,
@@ -1133,7 +1158,7 @@ def _other_tile_checks(gen) -> None:  # noqa: ANN001
 def _packed_attention_launches(seg) -> dict[str, int]:  # noqa: ANN001
     """The masked path through its entry point: ``attention(impl="flash",
     segment_ids=...)`` forward and backward at llama3_1b's shape, in bf16
-    (the wgmma kernels) and f32 (the mma forward and dk/dv, the simt dq),
+    (the wgmma kernels) and f32 (the mma kernels),
     launch counts reset just before and read just after."""
     import torch
 
@@ -1315,6 +1340,107 @@ def phase_routes() -> None:
         emit({"phase": "routes", **row})
 
 
+def phase_int8_f32_rows() -> None:
+    """``--phases build,int8f32``: the f32-activation rows of
+    :func:`_int8_rows` alone, one line a row (under ``--package-root``, a
+    parent tree's kernel on the same shapes)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    for row in _int8_rows(gen, f32_only=True):
+        emit({"phase": "int8f32", **row})
+
+
+#: The mma dq's candidate tiles by group (``csrc/flash_dq_mma.cuh``
+#: ``TPX_FLASH_DQ_MMA_GRID_<n>``) and the shape each group is timed at,
+#: causal: llama3_1b's attention (f32 at head_dim 64), Mixtral's (f32 at
+#: 128), Gemma-2-2B's (f32 and bf16 at 256).
+DQ_GRID = {1: ("f32_hd64", ATTN, "float32"), 2: ("f32_hd128", ATTN_MOE, "float32"),
+           3: ("f32_hd256", ATTN_D256, "float32"), 4: ("bf16_hd256", ATTN_D256, "bfloat16")}
+
+
+def phase_dq_grid() -> None:
+    """``--phases build,dqgrid``: the source of the mma dq's tiles
+    (``ops.fused.MMA_TILES``). Each group of ``DQ_GRID`` built apart
+    (``flash_dq_mma.cu`` with ``TPX_FLASH_DQ_MMA_GRID``, one nvcc each, side
+    by side) with ptxas's registers and spills by candidate, masked and
+    not; each candidate whose two instances spill nothing held to the plain
+    dq at its group's shape (unmasked, at ``F32_TOL`` / ``BF16_TOL``), then
+    timed; a line a group with the fastest beside the compiled tile."""
+    import ctypes
+
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.ops import fused
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src = _build.CSRC_DIR / "flash_dq_mma.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sos = {g: _build.BUILD_DIR / f"dq_grid_{g}.{os.getpid()}.so" for g in DQ_GRID}
+    log, seconds = _build._run([
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-DTPX_FLASH_DQ_MMA_GRID={g}",
+         "-I", str(_build.CSRC_DIR), "-o", str(so), str(src)] for g, so in sos.items()])
+    ptxas = ptxas_summary(log)
+    emit({"phase": "dqgrid", "nvcc_seconds": dict(zip(DQ_GRID, seconds)), "ptxas": ptxas})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for group, (route, attn, dtype_name) in DQ_GRID.items():
+        lib = ctypes.CDLL(str(sos[group]))
+        lib.tpx_flash_dq_mma_grid.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
+        lib.tpx_flash_dq_mma_grid.restype = i
+        lib.tpx_flash_dq_mma_grid_size.argtypes, lib.tpx_flash_dq_mma_grid_size.restype = [], i
+        lib.tpx_flash_dq_mma_grid_tile.argtypes = [i, ctypes.POINTER(i)]
+        lib.tpx_flash_dq_mma_grid_tile.restype = i
+        dtype = getattr(torch, dtype_name)
+        b, s, h, kvh, d = attn.values()
+        q, k, v, do = _attn_inputs(b, s, h, kvh, d, dtype, gen)
+        o, lse = fused._flash_fwd_plain(q, k, v, True)
+        args = (q, k, v, do, lse, fused._flash_delta(do, o), True)
+        want = fused._flash_dq_plain(*args)
+        tol = (F32_TOL if dtype == torch.float32 else BF16_TOL)["flash_dq"]
+        dq = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+        ptrs = [t.data_ptr() for t in (*args[:6], dq)]
+        times = {}
+        for idx in range(lib.tpx_flash_dq_mma_grid_size()):
+            tile = (i * 5)()
+            if lib.tpx_flash_dq_mma_grid_tile(idx, tile):
+                fail("dqgrid", f"group {group}: no candidate {idx}")
+            dt, dd, bq, bk, dsplit = tile
+            name = f"flash_dq_mma_kernel<{'f32' if dt == 0 else 'bf16'},{dd},{bq},{bk},{dsplit}>"
+            line = {"phase": "dqgrid", "route": route, "tile": [bq, bk], "dsplit": dsplit,
+                    "ptxas": ptxas.get(name), "ptxas_seg": ptxas.get(name[:-1] + ",seg>")}
+            if re.search(r"[1-9]\d* bytes spill", f"{line['ptxas']} {line['ptxas_seg']}"):
+                emit({**line, "spills": True})
+                continue
+
+            def call(idx=idx, name=name):  # noqa: ANN001, ANN202
+                rc = lib.tpx_flash_dq_mma_grid(idx, *ptrs, b, s, h, kvh, 1, stream)
+                if rc:
+                    fail("dqgrid", f"{name}: launch failed ({rc})")
+
+            dq.zero_()
+            call()
+            torch.cuda.synchronize()
+            err = rel_err(dq, want)
+            if not err <= tol:
+                fail("dqgrid", f"{name} at {route}: err {err} > {tol}")
+            times[(bq, bk, dsplit)] = time_ms(call, iters=5, warmup=1)
+            emit({**line, "spills": False, "err": err, "tol": tol, "ms": times[(bq, bk, dsplit)]})
+        best = min(times, key=times.get)
+        emit({"phase": "dqgrid", "route": route, "fastest": list(best), "fastest_ms": times[best],
+              "compiled": list(fused.MMA_TILES[("flash_dq", dtype, d)]),
+              "ms_by_tile": {f"{bq}/{bk}/{ds}": ms for (bq, bk, ds), ms in times.items()}})
+        del q, k, v, do, o, lse, args, want, dq
+        free_card()
+    for so in sos.values():
+        so.unlink()
+
+
 def phase_kernels() -> list[dict]:
     import torch
 
@@ -1345,8 +1471,8 @@ def phase_kernels() -> list[dict]:
     torch.cuda.synchronize()
 
     # bf16: the wgmma kernels at the main-path shapes, at the other shapes
-    # they take and at Mixtral's, the norms at both widths; the mma forward
-    # and dk/dv (with the simt dq) at head_dim 256
+    # they take and at Mixtral's, the norms at both widths; the mma kernels
+    # at head_dim 256
     bf16 = {**_flash_case(*ATTN.values(), True, torch.bfloat16, gen, ("wgmma",)),
             **_norm_case(NORM["n"], NORM["d"], torch.bfloat16, gen)}
     bf16_moe = {**{f"{k}_d128": e for k, e in _flash_case(
@@ -1395,7 +1521,9 @@ def phase_kernels() -> list[dict]:
     w = torch.ones((NORM["d"],), device="cuda", dtype=torch.bfloat16)
     repeat = {"flash_dq_wgmma": lambda: (fused._flash_dq(*args),),
               "flash_dkv_wgmma": lambda: fused._flash_dkv(*args),
+              "flash_dq_mma_f32_hd64": lambda: (fused._flash_dq(*f32_args),),
               "flash_dkv_mma_f32_hd64": lambda: fused._flash_dkv(*f32_args),
+              "flash_dq_mma_bf16_hd256": lambda: (fused._flash_dq(*d256_args),),
               "flash_dkv_mma_bf16_hd256": lambda: fused._flash_dkv(*d256_args),
               "rms_norm_bwd": lambda: norms._bwd(x, r, w, EPS)}
     for name, fn in repeat.items():
@@ -1456,7 +1584,7 @@ REF_GRAD_NORM_RTOL = 5e-2
 def expected_launches(cfg, steps: int) -> dict[str, int]:  # noqa: ANN001
     """Each kernel's launches over ``steps`` training steps of ``cfg`` in
     bf16 at head_dim 64 or 128 (``flash_variant`` picks the wgmma kernels):
-    remat recomputes each layer's forward in the backward; no simt and no
+    remat recomputes each layer's forward in the backward; no mma and no
     masked launch (the trainer passes no segment ids)."""
     from torchx_tpu_torch import _build
 
@@ -3979,10 +4107,10 @@ def phase_notice() -> None:
 
 #: Kernel-name fragments -> the group a step's device time is booked to.
 PROFILE_GROUPS = (
-    ("int8_matmul", ("int8_decode_kernel", "int8_wgmma_kernel", "int8_simt_kernel")),
-    ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
-    ("flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_kernel")),
-    ("flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_kernel")),
+    ("int8_matmul", ("int8_decode_kernel", "int8_wgmma_kernel", "int8_tf32_kernel")),
+    ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel")),
+    ("flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_mma_kernel")),
+    ("flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_mma_kernel")),
     ("norm_res_fwd", ("norm_res_fwd_kernel",)),
     ("rms_norm_bwd", ("rms_norm_bwd_kernel", "dw_reduce_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -5334,6 +5462,75 @@ def _int8_logits_check(stream: list[int], full_depth: dict) -> dict:
     return line
 
 
+#: The f32 int8 path's check: llama3_8b's width at one layer in f32 (5.1 GB
+#: of f32 weights before quantizing), a 32-token prompt and 4 new tokens;
+#: its logits within 1e-4 of the largest of the same forward on the weights
+#: dequantized to f32 (the int8 product and the plain f32 one differ by the
+#: order of their f32 sums only).
+INT8_F32_PATH = dict(layers=1, prompt=32, new_tokens=4, tol=1e-4)
+
+
+def phase_int8_f32_path() -> dict:
+    """The f32-activation int8 kernel through the serving path's entry
+    points: llama3_8b's width at ``INT8_F32_PATH["layers"]`` layer in f32,
+    seeded weights quantized in place, one ``forward_with_cache`` prefill
+    and ``generate`` (the dense generate) with the launch counts reset just
+    before and read just after; the prefill's logits held to the same
+    forward on the weights dequantized to f32 (plain f32 matmuls, TF32
+    off). -> its line, with the launches by kernel."""
+    import torch
+
+    from torchx_tpu_torch import _build
+    from torchx_tpu_torch.models import generate as gen
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.ops import quant
+
+    free_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.llama3_8b(n_layers=INT8_F32_PATH["layers"], dtype=torch.float32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SERVE["seed"])
+    tree = llama.init_params(cfg, g, "cuda")
+    for leaf in llama.leaves(tree):
+        leaf.requires_grad_(False)
+    tree = quant.quantize_params(tree, inplace=True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, INT8_F32_PATH["prompt"]), generator=g,
+                           device="cuda")
+
+    def logits(params):  # noqa: ANN001, ANN202
+        cache = gen.init_kv_cache(cfg, 1, tokens.shape[1], "cuda")
+        return gen.forward_with_cache(params, tokens, cache, 0, cfg)[0][0]
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = logits(tree)
+    new = gen.generate(tree, tokens, cfg, INT8_F32_PATH["new_tokens"])
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _build.launch_counts().items() if n}
+
+    def dequantized(node):  # noqa: ANN001, ANN202
+        if isinstance(node, dict) and "q" in node:
+            return quant.dequantize(node["q"], node["scale"], torch.float32)
+        if isinstance(node, dict):
+            return {k: dequantized(v) for k, v in node.items()}
+        return node
+
+    ref = logits(dequantized(tree))
+    line = {"phase": "int8", "check": "int8 f32 against dequantized f32 logits",
+            "n_layers": cfg.n_layers, "dim": cfg.dim, "tokens": tokens.shape[1],
+            "rel_err": rel_err(got, ref), "tol": INT8_F32_PATH["tol"],
+            "finite": bool(torch.isfinite(got).all()),
+            "new_tokens": new[0, tokens.shape[1]:].tolist(), "launches": launches}
+    emit(line)
+    del tree, got, ref
+    free_card()
+    if not line["finite"] or not line["rel_err"] <= INT8_F32_PATH["tol"]:
+        fail("int8", f"f32 int8 logits: err {line['rel_err']} > {INT8_F32_PATH['tol']}")
+    if set(launches) != {"int8_matmul_tf32"}:
+        fail("int8", f"the f32 int8 path launched {launches}, want int8_matmul_tf32 alone")
+    return line
+
+
 def phase_int8_serve() -> dict:
     """``generate_server`` in-process with llama3_8b at full width (dim
     4096, untied) cut to ``INT8_SERVE_LAYERS`` layers in-process, seeded
@@ -5457,7 +5654,7 @@ def ptxas_summary(log: str) -> dict[str, str]:
             seg = ",seg" if m.group(4) else ""
             name = f"{m.group(1)}<{dtype},{m.group(3)}{seg}>"
             out[name] = ""
-        elif m := re.search(r"Compiling entry function .*?\d((?:int8_decode|int8_wgmma|int8_simt)"
+        elif m := re.search(r"Compiling entry function .*?\d((?:int8_decode|int8_wgmma|int8_tf32)"
                             r"_kernel)(I\w*?E)?E", line):
             # int8_decode_kernel<f32 output>, int8_wgmma_kernel<warpgroups, f32 output>
             name = f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) or ''))}>"
@@ -5717,7 +5914,7 @@ def main(argv: list[str] | None = None) -> int:
                 row["launches"] = counts[row["name"]]
                 row["launches_per_step"] = counts[row["name"]] / TRAIN["steps"]
                 row["launches_from"] = "train phase, llama3_1b"
-        # the mma and simt flash kernels are off the bf16 main path (expected 0)
+        # the mma flash kernels are off the bf16 main path (expected 0)
         if any(row["launches"] == 0 for row in kernel_rows if expected.get(row["name"])):
             fail("train", "a kernel of the path was never launched")
         with timed("train"):
@@ -5824,21 +6021,25 @@ def main(argv: list[str] | None = None) -> int:
         with timed("int8"):
             phase_int8_train(train_out if "train" in phases else None)
             int8_serve = phase_int8_serve()
+            int8_f32 = phase_int8_f32_path()
         per_call = int8_serve["int8_launches_per_call"]
         for row in kernel_rows:
-            if row["name"].startswith("int8_matmul"):
-                base = "int8_matmul_simt" if row["name"] == "int8_matmul_simt" else "int8_matmul"
-                row["launches"] = int8_serve["burst_launches"][base]
+            if row["name"].startswith("int8_matmul_tf32"):
+                row["launches"] = int8_f32["launches"]["int8_matmul_tf32"]
+                row["launches_from"] = ("int8 phase, llama3_8b f32 --int8 at 1 layer:"
+                                        " forward_with_cache and generate")
+            elif row["name"].startswith("int8_matmul"):
+                row["launches"] = int8_serve["burst_launches"]["int8_matmul"]
                 row["launches_from"] = "int8 phase, the llama3_8b --int8 serve burst"
-                if base == "int8_matmul":
-                    row["launches_per_decode_step"] = row["launches_per_prefill"] = per_call
-                    if not row["launches"]:
-                        fail("int8", f"{row['name']}: the int8 serve burst never launched it")
+                row["launches_per_decode_step"] = row["launches_per_prefill"] = per_call
+                if not row["launches"]:
+                    fail("int8", f"{row['name']}: the int8 serve burst never launched it")
     extra = {"profile": phase_profile, "sweep": phase_sweep, "notice": phase_notice,
              "moeprofile": phase_moe_profile, "int8profile": phase_int8_profile,
              "int8sweep": phase_int8_sweep, "int8parts": phase_int8_parts,
              "gangparts": phase_gang_parts, "rematoom": phase_remat_oom,
-             "hostus": phase_hostus, "routes": phase_routes}
+             "hostus": phase_hostus, "routes": phase_routes, "int8f32": phase_int8_f32_rows,
+             "dqgrid": phase_dq_grid}
     for name, run in extra.items():
         if name in phases:
             with timed(name):

@@ -8,10 +8,11 @@ machine does not have, hence ``--noconftest``)::
 f32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32
 = False``), at the CPU parity tests' tolerances; the bf16 tensor-core
 (wgmma) flash kernels at chip_smoke.py's 1e-3, relative to the largest
-reference value. The mma flash forward and dk/dv (f32, and bf16 at head_dim
-256) alone::
+reference value. The mma flash kernels (f32, and bf16 at head_dim 256) and
+the int8-weight matmul (its f32-activation path on TF32 mma.sync among
+them) alone::
 
-    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -k mma
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -k "mma or int8"
 """
 
 import dataclasses
@@ -147,7 +148,7 @@ MMA_CASES = sorted({(kernel, dtype, d) for kernel, dtype, d in fused.MMA_TILES},
 def test_every_mma_instance_matches_plain(gen, kernel, dtype, d, causal, masked):
     """Each mma instance, with and without segment ids (documents whose
     boundaries fall inside every tile), launched once at its tile, against
-    the plain version: f32 within 2e-5 (forward) and 5e-4 (dk/dv), bf16
+    the plain version: f32 within 2e-5 (forward) and 5e-4 (dq, dk/dv), bf16
     within 1e-3, relative to the largest reference value."""
     b, s, kvh, n_rep = 2, 384, 2, 2
     q = _randn(gen, b, s, kvh * n_rep, d, dtype=dtype)
@@ -165,7 +166,10 @@ def test_every_mma_instance_matches_plain(gen, kernel, dtype, d, causal, masked)
         tol = 2e-5 if dtype == torch.float32 else 1e-3
     else:
         args = (q, k, v, do, lse_p, fused._flash_delta(do, o_p), causal, seg)
-        got, want = fused._flash_dkv(*args, variant="mma"), fused._flash_dkv_plain(*args)
+        if kernel == "flash_dq":
+            got, want = (fused._flash_dq(*args, variant="mma"),), (fused._flash_dq_plain(*args),)
+        else:
+            got, want = fused._flash_dkv(*args, variant="mma"), fused._flash_dkv_plain(*args)
         tol = 5e-4 if dtype == torch.float32 else 1e-3
     torch.cuda.synchronize()
     assert _build.launch_counts()[f"{kernel}_mma" + ("_seg" if masked else "")] == 1
@@ -182,6 +186,20 @@ def test_flash_dkv_mma_is_deterministic(gen, dtype, d):
     args = (q, k, v, do, lse, fused._flash_delta(do, o), True)
     first, second = fused._flash_dkv(*args), fused._flash_dkv(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 256),
+                                     (torch.bfloat16, 256)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_dq_mma_is_deterministic(gen, dtype, d, masked):
+    """dq is owned by one CTA a q tile and summed without atomics: two
+    calls agree bitwise, masked or not."""
+    seg = _packed_ids(2, 1024, 300, seed=3) if masked else None
+    q, do = (_randn(gen, 2, 1024, 8, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, 2, 1024, 4, d, dtype=dtype) for _ in range(2))
+    o, lse = fused._flash_fwd(q, k, v, True, seg)
+    args = (q, k, v, do, lse, fused._flash_delta(do, o), True, seg)
+    assert torch.equal(fused._flash_dq(*args), fused._flash_dq(*args))
 
 
 def test_flash_dkv_wgmma_is_deterministic(gen):
@@ -212,7 +230,7 @@ def test_flash_autograd_bf16(gen):
     counts = _build.launch_counts()
     assert (counts["flash_fwd_wgmma"], counts["flash_dq_wgmma"], counts["flash_dkv_wgmma"]) == (
         1, 1, 1)
-    assert counts["flash_fwd_mma"] == counts["flash_dq_simt"] == counts["flash_dkv_mma"] == 0
+    assert counts["flash_fwd_mma"] == counts["flash_dq_mma"] == counts["flash_dkv_mma"] == 0
     assert out.dtype == torch.bfloat16 and k.grad.shape == k.shape
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
@@ -249,7 +267,7 @@ def test_masked_flash_kernels_match_plain(gen, variant, dtype, d, causal):
     """Segment-masked fwd, dq and dk/dv against their plain versions (f32
     at the CPU parity tolerances, bf16 at 1e-3 relative); the one-document
     row bitwise the unmasked kernel's. "mma": each kernel's variant by the
-    rule, the mma forward and dk/dv beside the simt dq."""
+    rule, the mma forward, dq and dk/dv."""
     variant = None if variant == "mma" else variant
     b, s, kvh, n_rep = 3, 512, 2, 2
     seg = _packed_ids(b, s, 200, seed=d + causal)
@@ -355,9 +373,9 @@ def test_model_step_kernels_vs_reference(gen):
         loss = llama.loss_fn(params, batch, cfg)
         results.append((loss, torch.autograd.grad(loss, llama.leaves(params))))
     counts = _build.launch_counts()
-    # f32: the mma forward and dk/dv, the simt dq
+    # f32: the mma forward, dq and dk/dv
     assert counts["flash_dkv_mma"] == base.n_layers
-    assert counts["flash_dq_simt"] == base.n_layers
+    assert counts["flash_dq_mma"] == base.n_layers
     torch.testing.assert_close(results[0][0], results[1][0], rtol=1e-5, atol=1e-5)
     for a, b in zip(results[0][1], results[1][1]):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
@@ -735,7 +753,7 @@ INT8_BF16_CASES = (
     + [(m, k, 128256) for m in (1, 8) for k in (4096, 14336, 1040)]
     + [(m, k, n) for m in (1, 8, 17, 2048) for k, n in ((4096, 1040), (14336, 4112), (520, 16))]
 )
-#: f32 activations (the CUDA-core kernel): the ragged cases.
+#: f32 activations (the TF32 mma.sync kernel): the ragged cases.
 INT8_F32_CASES = [(m, k, n) for m in (1, 8, 17, 2048)
                   for k, n in ((4096, 1040), (14336, 4112), (520, 16))]
 
@@ -886,8 +904,8 @@ def test_int8_dot_on_card_equals_cpu(gen, dtype):
 
 def test_int8_engine_on_card_matches_dense(gen):
     """The tiny f32 tree quantized, served on the card: every projection
-    runs the f32 int8 kernel, and the engine's greedy tokens equal the dense
-    generate's on the same tree."""
+    runs the f32 int8 kernel (TF32 mma.sync), and the engine's greedy
+    tokens equal the dense generate's on the same tree."""
     from torchx_tpu_torch.ops import quant
 
     cfg, params = _tiny_serving("cuda")
@@ -899,7 +917,7 @@ def test_int8_engine_on_card_matches_dense(gen):
         reqs = [eng.generate(p, 6, timeout=120) for p in prompts]
     finally:
         eng.stop()
-    assert _build.launch_counts()["int8_matmul_simt"] > 0
+    assert _build.launch_counts()["int8_matmul_tf32"] > 0
     for p, r in zip(prompts, reqs):
         dense = tgen.generate(qp, torch.tensor([p], device="cuda"), cfg, 6)
         assert r.tokens == dense[0].tolist()

@@ -1,21 +1,22 @@
 """The mma flash kernels' arithmetic, on the CPU.
 
-``csrc/flash_fwd_mma.cuh`` and ``csrc/flash_dkv_mma.cuh`` run the flash
-forward and dk/dv on the tensor cores by mma.sync where the wgmma kernels do
-not reach: f32 at head_dim 64, 128 and 256, and bf16 at 256. The tensor
+``csrc/flash_fwd_mma.cuh``, ``csrc/flash_dq_mma.cuh`` and
+``csrc/flash_dkv_mma.cuh`` run the flash forward, dq and dk/dv on the
+tensor cores by mma.sync where the wgmma kernels do not reach: f32 at
+head_dim 64, 128 and 256, and bf16 at 256. The tensor
 cores take f32 operands only as TF32 (11 significant bits), so the f32
 kernels split each operand into TF32 hi + lo (``cvt.rna``: round to nearest,
 ties away from zero) and form every product as lo*hi + hi*lo + hi*hi. The
 kernels cannot run here, so their loops are emulated in f32 PyTorch: kv
-tiles (forward) or q tiles (dk/dv) of the instance's size
+tiles (forward, dq) or q tiles (dk/dv) of the instance's size
 (``ops.fused.MMA_TILES``), the base-2 online softmax, the TF32 rounding done
 on the bits as ``cvt.rna`` does it. With three passes the emulation meets
 the port's plain versions and the JAX package's Pallas kernels (run in the
 interpreter on the same numpy inputs) within the port's f32 tolerances,
-2e-5 forward and 5e-4 dk/dv (chip_smoke.py ``F32_TOL``); with one pass it
-misses 2e-5, which is why the kernels issue three. The bf16 head_dim-256
-instances' arithmetic (exact bf16 products, P and dS split into bf16
-hi + lo) meets 1e-3; masked by segment ids too.
+2e-5 forward and 5e-4 dq and dk/dv (chip_smoke.py ``F32_TOL``); with one
+pass it misses 2e-5, which is why the kernels issue three. The bf16
+head_dim-256 instances' arithmetic (exact bf16 products, P and dS split
+into bf16 hi + lo) meets 1e-3; masked by segment ids too.
 """
 
 import math
@@ -120,6 +121,30 @@ def emulate_fwd(q, k, v, causal, mode, bk, seg=None):
     return (acc / l[..., None]).transpose(1, 2), lse
 
 
+def emulate_dq(q, k, v, do, lse, delta, causal, mode, bk, seg=None):
+    """flash_dq_mma_kernel's loops: bk-row kv tiles, S = Q K^T and
+    dP = dO V^T, P from lse in base 2, dS = P (dP - delta), dQ += dS K;
+    dQ times the scale at the end."""
+    b, s, h, d = q.shape
+    n_rep = h // k.shape[2]
+    qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
+    kf, vf = _heads(k, n_rep), _heads(v, n_rep)
+    rows = torch.arange(s)
+    dq = torch.zeros(b, h, s, d)
+    for k0 in range(0, s, bk):
+        cols = torch.arange(k0, k0 + bk)
+        kt = kf[:, :, cols]
+        p = torch.exp2(mm(qf, kt.transpose(-1, -2), mode) * (LOG2E / math.sqrt(d))
+                       - (lse * LOG2E)[..., None])
+        if causal:
+            p = p.masked_fill(cols[None, :] > rows[:, None], 0.0)
+        if seg is not None:
+            p = p.masked_fill(~_same(seg, rows, cols), 0.0)
+        dp = mm(dof, vf[:, :, cols].transpose(-1, -2), mode)
+        dq = dq + mm_p(p * (dp - delta[..., None]), kt, mode)
+    return (dq / math.sqrt(d)).transpose(1, 2)
+
+
 def emulate_dkv(q, k, v, do, lse, delta, causal, mode, bq, seg=None):
     """flash_dkv_mma_kernel's loops: per KV head its query heads in order
     and their bq-row q tiles, S^T = K Q^T and dP^T = V dO^T, P^T from lse,
@@ -160,8 +185,8 @@ def _inputs(b, s, h, kvh, d, dtype, seed):
 
 def _jax_flash(q, k, v, do, causal):
     """The JAX package's Pallas forward and backward in the interpreter on
-    the same values: o [b, s, h, d], lse [b, h, s], and dk, dv folded over
-    each KV head's query heads to [b, s, kvh, d]."""
+    the same values: o and dq [b, s, h, d], lse [b, h, s], and dk, dv
+    folded over each KV head's query heads to [b, s, kvh, d]."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     n_rep = h // kvh
@@ -173,39 +198,46 @@ def _jax_flash(q, k, v, do, causal):
     k3 = bh(k.repeat_interleave(n_rep, dim=2))
     v3 = bh(v.repeat_interleave(n_rep, dim=2))
     o3, lse = jfused._flash_fwd(q3, k3, v3, causal, 128, 128, True)
-    _, dk3, dv3 = jfused._flash_bwd(q3, k3, v3, o3, lse, do3, causal, 128, 128, True)
+    dq3, dk3, dv3 = jfused._flash_bwd(q3, k3, v3, o3, lse, do3, causal, 128, 128, True)
 
     def fold(x):  # noqa: ANN001, ANN202
         x = torch.from_numpy(np.array(x)).reshape(b, kvh, n_rep, s, d).sum(dim=2)
         return x.transpose(1, 2)
 
-    o = torch.from_numpy(np.array(o3)).reshape(b, h, s, d).transpose(1, 2)
-    return o, torch.from_numpy(np.array(lse)).reshape(b, h, s), fold(dk3), fold(dv3)
+    def per_head(x):  # noqa: ANN001, ANN202
+        return torch.from_numpy(np.array(x)).reshape(b, h, s, d).transpose(1, 2)
+
+    lse = torch.from_numpy(np.array(lse)).reshape(b, h, s)
+    return per_head(o3), lse, per_head(dq3), fold(dk3), fold(dv3)
 
 
 def _errors(case, dtype, mode, seg=None, jax_too=False):
-    """-> {name: relative error} of the emulated o, lse, dk, dv against the
-    port's plain versions (and, with ``jax_too``, the JAX kernels)."""
+    """-> {name: relative error} of the emulated o, lse, dq, dk, dv against
+    the port's plain versions (and, with ``jax_too``, the JAX kernels)."""
     b, s, h, kvh, d, causal = case
     q, k, v, do = _inputs(b, s, h, kvh, d, dtype, seed=s + h + d + causal)
-    bq_fwd, bk_fwd = fused.MMA_TILES[("flash_fwd", dtype, d)]
+    _, bk_fwd = fused.MMA_TILES[("flash_fwd", dtype, d)]
+    _, bk_dq = fused.MMA_TILES[("flash_dq", dtype, d)]
     bq_dkv, _ = fused.MMA_TILES[("flash_dkv", dtype, d)]
     o_p, lse_p = fused._flash_fwd_plain(q, k, v, causal, seg)
     delta = fused._flash_delta(do, o_p)
-    dk_p, dv_p = fused._flash_dkv_plain(q, k, v, do, lse_p, delta, causal, seg)
+    args = (q, k, v, do, lse_p, delta, causal)
+    dq_p = fused._flash_dq_plain(*args, seg)
+    dk_p, dv_p = fused._flash_dkv_plain(*args, seg)
     o_e, lse_e = emulate_fwd(q, k, v, causal, mode, bk_fwd, seg)
-    dk_e, dv_e = emulate_dkv(q, k, v, do, lse_p, delta, causal, mode, bq_dkv, seg)
-    errs = {"o": _rel(o_e, o_p), "lse": _rel(lse_e, lse_p), "dk": _rel(dk_e, dk_p),
-            "dv": _rel(dv_e, dv_p)}
+    dq_e = emulate_dq(*args, mode, bk_dq, seg)
+    dk_e, dv_e = emulate_dkv(*args, mode, bq_dkv, seg)
+    errs = {"o": _rel(o_e, o_p), "lse": _rel(lse_e, lse_p), "dq": _rel(dq_e, dq_p),
+            "dk": _rel(dk_e, dk_p), "dv": _rel(dv_e, dv_p)}
     if jax_too:
-        o_j, lse_j, dk_j, dv_j = _jax_flash(q, k, v, do, causal)
-        errs.update(jax_o=_rel(o_e, o_j), jax_lse=_rel(lse_e, lse_j), jax_dk=_rel(dk_e, dk_j),
-                    jax_dv=_rel(dv_e, dv_j))
+        o_j, lse_j, dq_j, dk_j, dv_j = _jax_flash(q, k, v, do, causal)
+        errs.update(jax_o=_rel(o_e, o_j), jax_lse=_rel(lse_e, lse_j), jax_dq=_rel(dq_e, dq_j),
+                    jax_dk=_rel(dk_e, dk_j), jax_dv=_rel(dv_e, dv_j))
     return errs
 
 
-def _within(errs, fwd_tol, dkv_tol):
-    return all(e <= (fwd_tol if name.removeprefix("jax_") in ("o", "lse") else dkv_tol)
+def _within(errs, fwd_tol, bwd_tol):
+    return all(e <= (fwd_tol if name.removeprefix("jax_") in ("o", "lse") else bwd_tol)
                for name, e in errs.items())
 
 
@@ -226,8 +258,8 @@ def test_tf32_rounding_is_cvt_rna():
 
 @pytest.mark.parametrize("case", F32_ATTN_CASES)
 def test_three_tf32_passes_meet_plain_and_jax(case):
-    """The f32 instances' arithmetic within 2e-5 (forward) and 5e-4 (dk/dv)
-    of the port's plain versions and of the JAX Pallas kernels."""
+    """The f32 instances' arithmetic within 2e-5 (forward) and 5e-4 (dq,
+    dk/dv) of the port's plain versions and of the JAX Pallas kernels."""
     errs = _errors(case, torch.float32, "x3", jax_too=True)
     assert _within(errs, F32_TOL["fwd"], F32_TOL["dkv"]), errs
 
@@ -253,7 +285,8 @@ def test_one_tf32_pass_misses_tolerance():
 @pytest.mark.parametrize("n_rep", [1, 2])
 def test_bf16_d256_split_meets_tolerance(n_rep, causal, masked):
     """The bf16 head_dim-256 instances' arithmetic (P and dS split into bf16
-    hi + lo) within 1e-3 of the (masked) plain versions."""
+    hi + lo) within 1e-3 of the (masked) plain versions: forward, dq and
+    dk/dv."""
     seg = SEGMENTS if masked else None
     errs = _errors((2, 256, 2 * n_rep, 2, 256, causal), torch.bfloat16, "bf16", seg=seg)
     assert _within(errs, BF16_TOL, BF16_TOL), errs
@@ -270,7 +303,7 @@ def _cuh_tiles(kernel):
             for t, d, bq, bk in re.findall(r"X\((\w+), (\d+), (\d+), (\d+)\)", line)}
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dkv"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv"])
 def test_mma_tiles_name_the_compiled_instances(kernel):
     """MMA_TILES is what the .cuh instantiates, one tile per dtype and head
     dim: f32 at every flash head dim, bf16 at 256."""

@@ -248,19 +248,20 @@ def test_fit_agrees_with_the_jax_rule(kernel, d):
                     assert got == want, (kernel, d, axis, s, r)
 
 
-def test_zero_takes_the_default_table_and_simt_its_one_tile():
-    """0 takes DEFAULT_TILES for wgmma; the simt dq and each mma instance
-    have one tile that every request fits to; no simt forward or dk/dv."""
+def test_zero_takes_the_default_table_and_mma_its_one_tile():
+    """0 takes DEFAULT_TILES for wgmma; each mma instance, dq's too, has
+    one tile that every request fits to; no simt kernel is left."""
     for (kernel, d), tile in fused.DEFAULT_TILES.items():
         assert fused.fit_tile(kernel, "wgmma", d, 2048) == tile
-    assert fused.fit_tile("flash_dq", "simt", 256, 2048, 64, 128) == (32, 32)
-    assert fused.fit_tile("flash_dq", "simt", 64, 2048) == (64, 64)
+    assert {kernel for kernel, _, _ in fused.MMA_TILES} == set(fused.FLASH_KERNELS)
     for (kernel, dtype, d), tile in fused.MMA_TILES.items():
         assert fused.fit_tile(kernel, "mma", d, 2048, 128, 16, dtype=dtype) == tile
-    with pytest.raises(ValueError, match="no simt kernel for flash_fwd"):
-        fused.fit_tile("flash_fwd", "simt", 256, 2048)
+        assert fused.fit_tile(kernel, "mma", d, 2048, dtype=dtype) == tile
+    for kernel in fused.FLASH_KERNELS:
+        with pytest.raises(ValueError, match="variant must be one of"):
+            fused.fit_tile(kernel, "simt", 256, 2048)
     with pytest.raises(ValueError, match="no mma kernel for flash_dq"):
-        fused.fit_tile("flash_dq", "mma", 64, 2048, dtype=torch.float32)
+        fused.fit_tile("flash_dq", "mma", 64, 2048, dtype=torch.bfloat16)
 
 
 def test_negative_tiles_raise():

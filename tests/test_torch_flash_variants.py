@@ -195,41 +195,35 @@ def test_single_bf16_rounding_misses_tolerance_on_dq():
 @pytest.mark.parametrize("head_dim", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_variant_rule(dtype, head_dim, kernel):
-    """Per kernel: wgmma for bf16 at 64 and 128; elsewhere mma for the
-    forward and dk/dv, simt for dq."""
-    if dtype == torch.bfloat16 and head_dim in (64, 128):
-        want = "wgmma"
-    else:
-        want = "simt" if kernel == "flash_dq" else "mma"
+    """Per kernel: wgmma for bf16 at 64 and 128; elsewhere mma (dq too:
+    no kernel of the port runs on the CUDA cores)."""
+    want = "wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128) else "mma"
     assert fused.flash_variant(kernel, dtype, head_dim) == want
 
 
 def test_pick_variant_refuses_what_wgmma_cannot_take():
     """Each variant refuses the kernels, dtypes and head dims it has no
-    instance for: wgmma bf16 at 64/128 only, mma the forward and dk/dv in
-    f32 at 64/128/256 and bf16 at 256, simt dq only."""
+    instance for: wgmma bf16 at 64/128 only, mma f32 at 64/128/256 and
+    bf16 at 256, for each of the three kernels; no simt variant is left."""
     f32 = torch.zeros(1, 128, 2, 64)
     bf = f32.bfloat16()
     bf256 = torch.zeros(1, 128, 2, 256).bfloat16()
-    assert fused._pick_variant("flash_fwd", None, (f32,)) == "mma"
-    assert fused._pick_variant("flash_dkv", None, (f32,)) == "mma"
-    assert fused._pick_variant("flash_dq", None, (f32,)) == "simt"
     for kernel in fused.FLASH_KERNELS:
+        assert fused._pick_variant(kernel, None, (f32,)) == "mma"
         assert fused._pick_variant(kernel, None, (bf,)) == "wgmma"
-    assert fused._pick_variant("flash_fwd", None, (bf256,)) == "mma"
-    assert fused._pick_variant("flash_dq", None, (bf256,)) == "simt"
-    assert fused._pick_variant("flash_dq", "simt", (bf,)) == "simt"
+        assert fused._pick_variant(kernel, None, (bf256,)) == "mma"
+        assert fused._pick_variant(kernel, "mma", (bf256,)) == "mma"
     with pytest.raises(ValueError, match="wgmma kernels take bf16"):
         fused._pick_variant("flash_fwd", "wgmma", (f32,))
     with pytest.raises(ValueError, match="wgmma kernels take bf16"):
         fused._pick_variant("flash_dkv", "wgmma", (bf256,))
-    with pytest.raises(ValueError, match="mma kernels take the forward and dk/dv"):
-        fused._pick_variant("flash_dq", "mma", (f32,))
-    with pytest.raises(ValueError, match="mma kernels take the forward and dk/dv"):
+    with pytest.raises(ValueError, match="mma kernels take f32"):
+        fused._pick_variant("flash_dq", "mma", (bf,))
+    with pytest.raises(ValueError, match="mma kernels take f32"):
         fused._pick_variant("flash_fwd", "mma", (bf,))
-    with pytest.raises(ValueError, match="simt kernel is dq's"):
-        fused._pick_variant("flash_fwd", "simt", (f32,))
-    with pytest.raises(ValueError, match="simt kernel is dq's"):
+    with pytest.raises(ValueError, match="variant must be one of"):
+        fused._pick_variant("flash_dq", "simt", (f32,))
+    with pytest.raises(ValueError, match="variant must be one of"):
         fused._pick_variant("flash_dkv", "simt", (bf256,))
     with pytest.raises(ValueError, match="variant must be one of"):
         fused._pick_variant("flash_fwd", "tensor", (bf,))
@@ -258,7 +252,9 @@ def test_wrappers_pick_variant_before_launch(wrapper, monkeypatch):
         call(torch.zeros(1, 128, 2, 256, device="meta", dtype=torch.bfloat16), "wgmma")
     with pytest.raises(ValueError, match="variant must be one of"):
         call(f32.bfloat16(), "tensor")
-    # each wrapper refuses the variant that has no kernel of its own
-    other = "simt" if wrapper != "_flash_dq" else "mma"
-    with pytest.raises(ValueError, match="simt kernel is dq's|mma kernels take"):
-        call(f32, other)
+    # each wrapper refuses the CUDA-core variant, which no kernel has now,
+    # and mma where it has no instance (bf16 at head_dim 64)
+    with pytest.raises(ValueError, match="variant must be one of"):
+        call(f32, "simt")
+    with pytest.raises(ValueError, match="mma kernels take f32"):
+        call(f32.bfloat16(), "mma")

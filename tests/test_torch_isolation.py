@@ -75,7 +75,8 @@ def test_int8_sources_are_present_and_built():
     for rel in INT8_SOURCES:
         assert (PKG / rel).is_file(), rel
     assert PKG / "csrc" / "int8_matmul.cu" in _build._sources()
-    assert {"int8_matmul", "int8_matmul_simt"} <= set(_build.KERNELS)
+    assert {"int8_matmul", "int8_matmul_tf32"} <= set(_build.KERNELS)
+    assert not [name for name in _build.KERNELS if "simt" in name]
     # the build directory, where nvcc writes the library, stays untracked
     ignored = (REPO / ".gitignore").read_text().split()
     assert _build.BUILD_DIR.relative_to(REPO).as_posix() + "/" in ignored

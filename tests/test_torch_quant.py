@@ -192,6 +192,65 @@ def test_int8_matmul_plain_matches_jax(dtype, out):
     assert not any(_build.launch_counts().values())
 
 
+#: chip_smoke.py's INT8_F32_CASE: m, k, n (K and N no multiple of a stage)
+INT8_F32_CASE = (17, 520, 1040)
+
+
+def _tf32(x):
+    """hopper.cuh ``to_tf32`` (``cvt.rna``): round the bits to 10 mantissa
+    bits, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _emulate_int8_tf32(x, q, scale, passes):
+    """int8_tf32_kernel's arithmetic: x split into TF32 hi + lo, q widened
+    (exact in TF32), ``passes`` products a stage (2: x_lo q + x_hi q; 1:
+    x_hi q alone), each 64-row stage summed apart and added to the f32 sum,
+    the scale after it."""
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    qf = q.float()
+    acc = torch.zeros(x.shape[0], q.shape[1])
+    for k0 in range(0, q.shape[0], tquant.BLOCK_K):
+        ks = slice(k0, k0 + tquant.BLOCK_K)
+        part = lo[:, ks] @ qf[ks] if passes == 2 else torch.zeros_like(acc)
+        acc = acc + (part + hi[:, ks] @ qf[ks])
+    return acc * scale.reshape(-1)
+
+
+def _int8_f32_case():
+    m, k, n = INT8_F32_CASE
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    q_j, s_j = jquant.quantize(jnp.asarray(rng.standard_normal((k, n)).astype(np.float32)))
+    want_j = torch.from_numpy(np.array(jquant.int8_matmul(jnp.asarray(x), q_j, s_j)))
+    return (torch.from_numpy(x), torch.from_numpy(np.array(q_j)),
+            torch.from_numpy(np.array(s_j)), want_j)
+
+
+def _rel_to_largest(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def test_int8_tf32_two_passes_meet_plain_and_jax():
+    """The f32-activation kernel's two TF32 passes (x split hi + lo against
+    the exact int8 weight) within 1e-5 of the largest value of the plain
+    version and of the JAX ``int8_matmul`` on the same numpy inputs."""
+    x, q, scale, want_j = _int8_f32_case()
+    assert torch.equal(_tf32(q.float()), q.float())  # an int8 weight is exact in TF32
+    got = _emulate_int8_tf32(x, q, scale, passes=2)
+    assert _rel_to_largest(got, tquant._int8_matmul_plain(x, q, scale)) <= 1e-5
+    assert _rel_to_largest(got, want_j) <= 1e-5
+
+
+def test_int8_tf32_one_pass_misses_tolerance():
+    """x_hi alone (one TF32 pass, 11 significant bits) misses 1e-5: the
+    kernel issues two."""
+    x, q, scale, _ = _int8_f32_case()
+    got = _emulate_int8_tf32(x, q, scale, passes=1)
+    assert _rel_to_largest(got, tquant._int8_matmul_plain(x, q, scale)) > 1e-5
+
+
 def test_maybe_matmul_both_forms():
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 8)).astype(np.float32)
@@ -284,7 +343,7 @@ def test_decode_plans_split_and_prefill_fills_the_card():
         # 256-row tiles: wk / wv's 64 tiles split in two to fill the card
         prefill = tquant.launch_plan(2048, n, k, x_f32=False, sms=132)
         assert (prefill.block_m, prefill.splits) == (256, 2 if n == 1024 else 1)
-    assert tquant.launch_plan(8, 64, 64, x_f32=True, sms=132).path == tquant.PATH_SIMT
+    assert tquant.launch_plan(8, 64, 64, x_f32=True, sms=132).path == tquant.PATH_TF32
 
 
 @pytest.mark.parametrize("m,k,n,block_m", [

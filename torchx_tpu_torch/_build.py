@@ -42,21 +42,19 @@ NVCC_FLAGS = [
 
 #: Kernel names, in the order of the training step's path. The flash
 #: kernels by variant (``ops.fused.flash_variant``): ``wgmma`` on the tensor
-#: cores for bf16 at head_dim 64 and 128; elsewhere the forward and dk/dv
-#: as ``mma`` (tensor cores by mma.sync) and dq as ``simt`` (CUDA cores). A
-#: launch with segment ids counts under the name with ``_seg`` (the wgmma
-#: and mma kernels are separate instances then; the simt one takes the ids
-#: at run time). The
+#: cores for bf16 at head_dim 64 and 128; elsewhere ``mma`` (tensor cores
+#: by mma.sync, f32 in three TF32 passes). A launch with segment ids counts
+#: under the name with ``_seg`` (a separate instance of each kernel). The
 #: int8-weight matmul of weight-only serving (``csrc/int8_matmul.cu``)
 #: counts as ``int8_matmul`` for bf16 activations (tensor cores: the wgmma
 #: kernel at prefill, the mma.sync one at decode) and as
-#: ``int8_matmul_simt`` for f32 ones (CUDA cores), one count a call.
+#: ``int8_matmul_tf32`` for f32 ones (TF32 mma.sync), one count a call.
 KERNELS = (
-    "flash_fwd_wgmma", "flash_fwd_mma", "flash_dq_wgmma", "flash_dq_simt",
+    "flash_fwd_wgmma", "flash_fwd_mma", "flash_dq_wgmma", "flash_dq_mma",
     "flash_dkv_wgmma", "flash_dkv_mma", "norm_res_fwd", "rms_norm_bwd",
     "flash_fwd_wgmma_seg", "flash_fwd_mma_seg", "flash_dq_wgmma_seg",
-    "flash_dq_simt_seg", "flash_dkv_wgmma_seg", "flash_dkv_mma_seg",
-    "int8_matmul", "int8_matmul_simt",
+    "flash_dq_mma_seg", "flash_dkv_wgmma_seg", "flash_dkv_mma_seg",
+    "int8_matmul", "int8_matmul_tf32",
 )
 
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -110,17 +108,15 @@ def _sources() -> list[Path]:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     # tensors..., the segment ids (or null), then batch, seq, heads,
-    # kv_heads, head_dim, causal, dtype, (the tile,) then the stream
-    ints = [i] * 7
+    # kv_heads, head_dim, causal, dtype, the tile (block_q, block_kv), then
+    # the stream
     fns = {
-        "tpx_flash_fwd_wgmma": 6, "tpx_flash_fwd_mma": 6, "tpx_flash_dq": 8,
-        "tpx_flash_dq_wgmma": 8, "tpx_flash_dkv_wgmma": 9, "tpx_flash_dkv_mma": 9,
+        "tpx_flash_fwd_wgmma": 6, "tpx_flash_fwd_mma": 6, "tpx_flash_dq_wgmma": 8,
+        "tpx_flash_dq_mma": 8, "tpx_flash_dkv_wgmma": 9, "tpx_flash_dkv_mma": 9,
     }
     for name, n_tensors in fns.items():
         fn = getattr(lib, name)
-        # the wgmma and mma kernels also take their tile: block_q, block_kv
-        tiles = [i, i] if name.endswith(("_wgmma", "_mma")) else []
-        fn.argtypes = [p] * n_tensors + ints + tiles + [p]
+        fn.argtypes = [p] * n_tensors + [i] * 9 + [p]
         fn.restype = i
     # x, q, scale, y, the split-k workspace and tile counters (or null);
     # M, N, K, the path, block rows, f32 output, splits, k steps per split;

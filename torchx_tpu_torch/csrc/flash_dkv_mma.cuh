@@ -49,7 +49,7 @@
 // instance), a thread keeps its two kv rows' ids in registers, each Q/dO
 // stage also brings the q tile's ids, and P^T is zeroed where a query's id
 // differs from its key's, so pairs across documents add exactly 0.
-// Layouts as flash_attn.cu: q, do [b, s, h, d]; k, v [b, s, kvh, d]; lse,
+// Layouts: q, do [b, s, h, d]; k, v [b, s, kvh, d]; lse,
 // delta f32 [b, h, s]; dk, dv f32 [b, s, kvh, d]; s a multiple of BQ and of
 // BKV.
 

@@ -5,8 +5,8 @@
 // the compiled instances (TPX_FLASH_DKV_TILES).
 //
 // Replaces the Pallas TPU kernel torchx_tpu/ops/fused.py _flash_dkv_kernel
-// (in _flash_bwd) for bf16, with the contract of the CUDA-core
-// flash_dkv_kernel in flash_attn.cu, which keeps f32 and head_dim 256:
+// (in _flash_bwd) for bf16; flash_dkv_mma.cuh takes f32 and head_dim 256
+// with the same contract:
 // dk and dv per KV head, summed over the n_rep query heads that share it.
 //
 // What bounds it on an H100: operations. Four products (K Q^T, V dO^T,
@@ -40,7 +40,7 @@
 //
 // Causal q tiles whose every query precedes a warpgroup's keys are skipped;
 // the grid puts the low kv tiles, which see the most q tiles, first.
-// Layouts as flash_attn.cu: q, do [b, s, h, d]; k, v [b, s, kvh, d]; lse,
+// Layouts: q, do [b, s, h, d]; k, v [b, s, kvh, d]; lse,
 // delta f32 [b, h, s]; dk, dv f32 [b, s, kvh, d]; s a multiple of BQ and of
 // BKV.
 //

@@ -5,8 +5,8 @@
 // the compiled instances (TPX_FLASH_DQ_TILES).
 //
 // Replaces the Pallas TPU kernel torchx_tpu/ops/fused.py _flash_dq_kernel
-// (in _flash_bwd) for bf16, with the contract of the CUDA-core
-// flash_dq_kernel in flash_attn.cu, which keeps f32 and head_dim 256:
+// (in _flash_bwd) for bf16; flash_dq_mma.cuh takes f32 and head_dim 256
+// with the same contract:
 //   P = exp(Q K^T * scale - lse),  dS = P (dO V^T - delta),  dQ = dS K * scale.
 //
 // What bounds it on an H100: operations. Three products (Q K^T, dO V^T,
@@ -42,7 +42,7 @@
 // that cross its diagonal are masked; the grid puts the longest q tiles
 // first, and the CTAs of one q tile, whose heads share KV heads, run
 // together, so K and V come from L2. dq is owned by one CTA: no atomics,
-// the result is bitwise repeatable. Layouts as flash_attn.cu: q, do [b, s,
+// the result is bitwise repeatable. Layouts: q, do [b, s,
 // h, d]; k, v [b, s, kvh, d]; lse, delta f32 [b, h, s]; dq f32 [b, s, h,
 // d]; s a multiple of BQ and of BK.
 //

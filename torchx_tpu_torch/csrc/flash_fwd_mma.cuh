@@ -59,7 +59,7 @@
 // reference, so that exp2 yields 0, not NaN. The scaled scores and the
 // running sums use explicitly rounded operations (no contraction), so a row
 // whose ids are all equal gets the unmasked instance's bits.
-// Layouts as flash_attn.cu: q [b, s, h, d]; k, v [b, s, kvh, d]; o f32
+// Layouts: q [b, s, h, d]; k, v [b, s, kvh, d]; o f32
 // [b, s, h, d]; lse f32 [b, h, s]; s a multiple of BQ and of BK.
 
 #pragma once

@@ -5,8 +5,8 @@
 // (TPX_FLASH_FWD_TILES), spread so that their nvcc calls run side by side.
 //
 // Replaces the Pallas TPU kernel torchx_tpu/ops/fused.py _flash_fwd_kernel
-// (launched by _flash_fwd) for bf16, with the contract of the CUDA-core
-// flash_fwd_kernel in flash_attn.cu, which keeps f32 and head_dim 256.
+// (launched by _flash_fwd) for bf16; flash_fwd_mma.cuh takes f32 and head_dim
+// 256 with the same contract.
 //
 // What bounds it on an H100: operations. At the llama3_1b shapes (b=4,
 // s=2048, 32 query over 8 KV heads, head_dim 64, causal) QK^T and PV are
@@ -53,7 +53,7 @@
 // computed: skipping it is later work). A row may then see a whole tile
 // masked before any key of its own: its running max stays -inf, and the
 // softmax takes 0 as its reference so that exp2 yields 0, not NaN.
-// Layouts as flash_attn.cu: q [b, s, h, d]; k, v [b, s, kvh, d]; o f32
+// Layouts: q [b, s, h, d]; k, v [b, s, kvh, d]; o f32
 // [b, s, h, d]; lse f32 [b, h, s]; s a multiple of BQ and of BK.
 
 #pragma once

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels (the flash
 // kernels flash_fwd_wgmma.cu, flash_dq_wgmma.cu, flash_dkv_wgmma.cu,
-// flash_fwd_mma.cuh, flash_dkv_mma.cuh, and the prefill path of
-// int8_matmul.cu), in raw PTX:
+// flash_fwd_mma.cuh, flash_dq_mma.cuh, flash_dkv_mma.cuh, and the prefill
+// and f32 paths of int8_matmul.cu), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a parity wait; a named barrier over part of a block;
@@ -260,8 +260,9 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
 }
 
 // One warp's tile products for the flash kernels that run on mma.sync
-// (flash_fwd_mma.cuh, flash_dkv_mma.cuh), on 128-byte-swizzled tiles of
-// float or bf16 elements in shared memory (R rows each, as TMA writes them).
+// (flash_fwd_mma.cuh, flash_dq_mma.cuh, flash_dkv_mma.cuh), on
+// 128-byte-swizzled tiles of float or bf16 elements in shared memory (R
+// rows each, as TMA writes them).
 // For float every operand is split into TF32 hi + lo once it is in
 // registers and each product issued three times (lo*hi, hi*lo, hi*hi: f32
 // accuracy, split_tf32); bf16 operands are exact, read by ldmatrix.

@@ -4,7 +4,8 @@
 //
 // x bf16 or f32 [M, K] row-major; q int8 [K, N] row-major (the JAX layout,
 // [in, out]); scale f32 [N], applied after the f32 sum (never folded into
-// the weights); y in x's dtype or f32 (the lm head's logits).
+// the weights); y in x's dtype or f32 (the lm head's logits; always f32 for
+// f32 x).
 //
 // Replaces torchx_tpu/ops/quant.py int8_matmul, which is no Pallas kernel:
 // the JAX package writes dot_general(x, q, preferred_element_type=f32) *
@@ -45,7 +46,19 @@
 //   threads on neighbouring n). The output tiles alone would leave most of
 //   the 132 SMs idle, so the k range is split across blocks (the wrapper
 //   picks the split, about two blocks an SM).
-// * f32 x (small checks only): int8_simt_kernel on the CUDA cores.
+// * f32 x (a config whose activations are f32, served --int8): bytes, as
+//   the bf16 decode path. int8_tf32_kernel: the decode kernel's structure
+//   (16-row blocks, 8 warps, the 4-stage cp.async ring, split k) on
+//   mma.sync m16n8k8 TF32. An int8 weight is exact in TF32 (|q| <= 127
+//   needs 7 of its 11 significant bits), so only x is split, into TF32
+//   hi + lo (hopper.cuh split_tf32): x_hi q + x_lo q, two products, give
+//   what the three of an f32 x f32 product would (lo * lo and lo's
+//   rounding cost ~2**-21 of each product). The block splits each stage's
+//   x tile once in shared memory (the eight warps read the same A
+//   fragments), and a weight byte becomes its float by an integer add and
+//   a float subtract (no conversion instruction). Each stage's products go
+//   into a fresh accumulator added to the running sum with CUDA-core adds,
+//   as for the decode kernel's f32 outputs.
 //
 // Split k, on every path, in one launch: each split writes its f32
 // partial sums to a workspace ([splits, M, N]) and counts itself in on its
@@ -197,6 +210,12 @@ constexpr int kQStride = kBN + 16;  // bytes per q tile row in shared memory
 constexpr int kXStride = kBK + 8;   // elements per bf16 x tile row (144 bytes)
 constexpr int kDecSmem = kDecStages * kBK * kQStride + kDecStages * kDecBM * kXStride * 2;
 static_assert(kDecSmem <= 48 * 1024, "the decode ring fits the default shared-memory cap");
+// f32 x rows of 68 floats (272 bytes): the TF32 A fragment's reads, rows g
+// and columns c of a k8 block, fall on 32 distinct banks. The ring's x
+// tiles, then one tile for the lo half of the stage in use.
+constexpr int kTfStride = kBK + 4;
+constexpr int kTfSmem = kDecStages * kBK * kQStride + (kDecStages + 1) * kDecBM * kTfStride * 4;
+static_assert(3 * (kTfSmem + 1024) <= 228 * 1024, "three TF32 blocks an SM (ops/quant.py)");
 
 // 16 bytes global -> shared, zero-filled when !valid (src then unread)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -218,11 +237,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // One stage: q rows [k0, k0 + kBK) x columns [n0, n0 + kBN), and x rows
-// [m0, m0 + kDecBM) x the same k, each as 16-byte chunks; rows at or past
-// k_end (the split's end) or M, and columns past N, are zero-filled.
-__device__ __forceinline__ void load_stage(uint8_t* sq, bf16* sx, const bf16* __restrict__ x,
+// [m0, m0 + kDecBM) x the same k (bf16 or f32, XS elements a row in
+// shared memory), each as 16-byte chunks; rows at or past k_end (the
+// split's end) or M, and columns past N, are zero-filled.
+template <typename X, int XS>
+__device__ __forceinline__ void load_stage(uint8_t* sq, X* sx, const X* __restrict__ x,
                                            const int8_t* __restrict__ q, int M, int N, int K,
                                            int k_end, int m0, int n0, int k0, int tid) {
+  constexpr int kPer = 16 / sizeof(X);  // x elements a chunk
 #pragma unroll
   for (int c = tid; c < kBK * kBN / 16; c += kDecThreads) {
     const int r = c / (kBN / 16), col = (c % (kBN / 16)) * 16;
@@ -230,11 +252,11 @@ __device__ __forceinline__ void load_stage(uint8_t* sq, bf16* sx, const bf16* __
     const bool ok = k < k_end && n < N;
     cp_async16(sq + r * kQStride + col, ok ? q + (size_t)k * N + n : q, ok);
   }
-  for (int c = tid; c < kDecBM * kBK / 8; c += kDecThreads) {
-    const int r = c / (kBK / 8), col = (c % (kBK / 8)) * 8;
+  for (int c = tid; c < kDecBM * kBK / kPer; c += kDecThreads) {
+    const int r = c / (kBK / kPer), col = (c % (kBK / kPer)) * kPer;
     const int m = m0 + r, k = k0 + col;
     const bool ok = m < M && k < k_end;
-    cp_async16(sx + r * kXStride + col, ok ? x + (size_t)m * K + k : x, ok);
+    cp_async16(sx + r * XS + col, ok ? x + (size_t)m * K + k : x, ok);
   }
 }
 
@@ -271,8 +293,8 @@ __global__ void __launch_bounds__(kDecThreads)
 #pragma unroll
   for (int s = 0; s < kDecStages - 1; ++s) {
     if (s < nk)
-      load_stage(sq + s * kBK * kQStride, sx + s * kDecBM * kXStride, x, q, M, N, K, k_end, m0,
-                 n0, k_begin + s * kBK, tid);
+      load_stage<bf16, kXStride>(sq + s * kBK * kQStride, sx + s * kDecBM * kXStride, x, q, M,
+                                 N, K, k_end, m0, n0, k_begin + s * kBK, tid);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -281,8 +303,8 @@ __global__ void __launch_bounds__(kDecThreads)
     const int pf = kt + kDecStages - 1;
     if (pf < nk) {
       const int st = pf % kDecStages;
-      load_stage(sq + st * kBK * kQStride, sx + st * kDecBM * kXStride, x, q, M, N, K, k_end, m0,
-                 n0, k_begin + pf * kBK, tid);
+      load_stage<bf16, kXStride>(sq + st * kBK * kQStride, sx + st * kDecBM * kXStride, x, q, M,
+                                 N, K, k_end, m0, n0, k_begin + pf * kBK, tid);
     }
     cp_async_commit();
     const uint8_t* tq = sq + (kt % kDecStages) * kBK * kQStride;
@@ -339,63 +361,129 @@ __global__ void __launch_bounds__(kDecThreads)
 }
 
 // ---------------------------------------------------------------------------
-// f32 x on the CUDA cores: 16 rows x kBN columns a block, each thread one
-// column and 8 rows, k in order within the block's range
+// f32 x: TF32 mma.sync on 16-row blocks
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kDecThreads)
-    int8_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+// An int8 value as its float, exactly: 1.5 * 2**23 + q has the float bits
+// 0x4B400000 + q (its unit in the last place is 1), less 1.5 * 2**23.
+__device__ __forceinline__ uint32_t int8_as_tf32(int8_t q) {
+  return __float_as_uint(__int_as_float(0x4B400000 + q) - 12582912.f);
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) as int8_decode_kernel's; warp
+// w owns columns 16w..16w+15 (two n8 tiles). Per k8 step the A fragment
+// is x rows g and g + 8 at columns c and c + 4, as TF32 hi and lo; the B
+// fragment, q rows c and c + 4 of column g, is the int8 value as a float,
+// exact in TF32.
+__global__ void __launch_bounds__(kDecThreads, 3)
+    int8_tf32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                      const float* __restrict__ scale, float* __restrict__ y,
                      float* __restrict__ work, int* __restrict__ counters, int M, int N, int K,
                      int kps) {
-  constexpr int BM = 16, RPT = 8;
-  __shared__ __align__(16) float sx[BM][kBK];
-  __shared__ __align__(16) int8_t sq[kBK][kBN];
+  constexpr int WN = 2;
+  extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int last_flag;
-  const int tid = threadIdx.x, col = tid % kBN, r0 = (tid / kBN) * RPT;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kBN;
+  uint8_t* sq = smem;
+  float* sx = reinterpret_cast<float*>(smem + kDecStages * kBK * kQStride);
+  float* sx_lo = sx + kDecStages * kDecBM * kTfStride;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = blockIdx.x * kDecBM, n0 = blockIdx.y * kBN;
   const int k_begin = blockIdx.z * kps * kBK;
   const int k_end = min(K, k_begin + kps * kBK);
-  float acc[RPT] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    for (int c = tid; c < kBK * kBN / 16; c += kDecThreads) {
-      const int r = c / (kBN / 16), cc = (c % (kBN / 16)) * 16;
-      const int k = k0 + r, n = n0 + cc;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (k < k_end && n < N) v = *reinterpret_cast<const int4*>(q + (size_t)k * N + n);
-      *reinterpret_cast<int4*>(&sq[r][cc]) = v;
-    }
-    for (int c = tid; c < BM * kBK / 4; c += kDecThreads) {
-      const int r = c / (kBK / 4), cc = (c % (kBK / 4)) * 4;
-      const int m = m0 + r, k = k0 + cc;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m < M && k < k_end) v = *reinterpret_cast<const float4*>(x + (size_t)m * K + k);
-      *reinterpret_cast<float4*>(&sx[r][cc]) = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float w = static_cast<float>(sq[kk][col]);
+  const int nk = (k_end - k_begin + kBK - 1) / kBK;
+  static_assert(kDecBM * kBK == 4 * kDecThreads, "a thread splits four x values a stage");
+  const int xr = tid / (kBK / 4), xc = (tid % (kBK / 4)) * 4;  // this thread's four
+
+  float acc[WN][4], part[WN][4];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[r] = fmaf(sx[r0 + r][kk], w, acc[r]);
-    }
-    __syncthreads();
+  for (int j = 0; j < WN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kDecStages - 1; ++s) {
+    if (s < nk)
+      load_stage<float, kTfStride>(sq + s * kBK * kQStride, sx + s * kDecBM * kTfStride, x, q,
+                                   M, N, K, k_end, m0, n0, k_begin + s * kBK, tid);
+    cp_async_commit();
   }
-  const int n = n0 + col;
-  const bool split = gridDim.z > 1;
-  if (n < N) {
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kDecStages - 2>();
+    __syncthreads();  // stage kt arrived; stage kt - 1 is free again
+    const int pf = kt + kDecStages - 1;
+    if (pf < nk) {
+      const int st = pf % kDecStages;
+      load_stage<float, kTfStride>(sq + st * kBK * kQStride, sx + st * kDecBM * kTfStride, x, q,
+                                   M, N, K, k_end, m0, n0, k_begin + pf * kBK, tid);
+    }
+    cp_async_commit();
+    const uint8_t* tq = sq + (kt % kDecStages) * kBK * kQStride;
+    float* tx = sx + (kt % kDecStages) * kDecBM * kTfStride;
+    {
+      // split the stage's x tile: hi in place, lo into sx_lo (the warps
+      // left the last stage's sx_lo before the barrier above)
+      float4* hi = reinterpret_cast<float4*>(tx + xr * kTfStride + xc);
+      const float4 v = *hi;
+      uint32_t h[4], l[4];
+      split_tf32(v.x, h[0], l[0]);
+      split_tf32(v.y, h[1], l[1]);
+      split_tf32(v.z, h[2], l[2]);
+      split_tf32(v.w, h[3], l[3]);
+      *hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                        __uint_as_float(h[3]));
+      *reinterpret_cast<float4*>(sx_lo + xr * kTfStride + xc) =
+          make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                      __uint_as_float(l[3]));
+    }
+    __syncthreads();
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int m = m0 + r0 + r;
-      if (m >= M) break;
-      const size_t off = (size_t)m * N + n;
-      if (split) work[(size_t)blockIdx.z * M * N + off] = acc[r];
-      else y[off] = acc[r] * scale[n];
+    for (int kk = 0; kk < kBK; kk += 8) {
+      const int o = g * kTfStride + kk + t;  // rows g, g + 8; columns t, t + 4
+      const uint32_t ah[4] = {__float_as_uint(tx[o]), __float_as_uint(tx[o + 8 * kTfStride]),
+                              __float_as_uint(tx[o + 4]),
+                              __float_as_uint(tx[o + 8 * kTfStride + 4])};
+      const uint32_t al[4] = {__float_as_uint(sx_lo[o]),
+                              __float_as_uint(sx_lo[o + 8 * kTfStride]),
+                              __float_as_uint(sx_lo[o + 4]),
+                              __float_as_uint(sx_lo[o + 8 * kTfStride + 4])};
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const int8_t* r =
+            reinterpret_cast<const int8_t*>(tq + (kk + t) * kQStride + (warp * WN + j) * 8 + g);
+        const uint32_t b[2] = {int8_as_tf32(r[0]), int8_as_tf32(r[4 * kQStride])};
+        mma_m16n8k8_tf32(part[j], al, b);
+        mma_m16n8k8_tf32(part[j], ah, b);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[j][e] += part[j][e];
+        part[j][e] = 0.f;
+      }
+  }
+  cp_async_wait<0>();
+
+  const bool split = gridDim.z > 1;
+  const int m = m0 + g;
+#pragma unroll
+  for (int j = 0; j < WN; ++j) {
+    const int n = n0 + (warp * WN + j) * 8 + 2 * t;
+    if (n >= N) continue;  // N % 16 == 0: n + 1 < N too
+    if (split) {
+      if (m < M) store_part2(work, M, N, m, n, acc[j][0], acc[j][1]);
+      if (m + 8 < M) store_part2(work, M, N, m + 8, n, acc[j][2], acc[j][3]);
+    } else {
+      if (m < M) store_out2<true>(y, scale, N, m, n, acc[j][0], acc[j][1]);
+      if (m + 8 < M) store_out2<true>(y, scale, N, m + 8, n, acc[j][2], acc[j][3]);
     }
   }
   if (split && arrive_last(counters, blockIdx.x + gridDim.x * blockIdx.y, tid == 0, &last_flag,
                            [] { __syncthreads(); }))
-    reduce_tile<true>(work, scale, y, M, N, m0, BM, n0, tid, kDecThreads);
+    reduce_tile<true>(work, scale, y, M, N, m0, kDecBM, n0, tid, kDecThreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -577,17 +665,17 @@ cudaError_t weight_map(CUtensorMap* out, const void* q, int K, int N) {
   return cudaSuccess;
 }
 
-// Raise the wgmma kernel's shared-memory cap once per device.
-template <int WGS, bool OUT_F32>
-cudaError_t wgmma_smem_cap(int smem) {
-  static bool done[64] = {};
+// Raise a kernel's shared-memory cap once per (kernel, device).
+cudaError_t smem_cap(const void* kernel, int smem) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, bool> done;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(int8_wgmma_kernel<WGS, OUT_F32>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done[{kernel, dev}] = true;
   return err;
 }
 
@@ -602,7 +690,8 @@ cudaError_t launch_wgmma(const void* x, const void* q, const float* scale, void*
   if (err != cudaSuccess) return err;
   if ((err = weight_map(&tq, q, K, N)) != cudaSuccess) return err;
   constexpr int smem = sizeof(PrefillSmem<WGS>) + 1024;
-  if ((err = wgmma_smem_cap<WGS, OUT_F32>(smem)) != cudaSuccess) return err;
+  if ((err = smem_cap((const void*)int8_wgmma_kernel<WGS, OUT_F32>, smem)) != cudaSuccess)
+    return err;
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, splits);
   int8_wgmma_kernel<WGS, OUT_F32><<<grid, 128 * WGS + 32, smem, stream>>>(
       tx, tq, scale, y, work, counters, M, N, K, kps);
@@ -613,7 +702,7 @@ cudaError_t launch_wgmma(const void* x, const void* q, const float* scale, void*
 
 extern "C" {
 
-// path: 0 f32 x (CUDA cores, f32 output, 16-row blocks), 1 bf16 x on the
+// path: 0 f32 x (TF32 mma.sync, f32 output, 16-row blocks), 1 bf16 x on the
 // decode kernel (16-row blocks), 2 bf16 x on the wgmma kernel (block_m 128,
 // or 256 for bf16 output). work: f32 [splits, M, N] and counters: int32,
 // one per output tile, all 0, when splits > 1 (else may be null). The
@@ -630,10 +719,13 @@ int tpx_int8_matmul(const void* x, const void* q, const void* scale, void* y, vo
   const auto xb = static_cast<const bf16*>(x);
   const auto qb = static_cast<const int8_t*>(q);
   if (path == 0) {
-    if (!out_f32 || block_m != 16) return (int)cudaErrorInvalidValue;
-    const dim3 grid((M + 15) / 16, (N + kBN - 1) / kBN, splits);
-    int8_simt_kernel<<<grid, kDecThreads, 0, s>>>(static_cast<const float*>(x), qb, sc,
-                                                  static_cast<float*>(y), wk, ct, M, N, K, kps);
+    if (!out_f32 || block_m != kDecBM) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = smem_cap((const void*)int8_tf32_kernel, kTfSmem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((M + kDecBM - 1) / kDecBM, (N + kBN - 1) / kBN, splits);
+    int8_tf32_kernel<<<grid, kDecThreads, kTfSmem, s>>>(static_cast<const float*>(x), qb, sc,
+                                                        static_cast<float*>(y), wk, ct, M, N,
+                                                        K, kps);
   } else if (path == 1) {
     if (block_m != kDecBM) return (int)cudaErrorInvalidValue;
     const dim3 grid((M + kDecBM - 1) / kDecBM, (N + kBN - 1) / kBN, splits);

@@ -14,14 +14,14 @@ Port of :mod:`torchx_tpu.ops.fused`, the ``--kernels cuda`` hot path:
   on the tensor cores for bf16 at head_dim 64 and 128
   (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_dq_wgmma.cu``,
   ``csrc/flash_dkv_wgmma.cu``); elsewhere (f32, and bf16 at head_dim 256)
-  ``mma``, the forward and dk/dv on the tensor cores by mma.sync, f32 in
-  three TF32 passes (``csrc/flash_fwd_mma.cu``, ``csrc/flash_dkv_mma.cu``),
-  and ``simt``, dq on the CUDA cores (``csrc/flash_attn.cu``). The wgmma
+  ``mma``, on the tensor cores by mma.sync, f32 in three TF32 passes
+  (``csrc/flash_fwd_mma.cu``, ``csrc/flash_dq_mma.cu``,
+  ``csrc/flash_dkv_mma.cu``). The wgmma
   kernels take their tile as a launch setting, ``block_q`` / ``block_kv``
   as the JAX package's Pallas grids name them
   (``LlamaConfig.attn_block_q/kv``), each launch at the compiled tile
   :func:`fit_tile` gives (0: the card's default, :data:`DEFAULT_TILES`);
-  the mma and simt kernels have one tile each. Optional ``segment_ids``
+  the mma kernels have one tile each. Optional ``segment_ids``
   (``[b, s]`` int32, one array for queries and keys, as the JAX package
   hands ``SegmentIds(q=seg, kv=seg)`` to the library splash kernel) mask
   packed documents: a query sees only keys of its own segment, in all
@@ -70,7 +70,7 @@ FLASH_HEAD_DIMS = (64, 128, 256)
 #: Head dims of the tensor-core (wgmma) flash kernels.
 WGMMA_HEAD_DIMS = (64, 128)
 
-FLASH_VARIANTS = ("wgmma", "mma", "simt")
+FLASH_VARIANTS = ("wgmma", "mma")
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 #: The flash kernels' tiles, as the JAX package's Pallas grids name them
@@ -105,22 +105,25 @@ DEFAULT_TILES = {
 #: The mma kernels' one tile ``(block_q, block_kv)`` by kernel, dtype and
 #: head dim, each an instance of ``csrc/flash_*_mma.cuh``
 #: (``TPX_FLASH_*_MMA_TILES``; tests/test_torch_flash_tf32.py holds the two
-#: equal): every request fits to it. Each picked from a grid that ptxas
-#: compiled (``nvcc -Xptxas -v``) among those without spills whose tiles
-#: and their two-stage ring fit a block's 227 KB; no sweep has timed them.
+#: equal): every request fits to it. The forward's and dk/dv's each picked
+#: from a grid that ptxas compiled (``nvcc -Xptxas -v``) among those without
+#: spills whose tiles and their two-stage ring fit a block's 227 KB; dq's
+#: the fastest of such a grid on an H100 (``chip_smoke.py --phases
+#: build,dqgrid``).
 MMA_TILES = {
     ("flash_fwd", torch.float32, 64): (64, 64),
     ("flash_fwd", torch.float32, 128): (64, 32),
     ("flash_fwd", torch.float32, 256): (64, 32),
     ("flash_fwd", torch.bfloat16, 256): (64, 32),
+    ("flash_dq", torch.float32, 64): (128, 64),
+    ("flash_dq", torch.float32, 128): (128, 32),
+    ("flash_dq", torch.float32, 256): (32, 32),
+    ("flash_dq", torch.bfloat16, 256): (64, 16),
     ("flash_dkv", torch.float32, 64): (32, 64),
     ("flash_dkv", torch.float32, 128): (16, 64),
     ("flash_dkv", torch.float32, 256): (32, 32),
     ("flash_dkv", torch.bfloat16, 256): (32, 64),
 }
-#: The simt dq kernel's one tile by head dim (``csrc/flash_attn.cu``
-#: ``Tile``): every request fits to it.
-SIMT_TILES = {64: 64, 128: 64, 256: 32}
 
 #: The port's ``--kernels`` values.
 KERNEL_MODES = ("reference", "cuda")
@@ -150,15 +153,15 @@ def flash_variant(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     without spills (``nvcc -Xptxas -v``, printed by chip_smoke.py's build
     phase). Elsewhere, f32 (whose products the bf16 tensor cores cannot
     take) and bf16 at head_dim 256 (where a wgmma warpgroup's O or dK/dV
-    accumulators alone would take 256 registers a thread): ``"mma"`` for
-    the forward and dk/dv (mma.sync on the tensor cores, f32 in three TF32
-    passes) and ``"simt"`` for dq (the CUDA cores). A rule on kernel, dtype
-    and shape alone: no launch is ever retried on another variant."""
+    accumulators alone would take 256 registers a thread): ``"mma"``
+    (mma.sync on the tensor cores, f32 in three TF32 passes). A rule on
+    kernel, dtype and shape alone: no launch is ever retried on another
+    variant."""
     if kernel not in FLASH_KERNELS:
         raise ValueError(f"flash attention: kernel must be one of {FLASH_KERNELS}")
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
-    return "simt" if kernel == "flash_dq" else "mma"
+    return "mma"
 
 
 def check_tiles(block_q: int, block_kv: int) -> None:
@@ -186,14 +189,10 @@ def fit_tile(kernel: str, variant: str, head_dim: int, seq: int, block_q: int = 
     and sequence ``seq`` for a request (0: :data:`DEFAULT_TILES`' value on
     that axis). For wgmma each axis takes the largest compiled tile at most
     the request that divides ``seq`` (:func:`_fit`); nothing else changes a
-    tile. The mma kernels have one tile by ``dtype`` (:data:`MMA_TILES`),
-    the simt dq one by head dim (:data:`SIMT_TILES`)."""
+    tile. The mma kernels have one tile by ``dtype`` (:data:`MMA_TILES`)."""
     check_tiles(block_q, block_kv)
-    if variant == "simt":
-        if kernel != "flash_dq":
-            raise ValueError(f"flash attention: no simt kernel for {kernel}")
-        t = SIMT_TILES[head_dim]
-        return t, t
+    if variant not in FLASH_VARIANTS:
+        raise ValueError(f"flash attention: variant must be one of {FLASH_VARIANTS}")
     if variant == "mma":
         if (kernel, dtype, head_dim) not in MMA_TILES:
             raise ValueError(f"flash attention: no mma kernel for {kernel} in {dtype} at"
@@ -329,12 +328,10 @@ def _pick_variant(kernel, variant, tensors):  # noqa: ANN001, ANN202
         )
     if variant == "mma" and (kernel, dtype, d) not in MMA_TILES:
         raise ValueError(
-            f"flash attention: the mma kernels take the forward and dk/dv in f32 at"
-            f" head_dim {FLASH_HEAD_DIMS} and bf16 at 256, got {kernel} in {dtype} at {d}"
+            f"flash attention: the mma kernels take f32 at head_dim {FLASH_HEAD_DIMS}"
+            f" and bf16 at 256, got {kernel} in {dtype} at {d}"
         )
-    if variant == "simt" and kernel != "flash_dq":
-        raise ValueError(f"flash attention: the simt kernel is dq's, got {kernel}")
-    if variant != "simt" and any(t.data_ptr() % 16 for t in tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"flash attention: {variant} needs 16-byte aligned tensors")
     return variant
 
@@ -343,8 +340,8 @@ def _launch(kernel, variant, inputs, outputs, causal, segment_ids=None, tile=(0,
     """Launch ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv") of the
     chosen variant on CUDA tensors: inputs (q, k, v[, do, lse, delta]),
     then the outputs and the segment ids (null for none), all as pointers,
-    then the dims and, for wgmma and mma, the tile :func:`fit_tile` gives
-    for the request ``tile`` (block_q, block_kv)."""
+    then the dims and the tile :func:`fit_tile` gives for the request
+    ``tile`` (block_q, block_kv)."""
     seg_ptr = None
     if segment_ids is not None:
         _check_segments(segment_ids, inputs[0])
@@ -353,12 +350,8 @@ def _launch(kernel, variant, inputs, outputs, causal, segment_ids=None, tile=(0,
     variant = _pick_variant(kernel, variant, inputs)
     q = inputs[0]
     tile = fit_tile(kernel, variant, q.shape[-1], q.shape[1], *tile, dtype=q.dtype)
-    lib = _build.cuda_lib()
-    if variant in ("wgmma", "mma"):
-        fn = getattr(lib, f"tpx_{kernel}_{variant}")
-        dims += tile
-    else:  # one tile: the launch names none
-        fn = getattr(lib, f"tpx_{kernel}")
+    fn = getattr(_build.cuda_lib(), f"tpx_{kernel}_{variant}")
+    dims += tile
     dims.append(torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         rc = fn(*(t.data_ptr() for t in (*inputs, *outputs)), seg_ptr, *dims)

@@ -162,14 +162,16 @@ def size_bytes(params: Params) -> int:
 #: The kernels' tile: output columns per block and k rows per stage
 #: (``csrc/int8_matmul.cu``).
 BLOCK_N, BLOCK_K = 128, 64
-#: The kernel paths, by the C launcher's code: f32 activations on the CUDA
-#: cores; bf16 at decode (mma.sync, 16-row blocks, bound by the weight
-#: bytes); bf16 at prefill (wgmma fed by TMA, 128- or 256-row blocks,
-#: bound by operations).
-PATH_SIMT, PATH_DECODE, PATH_WGMMA = 0, 1, 2
-#: The blocks of each path that one SM holds at once (the decode ring takes
-#: 45 KB of shared memory, the wgmma one 145-209 KB).
-_BLOCKS_PER_SM = {PATH_SIMT: 2, PATH_DECODE: 2, PATH_WGMMA: 1}
+#: The kernel paths, by the C launcher's code: f32 activations on TF32
+#: mma.sync (16-row blocks, x split into TF32 hi + lo: two products, bound
+#: by the weight bytes); bf16 at decode (mma.sync, 16-row blocks, bound by
+#: the weight bytes); bf16 at prefill (wgmma fed by TMA, 128- or 256-row
+#: blocks, bound by operations).
+PATH_TF32, PATH_DECODE, PATH_WGMMA = 0, 1, 2
+#: The blocks of each path that one SM holds at once, by shared memory:
+#: the TF32 ring and its split x tile take 57 KB (three in the SM's 228
+#: KB), the decode ring 45 KB, the wgmma one 145-209 KB.
+_BLOCKS_PER_SM = {PATH_TF32: 3, PATH_DECODE: 2, PATH_WGMMA: 1}
 #: The wgmma kernel's 256-row tiles (four warpgroups share each widened
 #: weight tile) serve bf16-output calls of more rows than this whose
 #: 256-row plan keeps at least ``TALL_MIN_STEPS`` k steps per split: a
@@ -198,8 +200,8 @@ def _int8_matmul_plain(
 
 def kernel_name(x_dtype: torch.dtype) -> str:
     """The launch-count name of the kernel a CUDA ``x`` of this dtype
-    takes: tensor cores for bf16 (either path), CUDA cores for f32."""
-    return "int8_matmul" if x_dtype == torch.bfloat16 else "int8_matmul_simt"
+    takes: bf16 (either bf16 path) or f32 (TF32 mma.sync)."""
+    return "int8_matmul" if x_dtype == torch.bfloat16 else "int8_matmul_tf32"
 
 
 def split_k(m: int, n: int, k: int, block_m: int, slots: int) -> tuple[int, int]:
@@ -235,7 +237,7 @@ class Plan(NamedTuple):
 def launch_plan(m: int, n: int, k: int, x_f32: bool, sms: int, out_f32: bool = False) -> Plan:
     """The launch of an ``[m, k] x [k, n]`` call on a card with ``sms`` SMs
     (``out_f32``: f32 output from bf16 activations)."""
-    path, block_m = PATH_SIMT if x_f32 else PATH_DECODE, 16
+    path, block_m = PATH_TF32 if x_f32 else PATH_DECODE, 16
     if not x_f32 and m > DECODE_MAX_M:
         slots = sms * _BLOCKS_PER_SM[PATH_WGMMA]
         tall = m > WGMMA_TALL_M and not out_f32
