@@ -287,6 +287,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    TTFT, TPOT, the decode step, tokens/s, peak memory and one profiled
    decode step's device time (the int8 matmuls, the K/V gathers, the
    rest) for both.
+9. specs — the launcher's specs layer (``torchx_tpu_torch.specs``, no
+   kernel) on the card, right after the build: ``named_resources["h100-1"]``
+   resolves to one H100 slice whose ``hbm_bytes_per_gpu`` (the generation
+   table that ``parallel/aot_fit.py`` and ``analyze/costmodel.py`` read)
+   equals the card's ``total_memory``, and the card's name names an H100;
+   both printed beside the ``nvidia-smi`` reading.
 
 The train phase also runs the trainer once more with the step profiler and
 a torch.profiler trace (``profile=True, profile_dir=...``): one
@@ -373,8 +379,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "train", "remat", "reference", "gang", "gangckpt", "tp", "serve",
-          "ckpt", "moe", "ep", "pp", "int8")
+PHASES = ("build", "specs", "kernels", "train", "remat", "reference", "gang", "gangckpt", "tp",
+          "serve", "ckpt", "moe", "ep", "pp", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
@@ -1439,6 +1445,28 @@ def phase_dq_grid() -> None:
         free_card()
     for so in sos.values():
         so.unlink()
+
+
+def phase_specs(card: str) -> None:
+    """The launcher's specs layer on the card: ``named_resources["h100-1"]``
+    is one H100 whose memory, as the generation table gives it, is the
+    card's own ``total_memory``."""
+    import torch
+
+    from torchx_tpu_torch.specs import named_resources
+
+    res = named_resources["h100-1"]
+    name = torch.cuda.get_device_name(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "specs", "resource": "h100-1", "accelerator_type": res.gpu.accelerator_type,
+          "hosts": res.gpu.hosts, "devices": res.devices, "cpu": res.cpu, "memMB": res.memMB,
+          "hbm_bytes_per_gpu": res.gpu.hbm_bytes_per_gpu, "total_memory": total,
+          "device_name": name, "card": card})
+    if "H100" not in name:
+        fail("specs", f"the card is {name!r}, not an H100")
+    if res.gpu.hbm_bytes_per_gpu != total:
+        fail("specs", f"hbm_bytes_per_gpu {res.gpu.hbm_bytes_per_gpu} != the card's"
+             f" total_memory {total}")
 
 
 def phase_kernels() -> list[dict]:
@@ -5898,6 +5926,9 @@ def main(argv: list[str] | None = None) -> int:
     if mma_spills:
         fail("build", f"ptxas spilled in {mma_spills}")
 
+    if "specs" in phases:
+        with timed("specs"):
+            phase_specs(card)
     with timed("kernels"):
         kernel_rows = phase_kernels() if "kernels" in phases else []
     for row in kernel_rows:

@@ -225,3 +225,16 @@ def test_north_star_and_model_state():
         "dots", 2048, "cuda", 32)
     assert aot_fit.model_state_bytes_per_device(cfg, 16) == \
         jfit.model_state_bytes_per_device(jfit.north_star_cfg(), 16)
+
+
+def test_card_facts_come_from_the_specs_table():
+    """The fit's budget and the cost model's link rate are the specs
+    layer's H100 entry, with the values they had as constants."""
+    from torchx_tpu_torch.specs.api import GPU_GENERATIONS, GpuSlice
+
+    assert aot_fit.H100_HBM_BYTES == 85_017_493_504 and type(aot_fit.H100_HBM_BYTES) is int
+    assert aot_fit.H100_HBM_BYTES == GpuSlice("h100", 1).hbm_bytes_per_gpu
+    assert costmodel.LINK_BYTES_PER_S == {"h100": 450e9}
+    assert costmodel.LINK_BYTES_PER_S["h100"].hex() == (450e9).hex()
+    assert costmodel.link_bytes_per_s("NVIDIA H100 80GB HBM3") == 450e9
+    assert set(costmodel.LINK_BYTES_PER_S) == set(GPU_GENERATIONS)

@@ -25,6 +25,7 @@ from torchx_tpu_torch.obs import sinks
 from torchx_tpu_torch.parallel import checkpoint as ckpt_mod
 from torchx_tpu_torch.parallel.checkpoint import CheckpointMismatch, Checkpointer
 from torchx_tpu_torch.supervisor import gang as tgang
+from torchx_tpu_torch.util import session as tsession
 
 
 def _state(v=1.0):
@@ -432,10 +433,19 @@ class TestContractWithJax:
         return tmp_path / "ck"
 
     def test_settings_values_match(self):
-        names = [n for n in dir(tsettings) if n.isupper()]
-        assert len(names) == 22  # 11, and the gang's 11 (tests/test_torch_distributed.py)
+        # every name of the JAX package's settings but its TPU and XLA
+        # runtime variables, each with the JAX value
+        tpu = {"ENV_TPU_WORKER_ID", "ENV_TPU_WORKER_HOSTNAMES", "ENV_TPU_SKIP_MDS_QUERY",
+               "ENV_TPU_VISIBLE_CHIPS", "ENV_TPU_PROCESS_BOUNDS",
+               "ENV_TPU_CHIPS_PER_PROCESS_BOUNDS", "ENV_JAX_PLATFORMS", "ENV_XLA_FLAGS",
+               "ENV_MEGASCALE_COORDINATOR_ADDRESS", "ENV_MEGASCALE_NUM_SLICES",
+               "ENV_MEGASCALE_SLICE_ID"}
+        names = {n for n in dir(tsettings) if n.isupper()}
+        assert names == {n for n in dir(jsettings) if n.isupper()} - tpu
+        assert len(names) == 66
         for name in names:
-            assert getattr(tsettings, name) == getattr(jsettings, name), name
+            got, want = getattr(tsettings, name), getattr(jsettings, name)
+            assert got == want and type(got) is type(want), name
 
     def test_supervisor_reads_latest_step(self, ckpt_dir):
         assert jsup.latest_checkpoint_step(str(ckpt_dir)) == 4
@@ -486,7 +496,7 @@ class TestContractWithJax:
         monkeypatch.setenv(tsettings.ENV_TPX_OBS_DIR, str(tmp_path))
         monkeypatch.setenv(tsettings.ENV_TPX_INTERNAL_SESSION_ID, "0123456789abcdef")
         monkeypatch.setattr(jsession, "_session_id", None)
-        monkeypatch.setattr(sinks, "_session_id", None)
+        monkeypatch.setattr(tsession, "_session_id", None)
         assert sinks.default_session_name() == jsinks.default_session_name() == "tpx_01234567"
         assert sinks.trace_path() == jsinks.trace_path()
         assert sinks.obs_root() == jsinks.obs_root() == str(tmp_path)

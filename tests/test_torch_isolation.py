@@ -112,6 +112,88 @@ def test_checkpoint_modules_are_present():
     assert set(CHECKPOINT_MODULES) <= sources
 
 
+#: The launcher's foundation layers: helpers, specs, plugins, workspaces.
+LAUNCHER_PACKAGES = ("util", "specs", "plugins", "workspace")
+LAUNCHER_MODULES = (
+    "settings.py", "version.py", "deprecations.py",
+    *(f"util/{m}.py" for m in ("__init__", "strings", "colors", "io", "modules", "entrypoints",
+                               "types", "times", "jsonl", "registry", "session")),
+    *(f"specs/{m}.py" for m in ("__init__", "api", "builders", "file_linter", "overlays",
+                                "serialize", "named_resources_generic", "named_resources_gcp",
+                                "named_resources_gpu")),
+    "plugins/__init__.py", "plugins/_registration.py", "plugins/_registry.py",
+    "workspace/__init__.py", "workspace/api.py", "workspace/dir_workspace.py",
+    "workspace/docker_workspace.py",
+)
+
+
+def test_launcher_modules_are_present():
+    sources = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in p.parents}
+    assert set(LAUNCHER_MODULES) <= sources
+    # the TPU slice catalog has the GPU one in its place
+    assert "specs/named_resources_tpu.py" not in sources
+
+
+def test_launcher_modules_load_no_torch():
+    """A launcher process loads no CUDA: importing every module of the
+    launcher's layers brings in neither torch nor jax nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "names = ['torchx_tpu_torch.settings', 'torchx_tpu_torch.version',"
+        " 'torchx_tpu_torch.deprecations']\n"
+        f"for pkg in {LAUNCHER_PACKAGES!r}:\n"
+        "    mod = importlib.import_module('torchx_tpu_torch.' + pkg)\n"
+        "    names += [mod.__name__] + [m.name for m in pkgutil.walk_packages("
+        "mod.__path__, mod.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "from torchx_tpu_torch.specs import named_resources\n"
+        "named_resources['h100-16']\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('torch', 'jax', 'torchx_tpu', 'triton'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) == len(LAUNCHER_MODULES)
+
+
+def test_a_jax_entry_point_is_not_loaded(tmp_path, monkeypatch):
+    """A plugin installed for the JAX launcher (entry-point group
+    ``tpx.named_resources``) is never imported by the port's registry,
+    which reads its own group ``tpx_torch.named_resources``."""
+    from torchx_tpu.plugins import _registry as jregistry
+    from torchx_tpu_torch.plugins import _registry as tregistry
+
+    dist = tmp_path / "tpx_fake_plugin-0.1.dist-info"
+    dist.mkdir()
+    (dist / "METADATA").write_text("Metadata-Version: 2.1\nName: tpx-fake-plugin\n"
+                                   "Version: 0.1\n")
+    (dist / "entry_points.txt").write_text(
+        "[tpx.named_resources]\njax_named_resources = tpx_fake_jax_entry:named_resources\n"
+        "[tpx_torch.named_resources]\n"
+        "torch_named_resources = tpx_fake_torch_entry:named_resources\n")
+    for mod, name in (("tpx_fake_jax_entry", "from_jax_group"),
+                      ("tpx_fake_torch_entry", "from_port_group")):
+        (tmp_path / f"{mod}.py").write_text(
+            f"def named_resources():\n    return {{{name!r}: lambda: None}}\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    try:
+        port = tregistry.get_registry(invalidate_cache=True).named_resources
+        assert "from_port_group" in port and "from_jax_group" not in port
+        assert "tpx_fake_jax_entry" not in sys.modules
+        # the JAX launcher reads it: the entry point is installed
+        assert "from_jax_group" in jregistry.get_registry(invalidate_cache=True).named_resources
+    finally:
+        monkeypatch.undo()
+        for mod in ("tpx_fake_jax_entry", "tpx_fake_torch_entry"):
+            sys.modules.pop(mod, None)
+        tregistry.get_registry(invalidate_cache=True)
+        jregistry.get_registry(invalidate_cache=True)
+
+
 def test_eval_main_is_stdlib_only():
     """The eval gate runs without an accelerator runtime: it imports the
     standard library only, as the JAX package's copy does."""
@@ -269,3 +351,31 @@ class TestDevice:
             )
             assert proc.returncode != 0
             assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_specs_phase(monkeypatch, capsys):
+    """The specs phase's checks, rehearsed with the card's answers faked:
+    an H100 whose total_memory is the table's passes, another card or
+    another size fails the run."""
+    import importlib.util
+    import types
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_specs", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    total = 85_017_493_504
+    for name, memory, ok in (("NVIDIA H100 80GB HBM3", total, True),
+                             ("NVIDIA A100-SXM4-80GB", total, False),
+                             ("NVIDIA H100 80GB HBM3", total - 1, False)):
+        monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0, n=name: n)
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda i=0, m=memory: types.SimpleNamespace(total_memory=m))
+        if ok:
+            smoke.phase_specs("NVIDIA H100 80GB HBM3, 700.00 W")
+        else:
+            with pytest.raises(SystemExit):
+                smoke.phase_specs("card")
+        line = json.loads(capsys.readouterr().out.splitlines()[0])
+        assert (line["phase"], line["hbm_bytes_per_gpu"], line["total_memory"]) \
+            == ("specs", total, memory)
+        assert line["accelerator_type"] == "h100-1" and line["devices"] == {"nvidia.com/gpu": 1}

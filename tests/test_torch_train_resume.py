@@ -32,7 +32,7 @@ from torchx_tpu_torch.apps import generate_server as gs
 from torchx_tpu_torch.examples import train_llama as ttrain
 from torchx_tpu_torch.models import generate as tgen
 from torchx_tpu_torch.models import llama as tllama
-from torchx_tpu_torch.obs import sinks
+from torchx_tpu_torch.util import session as tsession
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(batch=2, seq=16)
@@ -256,7 +256,7 @@ def test_launcher_heartbeats_and_lease(tmp_path, monkeypatch):
     monkeypatch.setenv(settings.ENV_TPX_INTERNAL_SESSION_ID, "feedc0de00")
     monkeypatch.setenv(settings.ENV_TPX_TRACE_ID, "ab" * 16)
     monkeypatch.setenv(settings.ENV_TPX_REPLICA_ID, "0")
-    monkeypatch.setattr(sinks, "_session_id", None)
+    monkeypatch.setattr(tsession, "_session_id", None)
     out, _ = _train(3, ckpt_dir=str(tmp_path / "ck"))
     session = "tpx_feedc0de"
     lines = (tmp_path / session / "trace.jsonl").read_text().splitlines()

@@ -64,11 +64,12 @@ import math
 from typing import Any
 
 from torchx_tpu_torch.parallel.aot_fit import DEFAULT_HEADROOM, H100_HBM_BYTES
+from torchx_tpu_torch.specs.api import GPU_GENERATIONS
 
 #: Bytes a second one card sends to its peers, by ``generation`` substring
-#: (``torch.cuda.get_device_name``): an H100 SXM's NVLink 4, 900 GB/s in
-#: both directions together, 450 GB/s each way (NVIDIA's H100 data sheet).
-LINK_BYTES_PER_S = {"h100": 450e9}
+#: (``torch.cuda.get_device_name``), from the specs layer's generation
+#: table: an H100 SXM's NVLink 4, 450 GB/s each way.
+LINK_BYTES_PER_S = {gen: info["link_bytes_per_s"] for gen, info in GPU_GENERATIONS.items()}
 #: Anywhere else (the CPU): the reference's CPU-sim figure
 #: (``torchx_tpu.tune.rank._DEFAULT_PERF``), arbitrary but consistent.
 DEFAULT_LINK_BYTES_PER_S = 10e9

@@ -23,32 +23,16 @@ import os
 import tempfile
 import threading
 import time
-import uuid
 from typing import Callable, Optional
 
 from torchx_tpu_torch import settings
 from torchx_tpu_torch.obs import trace
+from torchx_tpu_torch.util.session import get_session_id_or_create_new
 
 TRACE_FILE = "trace.jsonl"
 METRICS_GLOB = "metrics-*.prom"
 
 logger = logging.getLogger(__name__)
-
-_session_id: Optional[str] = None
-
-
-def session_id() -> str:
-    """The process-wide session id: ``$TPX_INTERNAL_SESSION_ID`` when the
-    launcher set it, else a new uuid, exported to the environment so that
-    subprocesses join it (``torchx_tpu.util.session``)."""
-    global _session_id
-    if _session_id is None:
-        _session_id = os.environ.get(settings.ENV_TPX_INTERNAL_SESSION_ID) or str(
-            uuid.uuid4()
-        )
-        os.environ[settings.ENV_TPX_INTERNAL_SESSION_ID] = _session_id
-    return _session_id
-
 
 def obs_root() -> str:
     """Root of all durable observability output:
@@ -61,7 +45,7 @@ def obs_root() -> str:
 def default_session_name() -> str:
     """The session directory's name, ``tpx_<first 8 of the session id>``:
     the name the launcher's runner gives the session its replicas share."""
-    return f"tpx_{session_id()[:8]}"
+    return f"tpx_{get_session_id_or_create_new()[:8]}"
 
 
 def session_dir(session: Optional[str] = None) -> str:

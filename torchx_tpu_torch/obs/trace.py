@@ -21,13 +21,13 @@ import contextvars
 import json
 import logging
 import os
-import time
 import uuid
 from contextlib import contextmanager
 from dataclasses import asdict, dataclass, field
 from typing import Any, Iterator, Optional
 
 from torchx_tpu_torch.settings import ENV_TPX_PARENT_SPAN, ENV_TPX_TRACE, ENV_TPX_TRACE_ID
+from torchx_tpu_torch.util.times import epoch_usec
 
 #: record-discriminator value in the JSONL stream ("kind" key).
 SPAN_KIND = "span"
@@ -43,11 +43,6 @@ SPAN_LOGGER.addHandler(logging.NullHandler())
 _CURRENT: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar(
     "tpx_torch_current_span", default=None
 )
-
-
-def epoch_usec() -> int:
-    """Current wall time in integer epoch microseconds."""
-    return int(time.time() * 1e6)
 
 
 def tracing_enabled() -> bool:

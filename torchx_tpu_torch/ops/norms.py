@@ -27,9 +27,8 @@ import os
 import torch
 
 from torchx_tpu_torch import _build
+from torchx_tpu_torch.settings import ENV_TPX_FUSED_NORM
 
-#: The port's own copy of the JAX package's environment switch name.
-ENV_TPX_FUSED_NORM = "TPX_FUSED_NORM"
 FUSED_MODES = ("auto", "cuda", "never")
 
 _KERNELS: dict = {}

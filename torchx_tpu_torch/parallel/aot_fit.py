@@ -50,12 +50,14 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from torchx_tpu_torch.specs.api import GPU_GENERATIONS
+
 GIB = 1024**3
 
 #: ``torch.cuda.get_device_properties(0).total_memory`` of an NVIDIA H100
-#: 80GB HBM3 (power limit 700.00 W), read by chip_smoke.py's remat phase:
-#: the budget off the card.
-H100_HBM_BYTES = 85_017_493_504
+#: 80GB HBM3, from the specs layer's generation table: the budget off the
+#: card.
+H100_HBM_BYTES = GPU_GENERATIONS["h100"]["hbm_bytes"]
 #: Share of a card's memory the fit may use: room for the CUDA context's
 #: workspaces, the caching allocator's slack and fragmentation.
 DEFAULT_HEADROOM = 0.9

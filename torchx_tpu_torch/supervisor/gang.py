@@ -16,7 +16,7 @@ import os
 from typing import Optional
 
 from torchx_tpu_torch.obs import sinks
-from torchx_tpu_torch.obs.trace import epoch_usec
+from torchx_tpu_torch.util.times import epoch_usec
 
 _LEASE_DIR = "leases"
 
