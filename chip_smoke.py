@@ -83,8 +83,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    phase's run (llama3_1b at full width, 6 steps) as one replica, one
    worker a card on NCCL, ``--mesh fsdp=-1 --grad-bucket-mb 32
    --remat-policy dots`` (the bits and launches of the train phase's
-   ``full``), unprofiled, then profiled as the train phase's profiled run:
-   exit 0,
+   ``full``), unprofiled, submitted as an ``AppDef`` through the port's
+   local scheduler (``torchx_tpu_torch.schedulers.local_scheduler``: one
+   role of ``GpuSlice("h100", <cards>)``, its replica given the cards as
+   ``CUDA_VISIBLE_DEVICES``, waited on until ``SUCCEEDED``, cancelled past
+   the time limit, rank 0's ``final:`` line read from the replica's
+   ``stdout.log``), then profiled as the train phase's profiled run (by
+   hand, one replica of ``spmd_main``): state ``SUCCEEDED`` / exit 0,
    every rank's kernel launches the train phase's, and at a world of one
    the losses the train phase's (bitwise where that phase's two runs were,
    else within 1e-3; on more cards within 1e-2). Prints the world, backend
@@ -293,6 +298,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
    table that ``parallel/aot_fit.py`` and ``analyze/costmodel.py`` read)
    equals the card's ``total_memory``, and the card's name names an H100;
    both printed beside the ``nvidia-smi`` reading.
+10. local — the launcher's local scheduler on the card, after the gang
+   phase (whose A run it submitted): the cards it counts without torch
+   (``local_gpu_count()``: the launcher's own ``CUDA_VISIBLE_DEVICES``, else
+   the CUDA driver's count through ctypes) equal ``torch.cuda.device_count()``;
+   the ``CUDA_VISIBLE_DEVICES`` it gave A's replica; A's final state; seconds
+   from submit to rank 0's first ``step`` line and to ``SUCCEEDED``; and a
+   dryrun of a role asking for one card more than the host has must be
+   refused for over-subscription. ``--phases ...,gang,local,gangspmd`` also
+   runs A unprofiled by hand through ``spmd_main`` as before the scheduler
+   took it, for its step time beside the scheduler's in one call.
 
 The train phase also runs the trainer once more with the step profiler and
 a torch.profiler trace (``profile=True, profile_dir=...``): one
@@ -379,12 +394,13 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "specs", "kernels", "train", "remat", "reference", "gang", "gangckpt", "tp",
-          "serve", "ckpt", "moe", "ep", "pp", "int8")
+PHASES = ("build", "specs", "kernels", "train", "remat", "reference", "gang", "local",
+          "gangckpt", "tp", "serve", "ckpt", "moe", "ep", "pp", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
-                "int8parts", "gangparts", "rematoom", "hostus", "routes", "int8f32", "dqgrid")
+                "int8parts", "gangparts", "rematoom", "hostus", "routes", "int8f32", "dqgrid",
+                "gangspmd")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth; its L2 cache.
@@ -2169,21 +2185,94 @@ def device_busy(events: list[dict], steps: int) -> dict:
             "device_idle_share": 1 - busy / span}
 
 
-def _gang_a(cfg, root: str, profiled: bool) -> dict:  # noqa: ANN001
+def _scheduled_spmd(target: list[str], env: dict, root: str, phase: str,
+                    timeout_s: float | None = None) -> tuple[dict, dict]:
+    """``spmd_main TARGET`` submitted as an ``AppDef`` through the port's
+    local scheduler: one role of one replica whose ``GpuSlice`` is every
+    card, run from the repository (``PYTHONPATH`` and ``ENV`` in the role's
+    env), waited on until terminal, cancelled past ``timeout_s`` (default
+    ``GANG["timeout_s"]``). -> (rank 0's final summary from the replica's
+    ``stdout.log``, the launcher's record: app id, final state, the
+    replica's ``CUDA_VISIBLE_DEVICES``, seconds from submit to rank 0's
+    first ``step`` line and to the terminal state)."""
+    import torch
+
+    from torchx_tpu_torch.schedulers.local_scheduler import (
+        LocalDirectoryImageProvider,
+        LocalScheduler,
+    )
+    from torchx_tpu_torch.specs.api import AppDef, AppState, GpuSlice, Resource, Role, is_terminal
+
+    cards = torch.cuda.device_count()
+    mem_mb = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 2**20
+    role = Role(
+        name="trainer", image=REPO, entrypoint=sys.executable,
+        args=["-m", "torchx_tpu_torch.apps.spmd_main", "--port", str(_free_port()),
+              "--timeout", "120", *target],
+        env={"PYTHONPATH": REPO, **env},
+        resource=Resource(cpu=os.cpu_count() or 1, memMB=mem_mb, gpu=GpuSlice("h100", cards)))
+    sched = LocalScheduler(session_name="chip_smoke", image_provider=LocalDirectoryImageProvider())
+    app_id, state = None, None
+    try:
+        # submit: the materialized request (its replica's env read below),
+        # then the launch
+        info = sched.submit_dryrun(AppDef(name="gang-a", roles=[role]),
+                                   {"log_dir": os.path.join(root, "apps")})
+        (replica,) = info.request.role_params["trainer"]
+        t0 = time.monotonic()
+        app_id = sched.schedule(info)
+        deadline = t0 + (timeout_s or GANG["timeout_s"])
+        first_step = done = None
+        while True:
+            state = sched.describe(app_id).state
+            if first_step is None and os.path.exists(replica.stdout):
+                with open(replica.stdout, errors="replace") as f:
+                    if any(line.startswith("step ") for line in f):
+                        first_step = time.monotonic() - t0
+            if is_terminal(state):
+                done = time.monotonic() - t0
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        if app_id is not None and not is_terminal(state):
+            sched.cancel(app_id)  # past the limit: the kill ladder
+    with open(replica.stdout, errors="replace") as f:
+        out = f.read()
+    if state != AppState.SUCCEEDED or "final:" not in out:
+        with open(replica.stderr, errors="replace") as f:
+            err = f.read()
+        fail(phase, f"the scheduled gang ended {state}: {' '.join(replica.args)}\n"
+             f"{out[-3000:]}\n{err[-3000:]}")
+    sched.delete(app_id)  # its registry entry; the logs go with ``root``
+    sched.close()
+    record = {"app_id": app_id, "state": state.name, "gpu": role.resource.gpu.accelerator_type,
+              "cuda_visible_devices": replica.env.get("CUDA_VISIBLE_DEVICES"),
+              "submit_to_first_step_s": first_step, "submit_to_succeeded_s": done}
+    return json.loads(out.split("final:", 1)[1].splitlines()[0]), record
+
+
+def _gang_a(cfg, root: str, profiled: bool, scheduled: bool = True) -> dict:  # noqa: ANN001
     """The train phase's run through ``spmd_main`` (module docstring) under
     ``--remat-policy dots`` (``GANG["remat_policy"]``: the same bits and
     launches as the train phase's ``full``, so a remat policy runs through
-    ``spmd_main`` on the card); with
-    ``profiled``, as the train phase's profiled run (the step profiler and
-    the trainer's torch.profiler trace, read here)."""
+    ``spmd_main`` on the card): unprofiled and ``scheduled``, submitted
+    through the local scheduler (its record under ``"launcher"``); with
+    ``profiled``, by hand as the train phase's profiled run (the step
+    profiler and the trainer's torch.profiler trace, read here)."""
     extra = ["--profile", "--profile-dir", os.path.join(root, "trace")] if profiled else []
-    final, _ = _spmd(
-        [], ["-m", "torchx_tpu_torch.examples.train_llama", "--", "--config", "llama3_1b",
-             "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--steps",
-             str(TRAIN["steps"]), "--kernels", "cuda", "--warmup", "1", "--mesh", "fsdp=-1",
-             "--grad-bucket-mb", str(GANG["bucket_mb"]), "--remat-policy", GANG["remat_policy"],
-             *extra],
-        {"TPX_OBS_DIR": os.path.join(root, "obs")}, "gang")
+    target = ["-m", "torchx_tpu_torch.examples.train_llama", "--", "--config", "llama3_1b",
+              "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--steps",
+              str(TRAIN["steps"]), "--kernels", "cuda", "--warmup", "1", "--mesh", "fsdp=-1",
+              "--grad-bucket-mb", str(GANG["bucket_mb"]), "--remat-policy",
+              GANG["remat_policy"], *extra]
+    env = {"TPX_OBS_DIR": os.path.join(root, "obs")}
+    if scheduled and not profiled:
+        final, record = _scheduled_spmd(target, env, root, "gang")
+        final["launcher"] = record
+        return final
+    final, _ = _spmd([], target, env, "gang")
     if profiled:
         with open(final["profile_trace"]) as f:
             events = json.load(f)["traceEvents"]
@@ -2196,14 +2285,17 @@ def _gang_a(cfg, root: str, profiled: bool) -> dict:  # noqa: ANN001
     return final
 
 
-def phase_gang(train_out: dict, train_profiled: dict) -> dict:
+def phase_gang(train_out: dict, train_profiled: dict, spmd_too: bool = False) -> dict:
     """A: the train phase's llama3_1b run (6 steps, warm-up 1) through
     ``spmd_main`` as one replica with one worker a card on NCCL, ``--mesh
     fsdp=-1 --grad-bucket-mb 32``, unprofiled and then profiled as the
     train phase's profiled run: exit 0, every rank's launches the train
     phase's, at a world of one the losses the train phase's (bitwise where
     its two runs were, else within ``GANG_LOSS_RTOL``; on more cards within
-    ``REF_LOSS_RTOL``). B: :func:`phase_gang_ranks`."""
+    ``REF_LOSS_RTOL``). The unprofiled run is submitted through the local
+    scheduler; with ``spmd_too`` (the gangspmd phase) it runs once more by
+    hand, unprofiled, for its step time beside the scheduler's. B:
+    :func:`phase_gang_ranks`."""
     import shutil
     import tempfile
 
@@ -2218,6 +2310,7 @@ def phase_gang(train_out: dict, train_profiled: dict) -> dict:
     try:
         plain = _gang_a(cfg, root, profiled=False)
         prof = _gang_a(cfg, root, profiled=True)
+        by_hand = _gang_a(cfg, root, profiled=False, scheduled=False) if spmd_too else None
     finally:
         shutil.rmtree(root, ignore_errors=True)
     expected = expected_launches(cfg, TRAIN["steps"])
@@ -2257,9 +2350,16 @@ def phase_gang(train_out: dict, train_profiled: dict) -> dict:
             k: v / prof["profile"]["steps"]
             for k, v in prof["profile"]["grad_sync_seconds"].items()},
         "launches_by_rank": plain["launches_by_rank"], "expected_launches": expected,
+        "launcher": plain["launcher"],
     }
+    if by_hand is not None:
+        res["spmd_by_hand"] = {
+            "step_times_s": by_hand["step_times_s"], "step_time_s": by_hand["step_time_s"],
+            "step_time_over_train": by_hand["step_time_s"] / train_out["step_time_s"] - 1,
+            "scheduled_over_by_hand": plain["step_time_s"] / by_hand["step_time_s"] - 1,
+            "losses_bitwise_scheduled": by_hand["losses"] == plain["losses"]}
     emit(res)
-    for final in (plain, prof):
+    for final in (plain, prof, *([by_hand] if by_hand else [])):
         if final["backend"] != "nccl" or final["world"] != cards:
             fail("gang", f"A ran {final['world']} ranks on {final['backend']}, not one a card"
                  " on NCCL")
@@ -2274,6 +2374,48 @@ def phase_gang(train_out: dict, train_profiled: dict) -> dict:
             fail("gang", f"world-{final['world']} losses {final['losses']} against the"
                  f" train phase's {train_out['losses']}")
     return {"A": res, "A_final": plain, "B": phase_gang_ranks(cards)}
+
+
+def phase_local(gang_a: dict, card: str) -> dict:
+    """The local scheduler on the card (module docstring): its card count
+    against torch's, gang A's launcher record, and the over-subscription
+    refusal of a dryrun asking one card more than the host has."""
+    import torch
+
+    from torchx_tpu_torch.schedulers.local_scheduler import LocalScheduler, local_gpu_count
+    from torchx_tpu_torch.specs.api import AppDef, GpuSlice, Resource, Role
+
+    t = time.monotonic()
+    cards = torch.cuda.device_count()
+    counted = local_gpu_count()
+    # one card more than the host has (a slice above one host's eight
+    # takes whole hosts: 16)
+    over = GpuSlice("h100", cards + 1 if cards < 8 else 16)
+    role = Role(name="over", image="", entrypoint=sys.executable, args=["-c", "pass"],
+                resource=Resource(cpu=1, memMB=64, gpu=over))
+    sched = LocalScheduler(session_name="chip_smoke")
+    try:
+        sched.submit_dryrun(AppDef(name="over", roles=[role]), {})
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    finally:
+        sched.close()
+    launcher = gang_a["launcher"]
+    res = {"phase": "local", "local_gpu_count": counted, "device_count": cards,
+           "cuda_visible_devices_env": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "gang_a": launcher, "over_subscribed": over.accelerator_type,
+           "over_subscription_refused": refused,
+           "phase_s_without_gang_a": time.monotonic() - t, "card": card}
+    emit(res)
+    if counted != cards:
+        fail("local", f"local_gpu_count() {counted} != torch.cuda.device_count() {cards}")
+    if launcher["state"] != "SUCCEEDED" or launcher["submit_to_first_step_s"] is None:
+        fail("local", f"gang A through the scheduler: {launcher}")
+    if refused is None or "cards" not in refused:
+        fail("local", f"a dryrun asking {over.accelerator_type} of {cards} card(s) was not"
+             f" refused for over-subscription: {refused}")
+    return res
 
 
 def phase_gang_parts() -> None:
@@ -5963,7 +6105,12 @@ def main(argv: list[str] | None = None) -> int:
         if "train" not in phases:
             fail("gang", "the gang phase compares with the train phase: add train")
         with timed("gang"):
-            gang_out = phase_gang(train_out, train_profiled)
+            gang_out = phase_gang(train_out, train_profiled, spmd_too="gangspmd" in phases)
+    if "local" in phases:
+        if gang_out is None:
+            fail("local", "the local phase reads gang A's scheduled run: add train,gang")
+        with timed("local"):
+            phase_local(gang_out["A_final"], card)
     if "gangckpt" in phases:
         with timed("gangckpt"):
             phase_gang_ckpt(gang_out["A_final"] if gang_out else None)

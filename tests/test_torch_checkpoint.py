@@ -440,10 +440,15 @@ class TestContractWithJax:
                "ENV_TPU_CHIPS_PER_PROCESS_BOUNDS", "ENV_JAX_PLATFORMS", "ENV_XLA_FLAGS",
                "ENV_MEGASCALE_COORDINATOR_ADDRESS", "ENV_MEGASCALE_NUM_SLICES",
                "ENV_MEGASCALE_SLICE_ID"}
+        # and the port's own GPU names in their place
+        gpu = {"ENV_CUDA_VISIBLE_DEVICES": "CUDA_VISIBLE_DEVICES",
+               "ENV_TPX_GPU_ACCELERATOR_TYPE": "TPX_GPU_ACCELERATOR_TYPE",
+               "ENV_TPX_GPU_TOPOLOGY": "TPX_GPU_TOPOLOGY"}
         names = {n for n in dir(tsettings) if n.isupper()}
-        assert names == {n for n in dir(jsettings) if n.isupper()} - tpu
-        assert len(names) == 66
-        for name in names:
+        assert names == ({n for n in dir(jsettings) if n.isupper()} - tpu) | set(gpu)
+        assert len(names) == 69
+        assert {n: getattr(tsettings, n) for n in gpu} == gpu
+        for name in names - set(gpu):
             got, want = getattr(tsettings, name), getattr(jsettings, name)
             assert got == want and type(got) is type(want), name
 

@@ -112,8 +112,11 @@ def test_checkpoint_modules_are_present():
     assert set(CHECKPOINT_MODULES) <= sources
 
 
-#: The launcher's foundation layers: helpers, specs, plugins, workspaces.
-LAUNCHER_PACKAGES = ("util", "specs", "plugins", "workspace")
+#: The launcher's layers: helpers, specs, plugins, workspaces; the
+#: control-plane seam, the scheduler contract with the local backend, and
+#: the watch streams.
+LAUNCHER_PACKAGES = ("util", "specs", "plugins", "workspace", "resilience", "schedulers",
+                     "control")
 LAUNCHER_MODULES = (
     "settings.py", "version.py", "deprecations.py",
     *(f"util/{m}.py" for m in ("__init__", "strings", "colors", "io", "modules", "entrypoints",
@@ -124,6 +127,11 @@ LAUNCHER_MODULES = (
     "plugins/__init__.py", "plugins/_registration.py", "plugins/_registry.py",
     "workspace/__init__.py", "workspace/api.py", "workspace/dir_workspace.py",
     "workspace/docker_workspace.py",
+    *(f"resilience/{m}.py" for m in ("__init__", "errors", "policy", "breaker", "faults",
+                                     "call")),
+    *(f"schedulers/{m}.py" for m in ("__init__", "api", "ids", "streams", "structured_opts",
+                                     "devices", "local_scheduler")),
+    "control/__init__.py", "control/events.py", "control/watch.py",
 )
 
 
@@ -132,6 +140,9 @@ def test_launcher_modules_are_present():
     assert set(LAUNCHER_MODULES) <= sources
     # the TPU slice catalog has the GPU one in its place
     assert "specs/named_resources_tpu.py" not in sources
+    # a remote backend or a control-plane service comes with its own layer
+    assert not {s for s in sources if s.startswith(("schedulers/", "control/",
+                                                    "resilience/"))} - set(LAUNCHER_MODULES)
 
 
 def test_launcher_modules_load_no_torch():
@@ -379,3 +390,39 @@ def test_chip_smoke_specs_phase(monkeypatch, capsys):
         assert (line["phase"], line["hbm_bytes_per_gpu"], line["total_memory"]) \
             == ("specs", total, memory)
         assert line["accelerator_type"] == "h100-1" and line["devices"] == {"nvidia.com/gpu": 1}
+
+
+def test_chip_smoke_local_phase(monkeypatch, capsys, tmp_path):
+    """The local phase and gang A's scheduled launch, rehearsed on the CPU
+    with one card faked: a tiny trainer submitted through the port's local
+    scheduler ends SUCCEEDED with its replica given card "0" and a first
+    step line seen; the phase line counts the card, and the dryrun asking
+    one card more is refused; a count that differs from torch's fails."""
+    import importlib.util
+
+    from torchx_tpu_torch.schedulers import local_scheduler
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_local", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(local_scheduler, "_registry_path", lambda: str(tmp_path / "registry"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
+    final, record = smoke._scheduled_spmd(
+        ["--nproc-per-node", "1", "-m", "torchx_tpu_torch.examples.train_llama", "--",
+         "--device", "cpu", "--config", "tiny", "--steps", "2", "--batch", "2", "--seq", "16"],
+        {"TPX_OBS_DIR": str(tmp_path / "obs")}, str(tmp_path), "gang", timeout_s=120)
+    assert final["final_step"] == 2 and final["world"] == 1
+    assert (record["state"], record["gpu"], record["cuda_visible_devices"]) == \
+        ("SUCCEEDED", "h100-1", "0")
+    assert 0 < record["submit_to_first_step_s"] <= record["submit_to_succeeded_s"]
+    assert (tmp_path / "registry").read_text().strip() == ""  # deleted after reading
+    capsys.readouterr()
+    smoke.phase_local({"launcher": record}, "NVIDIA H100 80GB HBM3, 700.00 W")
+    line = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert (line["phase"], line["local_gpu_count"], line["device_count"]) == ("local", 1, 1)
+    assert line["over_subscribed"] == "h100-2"
+    assert "need 2 cards, and this host has 1" in line["over_subscription_refused"]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit):
+        smoke.phase_local({"launcher": record}, "card")

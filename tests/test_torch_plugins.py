@@ -1,8 +1,8 @@
 """The port's plugin registry (``torchx_tpu_torch.plugins``): the cases of
 ``tests/test_tracker_plugins.py``'s ``TestPlugins`` run against the copy,
 with the port's own entry-point groups and namespace package. The parts
-of those cases that need an unported layer (the scheduler factories, the
-tracker layer) wait for it: ROADMAP queue 1 items 2.2 and 2.3."""
+of those cases that need an unported layer (the tracker layer) wait for
+it: ROADMAP queue 1 item 2.3."""
 
 import sys
 
@@ -47,8 +47,10 @@ class TestPlugins:
         assert reg.schedulers["mysched"] is create
         assert reg.schedulers["ms"] is create
         from torchx_tpu_torch.plugins import get_plugin_schedulers
+        from torchx_tpu_torch.schedulers import get_scheduler_factories
 
         assert get_plugin_schedulers()["mysched"] is create
+        assert "mysched" in get_scheduler_factories()
 
     def test_register_named_resource_with_fractions(self):
         @register.named_resource("superpod", fractions=True)
@@ -175,3 +177,31 @@ def test_a_jax_namespace_plugin_is_not_read(tmp_path, monkeypatch):
             del sys.modules[name]
         monkeypatch.undo()
         jregistry.get_registry(invalidate_cache=True)
+
+
+def test_scheduler_entry_points_reach_the_factories(tmp_path, monkeypatch):
+    """A backend installed under ``tpx_torch.schedulers`` joins the port's
+    scheduler table; one installed under the JAX launcher's
+    ``tpx.schedulers`` is not imported by the port."""
+    from torchx_tpu_torch.schedulers import get_scheduler_factories
+
+    dist = tmp_path / "tpx_fake_sched-0.1.dist-info"
+    dist.mkdir()
+    (dist / "METADATA").write_text("Metadata-Version: 2.1\nName: tpx-fake-sched\n"
+                                   "Version: 0.1\n")
+    (dist / "entry_points.txt").write_text(
+        "[tpx.schedulers]\njax_sched = tpx_fake_jax_sched:create\n"
+        "[tpx_torch.schedulers]\nport_sched = tpx_fake_port_sched:create\n")
+    for mod in ("tpx_fake_jax_sched", "tpx_fake_port_sched"):
+        (tmp_path / f"{mod}.py").write_text("def create(session_name, **kw):\n    return None\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    try:
+        factories = (get_registry(invalidate_cache=True), get_scheduler_factories())[1]
+        assert "port_sched" in factories and "local" in factories
+        assert "jax_sched" not in factories
+        assert "tpx_fake_jax_sched" not in sys.modules
+    finally:
+        monkeypatch.undo()
+        for mod in ("tpx_fake_jax_sched", "tpx_fake_port_sched"):
+            sys.modules.pop(mod, None)
+        get_registry(invalidate_cache=True)

@@ -2,13 +2,15 @@
 ``torchx_tpu_torch.workspace``): the overlay and workspace cases of
 ``tests/test_overlays_workspace.py`` run against the copy, and overlays,
 the ignore-file walk and the docker build context held to the JAX
-package's on the same inputs. (Its ``StructuredOpts`` cases wait for
-``schedulers/structured_opts.py``, ROADMAP queue 1 item 2.2.)"""
+package's on the same inputs; its ``StructuredOpts`` cases run against
+``torchx_tpu_torch.schedulers.structured_opts``."""
 
 import copy
 import os
 import shutil
 import tarfile
+from dataclasses import dataclass, field
+from typing import Optional
 from unittest import mock
 
 import pytest
@@ -18,6 +20,7 @@ from torchx_tpu.specs import overlays as joverlays
 from torchx_tpu.workspace import api as jws_api
 from torchx_tpu.workspace import dir_workspace as jdir
 from torchx_tpu.workspace import docker_workspace as jdocker
+from torchx_tpu_torch.schedulers.structured_opts import StructuredOpts
 from torchx_tpu_torch.specs.api import Resource, Role, Workspace
 from torchx_tpu_torch.specs.overlays import (
     DEL,
@@ -104,6 +107,44 @@ def _tree(tmp_path):
     (tmp_path / ".git" / "obj").write_text("g")
     (tmp_path / ".tpxignore").write_text("*.bin\n!keep.bin\n.git\ndata\n")
     return tmp_path
+
+
+@dataclass
+class _Nested(StructuredOpts):
+    context: str = "default-ctx"
+    """kube context to use."""
+
+
+@dataclass
+class _MyOpts(StructuredOpts):
+    namespace: str = "default"
+    """namespace to submit into."""
+    replicas: int = 1
+    """number of replicas."""
+    queue: Optional[str] = None
+    """queue name."""
+    k8s: _Nested = field(default_factory=_Nested)
+
+
+class TestStructuredOpts:
+    def test_to_runopts_docs_and_defaults(self):
+        opts = _MyOpts.to_runopts()
+        d = dict(opts)
+        assert d["namespace"].default == "default"
+        assert d["namespace"].help == "namespace to submit into."
+        assert d["replicas"].opt_type is int
+        assert "k8s.context" in d  # nested group flattened
+
+    def test_from_cfg(self):
+        cfg = _MyOpts.to_runopts().resolve(
+            {"namespace": "ml", "replicas": "3", "k8s.context": "prod"}
+        )
+        typed = _MyOpts.from_cfg(cfg)
+        assert typed.namespace == "ml"
+        assert typed.replicas == 3
+        assert typed.k8s.context == "prod"
+        assert typed["namespace"] == "ml"  # mapping protocol
+        assert typed.get("nope", "dflt") == "dflt"
 
 
 class TestWorkspaceWalk:

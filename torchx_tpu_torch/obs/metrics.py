@@ -4,7 +4,9 @@ The port's copy of the registry of :mod:`torchx_tpu.obs.metrics`, of its
 serving instruments (the ``tpx_serve_*`` counters, gauges and histograms
 the engine, the prefix cache and the KV transfer emit) and of its
 training instruments (the launch and step histograms the trainer observes
-and the ``tpx_profile_*`` gauges the step profiler exports).
+and the ``tpx_profile_*`` gauges the step profiler exports), and of the
+launcher's control-plane instruments (the resilient call seam's calls,
+retries and breaker state, the watch streams' events).
 Counters, gauges and fixed-bucket histograms, labeled and thread-safe;
 :meth:`MetricsRegistry.render` emits the Prometheus text exposition
 format that ``generate_server``'s ``/metricz`` serves.
@@ -431,4 +433,35 @@ LAUNCH_STAGE_SECONDS = REGISTRY.histogram(
     "tpx_launch_stage_seconds",
     "seconds spent per launch bootstrap stage",
     ("stage",),
+)
+
+#: control-plane calls issued through the resilient seam, by backend +
+#: logical op + outcome ("ok"/"error"/"rejected" — rejected means the
+#: backend's circuit breaker refused the call).
+CONTROL_PLANE_CALLS = REGISTRY.counter(
+    "tpx_control_plane_calls_total",
+    "control-plane calls issued through the resilient seam",
+    ("backend", "op", "status"),
+)
+
+#: control-plane call retries, by backend + op + classified failure kind.
+CONTROL_PLANE_RETRIES = REGISTRY.counter(
+    "tpx_control_plane_retries_total",
+    "control-plane call retries by failure kind",
+    ("backend", "op", "kind"),
+)
+
+#: per-backend circuit breaker state (0 closed, 1 half-open, 2 open).
+BREAKER_STATE = REGISTRY.gauge(
+    "tpx_control_plane_breaker_state",
+    "control-plane circuit breaker state (0 closed, 1 half-open, 2 open)",
+    ("backend",),
+)
+
+#: state-transition events emitted by scheduler watch streams, by source
+#: ("sidecar"/"kubectl"/"poll") — the control plane's unit of work.
+WATCH_EVENTS = REGISTRY.counter(
+    "tpx_watch_events_total",
+    "scheduler watch-stream state events observed",
+    ("scheduler", "source"),
 )

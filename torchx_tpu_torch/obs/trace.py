@@ -73,6 +73,7 @@ class Span:
     end_epoch_usec: Optional[int] = None
     attrs: dict[str, Any] = field(default_factory=dict)
     status: str = "OK"
+    session: str = ""
 
     def duration_usec(self) -> Optional[int]:
         """Span duration in microseconds, or None while still open."""
@@ -102,10 +103,11 @@ def current_span_id() -> Optional[str]:
 
 
 @contextmanager
-def span(name: str, **attrs: Any) -> Iterator[Optional[Span]]:
+def span(name: str, session: str = "", **attrs: Any) -> Iterator[Optional[Span]]:
     """Time a block as one span, parented on the current context (or the
-    inherited environment context at the root). Yields the open span, or
-    None when tracing is off; marked ERROR if the block raises."""
+    inherited environment context at the root), tagged with the launcher
+    ``session`` that opened it. Yields the open span, or None when tracing
+    is off; marked ERROR if the block raises."""
     if not tracing_enabled():
         yield None
         return
@@ -122,6 +124,7 @@ def span(name: str, **attrs: Any) -> Iterator[Optional[Span]]:
         parent_span_id=parent_id,
         start_epoch_usec=epoch_usec(),
         attrs={k: v for k, v in attrs.items() if v is not None},
+        session=session,
     )
     token = _CURRENT.set(sp)
     try:
@@ -160,8 +163,8 @@ def extract_headers(headers: Any) -> tuple[Optional[str], Optional[str]]:
     return headers.get(HDR_TRACE_ID) or None, headers.get(HDR_PARENT_SPAN) or None
 
 
-def heartbeat(name: str, **attrs: Any) -> Optional[Span]:
+def heartbeat(name: str, session: str = "", **attrs: Any) -> Optional[Span]:
     """Emit an instantaneous (zero-duration) span: a progress marker."""
-    with span(name, **attrs) as sp:
+    with span(name, session=session, **attrs) as sp:
         pass
     return sp

@@ -9,7 +9,8 @@ Variables fall into two groups:
 * in-job variables injected by schedulers into every replica.
 
 The TPU runtime variables of the JAX package are a TPU assumption and are
-not copied (see the end of this file).
+not copied; the three GPU names that take their place are the port's own
+(see the end of this file).
 """
 
 # ---------------------------------------------------------------------------
@@ -235,5 +236,17 @@ ENV_TPX_FUSED_NORM = "TPX_FUSED_NORM"
 # TPU_CHIPS_PER_PROCESS_BOUNDS), the CPU simulation (JAX_PLATFORMS,
 # XLA_FLAGS) and the multi-slice DCN wiring (MEGASCALE_COORDINATOR_ADDRESS,
 # MEGASCALE_NUM_SLICES, MEGASCALE_SLICE_ID). None of them means anything to
-# a CUDA job. A GPU's counterpart, CUDA_VISIBLE_DEVICES, comes with the
-# local scheduler's device partitioning (schedulers/devices.py).
+# a CUDA job. Their GPU counterparts follow.
+
+# ---------------------------------------------------------------------------
+# GPU assumptions, the port's own
+# ---------------------------------------------------------------------------
+# The cards a replica sees: the local scheduler gives each replica its
+# role's share of the host's cards (schedulers/local_scheduler.py
+# gpu_device_env), and counts the host's cards from it when the launcher's
+# own environment sets it.
+ENV_CUDA_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
+# A GPU role's slice as every replica's environment names it: the
+# accelerator type ("h100-16") and the topology, hosts x cards a host ("2x8").
+ENV_TPX_GPU_ACCELERATOR_TYPE = "TPX_GPU_ACCELERATOR_TYPE"
+ENV_TPX_GPU_TOPOLOGY = "TPX_GPU_TOPOLOGY"
