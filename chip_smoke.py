@@ -83,13 +83,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    phase's run (llama3_1b at full width, 6 steps) as one replica, one
    worker a card on NCCL, ``--mesh fsdp=-1 --grad-bucket-mb 32
    --remat-policy dots`` (the bits and launches of the train phase's
-   ``full``), unprofiled, submitted as an ``AppDef`` through the port's
-   local scheduler (``torchx_tpu_torch.schedulers.local_scheduler``: one
-   role of ``GpuSlice("h100", <cards>)``, its replica given the cards as
-   ``CUDA_VISIBLE_DEVICES``, waited on until ``SUCCEEDED``, cancelled past
-   the time limit, rank 0's ``final:`` line read from the replica's
-   ``stdout.log``), then profiled as the train phase's profiled run (by
-   hand, one replica of ``spmd_main``): state ``SUCCEEDED`` / exit 0,
+   ``full``), unprofiled, submitted as a user would through the port's
+   ``Runner`` and its ``dist.spmd`` component on the local scheduler
+   (``dist.spmd(..., gpu="h100-<cards>", coordinator_port=0)``: one replica
+   of one H100 slice, given the cards as ``CUDA_VISIBLE_DEVICES``;
+   ``Runner.dryrun(..., no_lint=True)`` and ``schedule``, ``status`` polled
+   until ``SUCCEEDED``, ``cancel`` past the time limit, rank 0's ``final:``
+   line read from the replica's ``stdout.log``), then profiled as the train
+   phase's profiled run (by hand, one replica of ``spmd_main``): state ``SUCCEEDED`` / exit 0,
    every rank's kernel launches the train phase's, and at a world of one
    the losses the train phase's (bitwise where that phase's two runs were,
    else within 1e-3; on more cards within 1e-2). Prints the world, backend
@@ -299,15 +300,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
    equals the card's ``total_memory``, and the card's name names an H100;
    both printed beside the ``nvidia-smi`` reading.
 10. local — the launcher's local scheduler on the card, after the gang
-   phase (whose A run it submitted): the cards it counts without torch
-   (``local_gpu_count()``: the launcher's own ``CUDA_VISIBLE_DEVICES``, else
-   the CUDA driver's count through ctypes) equal ``torch.cuda.device_count()``;
-   the ``CUDA_VISIBLE_DEVICES`` it gave A's replica; A's final state; seconds
-   from submit to rank 0's first ``step`` line and to ``SUCCEEDED``; and a
-   dryrun of a role asking for one card more than the host has must be
-   refused for over-subscription. ``--phases ...,gang,local,gangspmd`` also
-   runs A unprofiled by hand through ``spmd_main`` as before the scheduler
-   took it, for its step time beside the scheduler's in one call.
+   phase (whose A run the runner submitted to it): the cards it counts
+   without torch (``local_gpu_count()``: the launcher's own
+   ``CUDA_VISIBLE_DEVICES``, else the CUDA driver's count through ctypes)
+   equal ``torch.cuda.device_count()``; the ``CUDA_VISIBLE_DEVICES`` it
+   gave A's replica; A's final state; seconds from submit to rank 0's first
+   ``step`` line and to ``SUCCEEDED`` (with the trainer's launch stages,
+   ``launch_breakdown_s``, and the marks of the job's own trace,
+   ``launch_marks_s``); and a dryrun of a role asking for one card more
+   than the host has must be refused for over-subscription. ``--phases ...,gang,local,gangspmd`` also
+   runs A unprofiled by hand through ``spmd_main`` as before the runner
+   took it, for its step time beside the runner's in one call.
 
 The train phase also runs the trainer once more with the step profiler and
 a torch.profiler trace (``profile=True, profile_dir=...``): one
@@ -2083,14 +2086,6 @@ GANG = dict(bucket_mb=32, timeout_s=420, b_layers=2, b_steps=3, remat_policy="do
 GANG_LOSS_RTOL = 1e-3
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def _spmd(args: list[str], target: list[str], env: dict, phase: str,
           timeout_s: float | None = None) -> tuple[dict, str]:
     """``python -m torchx_tpu_torch.apps.spmd_main ARGS TARGET`` as one
@@ -2101,8 +2096,8 @@ def _spmd(args: list[str], target: list[str], env: dict, phase: str,
 
     full = dict(os.environ, PYTHONPATH=REPO, TPX_REPLICA_ID="0", TPX_NUM_REPLICAS="1",
                 TPX_COORDINATOR_HOST="127.0.0.1", **env)
-    cmd = [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", "--port",
-           str(_free_port()), "--timeout", "120", *args, *target]
+    cmd = [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", "--port", "0",
+           "--timeout", "120", *args, *target]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             env=full, cwd=REPO, start_new_session=True)
     try:
@@ -2185,72 +2180,105 @@ def device_busy(events: list[dict], steps: int) -> dict:
             "device_idle_share": 1 - busy / span}
 
 
-def _scheduled_spmd(target: list[str], env: dict, root: str, phase: str,
+def _scheduled_spmd(app, root: str, phase: str,  # noqa: ANN001
                     timeout_s: float | None = None) -> tuple[dict, dict]:
-    """``spmd_main TARGET`` submitted as an ``AppDef`` through the port's
-    local scheduler: one role of one replica whose ``GpuSlice`` is every
-    card, run from the repository (``PYTHONPATH`` and ``ENV`` in the role's
-    env), waited on until terminal, cancelled past ``timeout_s`` (default
-    ``GANG["timeout_s"]``). -> (rank 0's final summary from the replica's
-    ``stdout.log``, the launcher's record: app id, final state, the
-    replica's ``CUDA_VISIBLE_DEVICES``, seconds from submit to rank 0's
-    first ``step`` line and to the terminal state)."""
-    import torch
+    """The one-role ``app`` (``dist.spmd``'s) run through the port's
+    ``Runner`` on the local scheduler: ``dryrun`` (``no_lint``: the port's
+    lint gate waits for its analyzer), ``schedule``, ``status`` polled until
+    terminal, ``cancel`` past ``timeout_s`` (default ``GANG["timeout_s"]``).
+    The runner's own trace goes under ``root``. -> (rank 0's final summary
+    from the replica's ``stdout.log``, the launcher's record: the app
+    handle, the component, final state, the replica's
+    ``CUDA_VISIBLE_DEVICES``, seconds from submit to rank 0's first ``step``
+    line and to the terminal state, the trainer's launch stages and
+    :func:`_launch_marks`)."""
+    from torchx_tpu_torch.runner import get_runner
+    from torchx_tpu_torch.specs.api import AppState, is_terminal
 
-    from torchx_tpu_torch.schedulers.local_scheduler import (
-        LocalDirectoryImageProvider,
-        LocalScheduler,
-    )
-    from torchx_tpu_torch.specs.api import AppDef, AppState, GpuSlice, Resource, Role, is_terminal
-
-    cards = torch.cuda.device_count()
-    mem_mb = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 2**20
-    role = Role(
-        name="trainer", image=REPO, entrypoint=sys.executable,
-        args=["-m", "torchx_tpu_torch.apps.spmd_main", "--port", str(_free_port()),
-              "--timeout", "120", *target],
-        env={"PYTHONPATH": REPO, **env},
-        resource=Resource(cpu=os.cpu_count() or 1, memMB=mem_mb, gpu=GpuSlice("h100", cards)))
-    sched = LocalScheduler(session_name="chip_smoke", image_provider=LocalDirectoryImageProvider())
-    app_id, state = None, None
-    try:
-        # submit: the materialized request (its replica's env read below),
-        # then the launch
-        info = sched.submit_dryrun(AppDef(name="gang-a", roles=[role]),
-                                   {"log_dir": os.path.join(root, "apps")})
-        (replica,) = info.request.role_params["trainer"]
-        t0 = time.monotonic()
-        app_id = sched.schedule(info)
-        deadline = t0 + (timeout_s or GANG["timeout_s"])
-        first_step = done = None
-        while True:
-            state = sched.describe(app_id).state
-            if first_step is None and os.path.exists(replica.stdout):
-                with open(replica.stdout, errors="replace") as f:
-                    if any(line.startswith("step ") for line in f):
-                        first_step = time.monotonic() - t0
-            if is_terminal(state):
-                done = time.monotonic() - t0
-                break
-            if time.monotonic() > deadline:
-                break
-            time.sleep(0.05)
-    finally:
-        if app_id is not None and not is_terminal(state):
-            sched.cancel(app_id)  # past the limit: the kill ladder
-    with open(replica.stdout, errors="replace") as f:
-        out = f.read()
-    if state != AppState.SUCCEEDED or "final:" not in out:
-        with open(replica.stderr, errors="replace") as f:
-            err = f.read()
-        fail(phase, f"the scheduled gang ended {state}: {' '.join(replica.args)}\n"
-             f"{out[-3000:]}\n{err[-3000:]}")
-    sched.delete(app_id)  # its registry entry; the logs go with ``root``
-    sched.close()
-    record = {"app_id": app_id, "state": state.name, "gpu": role.resource.gpu.accelerator_type,
+    (role,) = app.roles
+    handle, state = None, None
+    with _ObsDir(os.path.join(root, "obs")):  # the runner's trace beside the job's
+        runner = get_runner("chip_smoke")
+        try:
+            # submit: the materialized request (its replica's env read
+            # below), then the launch
+            info = runner.dryrun(app, "local", {"log_dir": os.path.join(root, "apps")},
+                                 no_lint=True)
+            (replica,) = info.request.role_params[role.name]
+            t0, t0_epoch = time.monotonic(), time.time()
+            handle = runner.schedule(info)
+            deadline = t0 + (timeout_s or GANG["timeout_s"])
+            first_step = done = None
+            while True:
+                state = runner.status(handle, fresh=True).state
+                if first_step is None and os.path.exists(replica.stdout):
+                    with open(replica.stdout, errors="replace") as f:
+                        if any(line.startswith("step ") for line in f):
+                            first_step = time.monotonic() - t0
+                if is_terminal(state):
+                    done = time.monotonic() - t0
+                    break
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            if handle is not None and not is_terminal(state):
+                runner.cancel(handle)  # past the limit: the kill ladder
+        with open(replica.stdout, errors="replace") as f:
+            out = f.read()
+        if state != AppState.SUCCEEDED or "final:" not in out:
+            with open(replica.stderr, errors="replace") as f:
+                err = f.read()
+            fail(phase, f"the scheduled gang ended {state}: {' '.join(replica.args)}\n"
+                 f"{out[-3000:]}\n{err[-3000:]}")
+        runner.delete(handle)  # its registry entry; the logs go with ``root``
+        runner.close()
+    final = json.loads(out.split("final:", 1)[1].splitlines()[0])
+    record = {"app_handle": handle, "component": "dist.spmd",
+              "app_id": handle.rsplit("/", 1)[-1], "state": state.name,
+              "gpu": role.resource.gpu.accelerator_type, "entrypoint": replica.args[0],
               "cuda_visible_devices": replica.env.get("CUDA_VISIBLE_DEVICES"),
-              "submit_to_first_step_s": first_step, "submit_to_succeeded_s": done}
-    return json.loads(out.split("final:", 1)[1].splitlines()[0]), record
+              "submit_to_first_step_s": first_step, "submit_to_succeeded_s": done,
+              "launch_breakdown_s": final.get("launch_breakdown"),
+              "launch_marks_s": _launch_marks(os.path.join(root, "obs"), t0_epoch)}
+    return final, record
+
+
+def _launch_marks(obs_root: str, t_submit: float) -> dict:
+    """Seconds from submit (epoch ``t_submit``) to each mark of rank 0's
+    launch in the job's trace (the runner hands the job its trace context,
+    so ``spmd_main`` and the trainer write their spans under ``obs_root``):
+    the ``spmd_main`` process's start (its ``job.bootstrap`` span's start
+    less the ``import_s`` it spent importing), its card and process group
+    (the span's start and end), the target's start (``job.exec``), the
+    trainer's first stage (``launch.backend_init``) and its first step
+    (``job.first_step``)."""
+    import glob
+
+    spans: dict[str, dict] = {}
+    for path in glob.glob(os.path.join(obs_root, "*", "trace.jsonl")):
+        with open(path, errors="replace") as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                name = rec.get("name", "")
+                if rec.get("kind") == "span" and name.startswith(("job.", "launch.")) \
+                        and rec.get("attrs", {}).get("local_rank", 0) == 0:
+                    spans.setdefault(name, rec)  # rank 0's, the first of each
+    marks = {}
+    boot = spans.get("job.bootstrap")
+    if boot is not None:
+        start = boot["start_epoch_usec"] / 1e6
+        marks["spmd_main_start"] = start - boot["attrs"].get("import_s", 0.0) - t_submit
+        marks["bootstrap_start"] = start - t_submit
+        marks["group_up"] = boot["end_epoch_usec"] / 1e6 - t_submit
+    for mark, name in (("target_exec", "job.exec"), ("train_start", "launch.backend_init"),
+                       ("first_step", "job.first_step")):
+        if name in spans:
+            marks[mark] = spans[name]["start_epoch_usec"] / 1e6 - t_submit
+    return marks
 
 
 def _gang_a(cfg, root: str, profiled: bool, scheduled: bool = True) -> dict:  # noqa: ANN001
@@ -2258,21 +2286,31 @@ def _gang_a(cfg, root: str, profiled: bool, scheduled: bool = True) -> dict:  # 
     ``--remat-policy dots`` (``GANG["remat_policy"]``: the same bits and
     launches as the train phase's ``full``, so a remat policy runs through
     ``spmd_main`` on the card): unprofiled and ``scheduled``, submitted
-    through the local scheduler (its record under ``"launcher"``); with
+    through the port's ``Runner`` as ``dist.spmd`` (its record under
+    ``"launcher"``); with
     ``profiled``, by hand as the train phase's profiled run (the step
     profiler and the trainer's torch.profiler trace, read here)."""
+    import torch
+
+    from torchx_tpu_torch.components import dist
+
     extra = ["--profile", "--profile-dir", os.path.join(root, "trace")] if profiled else []
-    target = ["-m", "torchx_tpu_torch.examples.train_llama", "--", "--config", "llama3_1b",
-              "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--steps",
-              str(TRAIN["steps"]), "--kernels", "cuda", "--warmup", "1", "--mesh", "fsdp=-1",
-              "--grad-bucket-mb", str(GANG["bucket_mb"]), "--remat-policy",
-              GANG["remat_policy"], *extra]
+    module = "torchx_tpu_torch.examples.train_llama"
+    train_args = ["--config", "llama3_1b", "--batch", str(TRAIN["batch"]), "--seq",
+                  str(TRAIN["seq"]), "--steps", str(TRAIN["steps"]), "--kernels", "cuda",
+                  "--warmup", "1", "--mesh", "fsdp=-1", "--grad-bucket-mb",
+                  str(GANG["bucket_mb"]), "--remat-policy", GANG["remat_policy"], *extra]
     env = {"TPX_OBS_DIR": os.path.join(root, "obs")}
     if scheduled and not profiled:
-        final, record = _scheduled_spmd(target, env, root, "gang")
+        # the component's entrypoint is ``python``: on the card's machine it
+        # is this interpreter (PERF.md §6, the run path)
+        app = dist.spmd(*train_args, m=module, image=REPO,
+                        gpu=f"h100-{torch.cuda.device_count()}",
+                        env={"PYTHONPATH": REPO, **env}, coordinator_port=0)
+        final, record = _scheduled_spmd(app, root, "gang")
         final["launcher"] = record
         return final
-    final, _ = _spmd([], target, env, "gang")
+    final, _ = _spmd([], ["-m", module, "--", *train_args], env, "gang")
     if profiled:
         with open(final["profile_trace"]) as f:
             events = json.load(f)["traceEvents"]
@@ -2292,8 +2330,8 @@ def phase_gang(train_out: dict, train_profiled: dict, spmd_too: bool = False) ->
     train phase's profiled run: exit 0, every rank's launches the train
     phase's, at a world of one the losses the train phase's (bitwise where
     its two runs were, else within ``GANG_LOSS_RTOL``; on more cards within
-    ``REF_LOSS_RTOL``). The unprofiled run is submitted through the local
-    scheduler; with ``spmd_too`` (the gangspmd phase) it runs once more by
+    ``REF_LOSS_RTOL``). The unprofiled run is submitted through the port's
+    ``Runner`` and ``dist.spmd``; with ``spmd_too`` (the gangspmd phase) it runs once more by
     hand, unprofiled, for its step time beside the scheduler's. B:
     :func:`phase_gang_ranks`."""
     import shutil
@@ -2636,8 +2674,8 @@ def _spmd_drill(args: list[str], target: list[str], term_after: int, limit_s: fl
 
     full = dict(os.environ, PYTHONPATH=REPO, TPX_REPLICA_ID="0", TPX_NUM_REPLICAS="1",
                 TPX_COORDINATOR_HOST="127.0.0.1")
-    cmd = [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", "--port",
-           str(_free_port()), "--timeout", "120", *args, *target]
+    cmd = [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", "--port", "0",
+           "--timeout", "120", *args, *target]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             env=full, cwd=REPO, start_new_session=True)
     lines = []

@@ -1,8 +1,8 @@
 """The port's watch streams (``torchx_tpu_torch.control``): the
 ``TestStateEvent`` and ``TestWatchAdapters`` cases of
-``tests/test_control.py`` run against the copy (the two that launched a job
-through the runner submit it to the port's local scheduler, the runner's
-own layer being ROADMAP queue 1 item 2.3), and the copy held to the JAX
+``tests/test_control.py`` run against the copy (the two that launch a job
+do it through the port's runner, as the JAX cases do), and the copy held
+to the JAX
 package's ``torchx_tpu.control`` on the same seeded inputs: event records,
 the kubectl stream parser and the JobSet state mapping. The rest of that
 file waits for the client, daemon, reconciler and store (item 2.7)."""
@@ -46,12 +46,17 @@ def _registry(tmp_path, monkeypatch):
 
 
 def run_local_echo(msg: str, log_dir: str):
-    """The runner's ``utils.echo`` component, submitted to the port's local
-    scheduler: -> (scheduler, app id)."""
-    sched = lsched.LocalScheduler(session_name="watch-e2e")
-    app = AppDef(name="echo", roles=[Role(name="echo", image="", entrypoint="echo",
-                                          args=[msg])])
-    return sched, sched.submit(app, {"log_dir": log_dir})
+    """The ``utils.echo`` component run through the port's runner on its
+    local scheduler, as the JAX cases run it (``no_lint``: the port's lint
+    gate waits for ROADMAP queue 1 item 2.8): -> (the runner's local
+    scheduler, app id); closing the scheduler closes all the runner holds."""
+    from torchx_tpu_torch.runner.api import get_runner
+    from torchx_tpu_torch.specs.api import parse_app_handle
+
+    runner = get_runner("watch-e2e")
+    handle = runner.run_component("utils.echo", ["--msg", msg], "local",
+                                  {"log_dir": log_dir}, no_lint=True)
+    return runner._scheduler("local"), parse_app_handle(handle)[2]
 
 
 # ---------------------------------------------------------------------------

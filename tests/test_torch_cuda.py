@@ -610,9 +610,8 @@ def _spmd_train(d, steps, tmp_path):
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    port = 29500 + os.getpid() % 1000 + steps
     cmd = [sys.executable, "-m", "torchx_tpu_torch.apps.spmd_main", "--nproc-per-node", "2",
-           "--backend", "gloo", "--port", str(port), "--timeout", "120",
+           "--backend", "gloo", "--port", "0", "--timeout", "120",
            "-m", "torchx_tpu_torch.examples.train_llama", "--", "--device", "cuda",
            "--config", "tiny", "--batch", "4", "--seq", "16", "--steps", str(steps),
            "--mesh", "fsdp=2", "--ckpt-dir", d, "--log-every", "1"]

@@ -129,18 +129,18 @@ PROBE = ["--timeout", "60", "-m", "torchx_tpu_torch.examples.compute_mesh_size"]
 
 
 def test_spmd_main_two_replicas_of_one_worker():
-    port = gang.free_port()
-    procs = [gang.start(["--nproc-per-node", "1", "--port", str(port), *PROBE],
-                        _gang_env(r, 2)) for r in range(2)]
-    for rc, out, err in gang.finish(procs, timeout=120):
+    def launch(port):
+        return [gang.start(["--nproc-per-node", "1", "--port", str(port), *PROBE],
+                           _gang_env(r, 2)) for r in range(2)]
+
+    for rc, out, err in gang.finish_replicas(launch, timeout=120):
         assert rc == 0, err[-2000:]
         assert "computed_mesh_size=2" in out and "global_devices=2" in out
 
 
 def test_spmd_main_one_replica_of_two_workers():
-    port = gang.free_port()
     (rc, out, err), = gang.finish(
-        [gang.start(["--nproc-per-node", "2", "--port", str(port), *PROBE])], timeout=120)
+        [gang.start(["--nproc-per-node", "2", "--port", "0", *PROBE])], timeout=120)
     assert rc == 0, err[-2000:]
     assert out.count("computed_mesh_size=2") == 2
     assert "process=0/2" in out and "process=1/2" in out
@@ -173,7 +173,7 @@ def test_a_failing_worker_ends_the_gang(tmp_path):
     err_file = tmp_path / "err" / "error.json"
     t0 = time.monotonic()
     (rc, out, err), = gang.finish([gang.start(
-        ["--nproc-per-node", "2", "--port", str(gang.free_port()), "--timeout", "60",
+        ["--nproc-per-node", "2", "--port", "0", "--timeout", "60",
          "--script", str(script), "--", str(tmp_path)],
         {"TPX_ERROR_FILE": str(err_file)})], timeout=120)
     assert rc not in (0, None), err[-2000:]
@@ -208,7 +208,7 @@ def test_sigterm_is_forwarded_to_every_worker(tmp_path):
 
     script = tmp_path / "notice.py"
     script.write_text(NOTICE)
-    proc = gang.start(["--nproc-per-node", "2", "--port", str(gang.free_port()),
+    proc = gang.start(["--nproc-per-node", "2", "--port", "0",
                        "--timeout", "60", "--script", str(script), "--", str(tmp_path)])
     deadline = time.monotonic() + 60
     while not all((tmp_path / f"ready{r}").exists() for r in range(2)):
@@ -252,3 +252,31 @@ def test_compute_mesh_size_alone_is_a_world_of_one(capsys, monkeypatch):
 def test_spmd_main_on_the_cpu_needs_a_worker_count():
     (rc, out, err), = gang.finish([gang.start(PROBE)], timeout=120)
     assert rc == 2 and "--nproc-per-node" in err
+
+
+def test_port_zero_workers_join_the_replicas_own_store(tmp_path):
+    """``--port 0`` at one replica of two workers: the replica binds the
+    store itself and hands its port to its workers, which join it as
+    clients; the port it names is not the default one."""
+    probe = tmp_path / "probe.py"
+    probe.write_text("import os, sys, torch.distributed as dist\n"
+                     f"port = os.environ[{tdist.ENV_STORE_PORT!r}]\n"
+                     "sys.stdout.write(f'store_port {port} {dist.get_rank()} "  # one write a line
+                     "{dist.get_world_size()}\\n')\n")
+    (rc, out, err), = gang.finish([gang.start(
+        ["--nproc-per-node", "2", "--port", "0", "--timeout", "60", "--script", str(probe)],
+        {tdist.ENV_STORE_PORT: "1"})], timeout=120)  # an inherited port is never used
+    assert rc == 0, err[-2000:]
+    lines = sorted(line.split()[1:] for line in out.splitlines() if line.startswith("store_port"))
+    assert [rank for _, rank, _ in lines] == ["0", "1"] and {w for *_, w in lines} == {"2"}
+    port = {p for p, _, _ in lines}
+    assert len(port) == 1 and port != {"1"} and port != {str(tsettings.TPX_COORDINATOR_PORT)}
+
+
+def test_port_zero_is_refused_with_two_replicas():
+    """Other hosts could not find a port that replica 0 picked: ``--port
+    0`` with ``TPX_NUM_REPLICAS`` above 1 exits 2 with a message."""
+    (rc, out, err), = gang.finish(
+        [gang.start(["--nproc-per-node", "1", "--port", "0", *PROBE], _gang_env(0, 2))],
+        timeout=60)
+    assert rc == 2 and "--port 0 takes a gang of one replica (2 here)" in err

@@ -217,7 +217,7 @@ def test_a_preemption_notice_stops_every_rank_at_one_step():
     import signal
     import time
 
-    proc = gang.start(["--nproc-per-node", "2", "--port", str(gang.free_port()),
+    proc = gang.start(["--nproc-per-node", "2", "--port", "0",
                        "--timeout", "60", "-m", "torchx_tpu_torch.examples.train_llama",
                        "--", "--device", "cpu", "--config", "tiny", "--mesh", "fsdp=2",
                        "--batch", "4", "--seq", "16", "--steps", "100000"])

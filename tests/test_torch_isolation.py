@@ -114,16 +114,21 @@ def test_checkpoint_modules_are_present():
 
 #: The launcher's layers: helpers, specs, plugins, workspaces; the
 #: control-plane seam, the scheduler contract with the local backend, and
-#: the watch streams.
+#: the watch streams; the runner, the trackers, the in-job result tracker
+#: and the components.
 LAUNCHER_PACKAGES = ("util", "specs", "plugins", "workspace", "resilience", "schedulers",
-                     "control")
+                     "control", "runner", "tracker", "runtime", "components")
+#: The launcher's apps and helpers outside those packages, loaded the same way.
+LAUNCHER_APPS = ("apps.process_monitor", "apps.copy_main", "apps.booth_main",
+                 "apps.serve_main", "notebook")
 LAUNCHER_MODULES = (
     "settings.py", "version.py", "deprecations.py",
     *(f"util/{m}.py" for m in ("__init__", "strings", "colors", "io", "modules", "entrypoints",
-                               "types", "times", "jsonl", "registry", "session")),
+                               "types", "times", "jsonl", "registry", "session",
+                               "log_tee_helpers")),
     *(f"specs/{m}.py" for m in ("__init__", "api", "builders", "file_linter", "overlays",
                                 "serialize", "named_resources_generic", "named_resources_gcp",
-                                "named_resources_gpu")),
+                                "named_resources_gpu", "finder")),
     "plugins/__init__.py", "plugins/_registration.py", "plugins/_registry.py",
     "workspace/__init__.py", "workspace/api.py", "workspace/dir_workspace.py",
     "workspace/docker_workspace.py",
@@ -132,17 +137,28 @@ LAUNCHER_MODULES = (
     *(f"schedulers/{m}.py" for m in ("__init__", "api", "ids", "streams", "structured_opts",
                                      "devices", "local_scheduler")),
     "control/__init__.py", "control/events.py", "control/watch.py",
+    *(f"runner/{m}.py" for m in ("__init__", "api", "config", "describe_cache")),
+    *(f"runner/events/{m}.py" for m in ("__init__", "api", "handlers")),
+    "tracker/__init__.py", "tracker/api.py", "tracker/mlflow.py", "tracker/backend/__init__.py",
+    "tracker/backend/fsspec.py",
+    "runtime/__init__.py", "runtime/tracking/__init__.py", "runtime/tracking/api.py",
+    *(f"components/{m}.py" for m in ("__init__", "dist", "structured_arg", "serve", "utils",
+                                     "metrics", "train", "interpret", "component_test_base",
+                                     "integration_tests")),
 )
+#: The apps and helpers of ``LAUNCHER_APPS``, as files.
+LAUNCHER_APP_FILES = tuple(m.replace(".", "/") + ".py" for m in LAUNCHER_APPS)
 
 
 def test_launcher_modules_are_present():
     sources = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in p.parents}
-    assert set(LAUNCHER_MODULES) <= sources
+    assert set(LAUNCHER_MODULES) | set(LAUNCHER_APP_FILES) <= sources
     # the TPU slice catalog has the GPU one in its place
     assert "specs/named_resources_tpu.py" not in sources
     # a remote backend or a control-plane service comes with its own layer
-    assert not {s for s in sources if s.startswith(("schedulers/", "control/",
-                                                    "resilience/"))} - set(LAUNCHER_MODULES)
+    assert not {s for s in sources if s.startswith(("schedulers/", "control/", "resilience/",
+                                                    "runner/", "tracker/", "runtime/",
+                                                    "components/"))} - set(LAUNCHER_MODULES)
 
 
 def test_launcher_modules_load_no_torch():
@@ -156,9 +172,12 @@ def test_launcher_modules_load_no_torch():
         "    mod = importlib.import_module('torchx_tpu_torch.' + pkg)\n"
         "    names += [mod.__name__] + [m.name for m in pkgutil.walk_packages("
         "mod.__path__, mod.__name__ + '.')]\n"
+        f"names += ['torchx_tpu_torch.' + m for m in {LAUNCHER_APPS!r}]\n"
         "for n in names: importlib.import_module(n)\n"
         "from torchx_tpu_torch.specs import named_resources\n"
         "named_resources['h100-16']\n"
+        "from torchx_tpu_torch.specs.finder import get_components\n"
+        "assert 'dist.spmd' in get_components()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('torch', 'jax', 'torchx_tpu', 'triton'))\n"
         "print(len(names), bad)\n"
@@ -168,7 +187,7 @@ def test_launcher_modules_load_no_torch():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) == len(LAUNCHER_MODULES)
+    assert int(proc.stdout.split()[0]) == len(LAUNCHER_MODULES) + len(LAUNCHER_APPS)
 
 
 def test_a_jax_entry_point_is_not_loaded(tmp_path, monkeypatch):
@@ -393,13 +412,15 @@ def test_chip_smoke_specs_phase(monkeypatch, capsys):
 
 
 def test_chip_smoke_local_phase(monkeypatch, capsys, tmp_path):
-    """The local phase and gang A's scheduled launch, rehearsed on the CPU
-    with one card faked: a tiny trainer submitted through the port's local
-    scheduler ends SUCCEEDED with its replica given card "0" and a first
-    step line seen; the phase line counts the card, and the dryrun asking
-    one card more is refused; a count that differs from torch's fails."""
+    """The local phase and gang A's launch through the port's ``Runner`` and
+    ``dist.spmd``, rehearsed on the CPU with one card faked: a tiny trainer
+    submitted as the component's app ends SUCCEEDED with its replica given
+    card "0" and a first step line seen; the phase line counts the card,
+    and the dryrun asking one card more is refused; a count that differs
+    from torch's fails."""
     import importlib.util
 
+    from torchx_tpu_torch.components import dist
     from torchx_tpu_torch.schedulers import local_scheduler
 
     spec = importlib.util.spec_from_file_location("chip_smoke_local", REPO / "chip_smoke.py")
@@ -408,15 +429,30 @@ def test_chip_smoke_local_phase(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(local_scheduler, "_registry_path", lambda: str(tmp_path / "registry"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
-    final, record = smoke._scheduled_spmd(
-        ["--nproc-per-node", "1", "-m", "torchx_tpu_torch.examples.train_llama", "--",
-         "--device", "cpu", "--config", "tiny", "--steps", "2", "--batch", "2", "--seq", "16"],
-        {"TPX_OBS_DIR": str(tmp_path / "obs")}, str(tmp_path), "gang", timeout_s=120)
+    monkeypatch.delenv("TPX_NO_LINT", raising=False)  # the launch passes no_lint itself
+    app = dist.spmd("--device", "cpu", "--config", "tiny", "--steps", "2", "--batch", "2",
+                    "--seq", "16", m="torchx_tpu_torch.examples.train_llama", image=str(REPO),
+                    gpu="h100-1", coordinator_port=0,
+                    env={"PYTHONPATH": str(REPO), "TPX_OBS_DIR": str(tmp_path / "obs")})
+    args = app.roles[0].args  # the faked card is no count for spmd_main here
+    args[args.index("-m", 2):args.index("-m", 2)] = ["--nproc-per-node", "1"]
+    final, record = smoke._scheduled_spmd(app, str(tmp_path), "gang", timeout_s=120)
     assert final["final_step"] == 2 and final["world"] == 1
     assert (record["state"], record["gpu"], record["cuda_visible_devices"]) == \
         ("SUCCEEDED", "h100-1", "0")
+    assert record["component"] == "dist.spmd"
+    assert record["app_handle"] == f"local://chip_smoke/{record['app_id']}"
     assert 0 < record["submit_to_first_step_s"] <= record["submit_to_succeeded_s"]
+    assert record["launch_breakdown_s"]["first_step"] > 0
+    marks = record["launch_marks_s"]  # the job ran under the runner's trace
+    assert list(marks) == ["spmd_main_start", "bootstrap_start", "group_up", "target_exec",
+                           "train_start", "first_step"]
+    assert 0 < marks["spmd_main_start"] < marks["bootstrap_start"] <= marks["group_up"] \
+        <= marks["target_exec"] < marks["train_start"] < marks["first_step"] \
+        < record["submit_to_succeeded_s"]
     assert (tmp_path / "registry").read_text().strip() == ""  # deleted after reading
+    # the runner's own trace went under the run's root, not the session's
+    assert list((tmp_path / "obs").glob("*/trace.jsonl"))
     capsys.readouterr()
     smoke.phase_local({"launcher": record}, "NVIDIA H100 80GB HBM3, 700.00 W")
     line = json.loads(capsys.readouterr().out.splitlines()[0])

@@ -92,15 +92,21 @@ class TestElasticRestart:
     def elastic_script(self, ckpt_dir: str) -> str:
         # replica 2 "is preempted" (exit 1) before the checkpoint reaches
         # step 5; after the elastic restart the world is smaller, replica 2
-        # no longer exists, and survivors resume from the checkpoint
+        # no longer exists, and survivors resume from the checkpoint.
+        # Replica 2 writes step 5 only once replica 0 has read its start,
+        # and replica 0 writes step 10 only on the attempt that resumed
+        # (start >= 5): a first attempt that the scheduler has not ended
+        # yet never leaves the restart a later checkpoint to read
         return (
             f"CK={ckpt_dir}/progress; start=0; "
             '[ -f "$CK" ] && start=$(cat "$CK"); '
+            '[ "$TPX_REPLICA_ID" = "0" ] && touch "$CK.read0"; '
             'if [ "$TPX_REPLICA_ID" = "2" ] && [ "$start" -lt 5 ]; then '
+            'while [ ! -f "$CK.read0" ]; do sleep 0.01; done; '
             'echo 5 > "$CK"; exit 1; fi; '
             'echo "world=$TPX_NUM_REPLICAS start=$start"; '
             "sleep 0.5; "
-            '[ "$TPX_REPLICA_ID" = "0" ] && echo 10 > "$CK"; exit 0'
+            '[ "$TPX_REPLICA_ID" = "0" ] && [ "$start" -ge 5 ] && echo 10 > "$CK"; exit 0'
         )
 
     def test_shrink_restart_resumes_from_checkpoint(self, sched, tmp_path):

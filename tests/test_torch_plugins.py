@@ -1,8 +1,8 @@
 """The port's plugin registry (``torchx_tpu_torch.plugins``): the cases of
 ``tests/test_tracker_plugins.py``'s ``TestPlugins`` run against the copy,
-with the port's own entry-point groups and namespace package. The parts
-of those cases that need an unported layer (the tracker layer) wait for
-it: ROADMAP queue 1 item 2.3."""
+with the port's own entry-point groups and namespace package. Of its two
+tracker cases, the registry halves run here and the ``trackers_from_environ``
+halves in ``tests/test_torch_tracker.py``."""
 
 import sys
 
@@ -105,7 +105,7 @@ class TestPlugins:
         assert get_plugin_trackers()["myorg:prod"]("cfg") == ("tracker", "cfg")
 
     def test_register_tracker_reachable_from_env(self):
-        # the registry half; reading $TPX_TRACKERS is the tracker layer's
+        # the registry half; reading $TPX_TRACKERS: tests/test_torch_tracker.py
         @register.tracker("custom_t")
         def create(config):  # noqa: ANN001
             return config

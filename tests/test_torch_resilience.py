@@ -6,10 +6,11 @@ text, process and exception classifies to, a policy's backoff sequence
 under one ``random.Random`` seed, and ``resilient_call``'s attempts, sleeps
 and metric increments under one fault plan.
 
-That file's ``TestPollMissBudget`` waits for the runner (ROADMAP queue 1
-item 2.3), ``TestAttemptLedger``, ``TestSupervisorResume`` and
-``TestAcceptance`` for the supervisor (item 2.4), ``TestResilienceRules``
-for the analyzer (item 2.8).
+That file's ``TestPollMissBudget`` runs against the port's runner in
+``tests/test_torch_runner.py``; ``TestAttemptLedger``,
+``TestSupervisorResume`` and ``TestAcceptance`` wait for the supervisor
+(ROADMAP queue 1 item 2.4), ``TestResilienceRules`` for the analyzer
+(item 2.8).
 """
 
 import random

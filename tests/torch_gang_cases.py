@@ -349,6 +349,18 @@ def finish(procs: list, timeout: float = 240.0) -> list:
     return res
 
 
+def finish_replicas(launch, timeout: float = 240.0, attempts: int = 3) -> list:
+    """:func:`finish` of ``launch(port)``'s processes, the replicas of one
+    gang on a port from :func:`free_port`, launched again on a fresh port
+    when a replica's stderr names ``EADDRINUSE`` (another process took the
+    port between its choice and its bind), at most ``attempts`` times."""
+    for attempt in range(attempts):
+        res = finish(launch(free_port()), timeout)
+        if attempt == attempts - 1 or not any("EADDRINUSE" in err for _, _, err in res):
+            return res
+    return res
+
+
 def run_cases(tmp, nproc: int, cases: list, env: dict = None):  # noqa: ANN001, ANN201
     """Start a gang of ``nproc`` ranks on ``cases`` (``env`` added to the
     environment); -> the Popen (read it with :func:`finish`, then
@@ -358,7 +370,7 @@ def run_cases(tmp, nproc: int, cases: list, env: dict = None):  # noqa: ANN001, 
     job = os.path.join(str(tmp), f"job{nproc}.json")
     with open(job, "w") as f:
         json.dump({"out": out, "cases": cases}, f)
-    return start(["--nproc-per-node", str(nproc), "--port", str(free_port()),
+    return start(["--nproc-per-node", str(nproc), "--port", "0",
                   "--timeout", "60", "--script", os.path.join(REPO, "tests",
                                                               "torch_gang_cases.py"),
                   "--", job], env)

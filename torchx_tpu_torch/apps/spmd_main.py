@@ -19,6 +19,13 @@ forwarded to every worker; no worker outlives this process.
     python -m torchx_tpu_torch.apps.spmd_main [--port P] [--nproc-per-node N] \\
         (--script S | -m MOD) [-- args...]
 
+In a gang of more than one rank, replica 0's process hosts the
+rendezvous store at ``--port`` and every worker joins it as a client.
+``--port 0`` (a gang of one replica only) lets the system pick the port,
+which this process reads back and hands to its workers, as ``dist.ddp``'s
+``--rdzv_endpoint localhost:0`` does for one node, so that no other process
+can take the port between its choice and its bind.
+
 Divergence from the JAX bootstrap: the process group is initialized at a
 world of one too, since torch's collectives need a group (JAX skips
 ``jax.distributed`` for one process).
@@ -123,7 +130,7 @@ def run_worker(args: argparse.Namespace, rest: list[str]) -> None:
             if torch.cuda.is_available():
                 torch.cuda.set_device(distributed.local_rank() % torch.cuda.device_count())
             if not args.no_init:
-                distributed.init_from_env(args.port, args.backend, args.timeout)
+                distributed.init_from_env(args.backend, args.timeout)
         sys.argv = [args.script or args.module, *rest]
         if os.environ.get(settings.ENV_TPX_TRACE_ID):
             # instantaneous marker: the group is up, user code starts now
@@ -250,7 +257,11 @@ def _collect_error_file(error_file: str, nproc: int, failed: Optional[tuple[int,
 def main(argv: Optional[list[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(prog="spmd_main", description=__doc__)
-    parser.add_argument("--port", type=int, default=settings.TPX_COORDINATOR_PORT)
+    parser.add_argument(
+        "--port", type=int, default=settings.TPX_COORDINATOR_PORT,
+        help="the rendezvous port on replica 0 (0: any free port, for a gang "
+             "of one replica)",
+    )
     parser.add_argument("--no-init", action="store_true", help="skip the process group")
     parser.add_argument(
         "--nproc-per-node", type=int, default=None,
@@ -276,6 +287,11 @@ def main(argv: Optional[list[str]] = None) -> None:
     if distributed.ENV_LOCAL_RANK in os.environ:  # a worker of this replica
         run_worker(args, rest)
         return
+    # a store port is this process's to give, never inherited
+    os.environ.pop(distributed.ENV_STORE_PORT, None)
+    if args.port == 0 and distributed.num_replicas() > 1:
+        parser.error(f"--port 0 takes a gang of one replica ({distributed.num_replicas()} "
+                     "here): the other hosts could not find the port")
     import torch
 
     nproc = args.nproc_per_node
@@ -290,6 +306,11 @@ def main(argv: Optional[list[str]] = None) -> None:
         parser.error(
             f"NCCL takes one card a rank: {nproc} workers, {torch.cuda.device_count()} cards"
         )
+    store = None  # held until every worker has ended
+    if distributed.num_replicas() * nproc > 1 and not args.no_init:
+        if distributed.replica_id() == 0:
+            store = distributed.host_store(args.port, args.timeout)
+        os.environ[distributed.ENV_STORE_PORT] = str(store.port if store else args.port)
     if nproc == 1:
         os.environ[distributed.ENV_LOCAL_RANK] = "0"
         os.environ[distributed.ENV_LOCAL_WORLD_SIZE] = "1"

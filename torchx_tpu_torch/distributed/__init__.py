@@ -36,6 +36,11 @@ from torchx_tpu_torch import settings
 ENV_LOCAL_RANK = "LOCAL_RANK"
 ENV_LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
 
+#: The port of the gang's rendezvous store on the coordinator, which replica
+#: 0's ``spmd_main`` hosts (:func:`host_store`). ``spmd_main`` sets it for its
+#: workers in every gang of more than one rank.
+ENV_STORE_PORT = "TPX_TORCH_STORE_PORT"
+
 #: Seconds a collective (and the rendezvous) may wait for its peers before
 #: it raises, so that a rank that died leaves no peer hanging for good.
 DEFAULT_TIMEOUT_S = 600.0
@@ -105,7 +110,6 @@ def default_backend() -> str:
 
 
 def init_from_env(
-    port: Optional[int] = None,
     backend: Optional[str] = None,
     timeout_s: float = DEFAULT_TIMEOUT_S,
 ) -> None:
@@ -113,26 +117,41 @@ def init_from_env(
     a no-op where a group is up already.
 
     ``backend`` overrides :func:`default_backend`. A world of 1 rendezvouses
-    through an in-process store; a larger one through a TCP store on the
-    coordinator at ``port`` (default :data:`settings.TPX_COORDINATOR_PORT`),
-    which rank 0 hosts and the others wait for up to ``timeout_s``."""
+    through an in-process store. A larger one joins, as a client, the TCP
+    store that replica 0's ``spmd_main`` hosts on the coordinator at
+    ``$TPX_TORCH_STORE_PORT`` (:func:`host_store`), waiting for it up to
+    ``timeout_s``; outside ``spmd_main`` such a world is refused."""
     if dist.is_initialized():
         return
     rank, world = world_layout()
-    timeout = datetime.timedelta(seconds=timeout_s)
     backend = backend or default_backend()
+    timeout = datetime.timedelta(seconds=timeout_s)
     if world == 1:
         dist.init_process_group(
             backend, store=dist.HashStore(), rank=0, world_size=1, timeout=timeout
         )
         return
-    dist.init_process_group(
-        backend,
-        init_method=f"tcp://{coordinator_address(port)}",
-        rank=rank,
-        world_size=world,
-        timeout=timeout,
-    )
+    store_port = os.environ.get(ENV_STORE_PORT)
+    if not store_port:
+        raise RuntimeError(
+            f"a gang of {world} ranks rendezvouses through the store that replica 0's "
+            "spmd_main hosts: launch it with torchx_tpu_torch.apps.spmd_main"
+        )
+    store = dist.TCPStore(gang_info()[2], int(store_port), world, is_master=False,
+                          timeout=timeout)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            timeout=timeout)
+
+
+def host_store(port: int, timeout_s: float = DEFAULT_TIMEOUT_S) -> "dist.TCPStore":
+    """The gang's rendezvous store, hosted by replica 0's ``spmd_main`` on
+    ``port`` (0: a port the system picks, read back as ``.port``), which
+    hands the bound port to its workers as ``$TPX_TORCH_STORE_PORT``. At
+    port 0 nothing is chosen first and bound later, so no other process can
+    take the port in between."""
+    return dist.TCPStore("127.0.0.1", port, None, is_master=True,
+                         timeout=datetime.timedelta(seconds=timeout_s),
+                         wait_for_workers=False)
 
 
 def world_device_count() -> int:

@@ -6,7 +6,9 @@ the engine, the prefix cache and the KV transfer emit) and of its
 training instruments (the launch and step histograms the trainer observes
 and the ``tpx_profile_*`` gauges the step profiler exports), and of the
 launcher's control-plane instruments (the resilient call seam's calls,
-retries and breaker state, the watch streams' events).
+retries and breaker state, the watch streams' events) and the runner's
+(API calls and latency, wait polls and wake-ups, submit latency, the
+describe cache's hits and misses).
 Counters, gauges and fixed-bucket histograms, labeled and thread-safe;
 :meth:`MetricsRegistry.render` emits the Prometheus text exposition
 format that ``generate_server``'s ``/metricz`` serves.
@@ -464,4 +466,55 @@ WATCH_EVENTS = REGISTRY.counter(
     "tpx_watch_events_total",
     "scheduler watch-stream state events observed",
     ("scheduler", "source"),
+)
+
+# -- the runner (names, help and labels as the JAX package's) ---------------
+
+#: Runner API call latency (seconds) by api + scheduler.
+API_LATENCY = REGISTRY.histogram(
+    "tpx_api_latency_seconds",
+    "Runner API call latency in seconds",
+    ("api", "scheduler"),
+)
+
+#: Runner API call count by api + scheduler + outcome ("ok"/"error").
+API_CALLS = REGISTRY.counter(
+    "tpx_api_calls_total",
+    "Runner API calls",
+    ("api", "scheduler", "status"),
+)
+
+#: status polls issued by Runner.wait, by scheduler.
+WAIT_POLLS = REGISTRY.counter(
+    "tpx_wait_polls_total",
+    "status polls issued while waiting for a terminal state",
+    ("scheduler",),
+)
+
+#: scheduler submit latency: the schedule call to its app id.
+LAUNCH_SECONDS = REGISTRY.histogram(
+    "tpx_launch_seconds",
+    "scheduler submit latency (schedule call to app id) in seconds",
+    ("scheduler",),
+)
+
+#: Runner describe-cache hits (served without a backend call).
+DESCRIBE_CACHE_HITS = REGISTRY.counter(
+    "tpx_describe_cache_hits_total",
+    "describe calls served from the Runner describe cache",
+    ("scheduler",),
+)
+
+#: Runner describe-cache misses (a real backend describe was issued).
+DESCRIBE_CACHE_MISSES = REGISTRY.counter(
+    "tpx_describe_cache_misses_total",
+    "describe calls that went through to the scheduler backend",
+    ("scheduler",),
+)
+
+#: wait() waiters woken by a watch event before their poll interval.
+WAITER_WAKEUPS = REGISTRY.counter(
+    "tpx_waiter_wakeups_total",
+    "wait() waiters woken by a watch event before their poll interval",
+    ("scheduler",),
 )

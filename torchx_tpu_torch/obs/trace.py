@@ -1,10 +1,12 @@
-"""Spans for the serving path.
+"""Spans for the serving and launch paths.
 
-The port's copy of what the engine and the server use of
+The port's copy of what the engine, the server and the runner use of
 :mod:`torchx_tpu.obs.trace`: :func:`span` times a block as one
-:class:`Span`, :func:`heartbeat` emits a zero-duration marker, and
-:func:`trace_context` / :func:`extract_headers` adopt a trace context that
-arrived over HTTP headers or in a KV payload. Spans carrying one
+:class:`Span` (:func:`start_span` / :func:`end_span` where a ``with``
+block cannot nest), :func:`heartbeat` emits a zero-duration marker,
+:func:`inject_env` hands the current context to a job's environment at
+submit, and :func:`trace_context` / :func:`extract_headers` adopt a trace
+context that arrived over HTTP headers or in a KV payload. Spans carrying one
 ``trace_id`` form a trace; ``parent_span_id`` links them into a tree. A
 ``contextvars.ContextVar`` holds the active span, so nested spans parent
 themselves; a process whose environment carries ``$TPX_TRACE_ID`` /
@@ -102,15 +104,30 @@ def current_span_id() -> Optional[str]:
     return os.environ.get(ENV_TPX_PARENT_SPAN) or None
 
 
-@contextmanager
-def span(name: str, session: str = "", **attrs: Any) -> Iterator[Optional[Span]]:
-    """Time a block as one span, parented on the current context (or the
-    inherited environment context at the root), tagged with the launcher
-    ``session`` that opened it. Yields the open span, or None when tracing
-    is off; marked ERROR if the block raises."""
+def inject_env(env: dict[str, str], force: bool = False) -> None:
+    """Write the current trace context into a job's environment (the
+    submit-time hook: ``Runner.dryrun`` calls it on every role). The trace
+    id is kept where the environment has one already, unless ``force``; the
+    parent span is always refreshed. No-op with tracing off."""
     if not tracing_enabled():
-        yield None
         return
+    trace_id, span_id = current_trace_id(), current_span_id()
+    if trace_id:
+        if force:
+            env[ENV_TPX_TRACE_ID] = trace_id
+        else:
+            env.setdefault(ENV_TPX_TRACE_ID, trace_id)
+    if span_id:
+        env[ENV_TPX_PARENT_SPAN] = span_id
+
+
+def start_span(name: str, session: str = "", **attrs: Any) -> tuple[Optional[Span], Any]:
+    """Open a span and make it current; -> ``(span, token)`` for
+    :func:`end_span`, ``(None, None)`` with tracing off. For instrumentation
+    that cannot nest a ``with`` block (``runner.events.log_event``);
+    prefer :func:`span`."""
+    if not tracing_enabled():
+        return None, None
     parent = _CURRENT.get()
     if parent is not None:
         trace_id, parent_id = parent.trace_id, parent.span_id or None
@@ -126,17 +143,36 @@ def span(name: str, session: str = "", **attrs: Any) -> Iterator[Optional[Span]]
         attrs={k: v for k, v in attrs.items() if v is not None},
         session=session,
     )
-    token = _CURRENT.set(sp)
+    return sp, _CURRENT.set(sp)
+
+
+def end_span(span_: Optional[Span], token: Any, exc: Optional[BaseException] = None) -> None:
+    """Close a span of :func:`start_span`: restore the previous context,
+    stamp the end, mark ERROR on ``exc``, and emit it."""
+    if span_ is None:
+        return
+    _CURRENT.reset(token)
+    span_.end_epoch_usec = epoch_usec()
+    if exc is not None:
+        span_.status = "ERROR"
+        span_.attrs.setdefault("exception", f"{type(exc).__name__}: {exc}")
+    SPAN_LOGGER.info(span_.serialize())
+
+
+@contextmanager
+def span(name: str, session: str = "", **attrs: Any) -> Iterator[Optional[Span]]:
+    """Time a block as one span, parented on the current context (or the
+    inherited environment context at the root), tagged with the launcher
+    ``session`` that opened it. Yields the open span, or None when tracing
+    is off; marked ERROR if the block raises."""
+    sp, token = start_span(name, session=session, **attrs)
     try:
         yield sp
     except BaseException as e:
-        sp.status = "ERROR"
-        sp.attrs.setdefault("exception", f"{type(e).__name__}: {e}")
+        end_span(sp, token, exc=e)
         raise
-    finally:
-        _CURRENT.reset(token)
-        sp.end_epoch_usec = epoch_usec()
-        SPAN_LOGGER.info(sp.serialize())
+    else:
+        end_span(sp, token)
 
 
 @contextmanager
