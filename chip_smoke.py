@@ -104,7 +104,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    gradient norms within 5e-2 (the reference phase's): four ranks on NCCL
    as ``dp=2,fsdp=2`` with four cards or more, two as ``fsdp=2`` on NCCL
    with two or three, else two on gloo sharing the one card (NCCL refuses
-   two ranks on one card). The profiled A run prints the step profiler's
+   two ranks on one card); B checkpoints its last step and each rank
+   leaves its final state, which the gangckpt phase restores. The
+   profiled A run prints the step profiler's
    modeled ``grad_sync`` seconds a step per data axis (the cost model's
    bytes over NVLink's rate; none at a world of one) beside the NCCL
    device time it measures.
@@ -112,16 +114,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and depth, 16 layers, one worker a card on NCCL, ``--mesh fsdp=-1``)
    with ``--ckpt-dir``, SIGTERM to ``spmd_main`` after its second step
    line: exit 0, preempted, the step it saved passing
-   ``verify_checkpoint``; a gang resumed on that step runs the rest of six
-   steps, whose losses are the gang phase's uninterrupted ones (bitwise
-   where the drill's own steps were, else within 1e-3). With four cards
+   ``verify_checkpoint``; a supervised session resumes on that step as a
+   user would (``tpx-torch supervise`` of ``dist.spmd`` on the local
+   scheduler, resuming from a hard-link copy of the directory): its first
+   attempt is SIGKILLed, its replica's process group, after its first
+   step line, is classified PREEMPTED, and is resubmitted from the step
+   after the backoff; the second runs the rest of six steps. The ledger
+   reads submitted, resubmitting from the step, submitted, finished
+   SUCCEEDED; the first attempt's first loss and the second's losses are
+   the gang phase's uninterrupted ones (bitwise where the drill's own
+   steps were, else within 1e-3); the second resumed from the step with
+   its steps' launches; the gang monitor, reading the job's heartbeats and
+   leases, gave no verdict. Prints the ledger, the seconds from the kill
+   to PREEMPTED, the backoff, the kill to the second attempt's first step
+   and that launch's split. With four cards
    or more the step is also restored at ``fsdp=2`` on two of them, every
    restored block bitwise its half of the whole tensor that a reader
    without a mesh assembles from the step's files, and continued (losses
-   within 1e-2: another world sums in another order). B: two ranks on
-   gloo sharing the card train llama3_1b cut to 2 layers at ``fsdp=2`` and
-   save a file a rank; the step is restored onto the card at a world of
-   one, every entry bitwise the two ranks' final state. Prints each rank's
+   within 1e-2: another world sums in another order). B: two ranks train
+   llama3_1b cut to 2 layers at ``fsdp=2`` and save a file a rank (the
+   gang phase's B launch where it ran so, two gloo ranks sharing the one
+   card, since the supervised resume joined the phase; else a launch of
+   two gloo ranks of its own); the step is restored onto the card at a
+   world of one, every entry bitwise the two ranks' final state. Prints each rank's
    host buffer (pinned) bytes, snapshot stall, serialize / fsync / digest
    seconds and rank 0's wait for the other ranks' files
    (``commit_wait_s``; the others' wait for its commit, ``commit_s``), the
@@ -274,13 +289,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and two backward products; 7 projections a layer under ``all``, 3 under
    ``ffn``); step time, tokens/s, MFU (bf16 formula) and peak memory
    beside the bf16 run's. int8 serve: ``generate_server`` in-process with
-   llama3_8b at full width cut to 16 of its 32 layers (4.54 B parameters,
-   seeded weights; full depth before the remat phase), the serve phase's burst, first
+   llama3_8b at full width cut to 8 of its 32 layers (seeded weights; 16
+   layers, 4.54 B parameters, before the gangckpt phase's supervised resume,
+   full depth before the remat phase), the serve phase's burst, first
    bf16 and then ``--int8``, each freed before the next: every projection
    int8 with f32 scales and the embedding bf16; resident parameter bytes
    (allocated after setup less the KV pools) within 1% of the reckoning
-   (9.08 GB, 5.07 GB); each decode step and prefill chunk of the burst
-   launches the int8-weight matmul 7 x 16 + 1 times and the plain int8
+   (9.08 GB, 5.07 GB at 16 layers); each decode step and prefill chunk of
+   the burst launches the int8-weight matmul 7 x layers + 1 times and the plain int8
    path never runs on the card; the int8 greedy tokens teacher-forced
    through the plain int8 path in the engine's chunks, at least 90% of them
    within 5e-2 of
@@ -2244,18 +2260,12 @@ def _scheduled_spmd(app, root: str, phase: str,  # noqa: ANN001
     return final, record
 
 
-def _launch_marks(obs_root: str, t_submit: float) -> dict:
-    """Seconds from submit (epoch ``t_submit``) to each mark of rank 0's
-    launch in the job's trace (the runner hands the job its trace context,
-    so ``spmd_main`` and the trainer write their spans under ``obs_root``):
-    the ``spmd_main`` process's start (its ``job.bootstrap`` span's start
-    less the ``import_s`` it spent importing), its card and process group
-    (the span's start and end), the target's start (``job.exec``), the
-    trainer's first stage (``launch.backend_init``) and its first step
-    (``job.first_step``)."""
+def _trace_spans(obs_root: str, since: float = 0.0) -> list[dict]:
+    """Every span in the traces under ``obs_root`` (one ``trace.jsonl`` a
+    session) that started at epoch ``since`` or later, in file order."""
     import glob
 
-    spans: dict[str, dict] = {}
+    out = []
     for path in glob.glob(os.path.join(obs_root, "*", "trace.jsonl")):
         with open(path, errors="replace") as f:
             for line in f:
@@ -2263,10 +2273,28 @@ def _launch_marks(obs_root: str, t_submit: float) -> dict:
                     rec = json.loads(line)
                 except ValueError:
                     continue
-                name = rec.get("name", "")
-                if rec.get("kind") == "span" and name.startswith(("job.", "launch.")) \
-                        and rec.get("attrs", {}).get("local_rank", 0) == 0:
-                    spans.setdefault(name, rec)  # rank 0's, the first of each
+                if rec.get("kind") == "span" and \
+                        rec.get("start_epoch_usec", 0) / 1e6 >= since:
+                    out.append(rec)
+    return out
+
+
+def _launch_marks(obs_root: str, t_submit: float) -> dict:
+    """Seconds from submit (epoch ``t_submit``) to each mark of rank 0's
+    launch in the job's trace (the runner hands the job its trace context,
+    so ``spmd_main`` and the trainer write their spans under ``obs_root``;
+    spans from before the submit, an earlier attempt's, are not read):
+    the ``spmd_main`` process's start (its ``job.bootstrap`` span's start
+    less the ``import_s`` it spent importing), its card and process group
+    (the span's start and end), the target's start (``job.exec``), the
+    trainer's first stage (``launch.backend_init``) and its first step
+    (``job.first_step``)."""
+    spans: dict[str, dict] = {}
+    for rec in _trace_spans(obs_root, since=t_submit):
+        name = rec.get("name", "")
+        if name.startswith(("job.", "launch.")) and \
+                rec.get("attrs", {}).get("local_rank", 0) == 0:
+            spans.setdefault(name, rec)  # rank 0's, the first of each
     marks = {}
     boot = spans.get("job.bootstrap")
     if boot is not None:
@@ -2411,7 +2439,8 @@ def phase_gang(train_out: dict, train_profiled: dict, spmd_too: bool = False) ->
         if final["world"] > 1 and rel > REF_LOSS_RTOL:  # another summation order
             fail("gang", f"world-{final['world']} losses {final['losses']} against the"
                  f" train phase's {train_out['losses']}")
-    return {"A": res, "A_final": plain, "B": phase_gang_ranks(cards)}
+    return {"A": res, "A_final": plain,
+            "B": phase_gang_ranks(cards, tempfile.mkdtemp(prefix="tpx_gang_b_"))}
 
 
 def phase_local(gang_a: dict, card: str) -> dict:
@@ -2501,11 +2530,44 @@ def phase_gang_parts() -> None:
 
 #: B's script: the trainer's module as ``__main__`` with llama3_1b cut to
 #: GANG["b_layers"] layers (the ckpt drill's way of cutting the preset).
-_B_SCRIPT = """import functools, runpy
+#: B's script, the gang phase's and the gangckpt phase's: the trainer on
+#: llama3_1b cut to ``layers`` layers, its ranks over ``mesh``, checkpointing
+#: into ``<out>/ck`` (the forced save of its last step); each rank also
+#: leaves its final state (its shards) in ``<out>/rank<r>.pt`` to hold a
+#: restore to.
+_B_SCRIPT = """import json, os, sys
+import torch, torch.distributed as dist
+from torchx_tpu_torch.examples import train_llama
 from torchx_tpu_torch.models import llama
-llama.CONFIGS['llama3_1b'] = functools.partial(llama.llama3_1b, n_layers={layers})
-runpy.run_module('torchx_tpu_torch.examples.train_llama', run_name='__main__', alter_sys=True)
+out = sys.argv[1]
+
+def dump(event, state):
+    if event == "final":
+        torch.save({{k: v.detach().cpu().clone() for k, v in state.items()}},
+                   os.path.join(out, f"rank{{dist.get_rank()}}.pt"))
+
+res = train_llama.train(llama.llama3_1b(n_layers={layers}), {batch}, {seq}, {steps},
+                        warmup=1, kernels="cuda", device="cuda", log_every=0,
+                        mesh="{mesh}", grad_bucket_mb={bucket_mb},
+                        ckpt_dir=os.path.join(out, "ck"), on_state=dump)
+if dist.get_rank() == 0:
+    print("final:", json.dumps(res), flush=True)
 """
+
+
+def _b_save(out: str, layers: int, steps: int, ranks: int, backend: str, mesh: str,
+            phase: str) -> dict:
+    """B's launch (``_B_SCRIPT``) into ``out``: ``ranks`` ranks on ``backend``
+    over ``mesh``, llama3_1b at ``layers`` layers for ``steps`` steps on the
+    train phase's batch. -> rank 0's final summary."""
+    os.makedirs(out, exist_ok=True)
+    script = os.path.join(out, "b_train.py")
+    with open(script, "w") as f:
+        f.write(_B_SCRIPT.format(layers=layers, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                                 steps=steps, mesh=mesh, bucket_mb=GANG["bucket_mb"]))
+    final, _ = _spmd(["--nproc-per-node", str(ranks), "--backend", backend],
+                     ["--script", script, "--", out], {}, phase)
+    return final
 
 
 def b_layout(cards: int) -> tuple[int, str, str]:
@@ -2521,14 +2583,14 @@ def b_layout(cards: int) -> tuple[int, str, str]:
     return 2, "nccl" if cards >= 2 else "gloo", "fsdp=2"
 
 
-def phase_gang_ranks(cards: int) -> dict:
+def phase_gang_ranks(cards: int, out: str) -> dict:
     """B: several ranks (:func:`b_layout`, ``--grad-bucket-mb 32``) train
     llama3_1b cut to 2 layers on the train phase's global batch, against
     ``train`` in this process: losses within REF_LOSS_RTOL, gradient norms
-    within REF_GRAD_NORM_RTOL, every rank's launches one process's."""
-    import shutil
-    import tempfile
-
+    within REF_GRAD_NORM_RTOL, every rank's launches one process's. Its
+    last step's checkpoint and each rank's final state stay in ``out``
+    (:func:`_b_save`) for the gangckpt phase's restore; the line's
+    ``"final"`` is rank 0's summary."""
     import torch
 
     from torchx_tpu_torch.examples.train_llama import train
@@ -2542,19 +2604,7 @@ def phase_gang_ranks(cards: int) -> dict:
     one = train(cfg, TRAIN["batch"], TRAIN["seq"], steps, kernels="cuda", device="cuda",
                 warmup=1, log_every=0)
     free_card()
-    root = tempfile.mkdtemp(prefix="tpx_gang_b_")
-    try:
-        script = os.path.join(root, "train_cut.py")
-        with open(script, "w") as f:
-            f.write(_B_SCRIPT.format(layers=layers))
-        final, _ = _spmd(
-            ["--nproc-per-node", str(ranks), "--backend", backend],
-            ["--script", script, "--", "--config", "llama3_1b", "--batch", str(TRAIN["batch"]),
-             "--seq", str(TRAIN["seq"]), "--steps", str(steps), "--kernels", "cuda",
-             "--warmup", "1", "--mesh", mesh, "--grad-bucket-mb", str(GANG["bucket_mb"])],
-            {}, "gang")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    final = _b_save(out, layers, steps, ranks, backend, mesh, "gang")
     loss_rel = _rel_diff(final["losses"], one["losses"])
     gn_rel = _rel_diff(final["grad_norms"], one["grad_norms"])
     expected = expected_launches(cfg, steps)
@@ -2582,36 +2632,15 @@ def phase_gang_ranks(cards: int) -> dict:
              f" process {one['losses']} / {one['grad_norms']}")
     if any(launches != expected for launches in final["launches_by_rank"]):
         fail("gang", f"B's launches {final['launches_by_rank']} != {expected}")
-    return res
+    return {**res, "final": final, "out": out}
 
 
 #: The gangckpt phase (module docstring): A's SIGTERM after its step line
 #: ``term_after`` (the notice lands within the next step: a save of step 2
 #: to 4 of the 6 the gang phase's A ran uninterrupted), the wait for its
-#: exit; B at ``b_layers`` layers for ``b_steps`` steps.
+#: exit; B, where the gang phase's B did not save two ranks at ``fsdp=2``,
+#: at ``b_layers`` layers for ``b_steps`` steps.
 GANGCKPT = dict(term_after=2, limit_s=150.0, b_layers=2, b_steps=2)
-
-#: B's script: the trainer on llama3_1b cut to ``layers`` layers as two
-#: ranks at ``fsdp=2`` saving into ``<out>/ck``; each rank also leaves its
-#: final state (its shards) in ``<out>/rank<r>.pt`` to hold the restore to.
-_GANGCKPT_B_SCRIPT = """import json, os, sys
-import torch, torch.distributed as dist
-from torchx_tpu_torch.examples import train_llama
-from torchx_tpu_torch.models import llama
-out = sys.argv[1]
-
-def dump(event, state):
-    if event == "final":
-        torch.save({{k: v.detach().cpu().clone() for k, v in state.items()}},
-                   os.path.join(out, f"rank{{dist.get_rank()}}.pt"))
-
-res = train_llama.train(llama.llama3_1b(n_layers={layers}), {batch}, {seq}, {steps},
-                        warmup=1, kernels="cuda", device="cuda", log_every=0,
-                        mesh="fsdp=2", ckpt_dir=os.path.join(out, "ck"), on_state=dump)
-if dist.get_rank() == 0:
-    print("final:", json.dumps(res), flush=True)
-"""
-
 
 #: The resize's script: A's trainer as two ranks at ``fsdp=-1`` resuming
 #: from ``<ck>``. Right after the restore each rank holds every restored
@@ -2707,6 +2736,161 @@ def _spmd_drill(args: list[str], target: list[str], term_after: int, limit_s: fl
     return {"final": final, "sigterm_to_exit_s": exit_s, "notice_printed": notice in out}
 
 
+#: The gangckpt phase's supervised resume: the policy's backoff, its status
+#: poll (``poll_interval``) and its gang monitor, whose hang deadline
+#: outlasts every gap between evidence of a healthy attempt (the launch to
+#: the first step, 20-35 s on the card, carries none; the last step's
+#: forced save, a 7.4 GB write, ~20 s) and the monitor's check interval;
+#: ``limit_s`` bounds the whole session.
+SUPERVISED = dict(backoff_s=1.0, poll_s=0.5, hang_deadline_s=90.0, gang_check_s=2.0,
+                  limit_s=420.0)
+
+
+def _sigkill_exit_code(root: str) -> int:
+    """The exit code the port's local scheduler records for a replica whose
+    process group is SIGKILLed, read from a real one (``sleep`` on the
+    scheduler, killed as :func:`_supervised_resume` kills a gang)."""
+    import signal
+
+    from torchx_tpu_torch.schedulers.local_scheduler import LocalScheduler
+    from torchx_tpu_torch.specs.api import AppDef, Role
+
+    sched = LocalScheduler(session_name="chip_smoke_probe", cache_size=2)
+    try:
+        app = AppDef(name="probe", roles=[Role(name="p", image="", entrypoint="sleep",
+                                               args=["60"])])
+        app_id = sched.schedule(sched.submit_dryrun(app, {"log_dir": os.path.join(root,
+                                                                                   "probe")}))
+        (replica,) = sched._apps[app_id].replicas()
+        os.killpg(replica.proc.pid, signal.SIGKILL)
+        replica.proc.wait(timeout=30)
+        return replica.proc.returncode
+    finally:
+        sched.close()
+
+
+def _supervised_resume(root: str, ck: str, n: int, steps: int, a_args: list[str]) -> dict:
+    """The resume of the drill's step ``n`` as a user would run it under
+    the supervisor: ``tpx-torch supervise --no-lint`` (a child process)
+    runs ``dist.spmd`` with A's arguments on ``h100-<cards>`` from
+    ``ck``, its policy (``SUPERVISED``) resuming from ``ck`` within one
+    preemption, the role's env arming ``TPX_SIMULATE_PREEMPTION_EXIT``
+    with the code the scheduler records for a SIGKILLed gang. After
+    attempt 1's first ``step`` line its replica's process group is
+    SIGKILLed, by the pid in the scheduler's state file as ``cancel``
+    finds it: a host lost without notice. -> the session's ledger, the
+    CLI's output, attempt 1's first loss (from its ``step.window``
+    heartbeat), attempt 2's final summary and launch marks, and the
+    seconds from the kill to PREEMPTED seen, through the backoff, to
+    attempt 2's first step."""
+    import glob
+    import signal
+
+    import torch
+
+    from torchx_tpu_torch.schedulers.local_scheduler import _pid_alive
+    from torchx_tpu_torch.supervisor.ledger import AttemptLedger
+
+    code = _sigkill_exit_code(root)
+    logs, obs = os.path.join(root, "sup_apps"), os.path.join(root, "sup_obs")
+    sup_dir, session = os.path.join(root, "supervisor"), "gangckpt"
+    policy = os.path.join(root, "policy.json")
+    with open(policy, "w") as f:
+        json.dump({"checkpoint_dir": ck, "max_preemptions": 1,
+                   "backoff_seconds": SUPERVISED["backoff_s"],
+                   "poll_interval": SUPERVISED["poll_s"],
+                   "hang_deadline_seconds": SUPERVISED["hang_deadline_s"],
+                   "gang_check_interval": SUPERVISED["gang_check_s"]}, f)
+    env = dict(os.environ, PYTHONPATH=REPO, TPX_OBS_DIR=obs, TPX_SUPERVISOR_DIR=sup_dir)
+    cmd = [sys.executable, "-m", "torchx_tpu_torch.cli.main", "supervise", "--no-lint",
+           "-s", "local", "-cfg", f"log_dir={logs}", "--policy", policy,
+           "--session", session, "dist.spmd", "--gpu", f"h100-{torch.cuda.device_count()}",
+           "--coordinator_port", "0", "--image", REPO,
+           "--env", f"PYTHONPATH={REPO},TPX_SIMULATE_PREEMPTION_EXIT={code}",
+           "-m", "torchx_tpu_torch.examples.train_llama", "--", *a_args,
+           "--steps", str(steps - n), "--ckpt-dir", ck, "--log-every", "1"]
+    ledger = AttemptLedger(session, root=sup_dir)
+
+    def stdout_of(app_id: str) -> str:
+        paths = glob.glob(os.path.join(logs, app_id, "*", "0", "stdout.log"))
+        if not paths:
+            return ""
+        with open(paths[0], errors="replace") as f:
+            return f.read()
+
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, cwd=REPO, start_new_session=True)
+    try:
+        first = t_kill = None
+        while t_kill is None:
+            if time.monotonic() - t0 > SUPERVISED["limit_s"] or proc.poll() is not None:
+                fail("gangckpt", "supervised: attempt 1 never reached its first step:\n"
+                     + (proc.communicate()[0] if proc.poll() is not None else "")[-4000:])
+            first = first or next((e for e in ledger.entries()
+                                   if e["transition"] == "submitted"), None)
+            if first is not None and any(x.startswith("step ") for x in
+                                         stdout_of(first["app_id"]).splitlines()):
+                with open(os.path.join(logs, first["app_id"], ".tpx_state.json")) as f:
+                    ((replica,),) = json.load(f)["roles"].values()
+                os.killpg(replica["pid"], signal.SIGKILL)
+                t_kill = time.time()
+            time.sleep(0.05)
+        try:
+            out, _ = proc.communicate(timeout=max(1.0, SUPERVISED["limit_s"]
+                                                  - (time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            fail("gangckpt", f"supervised: no end within {SUPERVISED['limit_s']} s")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        proc.wait()
+        for app in glob.glob(os.path.join(logs, "*", ".tpx_state.json")):
+            with open(app) as f:  # no replica outlives the phase
+                for replicas in json.load(f)["roles"].values():
+                    for r in replicas:
+                        if _pid_alive(r["pid"], r.get("pid_start")):  # not a reused pid
+                            try:
+                                os.killpg(r["pid"], signal.SIGKILL)
+                            except ProcessLookupError:
+                                pass
+    entries = list(ledger.entries())
+    submits = [e for e in entries if e["transition"] == "submitted"]
+    if proc.returncode != 0 or len(submits) != 2:
+        fail("gangckpt", f"supervised: exit {proc.returncode}, ledger"
+             f" {[e['transition'] for e in entries]}:\n{out[-4000:]}")
+    second = submits[1]
+    text = stdout_of(second["app_id"])
+    if "final:" not in text:
+        fail("gangckpt", f"supervised: attempt 2 left no final summary:\n{text[-3000:]}")
+    final = json.loads(text.split("final:", 1)[1].splitlines()[0])
+    t_submit1, t_submit2 = first["time_usec"] / 1e6, second["time_usec"] / 1e6
+    spans = _trace_spans(obs, since=t_submit1)
+    window1 = next((sp["attrs"] for sp in spans if sp["name"] == "step.window"
+                    and sp["start_epoch_usec"] / 1e6 < t_kill), {})
+    slept = [(sp["end_epoch_usec"] - sp["start_epoch_usec"]) / 1e6 for sp in spans
+             if sp["name"] == "supervisor.backoff"]
+    resub = next(e for e in entries if e["transition"] == "resubmitting")
+    marks = _launch_marks(obs, t_submit2)
+    leases = glob.glob(os.path.join(obs, "*", "leases", "*.json"))
+    heartbeats = sum(sp["name"] in ("job.first_step", "step.window")
+                     for sp in _trace_spans(obs))
+    return {"ledger": entries, "cli_output": out, "final": final,
+            "attempt1_first_step": window1.get("step"),
+            "attempt1_first_loss": window1.get("loss"),
+            "sigkill_exit_code": code, "launch_marks_s": marks,
+            "kill_to_preempted_s": resub["time_usec"] / 1e6 - t_kill,
+            "backoff_s": resub["backoff_seconds"],
+            "backoff_slept_s": slept[0] if slept else None,
+            "resubmitted_after_s": t_submit2 - resub["time_usec"] / 1e6,
+            "kill_to_attempt2_first_step_s": t_submit2 - t_kill + marks.get("first_step",
+                                                                            float("nan")),
+            "monitor_evidence": {"heartbeats": heartbeats, "lease_files": len(leases)},
+            "session_s": time.monotonic() - t0}
+
+
 def _ckpt_by_rank(final: dict) -> list[dict]:
     """Each rank's checkpoint numbers of a run: its host buffers (pinned),
     the last save's stall, the last write's split, and its restore."""
@@ -2725,21 +2909,30 @@ def _ckpt_by_rank(final: dict) -> list[dict]:
     return out
 
 
-def phase_gang_ckpt(gang_a: dict | None) -> dict:
+def phase_gang_ckpt(gang_a: dict | None, gang_b: dict | None = None) -> dict:
     """A: llama3_1b at full width and depth through ``spmd_main``, one
     worker a card on NCCL, ``--mesh fsdp=-1`` (the gang phase's A run,
     which gives the uninterrupted losses), saving with ``--ckpt-dir``,
     SIGTERM to ``spmd_main`` mid-run; the step it committed passes
     ``verify_checkpoint``, and a resume on it runs the remaining steps of
-    six: their losses are the uninterrupted run's (bitwise where the
-    drill's own steps were, else within RESUME_RTOL). With four cards or
+    six as a supervised session (:func:`_supervised_resume`: ``tpx-torch
+    supervise``, attempt 1 SIGKILLed after its first step, PREEMPTED,
+    resubmitted from the step): the ledger reads submitted, resubmitting
+    from the step, submitted, finished SUCCEEDED; attempt 1's first loss
+    and attempt 2's losses are the uninterrupted run's (bitwise where the
+    drill's own steps were, else within RESUME_RTOL); attempt 2 resumed
+    from the step with the launches of its steps; the gang monitor gave no
+    verdict. With four cards or
     more, the step is also restored at ``fsdp=2`` on two of them, every
     block bitwise (``_GANGCKPT_RESIZE_SCRIPT``), and continued (losses
-    within REF_LOSS_RTOL: another summation order). B: two ranks on gloo
-    sharing the card save llama3_1b cut to 2 layers at ``fsdp=2``; a
+    within REF_LOSS_RTOL: another summation order). B: two ranks at
+    ``fsdp=2`` save llama3_1b cut to 2 layers (``gang_b``, the gang phase's
+    B line, where it ran so: its launch saved the step; else two gloo ranks
+    sharing the card, launched here at ``GANGCKPT["b_layers"]`` layers); a
     checkpointer at a world of one restores the step onto the card, every
-    entry bitwise the two ranks' state. Prints each rank's checkpoint
-    numbers and the phase's seconds by part."""
+    entry bitwise the two ranks' state. ``gang_b``'s directory is removed
+    at the end. Prints each rank's checkpoint numbers and the phase's
+    seconds by part."""
     import shutil
     import tempfile
 
@@ -2750,7 +2943,7 @@ def phase_gang_ckpt(gang_a: dict | None) -> dict:
     from torchx_tpu_torch.models import llama
     from torchx_tpu_torch.parallel.checkpoint import Checkpointer
     from torchx_tpu_torch.parallel.mesh import shard_extent
-    from torchx_tpu_torch.parallel.mesh_config import AXES, parse_mesh_spec
+    from torchx_tpu_torch.parallel.mesh_config import AXES, mesh_sizes_spec, parse_mesh_spec
 
     t_phase = time.monotonic()
     seconds: dict[str, float] = {}
@@ -2789,12 +2982,52 @@ def phase_gang_ckpt(gang_a: dict | None) -> dict:
         if verified != n:
             fail("gangckpt", f"verify_checkpoint: step {verified}, not {n}")
         t0 = time.monotonic()
-        resume, _ = _spmd([], trainer + a_args + [
-            "--steps", str(steps - n), "--ckpt-dir", _link_copy(d, d + "_resume")], {},
-            "gangckpt")
+        sup = _supervised_resume(root, _link_copy(d, d + "_resume"), n, steps, a_args)
+        resume = sup["final"]
         seconds["resume"] = time.monotonic() - t0
         repeatable = drill["final"]["losses"] == ref[:n]
         bitwise = resume["losses"] == ref[n:]
+        loss1 = sup["attempt1_first_loss"]
+        transitions = [e["transition"] for e in sup["ledger"]]
+        hangs = [t for t in transitions if t.startswith("gang_")]
+        expected_2 = expected_launches(cfg, steps - n)
+        res_s = {
+            "phase": "gangckpt", "run": "supervised", "session": "gangckpt",
+            "transitions": [
+                {k: e.get(k) for k in ("transition", "attempt", "app_id", "state",
+                                       "failure_class", "resume_step", "backoff_seconds")}
+                for e in sup["ledger"]],
+            "attempts": len([t for t in transitions if t == "submitted"]),
+            "sigkill_exit_code": sup["sigkill_exit_code"],
+            "kill_to_preempted_s": sup["kill_to_preempted_s"],
+            "poll_interval_s": SUPERVISED["poll_s"], "backoff_s": sup["backoff_s"],
+            "backoff_slept_s": sup["backoff_slept_s"],
+            "resubmitted_after_s": sup["resubmitted_after_s"],
+            "kill_to_attempt2_first_step_s": sup["kill_to_attempt2_first_step_s"],
+            "attempt2_launch_marks_s": sup["launch_marks_s"],
+            "attempt2_launch_breakdown": resume["launch_breakdown"],
+            "attempt1_first_step": sup["attempt1_first_step"], "attempt1_first_loss": loss1,
+            "attempt2_resumed_from_step": resume["resumed_from_step"],
+            "attempt2_launches_by_rank": resume["launches_by_rank"],
+            "attempt2_expected_launches": expected_2,
+            "gang_verdicts": hangs, "monitor_evidence": sup["monitor_evidence"],
+            "hang_deadline_s": SUPERVISED["hang_deadline_s"], "session_s": sup["session_s"],
+        }
+        emit(res_s)
+        ledger_ok = (
+            transitions == ["submitted", "resubmitting", "submitted", "finished"]
+            and sup["ledger"][1].get("state") == "PREEMPTED"
+            and sup["ledger"][1].get("failure_class") == "PREEMPTION"
+            and sup["ledger"][1].get("resume_step") == n
+            and sup["ledger"][2].get("resume_step") == n
+            and sup["ledger"][3].get("state") == "SUCCEEDED")
+        loss1_ok = loss1 is not None and sup["attempt1_first_step"] == n + 1 and (
+            loss1 == ref[n] if repeatable else _rel_diff([loss1], ref[n:n + 1]) <= RESUME_RTOL)
+        if not ledger_ok or res_s["attempts"] != 2 or hangs or not loss1_ok or \
+                resume["resumed_from_step"] != n or \
+                any(x != expected_2 for x in resume["launches_by_rank"]):
+            fail("gangckpt", f"supervised resume from step {n}: {res_s}; attempt 1's first"
+                 f" loss {loss1} against {ref[n]}\n{sup['cli_output'][-3000:]}")
         res_a = {
             "phase": "gangckpt", "run": "A", "world": drill["final"]["world"],
             "backend": drill["final"]["backend"], "mesh": drill["final"]["mesh"],
@@ -2858,18 +3091,17 @@ def phase_gang_ckpt(gang_a: dict | None) -> dict:
         shutil.rmtree(d + "_resume", ignore_errors=True)
         shutil.rmtree(d, ignore_errors=True)
         free_card()
-        # B: two ranks sharing the card save; a world of one restores
+        # B: two ranks save (the gang phase's B where it ran as two ranks at
+        # fsdp=2, else two gloo ranks sharing the card); a world of one restores
         t0 = time.monotonic()
-        b_out = os.path.join(root, "b")
-        os.makedirs(b_out)
-        script = os.path.join(root, "b_train.py")
-        with open(script, "w") as f:
-            f.write(_GANGCKPT_B_SCRIPT.format(layers=GANGCKPT["b_layers"],
-                                              batch=TRAIN["batch"], seq=TRAIN["seq"],
-                                              steps=GANGCKPT["b_steps"]))
-        saved, _ = _spmd(["--nproc-per-node", "2", "--backend", "gloo"],
-                         ["--script", script, "--", b_out], {}, "gangckpt")
-        cfg_b = llama.llama3_1b(n_layers=GANGCKPT["b_layers"])
+        if gang_b is not None and (gang_b["world"], gang_b["mesh"]) == (
+                2, mesh_sizes_spec(parse_mesh_spec("fsdp=2").resolve(2))):
+            b_out, saved, b_layers = gang_b["out"], gang_b["final"], gang_b["n_layers"]
+        else:
+            b_out, b_layers = os.path.join(root, "b"), GANGCKPT["b_layers"]
+            saved = _b_save(b_out, b_layers, GANGCKPT["b_steps"], 2, "gloo", "fsdp=2",
+                            "gangckpt")
+        cfg_b = llama.llama3_1b(n_layers=b_layers)
         specs = checkpoint_specs(cfg_b)
         sizes = parse_mesh_spec("fsdp=2").resolve(2)
         whole: dict = {}
@@ -2887,8 +3119,9 @@ def phase_gang_ckpt(gang_a: dict | None) -> dict:
         one.close()
         mismatched = sorted(k for k in whole if not torch.equal(live[k].cpu(), whole[k]))
         seconds["B"] = time.monotonic() - t0
-        res_b = {"phase": "gangckpt", "run": "B", "n_layers": GANGCKPT["b_layers"],
-                 "ranks_share_a_card": True, "backend": saved["backend"],
+        res_b = {"phase": "gangckpt", "run": "B", "n_layers": b_layers,
+                 "saved_by": "gang phase B" if b_out != os.path.join(root, "b") else "gangckpt",
+                 "ranks_share_a_card": saved["backend"] == "gloo", "backend": saved["backend"],
                  "world": saved["world"], "mesh": saved["mesh"],
                  "saved_step": saved["final_step"],
                  "save_launch_to_first_step_s": saved["launch_to_first_step_s"],
@@ -2897,8 +3130,7 @@ def phase_gang_ckpt(gang_a: dict | None) -> dict:
                  "entries": len(whole), "entries_bitwise": len(whole) - len(mismatched),
                  "save_by_rank": _ckpt_by_rank(saved), "restore": one.restores}
         emit(res_b)
-        if (saved["world"], saved["backend"]) != (2, "gloo") or \
-                restored_step != saved["final_step"] or mismatched:
+        if saved["world"] != 2 or restored_step != saved["final_step"] or mismatched:
             fail("gangckpt", f"B: {res_b}; entries not bitwise: {mismatched[:5]}")
         out["B"] = res_b
         seconds["total"] = time.monotonic() - t_phase
@@ -2907,6 +3139,8 @@ def phase_gang_ckpt(gang_a: dict | None) -> dict:
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        if gang_b is not None:
+            shutil.rmtree(gang_b["out"], ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5414,10 +5648,11 @@ INT8_STREAM_PROMPT = 3
 #: Parameter bytes resident after the server's setup may miss the
 #: reckoning by this share.
 INT8_BYTES_RTOL = 0.01
-#: The int8 serve cell's depth: llama3_8b's width at 16 of its 32 layers
+#: The int8 serve cell's depth: llama3_8b's width at 8 of its 32 layers
 #: (8.03 B parameters at full depth before the remat phase joined the
-#: default run, cut to pay for it).
-INT8_SERVE_LAYERS = 16
+#: default run, 16 layers until the gangckpt phase's supervised resume
+#: joined it: each cut to pay for them).
+INT8_SERVE_LAYERS = 8
 #: The projection matrices weight-only int8 quantizes.
 INT8_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -6151,7 +6386,12 @@ def main(argv: list[str] | None = None) -> int:
             phase_local(gang_out["A_final"], card)
     if "gangckpt" in phases:
         with timed("gangckpt"):
-            phase_gang_ckpt(gang_out["A_final"] if gang_out else None)
+            phase_gang_ckpt(gang_out["A_final"] if gang_out else None,
+                            gang_out["B"] if gang_out else None)
+    elif gang_out is not None:  # B's saved step, kept for the gangckpt phase
+        import shutil
+
+        shutil.rmtree(gang_out["B"]["out"], ignore_errors=True)
     # the ep and pp phases' two-rank runs, carried by the tp launch
     ep_shared = pp_shared = tp_out = None
     if "tp" in phases:

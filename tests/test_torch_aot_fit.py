@@ -41,6 +41,7 @@ from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.models import moe as tmoe
 from torchx_tpu_torch.parallel import aot_fit
 from torchx_tpu_torch.parallel.mesh_config import parse_mesh_spec
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, SEQ = 8, 64

@@ -26,6 +26,7 @@ from torchx_tpu_torch.parallel import checkpoint as ckpt_mod
 from torchx_tpu_torch.parallel.checkpoint import CheckpointMismatch, Checkpointer
 from torchx_tpu_torch.supervisor import gang as tgang
 from torchx_tpu_torch.util import session as tsession
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 def _state(v=1.0):

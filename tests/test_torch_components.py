@@ -38,6 +38,7 @@ from torchx_tpu_torch.specs.finder import (
     get_component,
     get_components,
 )
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

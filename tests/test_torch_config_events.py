@@ -14,6 +14,7 @@ from torchx_tpu_torch.runner import config as tpx_config
 from torchx_tpu_torch.runner.events import log_event
 from torchx_tpu_torch.runner.events.api import TpxEvent
 from torchx_tpu_torch.specs.api import runopts
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 def write_cfg(path, text):

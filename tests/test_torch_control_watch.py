@@ -37,6 +37,7 @@ from torchx_tpu_torch.specs.api import (
     Role,
     runopts,
 )
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -33,6 +33,7 @@ from torchx_tpu_torch.parallel import checkpoint as ckpt_mod
 from torchx_tpu_torch.parallel.checkpoint import Checkpointer
 from torchx_tpu_torch.parallel.prefetch import device_prefetch
 from torchx_tpu_torch.serve.engine import ServeEngine
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

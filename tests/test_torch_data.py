@@ -11,6 +11,7 @@ import torch
 from torchx_tpu.examples.data import TokenDataset as JaxTokenDataset
 from torchx_tpu_torch.examples.data import TokenDataset
 from torchx_tpu_torch.parallel.prefetch import Prefetcher, device_prefetch, device_put
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 @pytest.fixture

@@ -23,6 +23,7 @@ from torchx_tpu_torch import convert
 from torchx_tpu_torch.apps import generate_server as gs
 from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.serve import kv_transfer as tkvt
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 #: Prompts of 1 to 3 blocks of 16 (the servers' default block size).
 PROMPTS = [[1, 2, 3], list(range(4, 24)), list(range(100, 140)), [9]]

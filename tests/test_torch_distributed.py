@@ -23,6 +23,7 @@ from torchx_tpu_torch import distributed as tdist
 from torchx_tpu_torch import settings as tsettings
 from torchx_tpu_torch.apps import spmd_main
 from torchx_tpu_torch.examples import compute_mesh_size
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 GANG_NAMES = (
     "ENV_TPX_APP_ID", "ENV_TPX_REPLICA_ID", "ENV_TPX_NUM_REPLICAS", "ENV_TPX_SLICE_ID",

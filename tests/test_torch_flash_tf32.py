@@ -31,6 +31,7 @@ import torch
 from test_torch_flash_variants import _parts, _rel
 from torchx_tpu.ops import fused as jfused
 from torchx_tpu_torch.ops import fused
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 LOG2E = math.log2(math.e)
 CSRC = Path(fused.__file__).resolve().parent.parent / "csrc"

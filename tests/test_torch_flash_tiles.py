@@ -30,6 +30,7 @@ from torchx_tpu_torch import convert
 from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.ops import fused
 from torchx_tpu_torch.ops.attention import attention
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 LOG2E = math.log2(math.e)
 CSRC = Path(fused.__file__).resolve().parent.parent / "csrc"

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from torchx_tpu_torch.ops import fused
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 LOG2E = math.log2(math.e)
 #: chip_smoke.py's bf16 tolerance for the flash kernels

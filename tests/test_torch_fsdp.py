@@ -34,6 +34,7 @@ from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.parallel.mesh import Mesh
 from torchx_tpu_torch.parallel.mesh import shard as shard_of
 from torchx_tpu_torch.parallel.mesh_config import AXES, parse_mesh_spec
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 TRAIN = dict(batch=4, seq=32, steps=3, warmup=1)
 #: the mask case and the JAX case: make_train_step on JAX-initialized

@@ -49,6 +49,7 @@ from torchx_tpu_torch.parallel import checkpoint as ckpt_mod
 from torchx_tpu_torch.parallel.checkpoint import Checkpointer
 from torchx_tpu_torch.parallel.mesh import shard_extent
 from torchx_tpu_torch.parallel.mesh_config import AXES, parse_mesh_spec
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 TRAIN = dict(kind="train", config="tiny", batch=4, seq=16, warmup=1)
 TOL = 1e-4

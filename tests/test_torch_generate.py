@@ -15,6 +15,7 @@ from torchx_tpu.models import llama as jllama
 from torchx_tpu_torch import convert
 from torchx_tpu_torch.models import generate as tgen
 from torchx_tpu_torch.models import llama as tllama
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,7 @@ import torch
 
 from torchx_tpu_torch.apps import generate_server as gs
 from torchx_tpu_torch.models import generate as tgen
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 def _start(**kw):

@@ -17,6 +17,7 @@ import torch
 from torchx_tpu_torch.apps import generate_server
 from torchx_tpu_torch.examples import train_llama
 from torchx_tpu_torch.models import llama
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "torchx_tpu_torch"
@@ -115,9 +116,10 @@ def test_checkpoint_modules_are_present():
 #: The launcher's layers: helpers, specs, plugins, workspaces; the
 #: control-plane seam, the scheduler contract with the local backend, and
 #: the watch streams; the runner, the trackers, the in-job result tracker
-#: and the components.
+#: and the components; the supervisor and the command line.
 LAUNCHER_PACKAGES = ("util", "specs", "plugins", "workspace", "resilience", "schedulers",
-                     "control", "runner", "tracker", "runtime", "components")
+                     "control", "runner", "tracker", "runtime", "components", "supervisor",
+                     "cli")
 #: The launcher's apps and helpers outside those packages, loaded the same way.
 LAUNCHER_APPS = ("apps.process_monitor", "apps.copy_main", "apps.booth_main",
                  "apps.serve_main", "notebook")
@@ -145,6 +147,10 @@ LAUNCHER_MODULES = (
     *(f"components/{m}.py" for m in ("__init__", "dist", "structured_arg", "serve", "utils",
                                      "metrics", "train", "interpret", "component_test_base",
                                      "integration_tests")),
+    *(f"supervisor/{m}.py" for m in ("__init__", "api", "gang", "ledger", "policy")),
+    *(f"cli/{m}.py" for m in ("__init__", "main", "cmd_base", "cmd_run", "cmd_simple",
+                              "cmd_log", "cmd_tracker", "cmd_supervise", "cmd_profile",
+                              "cmd_unported")),
 )
 #: The apps and helpers of ``LAUNCHER_APPS``, as files.
 LAUNCHER_APP_FILES = tuple(m.replace(".", "/") + ".py" for m in LAUNCHER_APPS)
@@ -158,7 +164,8 @@ def test_launcher_modules_are_present():
     # a remote backend or a control-plane service comes with its own layer
     assert not {s for s in sources if s.startswith(("schedulers/", "control/", "resilience/",
                                                     "runner/", "tracker/", "runtime/",
-                                                    "components/"))} - set(LAUNCHER_MODULES)
+                                                    "components/", "supervisor/", "cli/"))} \
+        - set(LAUNCHER_MODULES)
 
 
 def test_launcher_modules_load_no_torch():

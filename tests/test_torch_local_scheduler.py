@@ -37,6 +37,7 @@ from torchx_tpu_torch.specs.api import (
     Role,
     macros,
 )
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 #: a GPU role on this card-less host runs only when asked
 SIM = {"gpu_simulate": True}

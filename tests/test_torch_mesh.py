@@ -24,6 +24,7 @@ from torchx_tpu_torch import convert, distributed
 from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.parallel import mesh as tmesh
 from torchx_tpu_torch.parallel import mesh_config as tmc
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 AXES = tmc.AXES
 SHAPE = dict(dim=128, n_heads=2, n_kv_heads=1, ffn_dim=256)

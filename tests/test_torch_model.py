@@ -20,6 +20,7 @@ from torchx_tpu.models import llama as jllama
 from torchx_tpu_torch import convert
 from torchx_tpu_torch.examples import train_llama as ttrain
 from torchx_tpu_torch.models import llama as tllama
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 JAX_KERNELS = {"reference": "reference", "cuda": "interpret"}
 

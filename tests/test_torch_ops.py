@@ -22,6 +22,7 @@ from torchx_tpu.ops.attention import xla_attention as j_xla_attention
 from torchx_tpu_torch import _build
 from torchx_tpu_torch.ops import fused, norms, rope
 from torchx_tpu_torch.ops.attention import attention, xla_attention
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 def _randn(rng, *shape):

@@ -17,6 +17,7 @@ from torchx_tpu.models import llama as jllama
 from torchx_tpu.parallel import overlap as joverlap
 from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.parallel import overlap
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 MIB = 1024 * 1024
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -13,6 +13,7 @@ from torchx_tpu_torch.plugins import error_report, get_registry, register
 from torchx_tpu_torch.plugins import _registry as tregistry
 from torchx_tpu_torch.plugins._registration import Share, clear_registrations
 from torchx_tpu_torch.specs.api import GpuSlice, Resource
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 NS = tregistry.NAMESPACE_PACKAGE
 

@@ -54,6 +54,7 @@ from torchx_tpu_torch.parallel.checkpoint import Checkpointer
 from torchx_tpu_torch.parallel.mesh import Mesh
 from torchx_tpu_torch.parallel.mesh import shard as shard_of
 from torchx_tpu_torch.parallel.mesh_config import AXES, parse_mesh_spec
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 #: make_train_step on JAX-initialized weights: the trainer's lr, warmup 2
 STEP = dict(lr=3e-4, warmup=2)

@@ -26,6 +26,7 @@ from torchx_tpu_torch.obs import metrics as tmetrics
 from torchx_tpu_torch.obs import profile as tprofile
 from torchx_tpu_torch.obs import sinks
 from torchx_tpu_torch.parallel.prefetch import Prefetcher
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 #: Models of the attribution: the reference's test model (two mesh axes of
 #: modeled collectives), one card (no collectives), and the llama3_1b

@@ -43,6 +43,7 @@ from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.models import moe as tmoe
 from torchx_tpu_torch.ops import quant as tquant
 from torchx_tpu_torch.serve.engine import ServeEngine, ServeRequest
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 pytest.importorskip("aqt")
 

@@ -47,6 +47,7 @@ from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.models import moe as tmoe
 from torchx_tpu_torch.parallel import remat_auto
 from torchx_tpu_torch.parallel.aot_fit import FitResult, LiveBytes
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 POLICIES = ("full", "dots", "dots_attn")
 #: config name -> (JAX config, port config): every one with remat on

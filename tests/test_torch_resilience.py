@@ -8,9 +8,9 @@ and metric increments under one fault plan.
 
 That file's ``TestPollMissBudget`` runs against the port's runner in
 ``tests/test_torch_runner.py``; ``TestAttemptLedger``,
-``TestSupervisorResume`` and ``TestAcceptance`` wait for the supervisor
-(ROADMAP queue 1 item 2.4), ``TestResilienceRules`` for the analyzer
-(item 2.8).
+``TestSupervisorResume`` and ``TestAcceptance`` run against the port's
+supervisor in ``tests/test_torch_supervisor.py``; ``TestResilienceRules``
+waits for the analyzer (ROADMAP queue 1 item 2.8).
 """
 
 import random
@@ -53,6 +53,7 @@ from torchx_tpu_torch.resilience.call import (
 )
 from torchx_tpu_torch.resilience.faults import GARBAGE_PAYLOAD, fault_plan_active
 from torchx_tpu_torch.resilience.policy import NON_IDEMPOTENT
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 def fast_call_policy(**kwargs) -> CallPolicy:

@@ -43,6 +43,7 @@ from torchx_tpu_torch.ops.ulysses import ulysses_attention
 from torchx_tpu_torch.parallel import aot_fit
 from torchx_tpu_torch.parallel.mesh import Mesh
 from torchx_tpu_torch.parallel.mesh_config import AXES, parse_mesh_spec
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 #: tests/test_model_stack.py's: (forward, gradient) by op
 TOLS = {"ring": (2e-5, 1e-4), "ulysses": (1e-6, 1e-5)}

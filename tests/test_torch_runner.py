@@ -2,11 +2,12 @@
 runner's own cases: every case of ``tests/test_runner.py``; the describe
 cache, the runner's cache routing, the list fan-out, the merged logs, the
 parallel workspace builds and the line emitter of ``tests/test_fastpath.py``
-(its lazy CLI cases wait for the CLI, ROADMAP queue 1 item 2.4); and
+(its lazy CLI cases run in ``tests/test_torch_cli.py``); and
 ``tests/test_resilience.py::TestPollMissBudget``, each run against the copy.
-Added: the two seams that name a later item (the lint gate, 2.8; the
-supervisor, 2.4), the acceptance run of ``dist.spmd`` through
-``Runner.run_component`` on the local scheduler (two gloo workers), and
+Added: the seam that names a later item (the lint gate, 2.8),
+``Runner.supervise`` running the supervisor (item 2.4), the acceptance run
+of ``dist.spmd`` through ``Runner.run_component`` on the local scheduler
+(two gloo workers), and
 parity with the JAX runner on the same inputs (``TestJaxParity``: the
 materialized local request of a CPU-only component, the describe cache's
 answers, fetches, hits and misses under one clock).
@@ -47,6 +48,7 @@ from torchx_tpu_torch.specs.api import (
     Workspace,
     runopts,
 )
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -961,10 +963,26 @@ class TestSeams:
         assert runner.dryrun(simple_app(), "stub").request["cfg"]["knob"] == "k0"
 
     def test_supervise_names_the_supervisor_item(self, runner):
+        """Item 2.4 (the supervisor) gave ``Runner.supervise`` its body: the
+        port's supervisor submits the dryrun once and watches it to its
+        end (the stub's app succeeds at once)."""
+        from torchx_tpu_torch.supervisor import SupervisorPolicy, SupervisorResult
+
         info = runner.dryrun(simple_app(), "stub")
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 2\.4"):
-            runner.supervise(info)
-        assert runner._scheduler("stub").apps == {}  # nothing was submitted
+        stub = runner._scheduler("stub")
+        schedule = stub.schedule
+
+        def schedule_and_succeed(dryrun_info):  # noqa: ANN001, ANN202
+            app_id = schedule(dryrun_info)
+            stub.apps[app_id] = AppState.SUCCEEDED
+            return app_id
+
+        stub.schedule = schedule_and_succeed
+        result = runner.supervise(info, SupervisorPolicy(poll_interval=0.01),
+                                  session="seam")
+        assert isinstance(result, SupervisorResult)
+        assert result.succeeded and result.attempts == 1 and result.session == "seam"
+        assert list(stub.apps) == ["stub_app_1"]  # one submission
 
 
 def test_run_component_dist_spmd_on_the_cpu(tmp_path):

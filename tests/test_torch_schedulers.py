@@ -53,6 +53,7 @@ from torchx_tpu_torch.specs.api import (
     is_terminal,
     runopts,
 )
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -27,6 +27,7 @@ from torchx_tpu_torch.serve import kv_pool as tkv_pool
 from torchx_tpu_torch.serve import prefix_cache as tprefix
 from torchx_tpu_torch.serve.engine import EngineStopped, ServeEngine, ServeRequest
 from torchx_tpu_torch.serve.kv_transfer import KvPayload
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 GIB = 1024**3
 

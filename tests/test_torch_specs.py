@@ -44,6 +44,7 @@ from torchx_tpu_torch.specs.named_resources_gcp import named_resources_gcp
 from torchx_tpu_torch.specs.named_resources_generic import named_resources_generic
 from torchx_tpu_torch.specs.named_resources_gpu import named_resources_gpu
 from torchx_tpu_torch.specs.serialize import appdef_from_dict, appdef_to_dict
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 class TestGpuSlice:
@@ -464,10 +465,14 @@ class TestSerialize:
             appdef_from_dict(spec)
 
     def test_supervisor_policy_waits_for_its_layer(self):
+        """Its layer (ROADMAP queue 1 item 2.4) has landed: an empty dict is
+        the default policy, and a mistyped key raises."""
         from torchx_tpu_torch.specs.serialize import supervisor_policy_from_dict
+        from torchx_tpu_torch.supervisor import SupervisorPolicy
 
-        with pytest.raises(NotImplementedError, match="item 2.4"):
-            supervisor_policy_from_dict({})
+        assert supervisor_policy_from_dict({}) == SupervisorPolicy()
+        with pytest.raises(ValueError, match="unknown supervisor policy keys"):
+            supervisor_policy_from_dict({"max_preemption": 1})
 
 
 # -- parity with the JAX package's specs --------------------------------------

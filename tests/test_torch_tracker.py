@@ -29,6 +29,7 @@ from torchx_tpu_torch.tracker.api import (
     trackers_from_environ,
 )
 from torchx_tpu_torch.tracker.backend.fsspec import FsspecTracker
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 class TestFsspecTracker:

@@ -33,6 +33,7 @@ from torchx_tpu_torch.examples import train_llama as ttrain
 from torchx_tpu_torch.models import generate as tgen
 from torchx_tpu_torch.models import llama as tllama
 from torchx_tpu_torch.util import session as tsession
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(batch=2, seq=16)

@@ -24,6 +24,7 @@ from torchx_tpu_torch import deprecations, version
 from torchx_tpu_torch.util import colors, jsonl, registry, session, strings, times, types
 from torchx_tpu_torch.util.colors import colored, state_color
 from torchx_tpu_torch.util.strings import normalize_str, truncate_middle
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 class TestUtilStrings:

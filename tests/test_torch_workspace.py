@@ -45,6 +45,7 @@ from torchx_tpu_torch.workspace.docker_workspace import (
     build_context_with_digest,
     workspace_digest,
 )
+from torch_threads import xdist_torch_threads  # noqa: F401
 
 
 class TestOverlays:

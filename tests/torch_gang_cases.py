@@ -17,6 +17,10 @@ Kinds of case:
   remat policy it ran and ``"auto"``'s trials,
   the shards right after a restore, the checkpoint records, and the error
   it raised (``None``; a case that names ``expect_error`` catches it).
+  With ``total_steps`` in place of ``steps``, the case runs to that global
+  step: ``total_steps`` less the ``$TPX_RESUME_STEP`` a supervisor's
+  resubmission carries (0 without it), which it reports as
+  ``resume_step_env``.
   With ``after``, the case first waits for that file (another gang's
   ``done`` marker) and rank 0 copies ``copy_from`` to ``ckpt_dir``; with
   ``done``, rank 0 writes that file once the case has returned (its last
@@ -71,6 +75,7 @@ import torch.distributed as dist
 from torchx_tpu_torch.examples import train_llama
 from torchx_tpu_torch.models import llama
 from torchx_tpu_torch.parallel import overlap
+from torchx_tpu_torch.parallel.checkpoint import Checkpointer
 from torchx_tpu_torch.parallel.mesh import make_mesh
 from torchx_tpu_torch.parallel.mesh_config import parse_mesh_spec
 
@@ -114,9 +119,11 @@ def run_train(case: dict) -> dict:
     boxes, on_state = _capture()
     cfg = llama.get_config(case["config"]) if "config" in case else tiny()
     cfg = dataclasses.replace(cfg, **case.get("model", {}))
+    resume_env = Checkpointer.resume_step_from_env()
+    steps = case["total_steps"] - (resume_env or 0) if "total_steps" in case else case["steps"]
     try:
         out = train_llama.train(
-            cfg, batch=case["batch"], seq=case["seq"], steps=case["steps"],
+            cfg, batch=case["batch"], seq=case["seq"], steps=steps,
             warmup=case["warmup"], data_path=case["data"], prefetch=0, kernels="cuda",
             device="cpu", log_every=case.get("log_every", 0), mesh=case["mesh"],
             grad_bucket_mb=case.get("grad_bucket_mb", 0), on_state=on_state,
@@ -135,7 +142,8 @@ def run_train(case: dict) -> dict:
             "resumed_from_step": out["resumed_from_step"], "final_step": out["final_step"],
             "preempted": out["preempted"], "checkpoint": out["checkpoint"],
             "profile": out["profile"], "remat_policy": out["remat_policy"],
-            "remat_trials": out["remat_trials"], "error": None}
+            "remat_trials": out["remat_trials"], "resume_step_env": resume_env,
+            "error": None}
 
 
 def run_step(case: dict) -> dict:

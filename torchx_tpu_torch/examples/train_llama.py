@@ -409,8 +409,10 @@ def _report_first_step(
 
 
 def _step_heartbeat(**attrs: Any) -> None:
-    """A ``step.window`` heartbeat per log line: the steady-state
-    counterpart of the ``launch.*`` spans."""
+    """A ``step.window`` heartbeat per log line, with the step and its
+    loss (exact, so that a run killed before its final summary still
+    leaves its losses): the steady-state counterpart of the ``launch.*``
+    spans."""
     if not _traced():
         return
     sinks.attach_trace_sink()
@@ -888,6 +890,7 @@ def _train(
                     obs_metrics.STEP_SECONDS.observe(wait_per_step, phase="data_wait")
                     _step_heartbeat(
                         step=global_step,
+                        loss=loss,
                         avg_step_s=round(window_dt, 6),
                         data_wait_s=round(wait_per_step, 6),
                         mfu=round(tokens_per_step / world / window_dt * flops_per_token

@@ -491,6 +491,34 @@ WAIT_POLLS = REGISTRY.counter(
     ("scheduler",),
 )
 
+#: supervisor resubmissions, by failure class.
+RETRIES = REGISTRY.counter(
+    "tpx_supervisor_retries_total",
+    "supervisor resubmissions by failure class",
+    ("failure_class",),
+)
+
+#: total seconds the supervisor spent in backoff sleeps.
+BACKOFF_SECONDS = REGISTRY.counter(
+    "tpx_supervisor_backoff_seconds_total",
+    "total supervisor backoff sleep seconds",
+)
+
+#: unhealthy gang verdicts from the gang monitor (status still RUNNING),
+#: by verdict kind (HANG / PARTIAL_LOSS / STRAGGLER).
+GANG_UNHEALTHY = REGISTRY.counter(
+    "tpx_gang_unhealthy_total",
+    "unhealthy gang-health verdicts by kind",
+    ("kind",),
+)
+
+#: elastic mesh reshapes computed for a resubmission (dp/fsdp shrunk to
+#: fit surviving capacity).
+GANG_RESHAPES = REGISTRY.counter(
+    "tpx_gang_reshapes_total",
+    "elastic mesh reshapes applied on resubmit",
+)
+
 #: scheduler submit latency: the schedule call to its app id.
 LAUNCH_SECONDS = REGISTRY.histogram(
     "tpx_launch_seconds",

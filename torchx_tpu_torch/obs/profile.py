@@ -537,6 +537,34 @@ def render_summary(summary: dict) -> str:
     return "\n".join(lines)
 
 
+def render_diff(diff: dict) -> str:
+    """The ``tpx-torch profile --diff`` text view over :func:`diff_summaries`."""
+
+    def _num(v: Any, pct: bool = False) -> str:
+        if not isinstance(v, (int, float)):
+            return "-"
+        return f"{v:.1%}" if pct else _fmt_s(float(v))
+
+    steps = diff.get("steps") or {}
+    lines = [
+        f"profile diff: a={steps.get('a')} step(s), b={steps.get('b')} step(s)",
+        f"  {'phase':<18} {'a/step':>9} {'b/step':>9} {'delta':>9}",
+    ]
+    for ph, row in (diff.get("phase_step_s") or {}).items():
+        delta = row.get("delta", 0.0)
+        sign = "+" if delta >= 0 else "-"
+        lines.append(
+            f"  {ph:<18} {_num(row.get('a')):>9} {_num(row.get('b')):>9}"
+            f" {sign}{_fmt_s(abs(delta)):>8}"
+        )
+    for key, pct in (("step_s", False), ("mfu", True), ("data_wait_frac", True), ("overlap_frac", True)):
+        row = diff.get(key) or {}
+        lines.append(
+            f"  {key:<18} {_num(row.get('a'), pct):>9} {_num(row.get('b'), pct):>9}"
+        )
+    return "\n".join(lines)
+
+
 # -- exports -----------------------------------------------------------------
 
 

@@ -7,18 +7,14 @@ scheduler, and exposes the full monitor surface
 (status/wait/cancel/delete/describe/log_lines/list). Every public call is
 wrapped in a telemetry :func:`log_event`.
 
-Two seams reach layers the port has not brought over yet, and each says so
-rather than skipping the layer:
-
-* the preflight lint gate of :meth:`Runner.dryrun` (the JAX package's
-  ``analyze`` engine and its rules, ROADMAP queue 1 item 2.8) raises
-  :class:`NotImplementedError` unless ``no_lint=True`` or
-  ``$TPX_NO_LINT`` is set; with either, dryrun goes on as the JAX
-  runner's does past its gate. A subset of the rules would pass specs that
-  the full gate refuses, so the port runs none of them until the engine
-  and its rules come together, rewritten for GPUs;
-* :meth:`Runner.supervise` (the supervisor, item 2.4) raises
-  :class:`NotImplementedError`.
+One seam reaches a layer the port has not brought over yet, and says so
+rather than skipping the layer: the preflight lint gate of
+:meth:`Runner.dryrun` (the JAX package's ``analyze`` engine and its rules,
+ROADMAP queue 1 item 2.8) raises :class:`NotImplementedError` unless
+``no_lint=True`` or ``$TPX_NO_LINT`` is set; with either, dryrun goes on
+as the JAX runner's does past its gate. A subset of the rules would pass
+specs that the full gate refuses, so the port runs none of them until the
+engine and its rules come together, rewritten for GPUs.
 """
 
 from __future__ import annotations
@@ -568,14 +564,45 @@ class Runner:
         policy: Optional[Any] = None,
         session: Optional[str] = None,
     ) -> Any:
-        """Run a dryrun under the preemption-aware supervisor (the JAX
-        package's ``Runner.supervise``). The port's supervisor is not ported
-        yet: this raises :class:`NotImplementedError` naming ROADMAP queue 1
-        item 2.4, which brings this method's body with the supervisor."""
-        raise NotImplementedError(
-            "Runner.supervise needs the supervisor, which is not ported yet"
-            " (ROADMAP queue 1 item 2.4 (supervisor/api.py))"
-        )
+        """Run a dryrun under the preemption-aware supervisor: submit,
+        watch to terminal, classify the failure, and auto-resubmit within
+        the policy's per-class retry budgets, resuming from the latest
+        checkpoint step when the policy names a checkpoint dir. With
+        ``policy.elastic`` each attempt additionally runs the backend's
+        elastic watcher (:meth:`watch_elastic`). Blocks until success or
+        budget exhaustion; returns a
+        :class:`~torchx_tpu_torch.supervisor.api.SupervisorResult`.
+
+        ``policy`` is a :class:`~torchx_tpu_torch.supervisor.policy.SupervisorPolicy`
+        (default-constructed when omitted); typed ``Any`` here only to keep
+        the supervisor subsystem an optional import at runner load time.
+        ``session`` names the durable supervision session (auto-generated
+        when omitted); ``tpx-torch supervise --resume <session>`` reattaches
+        to it after a client crash."""
+        from torchx_tpu_torch.supervisor.api import Supervisor
+
+        scheduler = dryrun_info._scheduler or ""
+        app = dryrun_info._app
+        with log_event(
+            "supervise",
+            scheduler,
+            app_image=app.roles[0].image if app and app.roles else None,
+            session=self._name,
+        ) as ev:
+            result = Supervisor(self, dryrun_info, policy, session=session).run()
+            if result.handle:
+                _, _, app_id = parse_app_handle(result.handle)
+                ev._event.app_id = app_id
+            ev._event.app_metadata = {
+                "attempts": result.attempts,
+                "succeeded": result.succeeded,
+                "budget_exhausted": (
+                    str(result.budget_exhausted)
+                    if result.budget_exhausted
+                    else None
+                ),
+            }
+            return result
 
     def describe(self, app_handle: AppHandle) -> Optional[AppDef]:
         """Best-effort reconstruction of the AppDef from the backend

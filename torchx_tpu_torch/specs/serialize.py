@@ -10,8 +10,8 @@ Either package reads the other's spec of a CPU-only app (the JAX
 package's ``"tpu": null`` carries nothing); a spec that asks for a TPU slice
 is refused here, never run without its accelerator.
 
-Also home of the supervisor policy's round trip backing ``tpx supervise
---policy policy.json``.
+Also home of the supervisor policy's round trip backing ``tpx-torch
+supervise --policy policy.json``.
 """
 
 from __future__ import annotations
@@ -162,9 +162,18 @@ def supervisor_policy_to_dict(policy: Any) -> dict[str, Any]:
 
 
 def supervisor_policy_from_dict(data: Mapping[str, Any]) -> Any:
-    """Build a ``SupervisorPolicy`` from a (possibly partial) dict: not
-    ported yet, it needs the supervisor's policy module."""
-    raise NotImplementedError(
-        "supervisor policies come with supervisor/policy.py, ROADMAP queue 1"
-        " item 2.4; not ported yet"
-    )
+    """Build a :class:`SupervisorPolicy` from a (possibly partial) dict;
+    unknown keys raise so a typo'd policy file fails loudly instead of
+    silently running with defaults."""
+    from dataclasses import fields
+
+    from torchx_tpu_torch.supervisor.policy import SupervisorPolicy
+
+    known = {f.name for f in fields(SupervisorPolicy)}
+    unknown = set(data) - known
+    if unknown:
+        raise ValueError(
+            f"unknown supervisor policy keys {sorted(unknown)};"
+            f" valid keys: {sorted(known)}"
+        )
+    return SupervisorPolicy(**dict(data))
