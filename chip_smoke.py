@@ -327,6 +327,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
    than the host has must be refused for over-subscription. ``--phases ...,gang,local,gangspmd`` also
    runs A unprofiled by hand through ``spmd_main`` as before the runner
    took it, for its step time beside the runner's in one call.
+11. remote — the launcher's remote backends on the card's machine, after
+   local: gang A's ``dist.spmd --gpu h100-<cards>`` app dryrun through gke,
+   slurm, local_docker, vertex and gcp_batch in a subprocess, every client
+   a stub that raises if called (no cluster, registry or cloud here). The
+   subprocess leaves neither torch nor jax in ``sys.modules``; the docker
+   request names exactly ``torch.cuda.device_count()`` cards (by UUID,
+   beside torch's UUIDs and the ``/dev/nvidia<N>`` nodes found); the GKE
+   limit, the slurm ``--gpus-per-node``, the Batch accelerator count and
+   the Vertex ``acceleratorCount`` each equal the slice's ``gpus_per_host``
+   under ``nvidia-h100-80gb`` / ``NVIDIA_H100_80GB``; each slurm het
+   group's identity env equals ``role_replica_env``'s; no request names a
+   TPU. Its seconds are on the ``end`` line.
 
 The train phase also runs the trainer once more with the step profiler and
 a torch.profiler trace (``profile=True, profile_dir=...``): one
@@ -414,7 +426,7 @@ import sys
 import time
 
 PHASES = ("build", "specs", "kernels", "train", "remat", "reference", "gang", "local",
-          "gangckpt", "tp", "serve", "ckpt", "moe", "ep", "pp", "int8")
+          "remote", "gangckpt", "tp", "serve", "ckpt", "moe", "ep", "pp", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
@@ -2309,6 +2321,30 @@ def _launch_marks(obs_root: str, t_submit: float) -> dict:
     return marks
 
 
+GANG_A_MODULE = "torchx_tpu_torch.examples.train_llama"
+
+
+def gang_a_args() -> list[str]:
+    """Gang A's trainer arguments: the train phase's llama3_1b run under
+    ``GANG["remat_policy"]``, its buckets at ``GANG["bucket_mb"]``."""
+    return ["--config", "llama3_1b", "--batch", str(TRAIN["batch"]), "--seq",
+            str(TRAIN["seq"]), "--steps", str(TRAIN["steps"]), "--kernels", "cuda",
+            "--warmup", "1", "--mesh", "fsdp=-1", "--grad-bucket-mb",
+            str(GANG["bucket_mb"]), "--remat-policy", GANG["remat_policy"]]
+
+
+def gang_a_app(root: str, cards: int):  # noqa: ANN201
+    """Gang A as the port's ``dist.spmd`` app on ``h100-<cards>`` (standard
+    library only: the remote phase materializes it without torch). The
+    component's entrypoint is ``python``: on the card's machine it is this
+    interpreter (PERF.md §6, the run path)."""
+    from torchx_tpu_torch.components import dist
+
+    return dist.spmd(*gang_a_args(), m=GANG_A_MODULE, image=REPO, gpu=f"h100-{cards}",
+                     env={"PYTHONPATH": REPO, "TPX_OBS_DIR": os.path.join(root, "obs")},
+                     coordinator_port=0)
+
+
 def _gang_a(cfg, root: str, profiled: bool, scheduled: bool = True) -> dict:  # noqa: ANN001
     """The train phase's run through ``spmd_main`` (module docstring) under
     ``--remat-policy dots`` (``GANG["remat_policy"]``: the same bits and
@@ -2320,25 +2356,14 @@ def _gang_a(cfg, root: str, profiled: bool, scheduled: bool = True) -> dict:  # 
     profiler and the trainer's torch.profiler trace, read here)."""
     import torch
 
-    from torchx_tpu_torch.components import dist
-
     extra = ["--profile", "--profile-dir", os.path.join(root, "trace")] if profiled else []
-    module = "torchx_tpu_torch.examples.train_llama"
-    train_args = ["--config", "llama3_1b", "--batch", str(TRAIN["batch"]), "--seq",
-                  str(TRAIN["seq"]), "--steps", str(TRAIN["steps"]), "--kernels", "cuda",
-                  "--warmup", "1", "--mesh", "fsdp=-1", "--grad-bucket-mb",
-                  str(GANG["bucket_mb"]), "--remat-policy", GANG["remat_policy"], *extra]
-    env = {"TPX_OBS_DIR": os.path.join(root, "obs")}
     if scheduled and not profiled:
-        # the component's entrypoint is ``python``: on the card's machine it
-        # is this interpreter (PERF.md §6, the run path)
-        app = dist.spmd(*train_args, m=module, image=REPO,
-                        gpu=f"h100-{torch.cuda.device_count()}",
-                        env={"PYTHONPATH": REPO, **env}, coordinator_port=0)
-        final, record = _scheduled_spmd(app, root, "gang")
+        final, record = _scheduled_spmd(gang_a_app(root, torch.cuda.device_count()), root,
+                                        "gang")
         final["launcher"] = record
         return final
-    final, _ = _spmd([], ["-m", module, "--", *train_args], env, "gang")
+    env = {"TPX_OBS_DIR": os.path.join(root, "obs")}
+    final, _ = _spmd([], ["-m", GANG_A_MODULE, "--", *gang_a_args(), *extra], env, "gang")
     if profiled:
         with open(final["profile_trace"]) as f:
             events = json.load(f)["traceEvents"]
@@ -2482,6 +2507,197 @@ def phase_local(gang_a: dict, card: str) -> dict:
     if refused is None or "cards" not in refused:
         fail("local", f"a dryrun asking {over.accelerator_type} of {cards} card(s) was not"
              f" refused for over-subscription: {refused}")
+    return res
+
+
+#: The remote backends the remote phase dryruns, each with its run config.
+REMOTE_BACKENDS = {"gke": {}, "slurm": {}, "local_docker": {},
+                   "vertex": {"project": "chip-smoke"}, "gcp_batch": {"project": "chip-smoke"}}
+#: Names no port request may carry: the TPU slice surface it replaced.
+TPU_NAMES = ("google.com/tpu", "gke-tpu-", "hightpu", "tpuTopology", "MEGASCALE", "TPX_TPU_")
+
+
+class _Refuse:
+    """A backend client stub: every attribute it is asked for raises (and is
+    counted in ``calls``), so a dryrun that reached a daemon or a cloud
+    fails the phase."""
+
+    def __init__(self, name: str, calls: dict) -> None:
+        self._name, self._calls = name, calls
+
+    def __getattr__(self, attr: str):  # noqa: ANN204
+        self._calls[self._name] = self._calls.get(self._name, 0) + 1
+        raise RuntimeError(f"{self._name}: the dryrun called its client ({attr})")
+
+
+def remote_requests(cards: int, root: str) -> dict:
+    """Gang A's app (:func:`gang_a_app`) through each remote backend's
+    ``submit_dryrun``, every client a :class:`_Refuse` stub (a CLI backend's
+    ``_run_cmd`` raises ``FileNotFoundError``, as on a host without it: the
+    slurm dryrun's ``sinfo`` memory probe meets it and keeps ``--mem``).
+    -> each request's cards a host, their names, each slurm group's identity
+    beside ``role_replica_env``'s, the TPU names found, the stub calls and
+    the modules of torch, jax or the JAX package that got loaded. Standard
+    library only: the remote phase runs it in a subprocess."""
+    from torchx_tpu_torch import settings
+    from torchx_tpu_torch.schedulers import get_scheduler_factories
+    from torchx_tpu_torch.schedulers.api import role_replica_env
+
+    calls: dict[str, int] = {}
+
+    def no_cli(name):  # noqa: ANN001, ANN202
+        def run(cmd, **kwargs):  # noqa: ANN001, ANN003, ANN202
+            calls[name] = calls.get(name, 0) + 1
+            raise FileNotFoundError(f"{cmd[0]}: no {name} control plane on this machine")
+        return run
+
+    app = gang_a_app(root, cards)
+    (role,) = app.roles
+    gpu = role.resource.gpu
+    factories = get_scheduler_factories()
+    out: dict = {"accelerator_type": gpu.accelerator_type, "gpus_per_host": gpu.gpus_per_host,
+                 "hosts": gpu.hosts, "backends": {}}
+    for name, cfg in REMOTE_BACKENDS.items():
+        kwargs = {} if name == "slurm" else {"docker_client": _Refuse(f"{name}.docker", calls)}
+        if name in ("gke", "vertex"):
+            kwargs["client"] = _Refuse(name, calls)
+        sched = factories[name](session_name="chip_smoke", **kwargs)
+        if hasattr(sched, "_run_cmd"):
+            sched._run_cmd = no_cli(name)
+        t = time.monotonic()
+        req = sched.submit_dryrun(app, dict(cfg)).request
+        got: dict = {"dryrun_s": time.monotonic() - t,
+                     "tpu_names": [n for n in TPU_NAMES if n in str(req)]}
+        if name == "gke":
+            (rj,) = req.resource["spec"]["replicatedJobs"]
+            pod = rj["template"]["spec"]["template"]["spec"]
+            got.update(hosts=rj["replicas"] * rj["template"]["spec"]["parallelism"],
+                       cards_per_host=pod["containers"][0]["resources"]["limits"]
+                       ["nvidia.com/gpu"],
+                       accelerator=pod["nodeSelector"]["cloud.google.com/gke-accelerator"])
+        elif name == "slurm":
+            identity = []
+            for rid, group in enumerate(req.replicas):
+                want = role_replica_env(role, rid, "", settings.TPX_COORDINATOR_PORT)
+                want.pop(settings.ENV_TPX_COORDINATOR_HOST)
+                identity.append({k: group.env.get(k) for k in want} == want)
+            per_node = [int(o.split("=", 1)[1]) for g in req.replicas for o in g.sbatch_opts
+                        if o.startswith("--gpus-per-node=")]
+            got.update(hosts=len(req.replicas), cards_per_host=per_node,
+                       identity_equals_role_replica_env=identity,
+                       coordinator_exported="export TPX_COORDINATOR_HOST=" in req.script())
+        elif name == "local_docker":
+            got["device_ids"] = [c.kwargs["device_requests"][0]["device_ids"]
+                                 for c in req.containers]
+            got.update(hosts=len(req.containers),
+                       cards_per_host=[len(ids) for ids in got["device_ids"]],
+                       driver={c.kwargs["device_requests"][0]["driver"] for c in req.containers}
+                       .pop(),
+                       node_mounts=[d for c in req.containers for d in c.kwargs.get("devices", [])])
+        elif name == "vertex":
+            pools = req.custom_job["jobSpec"]["workerPoolSpecs"]
+            got.update(hosts=sum(p["replicaCount"] for p in pools),
+                       cards_per_host=[p["machineSpec"]["acceleratorCount"] for p in pools],
+                       accelerator=[p["machineSpec"]["acceleratorType"] for p in pools],
+                       machine=[p["machineSpec"]["machineType"] for p in pools])
+        else:
+            (group,) = req.config["taskGroups"]
+            (inst,) = req.config["allocationPolicy"]["instances"]
+            (accel,) = inst["policy"]["accelerators"]
+            got.update(hosts=group["taskCount"], cards_per_host=accel["count"],
+                       accelerator=accel["type"], machine=inst["policy"]["machineType"],
+                       install_gpu_drivers=inst.get("installGpuDrivers"))
+        out["backends"][name] = got
+    out["stub_calls"] = calls
+    out["loaded"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("torch", "jax", "torchx_tpu", "triton"))
+    return out
+
+
+def phase_remote(card: str) -> dict:
+    """The remote backends on the card's machine (module docstring): gang
+    A's app dryrun through gke, slurm, local_docker, vertex and gcp_batch
+    in a subprocess that loads no torch (:func:`remote_requests`), each
+    request's cards held to the slice's and docker's to this machine's."""
+    import glob
+    import tempfile
+
+    import torch
+
+    t = time.monotonic()
+    cards = torch.cuda.device_count()
+    nodes = sorted((p for p in glob.glob("/dev/nvidia*") if re.fullmatch(r"/dev/nvidia\d+", p)),
+                   key=lambda p: int(p[len("/dev/nvidia"):]))
+    # the subprocess stamps its start, chip_smoke.py's import and the
+    # dryruns on the epoch clock, against this process's launch
+    code = ("import time; t = [time.time()]\n"
+            "import importlib.util, json, sys\n"
+            "spec = importlib.util.spec_from_file_location('chip_smoke_remote', sys.argv[1])\n"
+            "smoke = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(smoke)\n"
+            "t.append(time.time())\n"
+            "out = smoke.remote_requests(int(sys.argv[2]), sys.argv[3])\n"
+            "t.append(time.time())\n"
+            "print(json.dumps({**out, 'stamps': t}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t_sub, t_epoch = time.monotonic(), time.time()
+    proc = subprocess.run([sys.executable, "-c", code, os.path.abspath(__file__), str(cards),
+                           tempfile.mkdtemp(prefix="tpx_remote_")],
+                          env=env, capture_output=True, text=True, timeout=300)
+    subprocess_s = time.monotonic() - t_sub
+    if proc.returncode != 0:
+        fail("remote", f"the dryruns' subprocess failed:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    start, imported, done = got.pop("stamps")
+    split = {"interpreter_start": start - t_epoch, "chip_smoke_import": imported - start,
+             "dryruns_with_imports": done - imported,
+             "dryruns": sum(b["dryrun_s"] for b in got["backends"].values())}
+    torch_uuids = []
+    for i in range(cards):
+        uuid = getattr(torch.cuda.get_device_properties(i), "uuid", None)
+        torch_uuids.append(None if uuid is None else str(uuid))
+    docker = got["backends"]["local_docker"]
+    named = docker["device_ids"][0] if docker["device_ids"] else []
+    uuid_like = all(u and re.fullmatch(r"[0-9a-f]{8}(-[0-9a-f]{4}){3}-[0-9a-f]{12}", u)
+                    for u in torch_uuids)
+    res = {"phase": "remote", "device_count": cards, "dev_nvidia_nodes": nodes,
+           "torch_uuids": torch_uuids,
+           "docker_ids_are_torch_uuids": named == [f"GPU-{u}" for u in torch_uuids]
+           if uuid_like else None, **got, "subprocess_s": subprocess_s, "subprocess_split_s": split,
+           "seconds": time.monotonic() - t, "card": card}
+    emit(res)
+    problems = []
+    if got["loaded"]:
+        problems.append(f"materializing the requests loaded {got['loaded']}")
+    # slurm's dryrun probes sinfo for the partition's memory, best effort
+    if {k: v for k, v in got["stub_calls"].items() if k != "slurm"}:
+        problems.append(f"a dryrun called a client: {got['stub_calls']}")
+    per_host = got["gpus_per_host"]
+    for name, b in got["backends"].items():
+        want = [per_host] * got["hosts"] if isinstance(b["cards_per_host"], list) else per_host
+        if name == "vertex":
+            want = [per_host] * len(b["cards_per_host"])
+        if b["cards_per_host"] != want or b["hosts"] != got["hosts"]:
+            problems.append(f"{name}: {b['hosts']} host(s) of {b['cards_per_host']} card(s),"
+                            f" the slice is {got['hosts']} of {per_host}")
+        if b["tpu_names"]:
+            problems.append(f"{name} names {b['tpu_names']}")
+    b = got["backends"]
+    if b["gke"]["accelerator"] != "nvidia-h100-80gb" \
+            or b["gcp_batch"]["accelerator"] != "nvidia-h100-80gb" \
+            or set(b["vertex"]["accelerator"]) != {"NVIDIA_H100_80GB"}:
+        problems.append("an accelerator name is not nvidia-h100-80gb / NVIDIA_H100_80GB")
+    if sum(len(ids) for ids in docker["device_ids"]) != cards or docker["node_mounts"]:
+        problems.append(f"the docker request names {docker['device_ids']} (and mounts"
+                        f" {docker['node_mounts']}) for {cards} card(s)")
+    if res["docker_ids_are_torch_uuids"] is False:
+        problems.append(f"the docker ids {named} are not torch's cards {torch_uuids}")
+    if not all(b["slurm"]["identity_equals_role_replica_env"]) \
+            or not b["slurm"]["coordinator_exported"]:
+        problems.append("a slurm het group's identity is not role_replica_env's")
+    if problems:
+        fail("remote", "; ".join(problems))
     return res
 
 
@@ -6384,6 +6600,9 @@ def main(argv: list[str] | None = None) -> int:
             fail("local", "the local phase reads gang A's scheduled run: add train,gang")
         with timed("local"):
             phase_local(gang_out["A_final"], card)
+    if "remote" in phases:
+        with timed("remote"):
+            phase_remote(card)
     if "gangckpt" in phases:
         with timed("gangckpt"):
             phase_gang_ckpt(gang_out["A_final"] if gang_out else None,

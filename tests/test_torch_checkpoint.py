@@ -444,10 +444,11 @@ class TestContractWithJax:
         # and the port's own GPU names in their place
         gpu = {"ENV_CUDA_VISIBLE_DEVICES": "CUDA_VISIBLE_DEVICES",
                "ENV_TPX_GPU_ACCELERATOR_TYPE": "TPX_GPU_ACCELERATOR_TYPE",
-               "ENV_TPX_GPU_TOPOLOGY": "TPX_GPU_TOPOLOGY"}
+               "ENV_TPX_GPU_TOPOLOGY": "TPX_GPU_TOPOLOGY",
+               "ENV_TPX_NUM_SLICES": "TPX_NUM_SLICES"}
         names = {n for n in dir(tsettings) if n.isupper()}
         assert names == ({n for n in dir(jsettings) if n.isupper()} - tpu) | set(gpu)
-        assert len(names) == 69
+        assert len(names) == 70
         assert {n: getattr(tsettings, n) for n in gpu} == gpu
         for name in names - set(gpu):
             got, want = getattr(tsettings, name), getattr(jsettings, name)

@@ -137,7 +137,9 @@ LAUNCHER_MODULES = (
     *(f"resilience/{m}.py" for m in ("__init__", "errors", "policy", "breaker", "faults",
                                      "call")),
     *(f"schedulers/{m}.py" for m in ("__init__", "api", "ids", "streams", "structured_opts",
-                                     "devices", "local_scheduler")),
+                                     "devices", "local_scheduler", "docker_scheduler",
+                                     "slurm_scheduler", "gke_scheduler",
+                                     "gcp_batch_scheduler", "vertex_scheduler")),
     "control/__init__.py", "control/events.py", "control/watch.py",
     *(f"runner/{m}.py" for m in ("__init__", "api", "config", "describe_cache")),
     *(f"runner/events/{m}.py" for m in ("__init__", "api", "handlers")),
@@ -159,8 +161,10 @@ LAUNCHER_APP_FILES = tuple(m.replace(".", "/") + ".py" for m in LAUNCHER_APPS)
 def test_launcher_modules_are_present():
     sources = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in p.parents}
     assert set(LAUNCHER_MODULES) | set(LAUNCHER_APP_FILES) <= sources
-    # the TPU slice catalog has the GPU one in its place
+    # the TPU slice catalog has the GPU one in its place; the TPU-VM backend
+    # has no GPU machine (Cloud TPU queued resources allocate TPU slices only)
     assert "specs/named_resources_tpu.py" not in sources
+    assert "schedulers/tpu_vm_scheduler.py" not in sources
     # a remote backend or a control-plane service comes with its own layer
     assert not {s for s in sources if s.startswith(("schedulers/", "control/", "resilience/",
                                                     "runner/", "tracker/", "runtime/",
@@ -469,3 +473,40 @@ def test_chip_smoke_local_phase(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(SystemExit):
         smoke.phase_local({"launcher": record}, "card")
+
+
+def test_chip_smoke_remote_phase(monkeypatch, capsys):
+    """The remote phase rehearsed on the CPU with one card faked (the
+    launcher's ``CUDA_VISIBLE_DEVICES`` names its UUID, torch reports it):
+    gang A's app dryrun through the five remote backends in a subprocess
+    that loads no torch, each asking for one host of one H100, docker
+    naming that card; a count that differs from the request's fails."""
+    import importlib.util
+    import types
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_remote", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    uuid = "5f1a7c3e-0b2d-4e6f-8a9b-0c1d2e3f4a5b"
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", f"GPU-{uuid}")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i=0: types.SimpleNamespace(uuid=uuid))
+    res = smoke.phase_remote("NVIDIA H100 80GB HBM3, 700.00 W")
+    line = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert line == json.loads(json.dumps(res))
+    assert (line["phase"], line["accelerator_type"], line["hosts"], line["gpus_per_host"]) \
+        == ("remote", "h100-1", 1, 1)
+    assert line["loaded"] == [] and set(line["stub_calls"]) <= {"slurm"}
+    b = line["backends"]
+    assert b["local_docker"]["device_ids"] == [[f"GPU-{uuid}"]]
+    assert line["docker_ids_are_torch_uuids"] is True
+    assert (b["gke"]["cards_per_host"], b["gcp_batch"]["cards_per_host"]) == (1, 1)
+    assert (b["slurm"]["cards_per_host"], b["vertex"]["cards_per_host"]) == ([1], [1])
+    assert (b["vertex"]["machine"], b["gcp_batch"]["machine"]) == (["a3-highgpu-1g"],
+                                                                  "a3-highgpu-1g")
+    assert b["slurm"]["identity_equals_role_replica_env"] == [True]
+    assert all(not v["tpu_names"] for v in b.values())
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit):
+        smoke.phase_remote("card")

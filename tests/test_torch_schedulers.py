@@ -1,17 +1,22 @@
 """The port's scheduler contract (``torchx_tpu_torch.schedulers``): the
-``"local"`` cases of ``tests/test_scheduler_conformance.py`` and its
+cases of ``tests/test_scheduler_conformance.py`` over the port's whole
+table (the JAX table less ``tpu_vm``) and its
 ``TestLocalSchedulerLifecycle``, the GPU mapping and unknown-device cases of
-``tests/test_devices.py``, run against the copy; and the copy held to the
+``tests/test_devices.py``, run against the copy; a GPU replica's card
+request (``devices.gpu_device_request``), which counts the CUDA driver's
+cards and no ``/dev/nvidia<N>`` node; and the copy held to the
 JAX package's ``torchx_tpu.schedulers`` on the same seeded inputs: app ids
 (``ids.cleanup`` / ``sanitize_name`` / ``make_unique``), the ``Tee``'s
 stamped bytes, ``StructuredOpts`` -> ``runopts``, the shell and log-line
-helpers of ``api.py``, and each replica's gang identity. The remote
-backends join the table with their port (ROADMAP queue 1 item 2.5); this
-host has no card, so the GPU role of the conformance app passes
-``gpu_simulate=True``."""
+helpers of ``api.py``, and each replica's gang identity. This host has no
+card, so the GPU role of the conformance app passes ``gpu_simulate=True``
+on the local scheduler, and the docker host is given eight cards."""
 
 import dataclasses
 import random
+import re
+from pathlib import Path
+from unittest import mock
 import string
 import time
 from dataclasses import dataclass, field
@@ -39,7 +44,7 @@ from torchx_tpu_torch.schedulers.api import DescribeAppResponse, Scheduler
 from torchx_tpu_torch.schedulers.devices import (
     DEVICE_MAPPINGS,
     get_device_mounts,
-    local_gpu_device_mounts,
+    gpu_device_request,
 )
 from torchx_tpu_torch.schedulers.structured_opts import StructuredOpts
 from torchx_tpu_torch.specs.api import (
@@ -70,13 +75,24 @@ def _no_card_and_own_registry(tmp_path, monkeypatch):
 
 def make_scheduler(name: str) -> Scheduler:
     factory = get_scheduler_factories()[name]
-    return factory(session_name="conformance")
+    kwargs = {}
+    if name == "gke":
+        kwargs["client"] = object()  # never used at dryrun level
+    if name == "local_docker":
+        kwargs["docker_client"] = mock.MagicMock()
+    if name == "vertex":
+        kwargs["client"] = mock.MagicMock()
+    if name == "gcp_batch":
+        kwargs["docker_client"] = mock.MagicMock()
+    return factory(session_name="conformance", **kwargs)
 
 
 def sample_app(name: str) -> AppDef:
     role = Role(
         name="trainer",
-        image="",
+        image="img:1"
+        if name in ("gke", "local_docker", "vertex", "gcp_batch")
+        else "",
         entrypoint="python",
         args=["-m", "train"],
         resource=Resource(cpu=2, memMB=1024, gpu=GpuSlice("h100", 8)),
@@ -86,16 +102,36 @@ def sample_app(name: str) -> AppDef:
 
 MINIMAL_CFG = {
     "local": {"gpu_simulate": True},
+    "local_docker": {},
+    "gke": {},
+    "slurm": {},
+    "vertex": {"project": "test-proj"},
+    "gcp_batch": {"project": "test-proj"},
 }
 
 ALL = sorted(DEFAULT_SCHEDULER_MODULES)
 
 
+@pytest.fixture
+def docker_host_cards(monkeypatch):
+    """The docker host's CUDA driver finds eight cards (the conformance
+    app's slice)."""
+    monkeypatch.setattr(lsched, "driver_gpu_count", lambda: 8)
+    monkeypatch.setattr(lsched, "driver_gpu_uuids",
+                        lambda: [f"GPU-{i:08x}-0000-0000-0000-000000000000" for i in range(8)])
+
+
 class TestSchedulerConformance:
     def test_only_ported_backends_are_listed(self):
-        # a factory that cannot import is never listed
-        assert ALL == ["local"] == sorted(MINIMAL_CFG)
-        assert set(get_scheduler_factories()) >= {"local"}
+        from torchx_tpu.schedulers import DEFAULT_SCHEDULER_MODULES as JAX_TABLE
+
+        # the JAX package's order, less the backend with no GPU machine
+        assert list(DEFAULT_SCHEDULER_MODULES) == [n for n in JAX_TABLE if n != "tpu_vm"] == [
+            "local", "gke", "slurm", "local_docker", "vertex", "gcp_batch"]
+        assert ALL == sorted(MINIMAL_CFG)
+        assert set(get_scheduler_factories()) >= set(ALL)
+        for name, target in DEFAULT_SCHEDULER_MODULES.items():
+            assert target == JAX_TABLE[name].replace("torchx_tpu.", "torchx_tpu_torch.")
 
     @pytest.mark.parametrize("name", ALL)
     def test_factory_and_backend_name(self, name):
@@ -114,7 +150,7 @@ class TestSchedulerConformance:
             assert not (opt.is_required and opt.default is not None)
 
     @pytest.mark.parametrize("name", ALL)
-    def test_submit_dryrun_contract(self, name, tmp_path):
+    def test_submit_dryrun_contract(self, name, tmp_path, docker_host_cards):
         """submit_dryrun materializes the full request without touching any
         backend, and stamps the dryrun info (the core testability design)."""
         sched = make_scheduler(name)
@@ -129,7 +165,7 @@ class TestSchedulerConformance:
         assert str(info)  # every request pretty-prints
 
     @pytest.mark.parametrize("name", ALL)
-    def test_pre_proc_hook_applies(self, name, tmp_path):
+    def test_pre_proc_hook_applies(self, name, tmp_path, docker_host_cards):
         marker = {}
 
         def pre_proc(backend, dryrun_info):  # noqa: ANN001
@@ -259,18 +295,71 @@ class TestDeviceMounts:
                             for m in jdevices.get_device_mounts({"nvidia.com/gpu": n})]
             assert len(ours) == n + 2
 
-    def test_local_gpu_device_mounts(self, monkeypatch):
+
+
+def _uuids(n: int) -> list[str]:
+    return [f"GPU-{i:08x}-1111-2222-3333-{i:012x}" for i in range(n)]
+
+
+class TestGpuDeviceRequest:
+    """A GPU replica's card request counts the CUDA driver's cards, split
+    as ``gpu_device_env`` splits them; the ``/dev/nvidia<N>`` nodes decide
+    nothing (these cases replaced the test of ``local_gpu_device_mounts``, which
+    globbed them)."""
+
+    @pytest.fixture
+    def nodes(self, monkeypatch):
+        """Every glob finds the one-card H100 machine's two nodes, whatever
+        the driver says."""
         import glob
 
-        nodes: list[str] = []
-        monkeypatch.setattr(glob, "glob", lambda pattern: list(nodes))
-        assert local_gpu_device_mounts() == []  # no card, no mounts
-        nodes[:] = ["/dev/nvidia10", "/dev/nvidia2", "/dev/nvidia-caps", "/dev/nvidia0"]
-        mounts = local_gpu_device_mounts()
-        assert [m.src_path for m in mounts] == [
-            "/dev/nvidia0", "/dev/nvidia2", "/dev/nvidia10", "/dev/nvidiactl",
-            "/dev/nvidia-uvm"]
-        assert all(m.src_path == m.dst_path for m in mounts)
+        monkeypatch.setattr(glob, "glob", lambda pattern, **kw: ["/dev/nvidia0", "/dev/nvidia7"])
+
+    def _driver(self, monkeypatch, n: int) -> list[str]:
+        ids = _uuids(n)
+        monkeypatch.setattr(lsched, "driver_gpu_count", lambda: n)
+        monkeypatch.setattr(lsched, "driver_gpu_uuids", lambda: list(ids))
+        return ids
+
+    def test_no_card(self, nodes):
+        with pytest.raises(ValueError, match="finds no card"):
+            gpu_device_request(1, 0, 1)
+
+    def test_one_driver_card_beside_two_nodes(self, nodes, monkeypatch):
+        (card,) = self._driver(monkeypatch, 1)
+        assert gpu_device_request(1, 0, 1) == {
+            "driver": "nvidia", "device_ids": [card], "capabilities": [["gpu"]]}
+        with pytest.raises(ValueError, match="need 2 cards, and this host has 1"):
+            gpu_device_request(2, 0, 1)
+
+    def test_two_replicas_split_eight_cards(self, nodes, monkeypatch):
+        ids = self._driver(monkeypatch, 8)
+        shares = [gpu_device_request(4, rid, 2)["device_ids"] for rid in range(2)]
+        assert shares == [ids[:4], ids[4:]]
+        assert [lsched.gpu_device_env(4, rid, 2, ids, simulate=False)
+                [settings.ENV_CUDA_VISIBLE_DEVICES] for rid in range(2)] == \
+            [",".join(share) for share in shares]
+
+    @pytest.mark.parametrize("visible, driver, want", [
+        ("GPU-a,GPU-b", [], ["GPU-a", "GPU-b"]),        # UUIDs: as given
+        ("3,5", ["GPU-c", "GPU-d"], ["GPU-c", "GPU-d"]),  # ordinals: the driver's UUIDs
+        ("3,5", [], ["3", "5"]),                         # no driver to ask: as given
+    ])
+    def test_launcher_cuda_visible_devices(self, nodes, monkeypatch, visible, driver, want):
+        monkeypatch.setenv(settings.ENV_CUDA_VISIBLE_DEVICES, visible)
+        monkeypatch.setattr(lsched, "driver_gpu_count", lambda: 8)  # not read: the env wins
+        monkeypatch.setattr(lsched, "driver_gpu_uuids", lambda: list(driver))
+        assert gpu_device_request(2, 0, 1)["device_ids"] == want
+        assert [gpu_device_request(1, rid, 2)["device_ids"] for rid in range(2)] == \
+            [[w] for w in want]
+
+    def test_no_source_globs_device_nodes(self):
+        """No ``/dev/nvidia<N>`` glob decides a count anywhere in the port."""
+        pkg = Path(__file__).resolve().parent.parent / "torchx_tpu_torch"
+        found = [f"{p.relative_to(pkg)}:{i}" for p in sorted(pkg.rglob("*.py"))
+                 for i, line in enumerate(p.read_text().splitlines(), 1)
+                 if re.search(r"glob\(.*/dev/nvidia", line)]
+        assert found == []
 
 
 # -- parity with the JAX package --------------------------------------------
@@ -442,3 +531,61 @@ class TestApiParity:
         assert tapi.gpu_hosts_for_role(cpu) == 3
         assert tapi.role_replica_env(cpu, 1, "h", 1) == japi.role_replica_env(
             jspecs.Role(name="c", image="", num_replicas=3), 1, "h", 1)
+
+
+# -- acceptance: the CLI's dryrun of an H100 gang on every remote backend -----
+
+
+def _two_hosts_of_eight(name: str, request: str) -> list[int]:
+    """Cards a host for each host the printed request asks for."""
+    import json
+
+    if name == "slurm":
+        groups = request.split("#SBATCH hetjob")
+        assert all("#SBATCH --nodes=1\n" in g for g in groups)
+        return [int(re.search(r"#SBATCH --gpus-per-node=(\d+)", g).group(1)) for g in groups]
+    doc = json.loads(request)
+    if name == "gke":
+        (rj,) = doc["spec"]["replicatedJobs"]
+        pod = rj["template"]["spec"]["template"]["spec"]
+        assert pod["nodeSelector"]["cloud.google.com/gke-accelerator"] == "nvidia-h100-80gb"
+        cards = pod["containers"][0]["resources"]["limits"]["nvidia.com/gpu"]
+        return [cards] * (rj["replicas"] * rj["template"]["spec"]["parallelism"])
+    if name == "local_docker":
+        return [len(c["device_requests"][0]["device_ids"]) for c in doc]
+    if name == "vertex":
+        pools = doc["jobSpec"]["workerPoolSpecs"]
+        assert {p["machineSpec"]["acceleratorType"] for p in pools} == {"NVIDIA_H100_80GB"}
+        return [p["machineSpec"]["acceleratorCount"] for p in pools
+                for _ in range(p["replicaCount"])]
+    assert name == "gcp_batch"
+    (group,) = doc["taskGroups"]
+    (inst,) = doc["allocationPolicy"]["instances"]
+    (accel,) = inst["policy"]["accelerators"]
+    assert (accel["type"], inst["policy"]["machineType"]) == ("nvidia-h100-80gb", "a3-highgpu-8g")
+    return [accel["count"]] * group["taskCount"]
+
+
+class TestRemoteDryrunAcceptance:
+    """``tpx-torch run --dryrun -s <backend> dist.spmd --gpu h100-16`` on
+    every remote backend prints a request for two hosts of eight H100s (the
+    docker host is given sixteen cards by its launcher's
+    ``CUDA_VISIBLE_DEVICES``)."""
+
+    @pytest.mark.parametrize("name", [n for n in ALL if n != "local"])
+    def test_two_hosts_of_eight_h100s(self, name, monkeypatch):
+        import io
+        from contextlib import redirect_stdout
+
+        from torchx_tpu_torch.cli.main import main as cli_main
+
+        monkeypatch.setenv(settings.ENV_CUDA_VISIBLE_DEVICES, ",".join(_uuids(16)))
+        cfg = ["-cfg", "project=p"] if name in ("vertex", "gcp_batch") else []
+        out = io.StringIO()
+        with redirect_stdout(out):
+            cli_main(["run", "--dryrun", "--no-lint", "-s", name, *cfg, "dist.spmd",
+                      "--gpu", "h100-16", "-m", "train"])
+        request = out.getvalue().split("=== SCHEDULER REQUEST ===", 1)[1]
+        assert _two_hosts_of_eight(name, request) == [8, 8]
+        assert not [t for t in ("google.com/tpu", "gke-tpu-", "hightpu", "tpuTopology",
+                                "MEGASCALE", "TPX_TPU_") if t in request]

@@ -261,6 +261,34 @@ def driver_gpu_count() -> int:
     return count.value
 
 
+def driver_gpu_uuids() -> list[str]:
+    """The UUIDs of the cards the CUDA driver gives this process, in ordinal
+    order, as ``nvidia-smi`` and the NVIDIA container toolkit name them:
+    ``GPU-`` and the UUID's 8-4-4-4-12 hex groups (``cuDeviceGet`` and
+    ``cuDeviceGetUuid`` of ``libcuda`` through ctypes, no torch). A CUDA
+    ordinal need not be ``nvidia-smi``'s index (CUDA orders fastest first,
+    nvidia-smi by PCI bus, and the launcher's ``CUDA_VISIBLE_DEVICES``
+    renumbers), a UUID names one card everywhere. [] where no driver loads
+    or it finds no device."""
+    import ctypes
+
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return []
+    count = ctypes.c_int(0)
+    if lib.cuInit(0) != 0 or lib.cuDeviceGetCount(ctypes.byref(count)) != 0:
+        return []
+    uuids = []
+    for ordinal in range(count.value):
+        dev, raw = ctypes.c_int(0), (ctypes.c_ubyte * 16)()
+        if lib.cuDeviceGet(ctypes.byref(dev), ordinal) != 0 or lib.cuDeviceGetUuid(raw, dev) != 0:
+            return []
+        h = bytes(raw).hex()
+        uuids.append(f"GPU-{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}")
+    return uuids
+
+
 def local_gpus() -> list[str]:
     """The cards this launcher may hand out, as ``CUDA_VISIBLE_DEVICES``
     entries, found without importing torch.
@@ -313,16 +341,32 @@ def gpu_device_env(
         return {settings.ENV_CUDA_VISIBLE_DEVICES: ""}
     if not partition:
         return {}  # replica sees what the launcher sees
+    share = gpu_share(gpus_per_host, replica_id, replicas_on_host, host_gpus,
+                      remedy="reduce the slice or the replicas, or disable"
+                      " auto_set_cuda_visible_devices")
+    return {settings.ENV_CUDA_VISIBLE_DEVICES: ",".join(share)}
+
+
+def gpu_share(
+    gpus_per_host: int,
+    replica_id: int,
+    replicas_on_host: int,
+    host_gpus: list[str],
+    remedy: str = "reduce the slice or the replicas",
+) -> list[str]:
+    """Replica ``i``'s cards among ``replicas_on_host`` colocated replicas:
+    ``host_gpus[i * gpus_per_host:(i + 1) * gpus_per_host]``, the split of
+    :func:`gpu_device_env` and of the docker backend's GPU request. Raises
+    naming ``remedy`` when the replicas ask for more cards than the host
+    has."""
     wanted = gpus_per_host * replicas_on_host
     if wanted > len(host_gpus):
         raise ValueError(
             f"{replicas_on_host} replica(s) of {gpus_per_host} GPU(s) each need"
-            f" {wanted} cards, and this host has {len(host_gpus)};"
-            " reduce the slice or the replicas, or disable"
-            " auto_set_cuda_visible_devices"
+            f" {wanted} cards, and this host has {len(host_gpus)}; {remedy}"
         )
     start = (replica_id % replicas_on_host) * gpus_per_host
-    return {settings.ENV_CUDA_VISIBLE_DEVICES: ",".join(host_gpus[start:start + gpus_per_host])}
+    return host_gpus[start:start + gpus_per_host]
 
 
 def _slice_hosts(role: Role) -> int:

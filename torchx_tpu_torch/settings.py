@@ -250,3 +250,7 @@ ENV_CUDA_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
 # accelerator type ("h100-16") and the topology, hosts x cards a host ("2x8").
 ENV_TPX_GPU_ACCELERATOR_TYPE = "TPX_GPU_ACCELERATOR_TYPE"
 ENV_TPX_GPU_TOPOLOGY = "TPX_GPU_TOPOLOGY"
+# The slice count of a multi-slice GPU role on GKE (``num_replicas`` > 1):
+# the value ``macros.num_replicas`` expands to in the pod template, and the
+# one a resize rewrites beside ``TPX_NUM_REPLICAS``.
+ENV_TPX_NUM_SLICES = "TPX_NUM_SLICES"

@@ -45,13 +45,24 @@ from typing import Any, Callable, Generic, Iterator, Mapping, Optional, TypeVar,
 #:   4 on the H100 SXM: 900 GB/s both ways together, 450 GB/s each way
 #:   (NVIDIA's H100 data sheet).
 #: * ``gke_accelerator``: the GKE node-pool label
-#:   (``cloud.google.com/gke-accelerator``).
+#:   (``cloud.google.com/gke-accelerator``), which is also the accelerator
+#:   type GCP Batch and Compute Engine take (``nvidia-h100-80gb``).
+#: * ``machine_types``: cards a host -> the Compute Engine machine type that
+#:   carries them, the A3 High family of GCP's "GPU machine types" document
+#:   (cloud.google.com/compute/docs/gpus, "A3 High": a3-highgpu-1g, -2g,
+#:   -4g and -8g with 1, 2, 4 and 8 H100 80GB). A slice of another count
+#:   a host has no machine (gcp_batch and vertex refuse it).
+#: * ``vertex_accelerator``: Vertex AI's ``acceleratorType`` enum name
+#:   (cloud.google.com/vertex-ai/docs/reference/rest/v1/MachineSpec).
 GPU_GENERATIONS: dict[str, dict[str, Any]] = {
     "h100": {
         "gpus_per_host": 8,
         "hbm_bytes": 85_017_493_504,
         "link_bytes_per_s": 450e9,
         "gke_accelerator": "nvidia-h100-80gb",
+        "machine_types": {1: "a3-highgpu-1g", 2: "a3-highgpu-2g", 4: "a3-highgpu-4g",
+                          8: "a3-highgpu-8g"},
+        "vertex_accelerator": "NVIDIA_H100_80GB",
     },
 }
 
@@ -106,6 +117,20 @@ class GpuSlice:
     def hosts(self) -> int:
         """Number of hosts (== launcher processes) in the slice."""
         return self.gpus // self.gpus_per_host
+
+    @property
+    def machine_type(self) -> str:
+        """The Compute Engine machine type of one host of the slice
+        (:data:`GPU_GENERATIONS`' ``machine_types``, ``a3-highgpu-8g`` for
+        eight H100s), which GCP Batch and Vertex AI ask for. Raises where no
+        machine type carries ``gpus_per_host`` cards."""
+        types = GPU_GENERATIONS[self.accelerator]["machine_types"]
+        if self.gpus_per_host not in types:
+            raise ValueError(
+                f"no {self.accelerator} machine type carries {self.gpus_per_host} GPUs;"
+                f" hosts come with {sorted(types)}"
+            )
+        return types[self.gpus_per_host]
 
     def default_topology(self) -> str:
         """``<hosts>x<gpus_per_host>``: one NVLink domain a host, all to all
