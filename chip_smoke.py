@@ -179,7 +179,39 @@ Phases, each printing JSON lines; any failure exits non-zero:
    equals its cold answer; pools and parameters on the card. Prints
    TTFT, TPOT, the decode-step time with all 8 slots busy, tokens/s, peak
    memory and the pool's geometry. The serving path launches none of the
-   kernels of the kernels line, which the phase checks.
+   kernels of the kernels line, which the phase checks. A telemetry
+   ``Collector`` over a fresh ``MetricStore`` scrapes the server's
+   ``/metricz`` before and after the burst: the ``tpx_serve_ttft_seconds``
+   bucket deltas count the burst's requests by their reported TTFT
+   exactly (the delta above 0.5 s too), and the store's p50 lies in the
+   bucket of the burst's own p50 (the histogram's rank), and an
+   ``SloEngine`` with the ``p99-ttft`` preset, evaluated once over the
+   store, gives an error fraction equal to the burst's share of replies
+   above 0.5 s; prints those counts, the burn and each scrape's seconds.
+   pool — a ``ServePool`` (one replica, ``min_replicas=max_replicas=1``)
+   submits llama3_1b's ``generate_server`` through the port's ``Runner``
+   and the local scheduler with ``gpu="h100-1"`` (the serve phase's slots
+   and block size; its base port from a free port, launched again on
+   another when the bind fails, at most 3 times); its obs session is its
+   own, as a replica's on another host. Submit to healthy (``/healthz``,
+   which must name a CUDA device), split at the submit's return and the
+   server's ``listening`` line. Four of the serve phase's greedy prompts
+   (32, 257, 512, 700 tokens) one at a time through ``serve_router``: the
+   32-token answer equals the serve phase's re-send, the others'
+   teacher-forced gaps within 5e-2; each request's seconds at the client
+   beside the replica's own ``timing`` (the difference is the router's hop
+   and the replica's HTTP; the re-sent prompt once more straight to the
+   replica gives the replica's share). The replica's ``/metricz`` scraped through
+   ``pool.replica_url(0)`` before and after them; ``SloEngine`` with the
+   ``p99-ttft`` preset evaluated once: its error fraction equals the share
+   of the four replies above 0.5 s. ``obs.stitch`` of one request's trace
+   id (the router's ``X-Tpx-Trace-Id``) gives one trace over two session
+   dirs, root ``serve.route`` (this process's) with the replica's
+   ``serve.unified`` under it, and ``tpx-torch trace <id> --stitch`` in a
+   subprocess prints the same. ``pool.stop()`` cancels the app: no process
+   of the replica's group is left (the server drains on SIGTERM under the
+   local scheduler's ``/bin/sh`` wrapper) and the card's free memory is
+   back before the next phase.
 6. ckpt — the trainer's checkpoint path at llama3_1b's full width cut to
    2 layers (the gangckpt phase drills and resumes at full depth), the
    train phase's batch, fresh directories under ``$TMPDIR`` (the free
@@ -289,9 +321,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and two backward products; 7 projections a layer under ``all``, 3 under
    ``ffn``); step time, tokens/s, MFU (bf16 formula) and peak memory
    beside the bf16 run's. int8 serve: ``generate_server`` in-process with
-   llama3_8b at full width cut to 8 of its 32 layers (seeded weights; 16
-   layers, 4.54 B parameters, before the gangckpt phase's supervised resume,
-   full depth before the remat phase), the serve phase's burst, first
+   llama3_8b at full width cut to 4 of its 32 layers (seeded weights; 8
+   before the pool phase, 16 layers, 4.54 B parameters, before the gangckpt
+   phase's supervised resume, full depth before the remat phase), the serve
+   phase's burst, first
    bf16 and then ``--int8``, each freed before the next: every projection
    int8 with f32 scales and the embedding bf16; resident parameter bytes
    (allocated after setup less the KV pools) within 1% of the reckoning
@@ -403,7 +436,10 @@ the wgmma kernel's parts: the kernel rebuilt without its widening,
 without its products, and with neither (the TMA loads alone). ``--phases
 build,gangparts`` splits the world-1 sharded step's cost in this process:
 single-device, sharded, and sharded with its collectives swapped for
-local copies, in turns.
+local copies, in turns. ``--phases build,tracecost`` times what tracing
+costs the serving path: the serve burst in turns with ``$TPX_TRACE`` on
+and off, and a root span, a child span and a span with tracing off
+(``phase_trace_cost``).
 
 Prints the kernels line, the card's name and power limit, an ``end`` line
 with the run's seconds and each phase's, and as its last line ``{"ok":
@@ -426,12 +462,12 @@ import sys
 import time
 
 PHASES = ("build", "specs", "kernels", "train", "remat", "reference", "gang", "local",
-          "remote", "gangckpt", "tp", "serve", "ckpt", "moe", "ep", "pp", "int8")
+          "remote", "gangckpt", "tp", "serve", "pool", "ckpt", "moe", "ep", "pp", "int8")
 #: Run only when asked for (``--phases ...,profile``): where a training
 #: step's and a decode step's device time goes, by kernel.
 EXTRA_PHASES = ("profile", "sweep", "notice", "moeprofile", "int8profile", "int8sweep",
                 "int8parts", "gangparts", "rematoom", "hostus", "routes", "int8f32", "dqgrid",
-                "gangspmd")
+                "gangspmd", "tracecost")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and
 #: HBM bandwidth; its L2 cache.
@@ -3809,6 +3845,74 @@ def _teacher_forced_gaps(params, cfg, prompt, completion, width):  # noqa: ANN00
     return gaps, matched, margins
 
 
+#: The serving path's TTFT histogram (the ``p99-ttft`` SLO preset's metric).
+TTFT_METRIC = "tpx_serve_ttft_seconds"
+
+
+class _Scrape:
+    """A telemetry ``Collector`` over a fresh ``MetricStore`` with one
+    ``/metricz`` target at ``url`` and no textfile sessions (this process's
+    own textfile holds the same registry), on a clock of one second a
+    scrape. :meth:`once` scrapes; ``seconds`` holds each scrape's."""
+
+    def __init__(self, url: str, phase: str) -> None:
+        import tempfile
+
+        from torchx_tpu_torch.obs.telemetry import Collector, MetricStore
+
+        self.now, self.phase, self.seconds = 0.0, phase, []
+        self.store = MetricStore(clock=lambda: self.now)
+        self.collector = Collector(self.store, interval_s=3600.0,
+                                   obs_dir=tempfile.mkdtemp(prefix="tpx_no_sessions_"),
+                                   clock=lambda: self.now)
+        self.collector.add_target(url, name="replica-0")
+
+    def once(self) -> None:
+        self.now += 1.0
+        t = time.perf_counter()
+        n = self.collector.collect_once()
+        self.seconds.append(time.perf_counter() - t)
+        if self.collector.errors or not n:
+            fail(self.phase, f"scrape of /metricz: {n} samples, {self.collector.errors}")
+
+
+def _ttft_scrape_check(scrape: _Scrape, ttft_s: list[float]) -> dict:
+    """The TTFT histogram's deltas between the scrape's two ingests against
+    the replies' own TTFTs: every bucket's count, the count above 0.5 s
+    (the ``p99-ttft`` threshold), the store's p50 against the bucket of
+    the replies' p50 (the histogram's rank, ``ceil(n / 2)``), and the
+    ``p99-ttft`` preset's error fraction, evaluated once by an ``SloEngine``
+    over the store, against the replies' share above 0.5 s."""
+    from torchx_tpu_torch.obs.slo import SloEngine, parse_slo
+
+    (deltas,) = scrape.store.histogram_deltas(TTFT_METRIC, None).values()
+    want = [(le, float(sum(t <= le for t in ttft_s))) for le, _ in deltas]
+    above = deltas[-1][1] - dict(deltas)[0.5]
+    own = sorted(ttft_s)[math.ceil(len(ttft_s) / 2) - 1]
+    lo = max([0.0] + [le for le, _ in deltas if le < own])
+    hi = min(le for le, _ in deltas if le >= own)
+    (p50,) = scrape.store.percentile(TTFT_METRIC, 50).values()
+    slo = SloEngine(scrape.store, [parse_slo("p99-ttft")], clock=lambda: scrape.now)
+    slo.evaluate()
+    burn_short, burn_long = slo.burns()["p99-ttft"]
+    share = sum(t > 0.5 for t in ttft_s) / len(ttft_s)
+    fraction = burn_long * slo.specs[0].budget
+
+    def le_(x: float):  # noqa: ANN202 - JSON has no infinity
+        return x if math.isfinite(x) else "+Inf"
+
+    return {"requests": len(ttft_s), "bucket_deltas": [[le_(le), d] for le, d in deltas],
+            "bucket_deltas_equal": deltas == want, "above_0_5_s": above,
+            "replies_above_0_5_s": sum(t > 0.5 for t in ttft_s),
+            "above_0_5_s_equal": above == sum(t > 0.5 for t in ttft_s),
+            "p50_estimate_s": p50, "replies_p50_s": own, "p50_bucket_s": [lo, le_(hi)],
+            "p50_in_bucket": lo <= p50 <= hi, "burn_short": burn_short,
+            "burn_long": burn_long, "error_fraction": fraction,
+            "replies_above_0_5_s_share": share,
+            "slo_equal": abs(burn_short - burn_long) <= 1e-12 and abs(fraction - share) <= 1e-9,
+            "scrape_s": scrape.seconds}
+
+
 def _percentile(xs: list[float], q: float) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
@@ -3929,6 +4033,9 @@ def phase_serve(config: str = "llama3_1b", phase: str = "serve", f32_cfg=None,  
         # one short request first: cuBLAS and the allocator warm up outside
         # the measured batch
         _post(port, {"tokens": [[1, 2, 3]], "max_new_tokens": 2})
+        # the server's /metricz into a telemetry store, before and after
+        scrape = _Scrape(f"http://127.0.0.1:{port}", phase)
+        scrape.once()
         steps.clear()
         prefills.clear()
         step_int8.clear()
@@ -3944,6 +4051,7 @@ def phase_serve(config: str = "llama3_1b", phase: str = "serve", f32_cfg=None,  
             gate.set()
             replies = [f.result() for f in futures]
         batch_s = time.monotonic() - t0
+        scrape.once()
         burst_launches = {k: v - launches0[k] for k, v in _build.launch_counts().items()}
         burst_steps, burst_prefills = list(steps), list(prefills)
         burst_int8 = {"decode": list(step_int8), "prefill": list(prefill_int8)}
@@ -3972,7 +4080,8 @@ def phase_serve(config: str = "llama3_1b", phase: str = "serve", f32_cfg=None,  
         # while the server's state is the burst's (before the teacher
         # forcing below allocates its large temporaries)
         extra = inspect(dict(engine=engine, cfg=cfg, params=params, prompts=prompts,
-                             completions=completions, setup_allocated=setup_allocated)
+                             completions=completions, setup_allocated=setup_allocated,
+                             port=port, bodies=bodies, gate=gate, steps=steps)
                         ) if inspect else {}
         # greedy, bf16, full depth: teacher-forced logit gaps (an int8
         # tree's through the plain int8 path)
@@ -4043,6 +4152,16 @@ def phase_serve(config: str = "llama3_1b", phase: str = "serve", f32_cfg=None,  
         "host_threads": threading.active_count(), **extra,
     }
     emit(out)
+    scraped = _ttft_scrape_check(scrape, [t / 1e3 for t in ttft])
+    emit({"phase": phase, "check": "metricz scrape", **scraped})
+    if not scraped["bucket_deltas_equal"] or not scraped["above_0_5_s_equal"]:
+        fail(phase, f"the scraped TTFT buckets do not count the burst: {scraped}")
+    if not scraped["p50_in_bucket"]:
+        fail(phase, f"the store's p50 lies outside the burst p50's bucket: {scraped}")
+    if not scraped["slo_equal"]:
+        fail(phase, f"p99-ttft error fraction {scraped['error_fraction']} (burns"
+             f" {scraped['burn_short']}, {scraped['burn_long']}) against the burst's share"
+             f" above 0.5 s {scraped['replies_above_0_5_s_share']}")
     share = SERVE_MOE_GAP_SHARE if moe or int8 is not None else None
     out["greedy_gaps_beyond_tol"] = sorted(g for g in gaps if g > SERVE_LOGIT_GAP)
     if share is not None and gaps and not out["greedy_within_tol_share"] >= share:
@@ -4371,6 +4490,425 @@ JOIN_FIRST_PATCH = (
 #: those of the train phase, steps 4-6 are held this close, relative.
 RESUME_RTOL = 1e-3
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+#: The pool phase: the serve phase's greedy prompts it routes (by index
+#: into SERVE_REQUESTS; the first is the serve phase's re-sent one), its
+#: launch attempts, and the seconds a replica may take to probe healthy.
+POOL = dict(prompts=(0, 3, 4, 5), attempts=3, healthy_timeout_s=300.0)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post_timed(url: str, body: dict) -> tuple[dict, dict, float]:
+    """POST ``body`` to ``url``'s ``/v1/generate`` -> (reply, headers,
+    seconds at the client)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}/v1/generate", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        reply, headers = json.loads(resp.read()), dict(resp.headers)
+    return reply, headers, time.perf_counter() - t
+
+
+def _group_pids(pgid: int) -> list[int]:
+    """The live (not zombie) processes of process group ``pgid``, read
+    from ``/proc``: a local replica is ``/bin/sh`` (which keeps its exit
+    code) over the server, so the wrapper's exit alone does not say the
+    server has gone."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            pids.append(int(entry))
+    return pids
+
+
+def _stop_replica(pool, replica, limit_s: float = 60.0) -> None:  # noqa: ANN001
+    """Cancel the pool's app and wait until no process of its replica's
+    group is left (the server drains on SIGTERM after its wrapper dies)."""
+    pool.stop()
+    t = time.monotonic()
+    while _group_pids(replica.proc.pid) and time.monotonic() - t < limit_s:
+        time.sleep(0.05)
+
+
+def _launch_replica(runner, sched, root: str, session: str) -> tuple:  # noqa: ANN001
+    """One llama3_1b ``generate_server`` replica on ``h100-1`` through a
+    ``ServePool`` (one replica), its obs session ``session``; launched again
+    on another free port when its bind fails, at most ``POOL["attempts"]``
+    times. -> (pool, seconds of the submit call, seconds to the server's
+    ``listening`` line, its reported load seconds, seconds to healthy)."""
+    import glob
+
+    from torchx_tpu_torch.components.serve import generate_server
+    from torchx_tpu_torch.serve.pool import AutoscalePolicy, ServePool, http_probe
+
+    for attempt in range(POOL["attempts"]):
+        port = _free_port()
+        app = generate_server("llama3_1b", port=port, port_stride=1, image=REPO,
+                              gpu="h100-1", max_batch=SERVE["max_batch"],
+                              block_size=SERVE["block_size"])
+        (role,) = app.roles
+        role.env.update({"PYTHONPATH": REPO, "TPX_INTERNAL_SESSION_ID": session})
+        pool = ServePool(runner, app, cfg={"log_dir": os.path.join(root, "apps")},
+                         base_port=port, policy=AutoscalePolicy(min_replicas=1,
+                                                                max_replicas=1))
+        t0 = time.monotonic()
+        pool.start()
+        submit_s = time.monotonic() - t0
+        app_id = pool.handle.rsplit("/", 1)[-1]
+        (replica,) = sched._apps[app_id].roles["server"]
+        listening_s = load_s = None
+        deadline = t0 + POOL["healthy_timeout_s"]
+        launched = False
+        try:
+            while time.monotonic() < deadline:
+                if listening_s is None:
+                    for path in glob.glob(os.path.join(root, "apps", "**", app_id, "server",
+                                                       "0", "stdout.log"), recursive=True):
+                        with open(path, errors="replace") as f:
+                            m = re.search(r"generate_server: .* on :\d+ \((\S+)\)"
+                                          r" \(loaded in ([\d.]+)s\)", f.read())
+                        if m:
+                            listening_s, load_s = time.monotonic() - t0, float(m.group(2))
+                            if not m.group(1).startswith("cuda"):
+                                fail("pool", f"the replica serves on {m.group(1)}")
+                if http_probe(pool.replica_url(0), timeout=1.0).healthy:
+                    launched = True
+                    return pool, submit_s, listening_s, load_s, time.monotonic() - t0
+                if replica.proc.poll() is not None:
+                    break
+                time.sleep(0.05)
+            logs = "".join(open(p, errors="replace").read() for p in glob.glob(
+                os.path.join(root, "apps", "**", app_id, "server", "0", "stderr.log"),
+                recursive=True))
+            if "Address already in use" not in logs or attempt == POOL["attempts"] - 1:
+                fail("pool", f"the replica did not probe healthy (rc {replica.proc.poll()}):"
+                     f" {logs[-3000:]}")
+        finally:  # a replica that failed its launch is stopped before the next
+            if not launched:
+                _stop_replica(pool, replica)
+    raise AssertionError("unreachable")
+
+
+def phase_pool(serve: dict, card: str) -> dict:
+    """The serve pool on the card (module docstring, the pool phase): one
+    llama3_1b replica through ``Runner`` + the local scheduler, four of the
+    serve phase's prompts through ``serve_router``, the replica's
+    ``/metricz`` into a ``MetricStore`` and the ``p99-ttft`` SLO, one
+    request stitched across the router's and the replica's sessions, and
+    ``pool.stop()`` leaving no replica and the card's memory free."""
+    import shutil
+    import tempfile
+    import threading
+    import uuid
+
+    import torch
+
+    from torchx_tpu_torch.models import llama
+    from torchx_tpu_torch.obs import sinks, stitch, timeline
+    from torchx_tpu_torch.obs import trace as obs_trace
+    from torchx_tpu_torch.obs.slo import SloEngine, parse_slo
+    from torchx_tpu_torch.runner import get_runner
+    from torchx_tpu_torch.serve.engine import _next_pow2
+    from torchx_tpu_torch.serve.pool import serve_router
+
+    t_phase = time.monotonic()
+    free_card()
+    free_before = torch.cuda.mem_get_info()[0]
+    root = tempfile.mkdtemp(prefix="tpx_pool_smoke_")
+    obs = os.path.join(root, "obs")
+    session = uuid.uuid4().hex
+    no_lint = os.environ.get("TPX_NO_LINT")
+    os.environ["TPX_NO_LINT"] = "1"  # the port's lint gate waits for its analyzer
+    cfg = llama.llama3_1b()
+    prompts = _serve_prompts(cfg.vocab_size)
+    n_new = SERVE["new_tokens"]
+    pool = router = None
+    try:
+        with _ObsDir(obs):
+            runner = get_runner("chip_smoke")
+            sched = runner._scheduler("local")
+            pool, submit_s, listening_s, load_s, healthy_s = _launch_replica(
+                runner, sched, root, session)
+            (replica,) = sched._apps[pool.handle.rsplit("/", 1)[-1]].roles["server"]
+            replica_url = pool.replica_url(0)
+            health = json.loads(_get(int(replica_url.rsplit(":", 1)[1]), "/healthz")[1])
+            free_up = torch.cuda.mem_get_info()[0]
+            # cuBLAS and the allocator warm up outside the routed requests
+            # (the serve phase's warm-up request); then one probe sweep
+            marks = {"healthy": time.monotonic()}
+            _post_timed(replica_url, {"tokens": [[1, 2, 3]], "max_new_tokens": 2})
+            marks["warm"] = time.monotonic()
+            pool.step()
+            router = serve_router(pool, 0)
+            threading.Thread(target=router.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{router.server_address[1]}"
+            scrape = _Scrape(replica_url, "pool")
+            scrape.once()
+            routed = []
+            for i in POOL["prompts"]:
+                _, temp, seed = SERVE_REQUESTS[i]
+                reply, headers, client_s = _post_timed(
+                    url, {"tokens": [prompts[i]], "max_new_tokens": n_new,
+                          "temperature": temp, "seed": seed})
+                routed.append((i, reply, headers.get(obs_trace.HDR_TRACE_ID), client_s))
+            scrape.once()
+            marks["routed"] = time.monotonic()
+            engine = SloEngine(scrape.store, [parse_slo("p99-ttft")],
+                               clock=lambda: scrape.now)
+            engine.evaluate()
+            burn_short, burn_long = engine.burns()["p99-ttft"]
+            budget = engine.specs[0].budget
+            # one request's trace, stitched across this process's session
+            # (the router's span) and the replica's
+            tid = routed[0][2]
+            st = stitch.stitch(tid)
+            mine = os.path.dirname(sinks.trace_path())
+            theirs = os.path.join(obs, f"tpx_{session[:8]}")
+            rendered = stitch.render_stitched(st) if st is not None else ""
+            cli = subprocess.run(
+                [sys.executable, "-m", "torchx_tpu_torch.cli.main", "trace", tid, "--stitch"],
+                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                text=True, timeout=120)
+            replica_spans = {r.get("span_id") for r in timeline.load_records(
+                os.path.join(theirs, sinks.TRACE_FILE)) if timeline.is_span(r)}
+            marks["stitched"] = time.monotonic()
+            # the re-sent prompt once more, straight to the replica: its
+            # client seconds less its own total are the replica's HTTP
+            # share of the routed requests' hop
+            direct, _, direct_s = _post_timed(replica_url, {
+                "tokens": [prompts[POOL["prompts"][0]]], "max_new_tokens": n_new,
+                "temperature": 0.0, "seed": 0})
+            # teardown: the app cancelled, its replica gone
+            router.shutdown()
+            router = None
+            t_stop = time.monotonic()
+            pool.stop()
+            stop_s = time.monotonic() - t_stop
+            state = runner.status(pool.handle, fresh=True).state
+            pool = None
+            runner.close()
+        # the server under the wrapper drains (SIGTERM) and exits on its own
+        while _group_pids(replica.proc.pid) and time.monotonic() - t_stop < 60:
+            time.sleep(0.05)
+        survivors = _group_pids(replica.proc.pid)
+        replica_gone_s = time.monotonic() - t_stop
+        free_card()
+        free_after = torch.cuda.mem_get_info()[0]
+        marks["gone"] = time.monotonic()
+        # the routed greedy answers against the plain path (the replica's
+        # seeded weights, made here the way the server makes them)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = llama.init_params(cfg, gen, "cuda")
+        for leaf in llama.leaves(params):
+            leaf.requires_grad_(False)
+        gaps = {}
+        for i, reply, _, _ in routed[1:]:
+            width = min(max(SERVE["block_size"], _next_pow2(len(prompts[i]))),
+                        _next_pow2(cfg.max_seq))
+            g, _, _ = _teacher_forced_gaps(params, cfg, prompts[i],
+                                           reply["tokens"][0][len(prompts[i]):], width)
+            gaps[SERVE_REQUESTS[i][0]] = max(g)
+        del params
+        free_card()
+        marks["teacher_forced"] = time.monotonic()
+    finally:
+        if router is not None:
+            router.shutdown()
+        if pool is not None:
+            _stop_replica(pool, replica)
+        if no_lint is None:
+            os.environ.pop("TPX_NO_LINT", None)
+        else:
+            os.environ["TPX_NO_LINT"] = no_lint
+        shutil.rmtree(root, ignore_errors=True)
+    requests = [{"prompt_len": SERVE_REQUESTS[i][0], "client_ms": 1e3 * client_s,
+                 "replica_ttft_ms": r["timing"]["ttft_ms"],
+                 "replica_total_ms": r["timing"]["total_ms"],
+                 "hop_ms": 1e3 * client_s - r["timing"]["total_ms"],
+                 "client_ttft_ms": 1e3 * client_s - r["timing"]["total_ms"]
+                 + r["timing"]["ttft_ms"]} for i, r, _, client_s in routed]
+    slow_share = sum(r["timing"]["ttft_ms"] > 500 for _, r, _, _ in routed) / len(routed)
+    roots = [n.span for n in st.roots] if st is not None else []
+    children = [c.span for n in st.roots for c in n.children] if st is not None else []
+    res = {
+        "phase": "pool", "config": "llama3_1b", "gpu": "h100-1", "replicas": 1,
+        "submit_s": submit_s, "submit_to_listening_s": listening_s, "replica_load_s": load_s,
+        "submit_to_healthy_s": healthy_s, "healthz_device": health.get("device"),
+        "replica_memory_bytes": free_before - free_up, "requests": requests,
+        "hop_ms_mean": sum(r["hop_ms"] for r in requests) / len(requests),
+        "direct": {"client_ms": 1e3 * direct_s, "replica_total_ms": direct["timing"]["total_ms"],
+                   "http_ms": 1e3 * direct_s - direct["timing"]["total_ms"],
+                   "equal": direct["tokens"][0] == serve["resend"]},
+        "resend_equal": routed[0][1]["tokens"][0] == serve["resend"],
+        "greedy_max_logit_gap": gaps, "greedy_gap_tol": SERVE_LOGIT_GAP,
+        "scrape_s": scrape.seconds, "ttft_count_delta": scrape.store.histogram_deltas(
+            TTFT_METRIC, None)[()][-1][1],
+        "burn_short": burn_short, "burn_long": burn_long,
+        "error_fraction": burn_long * budget, "replies_above_0_5_s_share": slow_share,
+        "trace_id": tid, "stitched_spans": st.span_count if st is not None else 0,
+        "stitched_sessions": len(st.sessions) if st is not None else 0,
+        "stitched_roots": [sp.name for sp in roots],
+        "stitched_children": [sp.name for sp in children],
+        "cli_equal": cli.stdout == rendered + "\n", "cli_rc": cli.returncode,
+        "app_state": state.name, "stop_s": stop_s, "replica_gone_s": replica_gone_s,
+        "survivors": survivors,
+        "free_before_bytes": free_before, "free_after_bytes": free_after,
+        "seconds": time.monotonic() - t_phase, "card": card,
+        # the phase's wall seconds by step: to a healthy replica, its
+        # warm-up request, the routed requests with their scrapes, the SLO
+        # and stitch (with the CLI's subprocess), the direct request and
+        # the stop until the group is gone, the teacher forcing
+        "split_s": {k: b - a for k, a, b in zip(
+            ("launch", "warm_up", "routed", "slo_stitch", "direct_stop", "teacher_forcing"),
+            [t_phase, *(marks[m] for m in ("healthy", "warm", "routed", "stitched", "gone"))],
+            [marks[m] for m in ("healthy", "warm", "routed", "stitched", "gone",
+                                "teacher_forced")])},
+    }
+    emit(res)
+    if not str(health.get("device", "")).startswith("cuda"):
+        fail("pool", f"the replica serves on {health.get('device')}")
+    if not res["resend_equal"]:
+        fail("pool", "the routed re-sent prompt's tokens differ from the serve phase's")
+    if any(g > SERVE_LOGIT_GAP for g in gaps.values()):
+        fail("pool", f"routed greedy logit gaps {gaps} > {SERVE_LOGIT_GAP}")
+    if res["ttft_count_delta"] != len(routed):
+        fail("pool", f"the scraped TTFT count moved by {res['ttft_count_delta']}, not"
+             f" {len(routed)}")
+    if abs(burn_short - burn_long) > 1e-12 or abs(res["error_fraction"] - slow_share) > 1e-9:
+        fail("pool", f"p99-ttft error fraction {res['error_fraction']} (burns {burn_short},"
+             f" {burn_long}) against the replies' share above 0.5 s {slow_share}")
+    if st is None or len(st.sessions) != 2 or sorted(st.sessions) != sorted([mine, theirs]):
+        fail("pool", f"the request's trace is not stitched across two sessions: {res}")
+    if [sp.name for sp in roots] != ["serve.route"] or \
+            [sp.name for sp in children] != ["serve.unified"] or \
+            children[0].span_id not in replica_spans or children[0].span_id == roots[0].span_id:
+        fail("pool", f"stitched tree: roots {res['stitched_roots']} children"
+             f" {res['stitched_children']}")
+    if cli.returncode != 0 or not res["cli_equal"]:
+        fail("pool", f"tpx-torch trace --stitch: rc {cli.returncode}\n{cli.stdout}\n"
+             f"{cli.stderr}\nexpected\n{rendered}")
+    if not state.name == "CANCELLED" or survivors:
+        fail("pool", f"after stop: app {state.name}, replica processes {survivors} alive")
+    if free_after < free_before - (256 << 20):
+        fail("pool", f"the card's free memory {free_after} did not come back to"
+             f" {free_before} after the replica exited")
+    return res
+
+
+#: The tracecost phase's bursts, in turns: tracing on (the default) and off
+#: (``$TPX_TRACE=0``); and the spans it times in each of three kinds.
+TRACE_COST = dict(turns=("on", "off", "off", "on") * 3, spans=2000)
+
+
+def _trace_cost_spans(n: int) -> dict:
+    """Microseconds a span costs its thread on this host: a root span (its
+    ``trace.jsonl`` line and the metrics textfile's flush), a child span
+    (the line alone), and a span with tracing off; ``n`` of each, in turns
+    of 100."""
+    from torchx_tpu_torch.obs import trace as obs_trace
+
+    took = {"root": 0.0, "child": 0.0, "off": 0.0}
+    for _ in range(n // 100):
+        for kind in took:
+            if kind == "off":
+                os.environ["TPX_TRACE"] = "0"
+            outer = (obs_trace.span("tracecost.outer") if kind == "child"
+                     else contextlib.nullcontext())
+            with outer:
+                t = time.perf_counter()
+                for _ in range(100):
+                    with obs_trace.span("tracecost.span"):
+                        pass
+                took[kind] += time.perf_counter() - t
+            os.environ.pop("TPX_TRACE", None)
+    return {k: 1e6 * v / n for k, v in took.items()}
+
+
+def phase_trace_cost() -> None:
+    """What tracing costs the serving path (``--phases build,tracecost``):
+    the serve phase's llama3_1b server (its checks held as there) then
+    runs its gated 8-request burst again in turns with tracing on and off
+    (``TRACE_COST``), each turn from an empty prefix cache (so every turn
+    prefills alike): TTFT p50, TPOT p50, the decode step with all 8 slots
+    busy, and the root spans the turn wrote (each one asks for a flush of
+    the metrics textfile). Then times the spans themselves
+    (``_trace_cost_spans``). Prints one line; fails only where a reply is
+    short."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchx_tpu_torch.obs import sinks
+
+    def roots() -> int:
+        try:
+            with open(sinks.trace_path()) as f:
+                return sum(json.loads(line).get("parent_span_id") is None for line in f)
+        except FileNotFoundError:
+            return 0
+
+    def turns(run: dict) -> dict:
+        engine, gate, steps, bodies = run["engine"], run["gate"], run["steps"], run["bodies"]
+        n_new = SERVE["new_tokens"]
+        out = []
+        for i, mode in enumerate(TRACE_COST["turns"]):
+            engine.prefix_cache.evict(engine.prefix_cache.cached_blocks)
+            if engine.prefix_cache.cached_blocks:
+                fail("tracecost", f"turn {i}: the prefix cache kept"
+                     f" {engine.prefix_cache.cached_blocks} blocks")
+            if mode == "off":
+                os.environ["TPX_TRACE"] = "0"
+            roots0 = roots()
+            steps.clear()
+            gate.clear()
+            try:
+                with ThreadPoolExecutor(len(bodies)) as pool:
+                    futures = [pool.submit(_post, run["port"], b) for b in bodies]
+                    deadline = time.monotonic() + 60
+                    while engine.queue_depth < len(bodies) and time.monotonic() < deadline:
+                        time.sleep(0.001)
+                    gate.set()
+                    replies = [f.result() for f in futures]
+            finally:
+                os.environ.pop("TPX_TRACE", None)
+            if any(len(r["tokens"][0]) != len(b["tokens"][0]) + n_new
+                   for r, b in zip(replies, bodies)):
+                fail("tracecost", f"turn {i} ({mode}): a reply is short")
+            ttft = [r["timing"]["ttft_ms"] for r in replies]
+            tpot = [(r["timing"]["total_ms"] - r["timing"]["ttft_ms"]) / (n_new - 1)
+                    for r in replies]
+            full = [dt for active, dt in steps if active == SERVE["max_batch"]]
+            out.append({"turn": i, "tracing": mode, "ttft_p50_ms": _percentile(ttft, 0.5),
+                        "tpot_p50_ms": _percentile(tpot, 0.5),
+                        "decode_step_full_ms": 1e3 * sum(full) / max(1, len(full)),
+                        "full_steps": len(full), "root_spans": roots() - roots0})
+        return {"turns": out}
+
+    t0 = time.monotonic()
+    res = phase_serve("llama3_1b", phase="tracecost", inspect=turns)
+    by = {mode: [t for t in res["turns"] if t["tracing"] == mode] for mode in ("on", "off")}
+    mean = {mode: {k: sum(t[k] for t in ts) / len(ts)
+                   for k in ("ttft_p50_ms", "tpot_p50_ms", "decode_step_full_ms", "root_spans")}
+            for mode, ts in by.items()}
+    emit({"phase": "tracecost", "turns": res["turns"], "mean": mean,
+          "span_us": _trace_cost_spans(TRACE_COST["spans"]),
+          "seconds": time.monotonic() - t0})
 
 
 def _listing(directory: str) -> dict[str, tuple[int, int]]:
@@ -5864,11 +6402,11 @@ INT8_STREAM_PROMPT = 3
 #: Parameter bytes resident after the server's setup may miss the
 #: reckoning by this share.
 INT8_BYTES_RTOL = 0.01
-#: The int8 serve cell's depth: llama3_8b's width at 8 of its 32 layers
+#: The int8 serve cell's depth: llama3_8b's width at 4 of its 32 layers
 #: (8.03 B parameters at full depth before the remat phase joined the
 #: default run, 16 layers until the gangckpt phase's supervised resume
-#: joined it: each cut to pay for them).
-INT8_SERVE_LAYERS = 8
+#: joined it, 8 until the pool phase did: each cut to pay for them).
+INT8_SERVE_LAYERS = 4
 #: The projection matrices weight-only int8 quantizes.
 INT8_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -6643,9 +7181,16 @@ def main(argv: list[str] | None = None) -> int:
             row["launches_from"] = f"tp phase, rank 0 of {suffix}, llama3_1b at 2 layers"
             if not row["launches"]:
                 fail("tp", f"{row['name']}: the {suffix} step never launched it")
+    serve_out = None
     if "serve" in phases:
         with timed("serve"):
-            phase_serve_disagg(phase_serve())
+            serve_out = phase_serve()
+            phase_serve_disagg(serve_out)
+    if "pool" in phases:
+        if serve_out is None:
+            fail("pool", "the pool phase holds its answers to the serve phase's: add serve")
+        with timed("pool"):
+            phase_pool(serve_out, card)
     if "ckpt" in phases:
         with timed("ckpt"):
             phase_ckpt()
@@ -6714,7 +7259,7 @@ def main(argv: list[str] | None = None) -> int:
              "int8sweep": phase_int8_sweep, "int8parts": phase_int8_parts,
              "gangparts": phase_gang_parts, "rematoom": phase_remat_oom,
              "hostus": phase_hostus, "routes": phase_routes, "int8f32": phase_int8_f32_rows,
-             "dqgrid": phase_dq_grid}
+             "dqgrid": phase_dq_grid, "tracecost": phase_trace_cost}
     for name, run in extra.items():
         if name in phases:
             with timed(name):

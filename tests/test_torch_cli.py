@@ -379,8 +379,7 @@ class TestLazyCli:
 #: command -> the ROADMAP queue 1 item(s) its message names
 UNPORTED = {
     "lint": ("2.8",), "explain": ("2.8",), "tune": ("2.8",), "sim": ("2.8",),
-    "selfcheck": ("2.8",), "cell": ("2.8",), "trace": ("2.6",),
-    "serve-pool": ("2.7",), "control": ("2.7",), "queue": ("2.7",),
+    "selfcheck": ("2.8",), "cell": ("2.8",), "control": ("2.7",), "queue": ("2.7",),
     "pipeline": ("2.7",), "top": ("2.7", "2.8"),
 }
 

@@ -123,6 +123,11 @@ LAUNCHER_PACKAGES = ("util", "specs", "plugins", "workspace", "resilience", "sch
 #: The launcher's apps and helpers outside those packages, loaded the same way.
 LAUNCHER_APPS = ("apps.process_monitor", "apps.copy_main", "apps.booth_main",
                  "apps.serve_main", "notebook")
+#: The telemetry plane and the serve pool (with what they import of the
+#: serving stack), which launcher processes load beside the run path.
+LAUNCHER_OBS_SERVE = ("obs", "obs.metrics", "obs.trace", "obs.sinks", "obs.timeline",
+                      "obs.stitch", "obs.telemetry", "obs.slo", "serve.pool",
+                      "serve.kv_transfer", "serve.prefix_cache")
 LAUNCHER_MODULES = (
     "settings.py", "version.py", "deprecations.py",
     *(f"util/{m}.py" for m in ("__init__", "strings", "colors", "io", "modules", "entrypoints",
@@ -152,7 +157,9 @@ LAUNCHER_MODULES = (
     *(f"supervisor/{m}.py" for m in ("__init__", "api", "gang", "ledger", "policy")),
     *(f"cli/{m}.py" for m in ("__init__", "main", "cmd_base", "cmd_run", "cmd_simple",
                               "cmd_log", "cmd_tracker", "cmd_supervise", "cmd_profile",
-                              "cmd_unported")),
+                              "cmd_trace", "cmd_serve_pool", "cmd_unported")),
+    *(f"obs/{m}.py" for m in ("__init__", "telemetry", "slo", "timeline", "stitch")),
+    "serve/pool.py",
 )
 #: The apps and helpers of ``LAUNCHER_APPS``, as files.
 LAUNCHER_APP_FILES = tuple(m.replace(".", "/") + ".py" for m in LAUNCHER_APPS)
@@ -174,7 +181,8 @@ def test_launcher_modules_are_present():
 
 def test_launcher_modules_load_no_torch():
     """A launcher process loads no CUDA: importing every module of the
-    launcher's layers brings in neither torch nor jax nor the JAX package."""
+    launcher's layers, the telemetry plane and the serve pool brings in
+    neither torch nor jax nor the JAX package, nor the serving engine."""
     code = (
         "import importlib, pkgutil, sys\n"
         "names = ['torchx_tpu_torch.settings', 'torchx_tpu_torch.version',"
@@ -183,7 +191,7 @@ def test_launcher_modules_load_no_torch():
         "    mod = importlib.import_module('torchx_tpu_torch.' + pkg)\n"
         "    names += [mod.__name__] + [m.name for m in pkgutil.walk_packages("
         "mod.__path__, mod.__name__ + '.')]\n"
-        f"names += ['torchx_tpu_torch.' + m for m in {LAUNCHER_APPS!r}]\n"
+        f"names += ['torchx_tpu_torch.' + m for m in {LAUNCHER_APPS + LAUNCHER_OBS_SERVE!r}]\n"
         "for n in names: importlib.import_module(n)\n"
         "from torchx_tpu_torch.specs import named_resources\n"
         "named_resources['h100-16']\n"
@@ -191,6 +199,7 @@ def test_launcher_modules_load_no_torch():
         "assert 'dist.spmd' in get_components()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('torch', 'jax', 'torchx_tpu', 'triton'))\n"
+        "bad += [m for m in ('torchx_tpu_torch.serve.engine',) if m in sys.modules]\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -198,7 +207,11 @@ def test_launcher_modules_load_no_torch():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) == len(LAUNCHER_MODULES) + len(LAUNCHER_APPS)
+    # the obs and serve files of LAUNCHER_MODULES are loaded by name, among
+    # LAUNCHER_OBS_SERVE, not by walking their packages
+    by_name = sum(m.startswith(("obs/", "serve/")) for m in LAUNCHER_MODULES)
+    assert int(proc.stdout.split()[0]) == \
+        len(LAUNCHER_MODULES) - by_name + len(LAUNCHER_APPS) + len(LAUNCHER_OBS_SERVE)
 
 
 def test_a_jax_entry_point_is_not_loaded(tmp_path, monkeypatch):
@@ -510,3 +523,52 @@ def test_chip_smoke_remote_phase(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(SystemExit):
         smoke.phase_remote("card")
+
+
+def test_chip_smoke_pool_phase_refuses_a_cpu_replica(monkeypatch, capsys, tmp_path):
+    """The pool phase's launch rehearsed on the CPU with one card faked: a
+    ``ServePool`` submits the replica through ``Runner`` and the local
+    scheduler on ``h100-1``; a replica that serves on the CPU (a tiny one
+    told ``--device cpu``) fails the phase, and no process of it is left."""
+    import importlib.util
+    import socket
+
+    from torchx_tpu_torch.components import serve
+    from torchx_tpu_torch.schedulers import local_scheduler
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_pool", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(local_scheduler, "_registry_path", lambda: str(tmp_path / "registry"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1 << 30, 80 << 30))
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
+    monkeypatch.setenv("TPX_OBS_DIR", str(tmp_path / "obs"))
+    monkeypatch.setattr(smoke, "free_card", lambda: None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setattr(smoke, "_free_port", lambda: port)
+    real = serve.generate_server
+
+    def tiny_on_the_cpu(config, **kw):  # noqa: ANN001, ANN202
+        app = real("tiny", **{**kw, "max_batch": 4})
+        assert kw["gpu"] == "h100-1" and app.roles[0].resource.gpu is not None
+        app.roles[0].args += ["--device", "cpu"]
+        return app
+
+    monkeypatch.setattr(serve, "generate_server", tiny_on_the_cpu)
+    with pytest.raises(SystemExit):
+        smoke.phase_pool({"resend": []}, "card")
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line == {"phase": "pool", "ok": False, "error": "the replica serves on cpu"}
+    left = []
+    for entry in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"torchx_tpu_torch.apps.generate_server" in argv and str(port).encode() in argv:
+            left.append(entry)
+    assert left == []

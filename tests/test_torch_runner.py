@@ -354,14 +354,11 @@ class TestRunnerResize:
 
     def test_resize_is_ledgered(self, rig):
         runner, stub = rig
-        from torchx_tpu_torch.obs import sinks
+        from torchx_tpu_torch.obs import sinks, timeline
 
         handle = runner.run(simple_app(), "stub")
         runner.resize(handle, "r", 2)
-        # the JAX case reads the trace with obs.timeline (ROADMAP queue 1
-        # item 2.6); the port's trace.jsonl is read line by line here
-        with open(sinks.trace_path()) as f:
-            records = [json.loads(line) for line in f if line.strip()]
+        records = timeline.load_records(sinks.trace_path())
         apis = [rec.get("api") for rec in records if rec.get("api")]
         assert "resize" in apis
 

@@ -87,10 +87,8 @@ def _job_span(name: str, **attrs: Any) -> ContextManager[Any]:
     tracing."""
     if not os.environ.get(settings.ENV_TPX_TRACE_ID):
         return nullcontext()
-    from torchx_tpu_torch.obs import sinks
     from torchx_tpu_torch.obs import trace as obs_trace
 
-    sinks.attach_trace_sink()
     return obs_trace.span(name, **attrs)
 
 

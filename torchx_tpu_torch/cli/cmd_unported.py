@@ -48,8 +48,6 @@ CmdSelfcheck = _unported(
     "selfcheck", "the analyzer's self-check, ROADMAP queue 1 item 2.8 (selfcheck/)"
 )
 CmdCell = _unported("cell", "the federation, ROADMAP queue 1 item 2.8 (federation/)")
-CmdTrace = _unported("trace", "the trace timeline, ROADMAP queue 1 item 2.6 (obs/timeline.py)")
-CmdServePool = _unported("serve-pool", "the serve pool, ROADMAP queue 1 item 2.7 (serve/pool.py)")
 CmdControl = _unported("control", "the control daemon, ROADMAP queue 1 item 2.7 (control/)")
 CmdQueue = _unported("queue", "the control daemon's queue, ROADMAP queue 1 item 2.7 (control/)")
 CmdPipeline = _unported("pipeline", "the pipelines, ROADMAP queue 1 item 2.7 (pipelines/)")

@@ -42,7 +42,7 @@ BUILTIN_CMDS: dict[str, tuple[str, str]] = {
     "describe": ("torchx_tpu_torch.cli.cmd_simple", "CmdDescribe"),
     "list": ("torchx_tpu_torch.cli.cmd_simple", "CmdList"),
     "log": ("torchx_tpu_torch.cli.cmd_log", "CmdLog"),
-    "trace": ("torchx_tpu_torch.cli.cmd_unported", "CmdTrace"),
+    "trace": ("torchx_tpu_torch.cli.cmd_trace", "CmdTrace"),
     "profile": ("torchx_tpu_torch.cli.cmd_profile", "CmdProfile"),
     "cancel": ("torchx_tpu_torch.cli.cmd_simple", "CmdCancel"),
     "delete": ("torchx_tpu_torch.cli.cmd_simple", "CmdDelete"),
@@ -52,7 +52,7 @@ BUILTIN_CMDS: dict[str, tuple[str, str]] = {
     "builtins": ("torchx_tpu_torch.cli.cmd_simple", "CmdBuiltins"),
     "configure": ("torchx_tpu_torch.cli.cmd_simple", "CmdConfigure"),
     "tracker": ("torchx_tpu_torch.cli.cmd_tracker", "CmdTracker"),
-    "serve-pool": ("torchx_tpu_torch.cli.cmd_unported", "CmdServePool"),
+    "serve-pool": ("torchx_tpu_torch.cli.cmd_serve_pool", "CmdServePool"),
     "control": ("torchx_tpu_torch.cli.cmd_unported", "CmdControl"),
     "cell": ("torchx_tpu_torch.cli.cmd_unported", "CmdCell"),
     "queue": ("torchx_tpu_torch.cli.cmd_unported", "CmdQueue"),

@@ -385,7 +385,6 @@ def _launch_span(name: str, **attrs: Any) -> contextlib.AbstractContextManager:
     no-op."""
     if not _traced():
         return contextlib.nullcontext()
-    sinks.attach_trace_sink()
     return obs_trace.span(name, **attrs)
 
 
@@ -396,7 +395,6 @@ def _report_first_step(
     carrying launch-to-first-step and its stages."""
     if not _traced():
         return
-    sinks.attach_trace_sink()
     obs_metrics.LAUNCH_TO_FIRST_STEP.observe(first_step_s)
     obs_trace.heartbeat(
         "job.first_step",
@@ -415,7 +413,6 @@ def _step_heartbeat(**attrs: Any) -> None:
     spans."""
     if not _traced():
         return
-    sinks.attach_trace_sink()
     obs_trace.heartbeat("step.window", replica=_replica_id(), **attrs)
     _renew_liveness_lease(int(attrs.get("step", -1)))
 

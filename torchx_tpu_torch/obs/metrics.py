@@ -334,6 +334,19 @@ SERVE_TPOT_SECONDS = REGISTRY.histogram(
     buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 5.0),
 )
 
+#: serve-pool replica count, as last applied by the autoscaler.
+SERVE_REPLICAS = REGISTRY.gauge(
+    "tpx_serve_replicas",
+    "generate_server replicas the serve pool is currently running",
+)
+
+#: serve-pool autoscaling decisions, by direction ("up"/"down").
+SERVE_SCALE_EVENTS = REGISTRY.counter(
+    "tpx_serve_scale_events_total",
+    "serve-pool autoscale resizes applied",
+    ("direction",),
+)
+
 #: prefix-cache lookups that matched at least one cached block.
 SERVE_PREFIX_HITS = REGISTRY.counter(
     "tpx_serve_prefix_hits_total",

@@ -362,28 +362,6 @@ class StepProfiler:
 # -- reading / summarizing ---------------------------------------------------
 
 
-def _load_records(path: str) -> list[dict[str, Any]]:
-    """Parse one JSONL file into dicts, skipping unparseable lines (a
-    crashed writer may leave a torn tail). The port's copy of
-    ``torchx_tpu.obs.timeline.load_records``."""
-    records: list[dict[str, Any]] = []
-    try:
-        with open(path) as f:
-            for line in f:
-                line = line.strip()
-                if not line:
-                    continue
-                try:
-                    obj = json.loads(line)
-                except ValueError:
-                    continue
-                if isinstance(obj, dict):
-                    records.append(obj)
-    except OSError:
-        pass
-    return records
-
-
 def load_profile(target: str) -> list[dict]:
     """Records of one profile journal, a torn final line skipped.
 
@@ -392,7 +370,9 @@ def load_profile(target: str) -> list[dict]:
     path = target
     if os.path.isdir(target):
         path = os.path.join(target, PROFILE_FILE)
-    return _load_records(path)
+    from torchx_tpu_torch.obs.timeline import load_records
+
+    return load_records(path)
 
 
 def summarize(records: list[dict], meta: Optional[dict] = None) -> dict:

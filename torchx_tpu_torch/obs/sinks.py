@@ -18,6 +18,7 @@ directory, ``~/.torchx_tpu/obs/<session>/`` (the root overridden by
 
 from __future__ import annotations
 
+import atexit
 import logging
 import os
 import tempfile
@@ -69,20 +70,45 @@ class JsonlTraceHandler(logging.Handler):
     serialized span) as one line to the session's ``trace.jsonl``.
 
     The path is resolved at every emit, so it follows changes of
-    ``$TPX_OBS_DIR`` mid-process. Single-line ``O_APPEND`` writes keep
+    ``$TPX_OBS_DIR`` mid-process. The file stays open between records
+    (one ``write`` a record: on an H100 machine's host a span cost
+    0.55-1.10 ms with the file opened for each record, 0.14-0.21 ms with
+    it kept open; PERF.md §6) and is opened again when the path changes
+    or the file was deleted. Single-line ``O_APPEND`` writes keep
     concurrent processes' records whole. Emission is best-effort:
     telemetry never breaks its caller."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._fd: Optional[int] = None
+        self._fd_path = ""
+
+    def _file(self, path: str) -> int:
+        if self._fd is not None:
+            if path == self._fd_path and os.fstat(self._fd).st_nlink > 0:
+                return self._fd
+            os.close(self._fd)
+            self._fd = None
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self._fd = os.open(path, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o666)
+        self._fd_path = path
+        return self._fd
 
     def emit(self, record: logging.LogRecord) -> None:
         if not trace.tracing_enabled():
             return
         try:
-            path = trace_path()
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            with open(path, "a") as f:
-                f.write(record.getMessage().rstrip("\n") + "\n")
+            line = record.getMessage().rstrip("\n") + "\n"
+            os.write(self._file(trace_path()), line.encode())
         except Exception:  # noqa: BLE001 - never break the caller
             self.handleError(record)
+
+    def close(self) -> None:
+        with self.lock:
+            if self._fd is not None:
+                os.close(self._fd)
+                self._fd = None
+        super().close()
 
 
 def attach_trace_sink() -> None:
@@ -91,6 +117,16 @@ def attach_trace_sink() -> None:
     if not any(isinstance(h, JsonlTraceHandler) for h in trace.SPAN_LOGGER.handlers):
         trace.SPAN_LOGGER.addHandler(JsonlTraceHandler())
         trace.SPAN_LOGGER.setLevel(logging.INFO)
+
+
+def metrics_min_interval_s() -> float:
+    """Least seconds between two debounced textfile flushes:
+    ``$TPX_METRICS_MIN_INTERVAL``, else the default (2 s)."""
+    raw = os.environ.get(settings.ENV_TPX_METRICS_MIN_INTERVAL, "")
+    try:
+        return float(raw) if raw else settings.DEFAULT_METRICS_MIN_INTERVAL
+    except ValueError:
+        return settings.DEFAULT_METRICS_MIN_INTERVAL
 
 
 class PromMetricsHandler(logging.Handler):
@@ -113,14 +149,8 @@ class PromMetricsHandler(logging.Handler):
     ) -> None:
         super().__init__()
         self._clock = clock if clock is not None else time.monotonic
-        if min_interval_s is None:
-            raw = os.environ.get(settings.ENV_TPX_METRICS_MIN_INTERVAL, "")
-            try:
-                min_interval_s = float(raw) if raw else None
-            except ValueError:
-                min_interval_s = None
         self.min_interval_s = (
-            settings.DEFAULT_METRICS_MIN_INTERVAL
+            metrics_min_interval_s()
             if min_interval_s is None
             else float(min_interval_s)
         )
@@ -158,16 +188,76 @@ class PromMetricsHandler(logging.Handler):
         super().close()
 
 
+#: the operator-facing name of the textfile flusher
+MetricsFlushHandler = PromMetricsHandler
+
+
+class _RootSpanFlush:
+    """The textfile flush a root span's end asks for, debounced as
+    :class:`PromMetricsHandler`'s (:func:`metrics_min_interval_s`). The
+    first request of a quiet period for a textfile writes it at once;
+    later requests inside the interval only arm one timer, which writes
+    the registry at the interval's end, so the file is never older than
+    the interval; a timer still armed at exit writes before the process
+    ends. A serving process ends a root span for every prefill group and
+    every request, each on the way to a client's tokens: written at each
+    one, the flush cost a root span 1.5-2.7 ms on an H100 machine's host
+    (PERF.md §6). The records are the JAX package's; only when the file
+    is written differs."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._last_path = ""
+        self._last = -float("inf")  # monotonic stamp of the last write
+        self._timer: Optional[threading.Timer] = None
+        atexit.register(self._at_exit)
+
+    def __call__(self) -> None:
+        path = metrics_path()
+        with self._lock:
+            now = time.monotonic()
+            wait = self._last + metrics_min_interval_s() - now
+            if path == self._last_path and wait > 0:
+                if self._timer is None:
+                    self._timer = threading.Timer(wait, self._trailing, (path,))
+                    self._timer.daemon = True
+                    self._timer.start()
+                return
+            self._last_path, self._last = path, now
+        _write_metrics(path)
+
+    def _trailing(self, path: str) -> None:
+        with self._lock:
+            self._timer = None
+            if path == self._last_path:
+                self._last = time.monotonic()
+        _write_metrics(path)
+
+    def _at_exit(self) -> None:
+        with self._lock:
+            timer, self._timer = self._timer, None
+        if timer is not None:
+            timer.cancel()
+            _write_metrics(*timer.args)
+
+
+#: the process's root-span flush (:func:`torchx_tpu_torch.obs.trace.record_span`)
+flush_metrics_after_root_span = _RootSpanFlush()
+
+
 def flush_metrics(session: Optional[str] = None) -> Optional[str]:
     """Atomically write this process's metrics registry to its ``.prom``
     textfile (a temporary file, then ``os.replace``, so a reader never
     sees half a file). No-op with tracing disabled. -> the path written,
     or None."""
+    return _write_metrics(metrics_path(session))
+
+
+def _write_metrics(path: str) -> Optional[str]:
     if not trace.tracing_enabled():
         return None
     from torchx_tpu_torch.obs.metrics import REGISTRY
 
-    path = metrics_path(session)
     try:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), prefix=".metrics_")

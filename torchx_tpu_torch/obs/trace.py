@@ -1,20 +1,23 @@
 """Spans for the serving and launch paths.
 
-The port's copy of what the engine, the server and the runner use of
-:mod:`torchx_tpu.obs.trace`: :func:`span` times a block as one
+Port of :mod:`torchx_tpu.obs.trace`: :func:`span` times a block as one
 :class:`Span` (:func:`start_span` / :func:`end_span` where a ``with``
 block cannot nest), :func:`heartbeat` emits a zero-duration marker,
 :func:`inject_env` hands the current context to a job's environment at
-submit, and :func:`trace_context` / :func:`extract_headers` adopt a trace
-context that arrived over HTTP headers or in a KV payload. Spans carrying one
+submit, :func:`inject_headers` to an HTTP hop (router -> replica), and
+:func:`trace_context` / :func:`extract_headers` adopt a trace context that
+arrived over HTTP headers or in a KV payload. Spans carrying one
 ``trace_id`` form a trace; ``parent_span_id`` links them into a tree. A
 ``contextvars.ContextVar`` holds the active span, so nested spans parent
 themselves; a process whose environment carries ``$TPX_TRACE_ID`` /
 ``$TPX_PARENT_SPAN`` joins that trace at its root.
 
-Completed spans are written as JSON lines, at INFO, to the logger
-``torchx_tpu_torch.obs.spans``, which does not propagate: attach a handler
-to keep them. ``$TPX_TRACE=0`` turns tracing off.
+Completed spans (:func:`record_span`) are written as JSON lines, at INFO,
+to the logger ``torchx_tpu_torch.obs.spans``, which does not propagate; the
+first span made attaches the session's ``trace.jsonl`` sink to it (through
+the events logger, as the JAX package's spans ride its events pipeline).
+The field names are the JAX package's, so each package reads the other's
+traces. ``$TPX_TRACE=0`` turns tracing off.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import logging
 import os
 import uuid
 from contextlib import contextmanager
-from dataclasses import asdict, dataclass, field
+from dataclasses import asdict, dataclass, field, fields
 from typing import Any, Iterator, Optional
 
 from torchx_tpu_torch.settings import ENV_TPX_PARENT_SPAN, ENV_TPX_TRACE, ENV_TPX_TRACE_ID
@@ -86,6 +89,19 @@ class Span:
     def serialize(self) -> str:
         """One JSON line, discriminated by ``"kind": "span"``."""
         return json.dumps({"kind": SPAN_KIND, **asdict(self)}, default=str)
+
+    @staticmethod
+    def deserialize(data: str) -> "Span":
+        """Inverse of :meth:`serialize`; unknown fields are dropped, so an
+        older reader survives a newer writer."""
+        obj = json.loads(data)
+        known = {f.name for f in fields(Span)}
+        return Span(**{k: v for k, v in obj.items() if k in known})
+
+
+def current_span() -> Optional[Span]:
+    """The active span in this context, or None."""
+    return _CURRENT.get()
 
 
 def current_trace_id() -> Optional[str]:
@@ -156,7 +172,7 @@ def end_span(span_: Optional[Span], token: Any, exc: Optional[BaseException] = N
     if exc is not None:
         span_.status = "ERROR"
         span_.attrs.setdefault("exception", f"{type(exc).__name__}: {exc}")
-    SPAN_LOGGER.info(span_.serialize())
+    record_span(span_)
 
 
 @contextmanager
@@ -193,6 +209,20 @@ def trace_context(
         _CURRENT.reset(token)
 
 
+def inject_headers(headers: dict[str, str]) -> dict[str, str]:
+    """Stamp the current trace context into an HTTP header dict (the
+    send-side twin of :func:`inject_env` for service hops). -> the dict,
+    untouched with no context or tracing off."""
+    if not tracing_enabled():
+        return headers
+    trace_id, span_id = current_trace_id(), current_span_id()
+    if trace_id:
+        headers[HDR_TRACE_ID] = trace_id
+    if span_id:
+        headers[HDR_PARENT_SPAN] = span_id
+    return headers
+
+
 def extract_headers(headers: Any) -> tuple[Optional[str], Optional[str]]:
     """``(trace_id, parent_span_id)`` from request headers (any mapping
     with ``.get``), ``(None, None)`` when absent."""
@@ -200,7 +230,33 @@ def extract_headers(headers: Any) -> tuple[Optional[str], Optional[str]]:
 
 
 def heartbeat(name: str, session: str = "", **attrs: Any) -> Optional[Span]:
-    """Emit an instantaneous (zero-duration) span: a progress marker."""
+    """Emit an instantaneous (zero-duration) span: a progress marker. Also
+    flushes the metrics textfile, so the marker and its metrics land
+    together."""
+    if not tracing_enabled():
+        return None
     with span(name, session=session, **attrs) as sp:
         pass
+    from torchx_tpu_torch.obs import sinks
+
+    sinks.flush_metrics()
     return sp
+
+
+def record_span(span_: Span) -> None:
+    """Emit one completed span on the span logger, the session's
+    ``trace.jsonl`` sink attached first (once, by the events logger). A
+    root span's completion also asks for a flush of the session's metrics
+    textfile, so a finished top-level operation leaves its metrics behind:
+    at once in a quiet period, else within ``$TPX_METRICS_MIN_INTERVAL``
+    (:data:`~torchx_tpu_torch.obs.sinks.flush_metrics_after_root_span`)."""
+    if not tracing_enabled():
+        return
+    from torchx_tpu_torch.runner.events import get_events_logger
+
+    get_events_logger()
+    SPAN_LOGGER.info(span_.serialize())
+    if span_.parent_span_id is None:
+        from torchx_tpu_torch.obs import sinks
+
+        sinks.flush_metrics_after_root_span()

@@ -1,7 +1,6 @@
 """Serving runtime: continuous batching over a paged KV cache.
 
-Port of :mod:`torchx_tpu.serve` (its serve pool, ``serve/pool.py``, is not
-ported yet):
+Port of :mod:`torchx_tpu.serve`:
 
 * :mod:`torchx_tpu_torch.serve.kv_pool` — host-side paged KV-cache
   planning and block allocation (the device-side gather/scatter lives in
@@ -12,7 +11,14 @@ ported yet):
 * :mod:`torchx_tpu_torch.serve.prefix_cache` — refcounted radix prefix
   cache over the pool;
 * :mod:`torchx_tpu_torch.serve.kv_transfer` — the prefill->decode
-  KV-block transfer seam for disaggregated serving.
+  KV-block transfer seam for disaggregated serving;
+* :mod:`torchx_tpu_torch.serve.pool` — the launcher-driven serve pool:
+  ``tpx-torch serve-pool`` submits N ``generate_server`` replicas (one
+  H100 each, or the CPU) through the Runner, routes requests
+  least-loaded (with a longest-cached-prefix bonus), and autoscales via
+  ``Runner.resize`` on queue-depth / p99 / SLO-burn targets — one gang,
+  or disaggregated prefill + decode gangs with independent policies. It
+  loads neither torch nor the engine.
 """
 
 # Lazy re-exports (PEP 562), as the JAX package's: importing one submodule
@@ -24,6 +30,11 @@ _EXPORTS = {
     "PrefixCache": "torchx_tpu_torch.serve.prefix_cache",
     "prefix_chain": "torchx_tpu_torch.serve.prefix_cache",
     "TransferConfig": "torchx_tpu_torch.serve.kv_transfer",
+    "AutoscalePolicy": "torchx_tpu_torch.serve.pool",
+    "Autoscaler": "torchx_tpu_torch.serve.pool",
+    "LeastLoadedRouter": "torchx_tpu_torch.serve.pool",
+    "ServePool": "torchx_tpu_torch.serve.pool",
+    "DisaggServePool": "torchx_tpu_torch.serve.pool",
 }
 
 __all__ = sorted(_EXPORTS)
