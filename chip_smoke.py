@@ -84,12 +84,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    worker a card on NCCL, ``--mesh fsdp=-1 --grad-bucket-mb 32
    --remat-policy dots`` (the bits and launches of the train phase's
    ``full``), unprofiled, submitted as a user would through the port's
-   ``Runner`` and its ``dist.spmd`` component on the local scheduler
-   (``dist.spmd(..., gpu="h100-<cards>", coordinator_port=0)``: one replica
-   of one H100 slice, given the cards as ``CUDA_VISIBLE_DEVICES``;
-   ``Runner.dryrun(..., no_lint=True)`` and ``schedule``, ``status`` polled
-   until ``SUCCEEDED``, ``cancel`` past the time limit, rank 0's ``final:``
-   line read from the replica's ``stdout.log``), then profiled as the train
+   control daemon and its ``dist.spmd`` component on the local scheduler: a
+   ``ControlDaemon`` on loopback (its state under the phase's directory,
+   its telemetry ``Collector`` over the job's obs session), the client
+   found as ``tpx-torch run`` finds it with ``$TPX_CONTROL_ADDR`` set,
+   ``/v1/submit`` of ``dist.spmd --gpu h100-<cards> --coordinator_port 0
+   ...`` (one replica of one H100 slice, given the cards as
+   ``CUDA_VISIBLE_DEVICES``; the daemon's dryrun under ``$TPX_NO_LINT``),
+   ``/v1/wait`` until ``SUCCEEDED`` (it wakes on the reconciler's terminal
+   event), ``cancel`` past the time limit, rank 0's ``final:`` line read
+   from the replica's ``stdout.log``, then the daemon stopped. Prints the
+   daemon's start, the submit's round trip, the replica's exit to the
+   wait's return, ``/v1/status`` beside ``Runner.status``, the local
+   scheduler's describe calls during the wait, and checks that
+   ``/v1/metrics/query`` gives ``tpx_step_seconds`` as the job's own
+   textfile holds it. Then it runs profiled as the train
    phase's profiled run (by hand, one replica of ``spmd_main``): state ``SUCCEEDED`` / exit 0,
    every rank's kernel launches the train phase's, and at a world of one
    the losses the train phase's (bitwise where that phase's two runs were,
@@ -349,7 +358,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    equals the card's ``total_memory``, and the card's name names an H100;
    both printed beside the ``nvidia-smi`` reading.
 10. local — the launcher's local scheduler on the card, after the gang
-   phase (whose A run the runner submitted to it): the cards it counts
+   phase (whose A run the control daemon's runner submitted to it): the
+   cards it counts
    without torch (``local_gpu_count()``: the launcher's own
    ``CUDA_VISIBLE_DEVICES``, else the CUDA driver's count through ctypes)
    equal ``torch.cuda.device_count()``; the ``CUDA_VISIBLE_DEVICES`` it
@@ -357,9 +367,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``step`` line and to ``SUCCEEDED`` (with the trainer's launch stages,
    ``launch_breakdown_s``, and the marks of the job's own trace,
    ``launch_marks_s``); and a dryrun of a role asking for one card more
-   than the host has must be refused for over-subscription. ``--phases ...,gang,local,gangspmd`` also
-   runs A unprofiled by hand through ``spmd_main`` as before the runner
-   took it, for its step time beside the runner's in one call.
+   than the host has must be refused for over-subscription; the daemon's
+   figures of the gang phase under ``gang_a.daemon``. ``--phases
+   ...,gang,local,gangspmd`` also runs A unprofiled by hand through
+   ``spmd_main`` as before the launcher took it, for its step time beside
+   the daemon's run in one call.
 11. remote — the launcher's remote backends on the card's machine, after
    local: gang A's ``dist.spmd --gpu h100-<cards>`` app dryrun through gke,
    slurm, local_docker, vertex and gcp_batch in a subprocess, every client
@@ -2244,68 +2256,211 @@ def device_busy(events: list[dict], steps: int) -> dict:
             "device_idle_share": 1 - busy / span}
 
 
-def _scheduled_spmd(app, root: str, phase: str,  # noqa: ANN001
-                    timeout_s: float | None = None) -> tuple[dict, dict]:
-    """The one-role ``app`` (``dist.spmd``'s) run through the port's
-    ``Runner`` on the local scheduler: ``dryrun`` (``no_lint``: the port's
-    lint gate waits for its analyzer), ``schedule``, ``status`` polled until
-    terminal, ``cancel`` past ``timeout_s`` (default ``GANG["timeout_s"]``).
-    The runner's own trace goes under ``root``. -> (rank 0's final summary
-    from the replica's ``stdout.log``, the launcher's record: the app
-    handle, the component, final state, the replica's
-    ``CUDA_VISIBLE_DEVICES``, seconds from submit to rank 0's first ``step``
-    line and to the terminal state, the trainer's launch stages and
-    :func:`_launch_marks`)."""
-    from torchx_tpu_torch.runner import get_runner
-    from torchx_tpu_torch.specs.api import AppState, is_terminal
+def _daemon_spmd(cards: int, root: str, phase: str,
+                 timeout_s: float | None = None) -> tuple[dict, dict]:
+    """Gang A submitted as ``tpx-torch run`` submits with
+    ``$TPX_CONTROL_ADDR`` set: a port ``ControlDaemon`` started on loopback
+    (its state dir under ``root``, inside the job's ``$TPX_OBS_DIR``, so its
+    telemetry ``Collector`` reads the job's obs session), the client found
+    as the CLI finds it (``maybe_client``), ``dist.spmd`` with
+    :func:`gang_a_component_args` on the local scheduler through
+    ``/v1/submit`` (the daemon's dryrun passes ``$TPX_NO_LINT``: the port's
+    lint gate waits for its analyzer), ``/v1/wait`` until terminal (past
+    ``timeout_s``, default ``GANG["timeout_s"]``, the job is cancelled and
+    the phase fails), then the daemon stopped. A daemon that does not
+    start, a refused submit or a wait that does not return fails the
+    phase: nothing falls back to the direct ``Runner``. -> (rank 0's final
+    summary from the replica's ``stdout.log``, the launcher's record: the
+    app handle, the component, final state, the replica's
+    ``CUDA_VISIBLE_DEVICES``, seconds from submit to rank 0's first
+    ``step`` line and to ``/v1/wait``'s terminal answer, the trainer's
+    launch stages and :func:`_launch_marks`; and the daemon's: its start,
+    the submit's round trip beside its handler's and the scheduler's
+    seconds, the replica's exit (its ``exitcode`` sidecar) to the wait's
+    return, the reconciler's terminal event, ``/v1/status`` beside
+    ``Runner.status``, the local scheduler's describe calls during the
+    wait, and ``tpx_step_seconds`` through ``/v1/metrics/query`` beside the
+    job's own textfile)."""
+    import glob
+    import threading
 
+    from torchx_tpu_torch import settings
+    from torchx_tpu_torch.control.client import ControlClientError, maybe_client
+    from torchx_tpu_torch.control.daemon import ControlDaemon
+    from torchx_tpu_torch.control.watch import watch_interval
+    from torchx_tpu_torch.obs import metrics as obs_metrics
+    from torchx_tpu_torch.obs.telemetry import parse_exposition
+    from torchx_tpu_torch.runner import get_runner
+    from torchx_tpu_torch.schedulers.local_scheduler import EXITCODE_FILE
+    from torchx_tpu_torch.specs.api import parse_app_handle
+
+    app = gang_a_app(root, cards)
     (role,) = app.roles
-    handle, state = None, None
-    with _ObsDir(os.path.join(root, "obs")):  # the runner's trace beside the job's
-        runner = get_runner("chip_smoke")
+    obs = os.path.join(root, "obs")
+    cfg = {"log_dir": os.path.join(root, "apps")}
+    names = (settings.ENV_TPX_CONTROL_ADDR, settings.ENV_TPX_CONTROL_DIR,
+             settings.ENV_TPX_NO_LINT, settings.ENV_TPX_CONTROL_TOKEN)
+    saved = {k: os.environ.get(k) for k in names}
+    handle = daemon = status = None
+    with _ObsDir(obs):  # the daemon's and the runner's traces beside the job's
+        t = time.perf_counter()
         try:
-            # submit: the materialized request (its replica's env read
-            # below), then the launch
-            info = runner.dryrun(app, "local", {"log_dir": os.path.join(root, "apps")},
-                                 no_lint=True)
-            (replica,) = info.request.role_params[role.name]
+            daemon = ControlDaemon(runner=get_runner("chip_smoke"),
+                                   state_dir=os.path.join(root, "control"),
+                                   scrape_interval=3600.0).start()
+        except Exception as e:  # noqa: BLE001 - the phase's verdict
+            fail(phase, f"the control daemon did not start: {type(e).__name__}: {e}")
+        daemon_start_s = time.perf_counter() - t
+        try:
+            os.environ.pop(settings.ENV_TPX_CONTROL_TOKEN, None)
+            os.environ[settings.ENV_TPX_CONTROL_ADDR] = daemon.addr
+            os.environ[settings.ENV_TPX_CONTROL_DIR] = daemon.state_dir
+            os.environ[settings.ENV_TPX_NO_LINT] = "1"
+            client = maybe_client()  # the discovery file's token, as the CLI reads it
+            sched = daemon.runner._scheduler("local")
+            # the reference command: gang A's app materialized directly
+            (direct,) = daemon.runner.dryrun(app, "local", cfg, no_lint=True) \
+                .request.role_params[role.name]
+            describes = [0]
+            describe = sched.describe
+
+            def counted(app_id: str):  # noqa: ANN202
+                describes[0] += 1
+                return describe(app_id)
+
+            sched.describe = counted
+            submit_s = obs_metrics.CONTROL_REQUEST_SECONDS.sum(op="submit")
+            schedule_s = obs_metrics.LAUNCH_SECONDS.sum(scheduler="local")
             t0, t0_epoch = time.monotonic(), time.time()
-            handle = runner.schedule(info)
-            deadline = t0 + (timeout_s or GANG["timeout_s"])
-            first_step = done = None
-            while True:
-                state = runner.status(handle, fresh=True).state
-                if first_step is None and os.path.exists(replica.stdout):
-                    with open(replica.stdout, errors="replace") as f:
-                        if any(line.startswith("step ") for line in f):
-                            first_step = time.monotonic() - t0
-                if is_terminal(state):
-                    done = time.monotonic() - t0
-                    break
-                if time.monotonic() > deadline:
-                    break
-                time.sleep(0.05)
+            try:
+                handle = client.submit("dist.spmd", gang_a_component_args(root, cards),
+                                       "local", cfg=cfg)
+            except ControlClientError as e:
+                fail(phase, f"the control daemon refused gang A: {e.code} {e.message}")
+            submit_rtt = time.monotonic() - t0
+            submit_s = obs_metrics.CONTROL_REQUEST_SECONDS.sum(op="submit") - submit_s
+            schedule_s = obs_metrics.LAUNCH_SECONDS.sum(scheduler="local") - schedule_s
+            describes[0] = 0
+            _, _, app_id = parse_app_handle(handle)
+            (replica,) = sched._apps[app_id].request.role_params[role.name]
+            if replica.args != direct.args:
+                fail(phase, f"the daemon materialized {replica.args}, not gang A's"
+                     f" {direct.args}")
+            first: list[float] = []
+            stop = threading.Event()
+
+            def watch_first_step() -> None:
+                while not stop.is_set():
+                    if os.path.exists(replica.stdout):
+                        with open(replica.stdout, errors="replace") as f:
+                            if any(line.startswith("step ") for line in f):
+                                first.append(time.monotonic() - t0)
+                                return
+                    stop.wait(0.05)
+
+            watcher = threading.Thread(target=watch_first_step, daemon=True)
+            watcher.start()
+            try:
+                status = client.wait(handle, timeout=timeout_s or GANG["timeout_s"])
+            except (TimeoutError, ControlClientError) as e:
+                fail(phase, f"/v1/wait did not return gang A's end: {e}")
+            finally:
+                stop.set()
+                watcher.join(timeout=5)
+            wait_epoch, done = time.time(), time.monotonic() - t0
+            waited_describes = describes[0]
+            # the wait returns on the terminal event, or (rarely) on its
+            # 2 s status poll just before the watch stream delivers it
+            event = daemon.reconciler.latest("local", app_id)
+            settle = time.monotonic() + 5 * watch_interval()
+            while (event is None or not event.terminal) and time.monotonic() < settle:
+                time.sleep(0.02)
+                event = daemon.reconciler.latest("local", app_id)
+            exit_epoch = os.path.getmtime(
+                os.path.join(os.path.dirname(replica.stdout), EXITCODE_FILE))
+            daemon_state = client.status(handle)["state"]
+            runner_state = daemon.runner.status(handle).state.name
+            # the telemetry plane: one collect over the job's obs session,
+            # then the job's own textfile beside /v1/metrics/query's series
+            daemon.collector.collect_once()
+            prom = [path for path in glob.glob(os.path.join(obs, "*", "metrics-*.prom"))
+                    if os.path.basename(path) != f"metrics-{os.getpid()}.prom"
+                    and "\ntpx_step_seconds_count" in open(path).read()]
+            telemetry: dict = {"textfiles": [os.path.relpath(path, obs) for path in prom]}
+            if len(prom) == 1:
+                text = open(prom[0]).read()
+                source = (f"file:{os.path.basename(os.path.dirname(prom[0]))}/"
+                          f"{os.path.basename(prom[0])}")
+                for name in ("tpx_step_seconds_bucket", "tpx_step_seconds_sum",
+                             "tpx_step_seconds_count"):
+                    want = sorted((sorted(smp.labels), smp.value)
+                                  for smp in parse_exposition(text) if smp.name == name)
+                    got = sorted((sorted(ser["labels"].items()), ser["points"][-1][1])
+                                 for ser in client.metrics_query(name=name)["series"]
+                                 if ser["source"] == source)
+                    telemetry[name] = {"textfile": len(want), "daemon": len(got),
+                                       "equal": want == got}
+                telemetry["steps_counted"] = next(
+                    (smp.value for smp in parse_exposition(text)
+                     if smp.name == "tpx_step_seconds_count"), None)
+            with open(replica.stdout, errors="replace") as f:
+                out = f.read()
+            if status["state"] != "SUCCEEDED" or "final:" not in out:
+                with open(replica.stderr, errors="replace") as f:
+                    err = f.read()
+                fail(phase, f"gang A through the daemon ended {status['state']}:"
+                     f" {' '.join(replica.args)}\n{out[-3000:]}\n{err[-3000:]}")
+            daemon.runner.delete(handle)  # its registry entry; the logs go with ``root``
         finally:
-            if handle is not None and not is_terminal(state):
-                runner.cancel(handle)  # past the limit: the kill ladder
-        with open(replica.stdout, errors="replace") as f:
-            out = f.read()
-        if state != AppState.SUCCEEDED or "final:" not in out:
-            with open(replica.stderr, errors="replace") as f:
-                err = f.read()
-            fail(phase, f"the scheduled gang ended {state}: {' '.join(replica.args)}\n"
-                 f"{out[-3000:]}\n{err[-3000:]}")
-        runner.delete(handle)  # its registry entry; the logs go with ``root``
-        runner.close()
+            if handle is not None and (status is None or not status.get("terminal")):
+                daemon.runner.cancel(handle)  # past the limit: the kill ladder
+            daemon.close()
+            daemon.runner.close()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
     final = json.loads(out.split("final:", 1)[1].splitlines()[0])
-    record = {"app_handle": handle, "component": "dist.spmd",
-              "app_id": handle.rsplit("/", 1)[-1], "state": state.name,
-              "gpu": role.resource.gpu.accelerator_type, "entrypoint": replica.args[0],
+    record = {"app_handle": handle, "component": "dist.spmd", "route": "control daemon",
+              "app_id": app_id, "state": status["state"],
+              "gpu": role.resource.gpu and role.resource.gpu.accelerator_type,
+              "entrypoint": replica.args[0],
               "cuda_visible_devices": replica.env.get("CUDA_VISIBLE_DEVICES"),
-              "submit_to_first_step_s": first_step, "submit_to_succeeded_s": done,
+              "submit_to_first_step_s": first[0] if first else None,
+              "submit_to_succeeded_s": done,
               "launch_breakdown_s": final.get("launch_breakdown"),
-              "launch_marks_s": _launch_marks(os.path.join(root, "obs"), t0_epoch)}
+              "launch_marks_s": _launch_marks(obs, t0_epoch),
+              "daemon": {
+                  "start_s": daemon_start_s, "submit_round_trip_s": submit_rtt,
+                  "submit_handler_s": submit_s, "scheduler_submit_s": schedule_s,
+                  "exit_to_wait_s": wait_epoch - exit_epoch,
+                  "terminal_event": None if event is None else {
+                      "state": event.state.name, "source": event.source,
+                      "cell": event.cell, "to_wait_s": wait_epoch - event.time_usec / 1e6},
+                  "watch_interval_s": watch_interval(),
+                  "status_state": daemon_state, "runner_status_state": runner_state,
+                  "describes_during_wait": waited_describes, "telemetry": telemetry}}
+    d = record["daemon"]
+    if event is None or not event.terminal:
+        fail(phase, f"the reconciler recorded no terminal event for gang A: {event}")
+    if daemon_state != runner_state:
+        fail(phase, f"/v1/status says {daemon_state}, Runner.status {runner_state}")
+    if len(prom) != 1 or not all(v["equal"] and v["textfile"] for k, v in
+                                 telemetry.items() if k.startswith("tpx_step_seconds")):
+        fail(phase, f"the daemon's tpx_step_seconds against gang A's textfile: {telemetry}")
+    if d["exit_to_wait_s"] > max(5.0, 5 * d["watch_interval_s"]):
+        fail(phase, f"/v1/wait returned {d['exit_to_wait_s']:.3f} s after the replica's exit")
     return final, record
+
+
+def gang_a_component_args(root: str, cards: int) -> list[str]:
+    """Gang A as ``dist.spmd``'s command-line arguments, the ones ``tpx-torch
+    run dist.spmd ...`` hands the control daemon, which materializes them
+    into :func:`gang_a_app`'s command (checked in :func:`_daemon_spmd`)."""
+    return ["--gpu", f"h100-{cards}", "--image", REPO, "--env",
+            f"PYTHONPATH={REPO},TPX_OBS_DIR={os.path.join(root, 'obs')}",
+            "--coordinator_port", "0", "-m", GANG_A_MODULE, "--", *gang_a_args()]
 
 
 def _trace_spans(obs_root: str, since: float = 0.0) -> list[dict]:
@@ -2386,16 +2541,15 @@ def _gang_a(cfg, root: str, profiled: bool, scheduled: bool = True) -> dict:  # 
     ``--remat-policy dots`` (``GANG["remat_policy"]``: the same bits and
     launches as the train phase's ``full``, so a remat policy runs through
     ``spmd_main`` on the card): unprofiled and ``scheduled``, submitted
-    through the port's ``Runner`` as ``dist.spmd`` (its record under
-    ``"launcher"``); with
+    through the port's control daemon as ``dist.spmd`` (:func:`_daemon_spmd`,
+    its record under ``"launcher"``); with
     ``profiled``, by hand as the train phase's profiled run (the step
     profiler and the trainer's torch.profiler trace, read here)."""
     import torch
 
     extra = ["--profile", "--profile-dir", os.path.join(root, "trace")] if profiled else []
     if scheduled and not profiled:
-        final, record = _scheduled_spmd(gang_a_app(root, torch.cuda.device_count()), root,
-                                        "gang")
+        final, record = _daemon_spmd(torch.cuda.device_count(), root, "gang")
         final["launcher"] = record
         return final
     env = {"TPX_OBS_DIR": os.path.join(root, "obs")}
@@ -2420,7 +2574,7 @@ def phase_gang(train_out: dict, train_profiled: dict, spmd_too: bool = False) ->
     phase's, at a world of one the losses the train phase's (bitwise where
     its two runs were, else within ``GANG_LOSS_RTOL``; on more cards within
     ``REF_LOSS_RTOL``). The unprofiled run is submitted through the port's
-    ``Runner`` and ``dist.spmd``; with ``spmd_too`` (the gangspmd phase) it runs once more by
+    control daemon as ``dist.spmd``; with ``spmd_too`` (the gangspmd phase) it runs once more by
     hand, unprofiled, for its step time beside the scheduler's. B:
     :func:`phase_gang_ranks`."""
     import shutil
@@ -4809,8 +4963,31 @@ def phase_pool(serve: dict, card: str) -> dict:
         fail("pool", f"after stop: app {state.name}, replica processes {survivors} alive")
     if free_after < free_before - (256 << 20):
         fail("pool", f"the card's free memory {free_after} did not come back to"
-             f" {free_before} after the replica exited")
+             f" {free_before} after the replica exited; on the card: {_card_holders()}")
     return res
+
+
+def _card_holders() -> list[dict]:
+    """The processes that hold memory on the card, as ``nvidia-smi`` lists
+    them, each with its process group and command line from ``/proc``
+    (a failure's evidence: which process kept what)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30).stdout
+    holders = []
+    for line in filter(None, (ln.strip() for ln in out.splitlines())):
+        pid, _, used = line.partition(",")
+        holder = {"pid": pid.strip(), "used": used.strip()}
+        try:
+            with open(f"/proc/{holder['pid']}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            holder["state"], holder["pgid"] = fields[0], int(fields[2])
+            with open(f"/proc/{holder['pid']}/cmdline", "rb") as f:
+                holder["cmdline"] = f.read().replace(b"\0", b" ").decode(errors="replace")[:300]
+        except OSError as e:
+            holder["proc"] = str(e)
+        holders.append(holder)
+    return holders
 
 
 #: The tracecost phase's bursts, in turns: tracing on (the default) and off

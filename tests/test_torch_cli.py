@@ -6,8 +6,9 @@ changed with the port: the local scheduler's run options name
 list`` never imports jax" becomes "``tpx-torch list`` imports neither
 torch nor jax nor ``torchx_tpu``". Added: every command of the JAX table
 whose layer is not ported yet exits 1 naming its ROADMAP item; the
-runner's lint gate and a set ``$TPX_CONTROL_ADDR`` end a command with one
-error line naming theirs; and parity with the JAX CLI on the same inputs
+runner's lint gate ends a command with one error line naming its item; a
+set ``$TPX_CONTROL_ADDR`` sends ``run``, ``status``, ``list``, ``log`` and
+``cancel`` through the control daemon; and parity with the JAX CLI on the same inputs
 (``TestJaxParity``: the command table, and ``profile``'s text, ``--json``
 and ``--diff`` views of the same journals, exact).
 
@@ -379,8 +380,7 @@ class TestLazyCli:
 #: command -> the ROADMAP queue 1 item(s) its message names
 UNPORTED = {
     "lint": ("2.8",), "explain": ("2.8",), "tune": ("2.8",), "sim": ("2.8",),
-    "selfcheck": ("2.8",), "cell": ("2.8",), "control": ("2.7",), "queue": ("2.7",),
-    "pipeline": ("2.7",), "top": ("2.7", "2.8"),
+    "selfcheck": ("2.8",), "cell": ("2.8",), "top": ("2.7", "2.8"),
 }
 
 
@@ -414,13 +414,67 @@ class TestSeams:
                                 "utils.echo", "--msg", "x"])
         assert code == 0 and "=== APPLICATION ===" in out
 
-    def test_a_control_daemon_address_is_refused_naming_its_item(self, monkeypatch):
-        monkeypatch.setenv(settings.ENV_TPX_CONTROL_ADDR, "http://127.0.0.1:1")
-        for argv in (["list"], ["status", "local://s/app"], ["cancel", "local://s/app"],
-                     ["run", "-s", "local", "utils.echo"]):
-            code, _, err = run_cli(argv)
-            assert code == 1, argv
-            assert "2.7" in err and "control" in err and "Traceback" not in err
+    def test_a_control_daemon_address_reaches_the_daemon(self, monkeypatch, tmp_path):
+        """With ``$TPX_CONTROL_ADDR`` set, ``run``, ``status``, ``list``,
+        ``log`` and ``cancel`` go through the control daemon (its journal
+        and its log stream), as the JAX commands do; an address with no
+        token is one ``control:`` error line."""
+        from torchx_tpu_torch.control.daemon import ControlDaemon
+        from torchx_tpu_torch.runner.api import get_runner
+
+        monkeypatch.setenv("TPX_WATCH_INTERVAL", "0.05")
+        monkeypatch.setenv(settings.ENV_TPX_CONTROL_DIR, str(tmp_path / "ctl"))
+        d = ControlDaemon(runner=get_runner("cli-proxy"), state_dir=str(tmp_path / "ctl")).start()
+        try:
+            monkeypatch.setenv(settings.ENV_TPX_CONTROL_ADDR, d.addr)
+            code, out, err = run_cli(["run", "-s", "local", "-cfg", f"log_dir={tmp_path / 'l'}",
+                                      "utils.echo", "--msg", "proxied"])
+            assert code == 0, err
+            handle = out.splitlines()[0]
+            assert handle.startswith("local://") and f"{handle}: SUCCEEDED" in out
+            app_id = handle.rsplit("/", 1)[1]
+            assert d.store.latest("local", app_id) is not None
+            code, out, _ = run_cli(["status", handle])
+            assert code == 0 and out.startswith(f"{handle}: SUCCEEDED")
+            code, out, _ = run_cli(["list"])
+            assert code == 0 and f"local\t{app_id}\t" in out
+            code, out, _ = run_cli(["log", f"{handle}/echo/0"])
+            assert code == 0 and "echo/0 proxied" in out
+            code, out, _ = run_cli(["cancel", handle])
+            assert code == 0 and out.strip() == f"cancelled {handle}"
+            monkeypatch.setenv(settings.ENV_TPX_CONTROL_ADDR, "http://127.0.0.1:1")
+            code, _, err = run_cli(["list"])
+            assert code == 1 and err.startswith("control: ") and "Traceback" not in err
+        finally:
+            d.close()
+            d.runner.close()
+
+    def test_no_lint_through_a_daemon_names_the_daemons_setting(self, monkeypatch,
+                                                                 tmp_path):
+        """The daemon lints its submits in its own environment: a proxied
+        ``run --no-lint`` that the daemon's lint gate refuses says where the
+        setting belongs, and a daemon with ``TPX_NO_LINT=1`` takes it."""
+        from torchx_tpu_torch.control.daemon import ControlDaemon
+        from torchx_tpu_torch.runner.api import get_runner
+
+        monkeypatch.setenv("TPX_WATCH_INTERVAL", "0.05")
+        monkeypatch.setenv(settings.ENV_TPX_CONTROL_DIR, str(tmp_path / "ctl"))
+        d = ControlDaemon(runner=get_runner("cli-nolint"), state_dir=str(tmp_path / "ctl")).start()
+        try:
+            monkeypatch.setenv(settings.ENV_TPX_CONTROL_ADDR, d.addr)
+            argv = ["run", "--no-lint", "-s", "local", "-cfg", f"log_dir={tmp_path / 'l'}",
+                    "utils.echo", "--msg", "x"]
+            monkeypatch.delenv(settings.ENV_TPX_NO_LINT)
+            code, out, err = run_cli(argv)
+            lines = err.strip().splitlines()
+            assert code == 1 and not out and "Traceback" not in err
+            assert "2.8" in lines[0] and "TPX_NO_LINT=1" in lines[-1]
+            monkeypatch.setenv(settings.ENV_TPX_NO_LINT, "1")
+            code, out, err = run_cli(argv)
+            assert code == 0 and "SUCCEEDED" in out, err
+        finally:
+            d.close()
+            d.runner.close()
 
     def test_supervise_runs_to_success_on_the_local_scheduler(self, tmp_path):
         code, out, err = run_cli([

@@ -5,7 +5,8 @@ do it through the port's runner, as the JAX cases do), and the copy held
 to the JAX
 package's ``torchx_tpu.control`` on the same seeded inputs: event records,
 the kubectl stream parser and the JobSet state mapping. The rest of that
-file waits for the client, daemon, reconciler and store (item 2.7)."""
+file (the client, daemon, reconciler and store) runs in
+``test_torch_control.py``."""
 
 import json
 import random

@@ -133,16 +133,20 @@ class TestDockerDryrun:
         assert app_id == info.request.app_id
         assert sched._client.containers.run.call_count == 2
 
-    def test_maps_named_devices(self):
-        # tests/test_devices.py: a mixed fleet's nvidia.com/gpu count on a
-        # role without a GPU slice still mounts the named nodes
+    def test_maps_named_devices(self, monkeypatch):
+        # tests/test_devices.py maps a mixed fleet's nvidia.com/gpu count on
+        # a role without a GPU slice to /dev/nvidia<N> mounts; here it is
+        # the role's device request for the driver's cards by UUID, as a
+        # slice role's is, and no node is mounted
+        ids = cards(monkeypatch, 2)
         sched = DockerScheduler("t", docker_client=mock.MagicMock())
         role = Role(name="g", image="i", entrypoint="e",
                     resource=Resource(cpu=1, memMB=1, devices={"nvidia.com/gpu": 1}))
         info = sched.submit_dryrun(AppDef(name="g", roles=[role]), {})
-        devs = info.request.containers[0].kwargs["devices"]
-        assert "/dev/nvidia0:/dev/nvidia0:rwm" in devs
-        assert "device_requests" not in info.request.containers[0].kwargs
+        kwargs = info.request.containers[0].kwargs
+        assert kwargs["device_requests"] == [
+            {"driver": "nvidia", "device_ids": ids[:1], "capabilities": [["gpu"]]}]
+        assert not any(d.startswith("/dev/nvidia") for d in kwargs.get("devices", []))
 
 
 class TestDockerDescribe:
@@ -265,6 +269,22 @@ class TestGpuDeviceRequest:
         info = sched.submit_dryrun(gpu_app(0, res=named_resources["h100-16"]), {})
         assert requests_of(info) == [ids[:8], ids[8:]]
         assert all("devices" not in c.kwargs for c in info.request.containers)
+
+    def test_named_gpu_count_without_a_slice(self, sched, monkeypatch):
+        """A mixed fleet's role asks ``devices["nvidia.com/gpu"] = n`` with no
+        GPU slice: each replica gets its share of the driver's cards by
+        UUID and no node mount, and more cards than the host's are refused,
+        as for a slice role."""
+        ids = cards(monkeypatch, 4)
+        res = Resource(cpu=1, memMB=64, devices={"nvidia.com/gpu": 2})
+        info = sched.submit_dryrun(gpu_app(0, num_replicas=2, res=res), {})
+        assert requests_of(info) == [ids[:2], ids[2:]]
+        assert all("devices" not in c.kwargs for c in info.request.containers)
+        with pytest.raises(ValueError, match="need 6 cards, and this host has 4"):
+            sched.submit_dryrun(gpu_app(0, num_replicas=3, res=res), {})
+        cards(monkeypatch, 0)
+        with pytest.raises(ValueError, match="finds no card"):
+            sched.submit_dryrun(gpu_app(0, res=Resource(devices={"nvidia.com/gpu": 1})), {})
 
     def test_driver_gpu_uuids_format(self, monkeypatch):
         """``cuDeviceGetUuid``'s 16 bytes as nvidia-smi prints them, one per

@@ -116,18 +116,21 @@ def test_checkpoint_modules_are_present():
 #: The launcher's layers: helpers, specs, plugins, workspaces; the
 #: control-plane seam, the scheduler contract with the local backend, and
 #: the watch streams; the runner, the trackers, the in-job result tracker
-#: and the components; the supervisor and the command line.
+#: and the components; the supervisor and the command line; the control
+#: plane (client, daemon, reconciler, store), the fleet scheduler and the
+#: pipelines.
 LAUNCHER_PACKAGES = ("util", "specs", "plugins", "workspace", "resilience", "schedulers",
                      "control", "runner", "tracker", "runtime", "components", "supervisor",
-                     "cli")
+                     "cli", "fleet", "pipelines")
 #: The launcher's apps and helpers outside those packages, loaded the same way.
 LAUNCHER_APPS = ("apps.process_monitor", "apps.copy_main", "apps.booth_main",
                  "apps.serve_main", "notebook")
 #: The telemetry plane and the serve pool (with what they import of the
-#: serving stack), which launcher processes load beside the run path.
+#: serving stack), which launcher processes load beside the run path, and
+#: the analyzer's plan-shape reader, which the fleet placer loads.
 LAUNCHER_OBS_SERVE = ("obs", "obs.metrics", "obs.trace", "obs.sinks", "obs.timeline",
                       "obs.stitch", "obs.telemetry", "obs.slo", "serve.pool",
-                      "serve.kv_transfer", "serve.prefix_cache")
+                      "serve.kv_transfer", "serve.prefix_cache", "analyze.plan")
 LAUNCHER_MODULES = (
     "settings.py", "version.py", "deprecations.py",
     *(f"util/{m}.py" for m in ("__init__", "strings", "colors", "io", "modules", "entrypoints",
@@ -145,7 +148,11 @@ LAUNCHER_MODULES = (
                                      "devices", "local_scheduler", "docker_scheduler",
                                      "slurm_scheduler", "gke_scheduler",
                                      "gcp_batch_scheduler", "vertex_scheduler")),
-    "control/__init__.py", "control/events.py", "control/watch.py",
+    *(f"control/{m}.py" for m in ("__init__", "events", "watch", "client", "daemon",
+                                  "reconciler", "store")),
+    *(f"fleet/{m}.py" for m in ("__init__", "api", "model", "placer", "queue", "market")),
+    *(f"pipelines/{m}.py" for m in ("__init__", "api", "dag", "promote", "engine", "legacy",
+                                    "kfp", "local_runner")),
     *(f"runner/{m}.py" for m in ("__init__", "api", "config", "describe_cache")),
     *(f"runner/events/{m}.py" for m in ("__init__", "api", "handlers")),
     "tracker/__init__.py", "tracker/api.py", "tracker/mlflow.py", "tracker/backend/__init__.py",
@@ -157,9 +164,10 @@ LAUNCHER_MODULES = (
     *(f"supervisor/{m}.py" for m in ("__init__", "api", "gang", "ledger", "policy")),
     *(f"cli/{m}.py" for m in ("__init__", "main", "cmd_base", "cmd_run", "cmd_simple",
                               "cmd_log", "cmd_tracker", "cmd_supervise", "cmd_profile",
-                              "cmd_trace", "cmd_serve_pool", "cmd_unported")),
+                              "cmd_trace", "cmd_serve_pool", "cmd_unported", "cmd_control",
+                              "cmd_queue", "cmd_pipeline")),
     *(f"obs/{m}.py" for m in ("__init__", "telemetry", "slo", "timeline", "stitch")),
-    "serve/pool.py",
+    "serve/pool.py", "analyze/plan.py",
 )
 #: The apps and helpers of ``LAUNCHER_APPS``, as files.
 LAUNCHER_APP_FILES = tuple(m.replace(".", "/") + ".py" for m in LAUNCHER_APPS)
@@ -175,14 +183,17 @@ def test_launcher_modules_are_present():
     # a remote backend or a control-plane service comes with its own layer
     assert not {s for s in sources if s.startswith(("schedulers/", "control/", "resilience/",
                                                     "runner/", "tracker/", "runtime/",
-                                                    "components/", "supervisor/", "cli/"))} \
+                                                    "components/", "supervisor/", "cli/",
+                                                    "fleet/", "pipelines/"))} \
         - set(LAUNCHER_MODULES)
 
 
 def test_launcher_modules_load_no_torch():
     """A launcher process loads no CUDA: importing every module of the
-    launcher's layers, the telemetry plane and the serve pool brings in
-    neither torch nor jax nor the JAX package, nor the serving engine."""
+    launcher's layers (the control plane, the fleet and the pipelines
+    among them), the telemetry plane and the serve pool brings in neither
+    torch nor jax nor the JAX package, nor the serving engine or the
+    models."""
     code = (
         "import importlib, pkgutil, sys\n"
         "names = ['torchx_tpu_torch.settings', 'torchx_tpu_torch.version',"
@@ -199,7 +210,8 @@ def test_launcher_modules_load_no_torch():
         "assert 'dist.spmd' in get_components()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('torch', 'jax', 'torchx_tpu', 'triton'))\n"
-        "bad += [m for m in ('torchx_tpu_torch.serve.engine',) if m in sys.modules]\n"
+        "bad += [m for m in sys.modules if m == 'torchx_tpu_torch.serve.engine'"
+        " or m.startswith('torchx_tpu_torch.models')]\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -207,9 +219,9 @@ def test_launcher_modules_load_no_torch():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # the obs and serve files of LAUNCHER_MODULES are loaded by name, among
-    # LAUNCHER_OBS_SERVE, not by walking their packages
-    by_name = sum(m.startswith(("obs/", "serve/")) for m in LAUNCHER_MODULES)
+    # the obs, serve and analyze files of LAUNCHER_MODULES are loaded by
+    # name, among LAUNCHER_OBS_SERVE, not by walking their packages
+    by_name = sum(m.startswith(("obs/", "serve/", "analyze/")) for m in LAUNCHER_MODULES)
     assert int(proc.stdout.split()[0]) == \
         len(LAUNCHER_MODULES) - by_name + len(LAUNCHER_APPS) + len(LAUNCHER_OBS_SERVE)
 
@@ -436,15 +448,17 @@ def test_chip_smoke_specs_phase(monkeypatch, capsys):
 
 
 def test_chip_smoke_local_phase(monkeypatch, capsys, tmp_path):
-    """The local phase and gang A's launch through the port's ``Runner`` and
-    ``dist.spmd``, rehearsed on the CPU with one card faked: a tiny trainer
-    submitted as the component's app ends SUCCEEDED with its replica given
-    card "0" and a first step line seen; the phase line counts the card,
-    and the dryrun asking one card more is refused; a count that differs
-    from torch's fails."""
+    """The local phase and gang A's launch through the port's control
+    daemon (``/v1/submit`` of ``dist.spmd``, ``/v1/wait``), rehearsed on the
+    CPU with one card faked: a tiny trainer submitted as the component's
+    arguments ends SUCCEEDED with its replica given card "0" and a first
+    step line seen, the wait returning on the reconciler's terminal event
+    with the daemon's ``tpx_step_seconds`` equal to the job's textfile;
+    the phase line counts the card, and the dryrun asking one card more is
+    refused; a count that differs from torch's fails."""
     import importlib.util
 
-    from torchx_tpu_torch.components import dist
+    from torchx_tpu_torch.runner.api import Runner
     from torchx_tpu_torch.schedulers import local_scheduler
 
     spec = importlib.util.spec_from_file_location("chip_smoke_local", REPO / "chip_smoke.py")
@@ -453,14 +467,20 @@ def test_chip_smoke_local_phase(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(local_scheduler, "_registry_path", lambda: str(tmp_path / "registry"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
-    monkeypatch.delenv("TPX_NO_LINT", raising=False)  # the launch passes no_lint itself
-    app = dist.spmd("--device", "cpu", "--config", "tiny", "--steps", "2", "--batch", "2",
-                    "--seq", "16", m="torchx_tpu_torch.examples.train_llama", image=str(REPO),
-                    gpu="h100-1", coordinator_port=0,
-                    env={"PYTHONPATH": str(REPO), "TPX_OBS_DIR": str(tmp_path / "obs")})
-    args = app.roles[0].args  # the faked card is no count for spmd_main here
-    args[args.index("-m", 2):args.index("-m", 2)] = ["--nproc-per-node", "1"]
-    final, record = smoke._scheduled_spmd(app, str(tmp_path), "gang", timeout_s=120)
+    monkeypatch.delenv("TPX_NO_LINT", raising=False)  # the launch sets it for its daemon
+    trainer = ["--device", "cpu", "--config", "tiny", "--steps", "2", "--batch", "2",
+               "--seq", "16"]
+    dryrun = Runner.dryrun
+
+    def one_worker(self, app, *a, **kw):  # noqa: ANN001, ANN202
+        args = app.roles[0].args  # the faked card is no count for spmd_main here
+        if "--nproc-per-node" not in args:
+            args[args.index("-m", 2):args.index("-m", 2)] = ["--nproc-per-node", "1"]
+        return dryrun(self, app, *a, **kw)
+
+    monkeypatch.setattr(Runner, "dryrun", one_worker)
+    monkeypatch.setattr(smoke, "gang_a_args", lambda: trainer)
+    final, record = smoke._daemon_spmd(1, str(tmp_path), "gang", timeout_s=120)
     assert final["final_step"] == 2 and final["world"] == 1
     assert (record["state"], record["gpu"], record["cuda_visible_devices"]) == \
         ("SUCCEEDED", "h100-1", "0")
@@ -477,6 +497,15 @@ def test_chip_smoke_local_phase(monkeypatch, capsys, tmp_path):
     assert (tmp_path / "registry").read_text().strip() == ""  # deleted after reading
     # the runner's own trace went under the run's root, not the session's
     assert list((tmp_path / "obs").glob("*/trace.jsonl"))
+    daemon = record["daemon"]
+    assert record["route"] == "control daemon"
+    assert daemon["status_state"] == daemon["runner_status_state"] == "SUCCEEDED"
+    assert daemon["terminal_event"]["state"] == "SUCCEEDED"
+    assert 0 <= daemon["exit_to_wait_s"] < 5 and 0 < daemon["start_s"]
+    assert daemon["submit_round_trip_s"] >= daemon["submit_handler_s"] > 0
+    assert daemon["telemetry"]["steps_counted"] == 2
+    assert all(v["equal"] for k, v in daemon["telemetry"].items()
+               if k.startswith("tpx_step_seconds"))
     capsys.readouterr()
     smoke.phase_local({"launcher": record}, "NVIDIA H100 80GB HBM3, 700.00 W")
     line = json.loads(capsys.readouterr().out.splitlines()[0])

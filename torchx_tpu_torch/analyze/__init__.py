@@ -1,2 +1,4 @@
-"""The analyzer's cost model, as far as the port needs it (the data axes'
-collective bytes, for the step profiler)."""
+"""The analyzer, as far as the port needs it: the cost model's terms
+(the data axes' collective bytes, for the step profiler) and which roles
+are plan-shaped (:mod:`~torchx_tpu_torch.analyze.plan`, for the fleet
+placer's oracle seam)."""

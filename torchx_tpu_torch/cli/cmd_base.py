@@ -4,11 +4,9 @@
 from __future__ import annotations
 
 import argparse
-import os
+import sys
 from abc import ABC, abstractmethod
 from typing import Any, Optional
-
-from torchx_tpu_torch import settings
 
 
 class SubCommand(ABC):
@@ -22,16 +20,16 @@ class SubCommand(ABC):
 
 
 def control_client() -> Optional[Any]:
-    """The CLI's proxy decision: None for direct-runner mode when
-    ``$TPX_CONTROL_ADDR`` is unset. A set address names a ``tpx control``
-    daemon, whose client (``control/client.py``) is not ported yet: this
-    raises :class:`NotImplementedError` naming ROADMAP queue 1 item 2.7,
-    and never falls back to direct mode (that would run the job outside
-    the daemon's tenancy caps)."""
-    if not os.environ.get(settings.ENV_TPX_CONTROL_ADDR):
-        return None
-    raise NotImplementedError(
-        f"${settings.ENV_TPX_CONTROL_ADDR} names a control daemon, whose client"
-        " is not ported yet (ROADMAP queue 1 item 2.7 (control/client.py));"
-        f" unset ${settings.ENV_TPX_CONTROL_ADDR} to run directly"
-    )
+    """The CLI's proxy decision: a
+    :class:`~torchx_tpu_torch.control.client.ControlClient` when
+    ``$TPX_CONTROL_ADDR`` points at a ``tpx-torch control`` daemon, None for
+    direct-runner mode. A set address with no reachable token is an
+    operator error and exits 1 (silently falling back would run the job
+    outside the daemon's tenancy caps)."""
+    from torchx_tpu_torch.control.client import ControlClientError, maybe_client
+
+    try:
+        return maybe_client()
+    except ControlClientError as e:
+        print(f"control: {e.message}", file=sys.stderr)
+        sys.exit(1)

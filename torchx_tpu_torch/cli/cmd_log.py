@@ -1,7 +1,7 @@
 """``tpx-torch log`` — fan-out log tailing across replicas.
 
-Port of :mod:`torchx_tpu.cli.cmd_log`; its daemon-proxy branch waits for
-the control client (ROADMAP queue 1 item 2.7). Reference analog:
+Port of :mod:`torchx_tpu.cli.cmd_log`; with ``$TPX_CONTROL_ADDR`` set the
+plain attach path streams through the control daemon. Reference analog:
 torchx/cli/cmd_log.py (211 LoC). Identifier grammar::
 
     SCHEDULER://[SESSION]/APP_ID[/ROLE[/REPLICA_IDS,..]]
@@ -87,9 +87,13 @@ class CmdLog(SubCommand):
         streams = Stream(args.streams) if args.streams else None
 
         app_handle = f"{scheduler}://{session}/{app_id}"
-        if not (since or until or args.regex or streams):
-            # the plain attach path is the one the daemon proxies
-            control_client()
+        client = control_client()
+        if client is not None and not (since or until or args.regex or streams):
+            # daemon mode handles the plain attach path; windowed /
+            # filtered / stream-selected reads stay direct (those options
+            # ride scheduler-specific machinery the daemon doesn't proxy)
+            self._run_proxied(client, app_handle, role, replica_ids, args)
+            return
         with get_runner() as runner:
             status = wait_for_app_started(runner, app_handle)
             if status is None:
@@ -119,3 +123,45 @@ class CmdLog(SubCommand):
                 streams=streams,
             ):
                 emitter.emit(f"{r}/{i}", line)
+
+    def _run_proxied(
+        self,
+        client,  # noqa: ANN001
+        app_handle: str,
+        role: str,
+        replica_ids,  # noqa: ANN001
+        args: argparse.Namespace,
+    ) -> None:
+        """Log attach through the control daemon: resolve role/replica
+        pairs from the daemon's status payload, then stream each replica's
+        JSONL log feed."""
+        from torchx_tpu_torch.control.client import ControlClientError
+
+        try:
+            status = client.status(app_handle)
+        except ControlClientError as e:
+            if e.code == 404:
+                print(f"app not found: {app_handle}", file=sys.stderr)
+            else:
+                print(f"control: {e.message}", file=sys.stderr)
+            sys.exit(1)
+        pairs = []
+        for r in status.get("roles", []):
+            if role and r.get("role") != role:
+                continue
+            for rid in r.get("replicas", []):
+                if replica_ids is not None and rid not in replica_ids:
+                    continue
+                pairs.append((r.get("role", "app"), rid))
+        if not pairs:
+            print("no matching replicas", file=sys.stderr)
+            sys.exit(1)
+        try:
+            for r, rid in pairs:
+                for line in client.log_lines(
+                    app_handle, r, k=rid, tail=args.tail
+                ):
+                    print(f"{r}/{rid} {line}")
+        except ControlClientError as e:
+            print(f"control: {e.message}", file=sys.stderr)
+            sys.exit(1)

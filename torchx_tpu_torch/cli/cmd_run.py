@@ -4,8 +4,8 @@ Port of :mod:`torchx_tpu.cli.cmd_run`. The analyzer is not ported yet
 (ROADMAP queue 1 item 2.8), so the runner's lint gate raises
 :class:`NotImplementedError` unless ``--no-lint`` (or ``$TPX_NO_LINT``)
 passes it; the command prints that as one error line and exits 1, where
-the JAX command prints a ``LintError``. Its daemon-proxy branch waits for
-the control client (item 2.7).
+the JAX command prints a ``LintError``. With ``$TPX_CONTROL_ADDR`` set,
+submit, wait and log go through the control daemon.
 
 Reference analog: torchx/cli/cmd_run.py (505 LoC): component + args parsing
 (with default component from .tpxconfig ``[cli:run]``), ``--dryrun``
@@ -92,11 +92,72 @@ class CmdRun(SubCommand):
 
     def run(self, args: argparse.Namespace) -> None:
         if not args.dryrun and not args.stdin:
-            # daemon mode would carry submit/wait/log; --dryrun and --stdin
-            # stay direct (they need the local materialization machinery)
-            control_client()
+            client = control_client()
+            if client is not None:
+                # daemon mode: submit/wait/log ride the control plane;
+                # --dryrun and --stdin stay direct (they need the local
+                # materialization machinery, not a running scheduler)
+                self._run_proxied(client, args)
+                return
         with get_runner(component_defaults=tpx_config.load_sections("component")) as runner:
             self._run(runner, args)
+
+    def _run_proxied(self, client, args: argparse.Namespace) -> None:  # noqa: ANN001
+        from torchx_tpu_torch.control.client import ControlClientError
+
+        scheduler = args.scheduler
+        if scheduler is None:
+            from torchx_tpu_torch.schedulers import get_default_scheduler_name
+
+            scheduler = (
+                tpx_config.get_config("cli", "run", "scheduler")
+                or get_default_scheduler_name()
+            )
+        component, component_args = self._parse_component(args.conf_args)
+        try:
+            app_handle = client.submit(
+                component,
+                component_args,
+                scheduler,
+                cfg_str=args.scheduler_args,
+                workspace=args.workspace,
+            )
+        except ControlClientError as e:
+            print(f"error: {e.message}", file=sys.stderr)
+            if args.no_lint:
+                # the daemon lints its submits itself: --no-lint stays here
+                print(
+                    "error: --no-lint does not reach the control daemon; start"
+                    " `tpx-torch control` with TPX_NO_LINT=1 (until the"
+                    " analyzer lands, ROADMAP item 2.8)",
+                    file=sys.stderr,
+                )
+            sys.exit(1)
+        print(app_handle)
+        if not (args.wait or args.log or scheduler == "local"):
+            return
+        try:
+            final = client.wait(app_handle)
+        except KeyboardInterrupt:
+            logger.warning("ctrl-c: cancelling %s", app_handle)
+            client.cancel(app_handle)
+            raise
+        if args.log:
+            # terminal logs, attached through the daemon, one role/replica
+            # at a time (the direct path's live tee needs scheduler access)
+            for role in final.get("roles", []):
+                for rid in role.get("replicas", []):
+                    for line in client.log_lines(
+                        app_handle, role.get("role", "app"), k=rid
+                    ):
+                        print(f"{role.get('role')}/{rid} {line}")
+        state = final.get("state")
+        line = f"{app_handle}: {state}"
+        if final.get("failure_class"):
+            line += f" ({final['failure_class']})"
+        print(line)
+        if state != "SUCCEEDED":
+            sys.exit(1)
 
     def _run(self, runner: Runner, args: argparse.Namespace) -> None:
         from torchx_tpu_torch.obs import trace as obs_trace

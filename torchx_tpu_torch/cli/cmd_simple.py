@@ -1,11 +1,9 @@
 """Thin Runner-wrapper subcommands: status / describe / list / cancel /
 delete / resize / watch / runopts / builtins / configure.
 
-Port of :mod:`torchx_tpu.cli.cmd_simple`. The JAX commands' daemon-proxy
-branches wait for the control client (ROADMAP queue 1 item 2.7):
-:func:`~torchx_tpu_torch.cli.cmd_base.control_client` returns None without
-``$TPX_CONTROL_ADDR`` and raises with it, so each command that the JAX
-package proxies calls it first and otherwise runs direct.
+Port of :mod:`torchx_tpu.cli.cmd_simple`. With ``$TPX_CONTROL_ADDR`` set,
+``status``, ``list`` and ``cancel`` go through the control daemon
+(:func:`~torchx_tpu_torch.cli.cmd_base.control_client`).
 
 Reference analog: torchx/cli/cmd_*.py (~400 LoC combined).
 """
@@ -26,7 +24,10 @@ class CmdStatus(SubCommand):
         subparser.add_argument("app_handle", help="scheduler://session/app_id")
 
     def run(self, args: argparse.Namespace) -> None:
-        control_client()
+        client = control_client()
+        if client is not None:
+            self._run_proxied(client, args)
+            return
         from torchx_tpu_torch.util.colors import supports_color
 
         with get_runner() as runner:
@@ -35,6 +36,24 @@ class CmdStatus(SubCommand):
                 print(f"app not found: {args.app_handle}", file=sys.stderr)
                 sys.exit(1)
             print(status.format(colored=supports_color()))
+
+    def _run_proxied(self, client, args: argparse.Namespace) -> None:  # noqa: ANN001
+        from torchx_tpu_torch.control.client import ControlClientError
+
+        try:
+            st = client.status(args.app_handle)
+        except ControlClientError as e:
+            if e.code == 404:
+                print(f"app not found: {args.app_handle}", file=sys.stderr)
+            else:
+                print(f"control: {e.message}", file=sys.stderr)
+            sys.exit(1)
+        line = f"{st.get('handle', args.app_handle)}: {st.get('state')}"
+        if st.get("failure_class"):
+            line += f" ({st['failure_class']})"
+        print(line)
+        if st.get("msg"):
+            print(st["msg"])
 
 
 class CmdDescribe(SubCommand):
@@ -61,7 +80,26 @@ class CmdList(SubCommand):
         )
 
     def run(self, args: argparse.Namespace) -> None:
-        control_client()
+        client = control_client()
+        if client is not None:
+            from torchx_tpu_torch.control.client import ControlClientError
+
+            try:
+                if args.scheduler:
+                    for app in client.list(args.scheduler):
+                        print(f"{app.get('app_id')}\t{app.get('state')}")
+                else:
+                    # fleet view straight from the daemon's journal — no
+                    # backend round-trips at all
+                    for app in client.list():
+                        print(
+                            f"{app.get('scheduler')}\t{app.get('app_id')}"
+                            f"\t{app.get('state')}"
+                        )
+            except ControlClientError as e:
+                print(f"control: {e.message}", file=sys.stderr)
+                sys.exit(1)
+            return
         with get_runner() as runner:
             if args.scheduler:
                 for app in runner.list(args.scheduler):
@@ -83,7 +121,17 @@ class CmdCancel(SubCommand):
         subparser.add_argument("app_handle")
 
     def run(self, args: argparse.Namespace) -> None:
-        control_client()
+        client = control_client()
+        if client is not None:
+            from torchx_tpu_torch.control.client import ControlClientError
+
+            try:
+                client.cancel(args.app_handle)
+            except ControlClientError as e:
+                print(f"control: {e.message}", file=sys.stderr)
+                sys.exit(1)
+            print(f"cancelled {args.app_handle}")
+            return
         with get_runner() as runner:
             runner.cancel(args.app_handle)
             print(f"cancelled {args.app_handle}")

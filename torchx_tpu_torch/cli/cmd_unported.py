@@ -48,11 +48,8 @@ CmdSelfcheck = _unported(
     "selfcheck", "the analyzer's self-check, ROADMAP queue 1 item 2.8 (selfcheck/)"
 )
 CmdCell = _unported("cell", "the federation, ROADMAP queue 1 item 2.8 (federation/)")
-CmdControl = _unported("control", "the control daemon, ROADMAP queue 1 item 2.7 (control/)")
-CmdQueue = _unported("queue", "the control daemon's queue, ROADMAP queue 1 item 2.7 (control/)")
-CmdPipeline = _unported("pipeline", "the pipelines, ROADMAP queue 1 item 2.7 (pipelines/)")
 CmdTop = _unported(
     "top",
-    "the control client and the federation, ROADMAP queue 1 items 2.7"
-    " (control/client.py) and 2.8 (federation/)",
+    "the federation beside the control client, ROADMAP queue 1 items 2.7"
+    " (control/client.py, ported) and 2.8 (federation/)",
 )

@@ -53,11 +53,11 @@ BUILTIN_CMDS: dict[str, tuple[str, str]] = {
     "configure": ("torchx_tpu_torch.cli.cmd_simple", "CmdConfigure"),
     "tracker": ("torchx_tpu_torch.cli.cmd_tracker", "CmdTracker"),
     "serve-pool": ("torchx_tpu_torch.cli.cmd_serve_pool", "CmdServePool"),
-    "control": ("torchx_tpu_torch.cli.cmd_unported", "CmdControl"),
+    "control": ("torchx_tpu_torch.cli.cmd_control", "CmdControl"),
     "cell": ("torchx_tpu_torch.cli.cmd_unported", "CmdCell"),
-    "queue": ("torchx_tpu_torch.cli.cmd_unported", "CmdQueue"),
+    "queue": ("torchx_tpu_torch.cli.cmd_queue", "CmdQueue"),
     "top": ("torchx_tpu_torch.cli.cmd_unported", "CmdTop"),
-    "pipeline": ("torchx_tpu_torch.cli.cmd_unported", "CmdPipeline"),
+    "pipeline": ("torchx_tpu_torch.cli.cmd_pipeline", "CmdPipeline"),
     "sim": ("torchx_tpu_torch.cli.cmd_unported", "CmdSim"),
     "selfcheck": ("torchx_tpu_torch.cli.cmd_unported", "CmdSelfcheck"),
 }
@@ -206,7 +206,8 @@ def main(argv: Optional[list[str]] = None) -> None:
         args.func(args)
     except (UnknownSchedulerError, NotImplementedError) as e:
         # NotImplementedError: a seam that names the ROADMAP item of a
-        # layer the port has not brought over yet (cmd_base.control_client)
+        # layer the port has not brought over yet (the runner's lint gate,
+        # the fleet placer's memory oracle)
         print(f"error: {e}", file=sys.stderr)
         sys.exit(1)
     except BrokenPipeError:

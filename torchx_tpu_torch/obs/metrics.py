@@ -559,3 +559,146 @@ WAITER_WAKEUPS = REGISTRY.counter(
     "wait() waiters woken by a watch event before their poll interval",
     ("scheduler",),
 )
+
+# -- the control plane (names, help and labels as the JAX package's) --------
+
+#: live watch streams, one per (scheduler, reconciler) pair.
+WATCH_STREAMS = REGISTRY.gauge(
+    "tpx_watch_streams",
+    "watch streams currently owned by a reconciler",
+    ("scheduler",),
+)
+
+#: control-daemon HTTP requests, by logical op and response code.
+CONTROL_REQUESTS = REGISTRY.counter(
+    "tpx_control_requests_total",
+    "control daemon API requests served",
+    ("op", "code"),
+)
+
+#: control-daemon request latency by logical op.
+CONTROL_REQUEST_SECONDS = REGISTRY.histogram(
+    "tpx_control_request_seconds",
+    "control daemon API request latency in seconds",
+    ("op",),
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 5.0),
+)
+
+#: active (non-terminal) jobs the daemon tracks per tenant — the value the
+#: per-tenant 429 cap is enforced against.
+CONTROL_ACTIVE_JOBS = REGISTRY.gauge(
+    "tpx_control_active_jobs",
+    "active jobs per control-daemon tenant",
+    ("tenant",),
+)
+
+# -- fleet scheduler (torchx_tpu_torch/fleet/) -------------------------------
+# "chips" in these names and labels counts cards: the JAX package's names
+# are kept, because the SLO presets and the telemetry plane read them.
+
+#: gangs waiting in the fleet queue, per priority class.
+FLEET_QUEUE_DEPTH = REGISTRY.gauge(
+    "tpx_fleet_queue_depth",
+    "gangs queued in the fleet scheduler per priority class",
+    ("klass",),
+)
+
+#: modeled fleet capacity in chips (series: state="total" / state="free").
+FLEET_CHIPS = REGISTRY.gauge(
+    "tpx_fleet_chips",
+    "modeled fleet capacity in chips, total and currently free",
+    ("state",),
+)
+
+#: chips currently placed per tenant (the quota accounting value).
+FLEET_TENANT_CHIPS = REGISTRY.gauge(
+    "tpx_fleet_tenant_chips",
+    "chips currently placed per fleet tenant",
+    ("tenant",),
+)
+
+#: gang placements executed, per priority class.
+FLEET_PLACEMENTS = REGISTRY.counter(
+    "tpx_fleet_placements_total",
+    "gangs placed by the fleet scheduler",
+    ("klass",),
+)
+
+#: market actions taken: kind="shrink" (elastic mesh-reshape, no kill) or
+#: kind="requeue" (checkpoint-preempt of a non-elastic victim).
+FLEET_PREEMPTIONS = REGISTRY.counter(
+    "tpx_fleet_preemptions_total",
+    "preemption-market actions executed, by kind",
+    ("kind",),
+)
+
+#: shrink debts repaid — gangs grown back to their launch mesh.
+FLEET_GROWBACKS = REGISTRY.counter(
+    "tpx_fleet_growbacks_total",
+    "shrunk gangs grown back to launch size",
+)
+
+#: queue wait from submit (or requeue) to placement, per priority class.
+FLEET_GANG_WAIT_SECONDS = REGISTRY.histogram(
+    "tpx_fleet_gang_wait_seconds",
+    "gang wait time from enqueue to placement in seconds",
+    ("klass",),
+)
+
+# -- pipelines (torchx_tpu_torch/pipelines/) ---------------------------------
+
+#: pipelines that reached a terminal state, by that state
+#: (PROMOTED/SUCCEEDED/FAILED/ROLLED_BACK/CANCELLED).
+PIPELINE_RUNS = REGISTRY.counter(
+    "tpx_pipeline_runs_total",
+    "pipelines finished, by terminal state",
+    ("state",),
+)
+
+#: pipelines currently in a non-terminal state.
+PIPELINE_ACTIVE = REGISTRY.gauge(
+    "tpx_pipeline_active",
+    "pipelines currently pending, running, or in canary",
+)
+
+#: stage transitions, by stage kind and the state entered.
+PIPELINE_STAGES = REGISTRY.counter(
+    "tpx_pipeline_stages_total",
+    "pipeline stage transitions, by kind and state",
+    ("kind", "state"),
+)
+
+#: eval-gate and canary-gate verdicts.
+PIPELINE_GATES = REGISTRY.counter(
+    "tpx_pipeline_gate_decisions_total",
+    "pipeline gate decisions (eval threshold + canary gates)",
+    ("decision",),
+)
+
+#: automatic canary rollbacks, by reason (eval_regression/slo_burn/
+#: rollout_failed).
+PIPELINE_ROLLBACKS = REGISTRY.counter(
+    "tpx_pipeline_rollbacks_total",
+    "canary rollbacks executed, by reason",
+    ("reason",),
+)
+
+#: wall-clock from stage submit to terminal, per stage kind.
+PIPELINE_STAGE_SECONDS = REGISTRY.histogram(
+    "tpx_pipeline_stage_seconds",
+    "pipeline stage duration from submit to terminal in seconds",
+    ("kind",),
+)
+
+# -- a cell's lifecycle (the control daemon's drain/cordon) ------------------
+
+#: gauge encoding for a cell's lifecycle state (UNCORDONED is
+#: transitional and reads back as HEALTHY).
+CELL_STATE_VALUES = {"HEALTHY": 0, "DRAINING": 1, "DRAINED": 2}
+
+#: one cell's lifecycle state, using :data:`CELL_STATE_VALUES`.
+FED_CELL_STATE = REGISTRY.gauge(
+    "tpx_federation_cell_state",
+    "federation cell lifecycle (0=healthy, 1=draining, 2=drained)",
+    ("cell",),
+)

@@ -307,10 +307,8 @@ class Runner:
     # -- monitor path ------------------------------------------------------
 
     def attach_reconciler(self, reconciler: Any) -> None:
-        """Join this runner to a control-plane reconciler (the JAX
-        package's ``control.reconciler.Reconciler``; the port's comes with
-        ROADMAP queue 1 item 2.7, and any object with ``bind_cache``,
-        ``track`` and ``wait_event`` serves): watch events
+        """Join this runner to a control-plane reconciler
+        (:class:`~torchx_tpu_torch.control.reconciler.Reconciler`): watch events
         refresh this runner's describe cache through its writer path, and
         :meth:`wait` wakes on events instead of sleeping out its poll
         interval (the poll loop stays as the fallback — a dead watch

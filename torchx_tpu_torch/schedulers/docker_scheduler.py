@@ -18,7 +18,9 @@ UUID), split between the role's replicas as the local scheduler splits
 ``CUDA_VISIBLE_DEVICES`` (:func:`~.devices.gpu_device_request`). The
 toolkit also gives the container the driver's libraries. The role's
 ``nvidia.com/gpu`` named device is that same request, so it mounts no
-``/dev/nvidia<N>`` node.
+``/dev/nvidia<N>`` node; a role with that count and no GPU slice (a mixed
+fleet's GPU job) asks for the same request with that many cards a
+replica, where the JAX copy mounts ``/dev/nvidia0 .. n-1``.
 
 The docker SDK import is deferred and injectable so dryrun tests run
 without a daemon.
@@ -230,10 +232,16 @@ class DockerScheduler(DockerWorkspaceMixin, Scheduler[DockerJob]):
                     elif isinstance(m, DeviceMount):
                         devices.append(f"{m.src_path}:{m.dst_path}:{m.permissions}")
                 gpu = rrole.resource.gpu
-                # named devices (e.g. nvidia.com/gpu on mixed clusters); a
-                # GPU role's nvidia.com/gpu count is its device request below
+                # a replica's cards a host: its GPU slice's, else a named
+                # nvidia.com/gpu count (a mixed fleet's GPU job); either is
+                # its device request below, never /dev/nvidia<N> mounts
+                gpus_per_host = (
+                    gpu.gpus_per_host if gpu is not None
+                    else int(rrole.resource.devices.get("nvidia.com/gpu", 0))
+                )
+                # the other named devices (e.g. the EFA NIC) map to mounts
                 named = {k: v for k, v in rrole.resource.devices.items()
-                         if gpu is None or k != "nvidia.com/gpu"}
+                         if k != "nvidia.com/gpu"}
                 for dm in get_device_mounts(named):
                     devices.append(f"{dm.src_path}:{dm.dst_path}:{dm.permissions}")
 
@@ -253,9 +261,9 @@ class DockerScheduler(DockerWorkspaceMixin, Scheduler[DockerJob]):
                     kwargs["mounts"] = mounts
                 if devices:
                     kwargs["devices"] = devices
-                if gpu is not None:  # this replica's share of the host's cards
+                if gpus_per_host > 0:  # this replica's share of the host's cards
                     kwargs["device_requests"] = [
-                        gpu_device_request(gpu.gpus_per_host, replica_id, num)
+                        gpu_device_request(gpus_per_host, replica_id, num)
                     ]
                 if cfg.get("privileged"):
                     kwargs["privileged"] = True

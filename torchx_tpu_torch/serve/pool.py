@@ -256,14 +256,49 @@ class LeastLoadedRouter:
         self._latencies: list[float] = []
         self._window = window
         self.cache_bonus = cache_bonus
+        # rollout state lives OUTSIDE the probe-replaced table: a drain
+        # mark or canary weight must take effect on the very next pick(),
+        # not after the next probe sweep rebuilds _replicas
+        self._draining: set[int] = set()
+        self._weights: dict[int, float] = {}
 
     def update(self, statuses: list[ReplicaStatus]) -> None:
-        """Replace the routing table with the latest probe sweep."""
+        """Replace the routing table with the latest probe sweep (drain
+        marks and canary weights survive — they are rollout state, not
+        probe state)."""
         with self._lock:
             self._replicas = {s.replica_id: s for s in statuses}
             self._inflight = {
                 rid: self._inflight.get(rid, 0) for rid in self._replicas
             }
+
+    def mark_draining(self, replica_id: int) -> None:
+        """Exclude ``replica_id`` from :meth:`pick` immediately — the
+        first step of a checkpoint rollout, effective before any probe
+        notices the replica going away."""
+        with self._lock:
+            self._draining.add(replica_id)
+
+    def clear_draining(self, replica_id: int) -> None:
+        """Readmit ``replica_id`` to the pick set (rollout finished)."""
+        with self._lock:
+            self._draining.discard(replica_id)
+
+    def set_weight(self, replica_id: int, weight: float) -> None:
+        """Traffic weight for ``replica_id`` (default 1.0). The promotion
+        controller weights the canary cohort's share of the split; higher
+        weight attracts proportionally more traffic."""
+        with self._lock:
+            if weight == 1.0:
+                self._weights.pop(replica_id, None)
+            else:
+                self._weights[replica_id] = max(1e-6, float(weight))
+
+    def inflight(self, replica_id: int) -> int:
+        """Requests this router routed to ``replica_id`` that have not
+        :meth:`record`-ed back yet — the rollout seam drains on it."""
+        with self._lock:
+            return self._inflight.get(replica_id, 0)
 
     def prefix_blocks(
         self, status: ReplicaStatus, tokens: Sequence[int]
@@ -286,9 +321,15 @@ class LeastLoadedRouter:
         """Best healthy replica for this prompt (None when none are
         healthy); bumps its in-flight count — pair with :meth:`record`.
         With ``tokens`` the score subtracts the longest-cached-prefix
-        bonus; without, it degrades to plain least-loaded."""
+        bonus; without, it degrades to plain least-loaded. Draining
+        replicas are excluded outright; weights divide the load score
+        (weight 2 looks half as loaded, weight 0.5 twice as loaded)."""
         with self._lock:
-            healthy = [s for s in self._replicas.values() if s.healthy]
+            healthy = [
+                s
+                for s in self._replicas.values()
+                if s.healthy and s.replica_id not in self._draining
+            ]
             if not healthy:
                 return None
             def _score(s: ReplicaStatus) -> tuple[float, int]:
@@ -301,7 +342,10 @@ class LeastLoadedRouter:
                         else 0.0
                     )
                 )
-                return (load, s.replica_id)
+                w = self._weights.get(s.replica_id, 1.0)
+                # weight scales attractiveness on both sides of zero: a
+                # heavier replica looks less loaded (or more cache-ahead)
+                return (load / w if load >= 0 else load * w, s.replica_id)
 
             best = min(healthy, key=_score)
             self._inflight[best.replica_id] = (
@@ -416,6 +460,63 @@ class ServePool:
         """Where replica ``replica_id`` listens (port-stride convention
         shared with ``components.serve.generate_server``)."""
         return f"http://127.0.0.1:{self._base_port + self._port_stride * replica_id}"
+
+    # -- checkpoint rollout ------------------------------------------------
+
+    def rollout_replica(
+        self,
+        replica_id: int,
+        ckpt: str,
+        *,
+        drain_timeout_s: float = 30.0,
+        health_timeout_s: float = 30.0,
+        poll_s: float = 0.05,
+    ) -> bool:
+        """Roll ONE replica onto a new checkpoint: drain → health-confirm,
+        the restart between them left to the backend (out of band, as the
+        JAX pool does without its ``restart=`` actuator, which comes back
+        with its caller: ROADMAP item 2.8). This is the promotion
+        controller's only seam into the pool — it never touches replica
+        handles directly.
+
+        The replica is marked draining on the router first, so it leaves
+        the traffic split on the very next ``pick()``; the health check
+        only starts once every request the router had in flight to it has
+        :meth:`LeastLoadedRouter.record`-ed back (zero dropped requests).
+        Returns True once the replica probes healthy again (and rejoins
+        the split), False on drain/health timeout — the caller treats
+        False as a failed rollout and rolls back.
+        """
+        with obs_trace.span(
+            "serve.rollout", replica=str(replica_id), ckpt=ckpt
+        ):
+            self.router.mark_draining(replica_id)
+            try:
+                deadline = self._clock() + drain_timeout_s
+                while self.router.inflight(replica_id) > 0:
+                    if self._clock() >= deadline:
+                        logger.warning(
+                            "replica %d did not drain within %.1fs",
+                            replica_id,
+                            drain_timeout_s,
+                        )
+                        return False
+                    self._sleep(poll_s)
+                deadline = self._clock() + health_timeout_s
+                while True:
+                    st = self._probe(replica_id, self.replica_url(replica_id))
+                    if st.healthy:
+                        return True
+                    if self._clock() >= deadline:
+                        logger.warning(
+                            "replica %d not healthy %.1fs after rollout",
+                            replica_id,
+                            health_timeout_s,
+                        )
+                        return False
+                    self._sleep(poll_s)
+            finally:
+                self.router.clear_draining(replica_id)
 
     # -- control loop -----------------------------------------------------
 
